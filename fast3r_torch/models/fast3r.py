@@ -1,0 +1,190 @@
+"""Fast3R: N images -> per-view global + local pointmaps and confidence.
+
+Counterpart of ``fast3r_tpu/models/fast3r.py``: CroCo encoder -> fusion
+decoder -> two DPT heads ("global": pts3d in view 0's frame, "local": pts3d
+in each view's own frame), with the transpose-to-landscape handling of
+mixed portrait / landscape batches.
+
+Outputs, stacked per view: pts3d_in_other_view (B, V, H, W, 3),
+conf (B, V, H, W) >= 1, pts3d_local, conf_local.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from fast3r_torch.models.decoder import (
+    Decoder,
+    DecoderConfig,
+    decoder_forward,
+    sample_random_image_ids,
+)
+from fast3r_torch.models.dpt_head import DPTHead, DPTHeadConfig, dpt_head_forward
+from fast3r_torch.models.encoder import Encoder, EncoderConfig, encoder_forward
+from fast3r_torch.nn.layers import init_params_
+
+
+@dataclasses.dataclass(frozen=True)
+class Fast3RConfig:
+    encoder: EncoderConfig = EncoderConfig()
+    decoder: DecoderConfig = DecoderConfig()
+    head: DPTHeadConfig = DPTHeadConfig()
+    with_local_head: bool = True
+
+    @staticmethod
+    def flagship() -> "Fast3RConfig":
+        """ViT-L/16 encoder + 1024 x 24 fusion decoder + dual DPT heads, with
+        the plain block composition (fused_blocks=False in both stacks): the
+        encoder's per-view attention and the decoder's global attention both
+        run the port's attention kernel."""
+        enc = EncoderConfig(embed_dim=1024, num_heads=16, depth=24,
+                            attn_impl="batched", fused_blocks=False)
+        dec = DecoderConfig(enc_embed_dim=1024, embed_dim=1024, num_heads=16,
+                            depth=24, attn_impl="pallas", fused_blocks=False)
+        head = DPTHeadConfig(dim_tokens=(enc.embed_dim, dec.embed_dim,
+                                         dec.embed_dim, dec.embed_dim))
+        return Fast3RConfig(encoder=enc, decoder=dec, head=head)
+
+    @staticmethod
+    def tiny(with_local_head: bool = True) -> "Fast3RConfig":
+        """Small config for tests: the JAX package's ``tiny()`` widths."""
+        enc = EncoderConfig(embed_dim=64, num_heads=2, depth=2)
+        dec = DecoderConfig(enc_embed_dim=64, embed_dim=64, num_heads=2,
+                            depth=4)
+        head = DPTHeadConfig(dim_tokens=(64, 64, 64, 64), feature_dim=32,
+                             last_dim=16, layer_dims=(8, 16, 24, 32))
+        return Fast3RConfig(encoder=enc, decoder=dec, head=head,
+                            with_local_head=with_local_head)
+
+
+class Fast3RNet(nn.Module):
+    """All parameters: encoder, decoder, head_global [, head_local]."""
+
+    def __init__(self, cfg: Fast3RConfig):
+        super().__init__()
+        self.encoder = Encoder(cfg.encoder)
+        self.decoder = Decoder(cfg.decoder)
+        self.head_global = DPTHead(cfg.head)
+        if cfg.with_local_head:
+            self.head_local = DPTHead(cfg.head)
+
+
+def empty_fast3r(cfg: Fast3RConfig, device="cpu") -> Fast3RNet:
+    """Fast3RNet with uninitialised float32 storage on ``device``."""
+    with torch.device("meta"):
+        net = Fast3RNet(cfg)
+    return net.to_empty(device=device)
+
+
+def init_fast3r(cfg: Fast3RConfig, seed: int = 0, dtype=torch.float32,
+                device="cpu") -> Fast3RNet:
+    """Random parameters with the JAX package's initialisation scheme, drawn
+    on the CPU from a ``torch.Generator`` seeded ``seed`` (so the same seed
+    gives the same weights on any device), then cast to ``dtype``."""
+    net = empty_fast3r(cfg)
+    init_params_(net, torch.Generator().manual_seed(seed))
+    return net.to(device=device, dtype=dtype).eval()
+
+
+def _run_head_oriented(head_params, head_cfg, hook_tokens, H, W,
+                       is_portrait=None, mixed_orientation=False):
+    """transpose-to-landscape: run at (H, W); for mixed batches also at
+    (W, H) with transposed outputs, selected per sample by ``is_portrait``."""
+    res_l = dpt_head_forward(head_params, head_cfg, hook_tokens, (H, W))
+    if not mixed_orientation:
+        return res_l
+    res_p = dpt_head_forward(head_params, head_cfg, hook_tokens, (W, H))
+    out = {}
+    for k in res_l:
+        p = res_p[k].transpose(1, 2)
+        sel = is_portrait.reshape((-1,) + (1,) * (res_l[k].dim() - 1))
+        out[k] = torch.where(sel, p, res_l[k])
+    return out
+
+
+def _chunk_views(head_chunk_views: Optional[int], V: int) -> Optional[int]:
+    """Round the head chunk down to the largest divisor of V; None when one
+    chunk covers all views."""
+    if head_chunk_views is None or V <= 1:
+        return None
+    cv = max(d for d in range(1, min(head_chunk_views, V) + 1) if V % d == 0)
+    return None if cv == V else cv
+
+
+@torch.inference_mode()
+def fast3r_forward(params: Fast3RNet, cfg: Fast3RConfig, imgs: torch.Tensor,
+                   true_shapes: Optional[torch.Tensor] = None,
+                   mixed_orientation: bool = False,
+                   head_chunk_views: Optional[int] = None,
+                   view_ids: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """Inference forward.
+
+    Args:
+      imgs: (B, V, H, W, 3) normalised images, landscape storage layout, on
+        the parameters' device and in their dtype.
+      true_shapes: (B, V, 2) int (h, w); defaults to the storage shape.
+      mixed_orientation: set iff the batch holds portrait samples.
+      head_chunk_views: run the heads over groups of this many views (rounded
+        down to a divisor of V) to bound memory.
+      view_ids: (B, V) image ids for the decoder's index embedding; drawn by
+        :func:`sample_random_image_ids` with a generator seeded 0 when None.
+
+    Returns pts3d_in_other_view (B, V, H, W, 3), conf (B, V, H, W)
+    [, pts3d_local, conf_local].
+    """
+    B, V, H, W, _ = imgs.shape
+    if true_shapes is None:
+        true_shapes = torch.tensor([H, W], dtype=torch.int32).expand(B, V, 2)
+    flat_shapes = true_shapes.reshape(B * V, 2)
+    feats, _ = encoder_forward(params.encoder, cfg.encoder,
+                               imgs.reshape(B * V, H, W, 3), flat_shapes)
+    P = feats.shape[1]
+    fused = feats.reshape(B, V * P, -1)
+
+    if cfg.decoder.random_image_idx_embedding:
+        if view_ids is None:
+            view_ids = sample_random_image_ids(None, B, V)
+    else:
+        view_ids = torch.arange(V, dtype=torch.int32).expand(B, V)
+    image_ids = view_ids.to(fused.device).repeat_interleave(P, dim=1)
+    dec_out = decoder_forward(params.decoder, cfg.decoder, fused, image_ids)
+    hook_seq = [dec_out[h] for h in cfg.decoder.hooks]  # each (B, V*P, C)
+    is_portrait = ((flat_shapes[:, 1] < flat_shapes[:, 0]).to(imgs.device)
+                   if mixed_orientation else None)
+
+    def run_heads(tokens, portrait_mask):
+        res = {}
+        g = _run_head_oriented(params.head_global, cfg.head, tokens, H, W,
+                               portrait_mask, mixed_orientation)
+        res["pts3d_in_other_view"] = g["pts3d"]
+        if "conf" in g:
+            res["conf"] = g["conf"]
+        if cfg.with_local_head:
+            loc = _run_head_oriented(params.head_local, cfg.head, tokens, H, W,
+                                     portrait_mask, mixed_orientation)
+            res["pts3d_local"] = loc["pts3d"]
+            if "conf" in loc:
+                res["conf_local"] = loc["conf"]
+        return res
+
+    cv = _chunk_views(head_chunk_views, V)
+    if cv is None:
+        tokens = [t.reshape(B * V, P, -1) for t in hook_seq]
+        res = run_heads(tokens, is_portrait)
+        return {k: v.reshape((B, V) + v.shape[1:]) for k, v in res.items()}
+
+    chunks = []
+    for c in range(V // cv):
+        toks = [t.reshape(B, V, P, -1)[:, c * cv:(c + 1) * cv]
+                 .reshape(B * cv, P, -1) for t in hook_seq]
+        pmask = (is_portrait.reshape(B, V)[:, c * cv:(c + 1) * cv].reshape(-1)
+                 if is_portrait is not None else None)
+        chunks.append(run_heads(toks, pmask))
+    return {k: torch.cat([r[k].reshape((B, cv) + r[k].shape[1:])
+                          for r in chunks], dim=1)
+            for k in chunks[0]}

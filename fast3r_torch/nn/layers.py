@@ -1,0 +1,183 @@
+"""Layers of the port: parameter-holding modules plus plain functions.
+
+Counterpart of ``fast3r_tpu/nn/layers.py``.  The JAX package keeps params in
+nested dicts (linear ``(in, out)`` weights, HWIO convs, ViT blocks stacked on
+a leading depth axis).  Here they live in ``torch.nn`` modules whose names
+follow the same keys (``blocks.{i}.attn.qkv``, ``norm1``, ``mlp.fc1``) in
+torch layouts (``(out, in)`` linear weights, OIHW convs, one module per
+block); ``fast3r_torch.utils.convert`` maps one onto the other.  The apply
+functions take a module and a tensor, like the JAX ones take a dict.
+
+Block math is the pre-LN ViT block: x + attn(LN(x)), then x + MLP(LN(x)),
+exact-erf GELU.  LayerNorm goes through ``ops.fused_layernorm`` (the Triton
+kernel on CUDA) and attention through ``ops.attention`` (the CUDA kernel for
+the "batched" and "pallas" implementations).  The products are cuBLAS
+matmuls, as the JAX package leaves them to XLA in this configuration.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from fast3r_torch.ops.attention import dot_product_attention
+from fast3r_torch.ops.fused_layernorm import fused_layernorm
+from fast3r_torch.ops.rope2d import apply_rope2d_bnhd
+
+
+# ----------------------------------------------------------------------------
+# modules (parameter holders)
+# ----------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    def __init__(self, dim: int, qkv_bias: bool = True):
+        super().__init__()
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+
+class Block(nn.Module):
+    """Pre-LN ViT block params: norm1, attn.{qkv, proj}, norm2, mlp.{fc1, fc2}."""
+
+    def __init__(self, dim: int, mlp_ratio: float = 4.0, qkv_bias: bool = True):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim)
+        self.attn = Attention(dim, qkv_bias)
+        self.norm2 = nn.LayerNorm(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+
+def make_vit_stack(depth: int, dim: int, mlp_ratio: float = 4.0,
+                   qkv_bias: bool = True) -> nn.ModuleList:
+    return nn.ModuleList(Block(dim, mlp_ratio, qkv_bias) for _ in range(depth))
+
+
+@torch.no_grad()
+def init_params_(module: nn.Module, generator: torch.Generator) -> None:
+    """The JAX package's initialisation, drawn from ``generator``: linear and
+    conv weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (torch's
+    default bound), LayerNorm scale 1 and bias 0."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            w = m.weight
+            if isinstance(m, nn.Linear):
+                fan_in = w.shape[1]
+            elif isinstance(m, nn.ConvTranspose2d):
+                # the JAX HWIO kernel (k, k, cin, cout) has fan_in k*k*cin
+                fan_in = w.shape[0] * w.shape[2] * w.shape[3]
+            else:
+                fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+            bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+            for p in (w, m.bias):
+                if p is not None:
+                    p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1)
+                            * bound)
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.fill_(0.0)
+
+
+# ----------------------------------------------------------------------------
+# apply functions
+# ----------------------------------------------------------------------------
+
+def linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    b = None if p.bias is None else p.bias.to(x.dtype)
+    return F.linear(x, p.weight.to(x.dtype), b)
+
+
+def layernorm(p: nn.LayerNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm with fp32 statistics (the Triton kernel on CUDA)."""
+    return fused_layernorm(x, p.weight, p.bias, eps)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="none")
+
+
+def mlp(p: Mlp, x: torch.Tensor) -> torch.Tensor:
+    return linear(p.fc2, gelu(linear(p.fc1, x)))
+
+
+def conv2d(p: nn.Conv2d, x: torch.Tensor, stride: int = 1, padding=0,
+           transpose_kernel_spatial: bool = False) -> torch.Tensor:
+    """NCHW conv with the module's OIHW kernel; ``transpose_kernel_spatial``
+    swaps the kernel's H and W axes (the portrait patch-embed branch)."""
+    w = p.weight.to(x.dtype)
+    if transpose_kernel_spatial:
+        w = w.transpose(2, 3)
+    b = None if p.bias is None else p.bias.to(x.dtype)
+    return F.conv2d(x, w, b, stride=stride, padding=padding)
+
+
+def conv_transpose2d(p: nn.ConvTranspose2d, x: torch.Tensor,
+                     stride: int) -> torch.Tensor:
+    """Transposed conv with kernel_size == stride (the DPT upsamplers): every
+    output pixel receives exactly one input pixel times one kernel tap."""
+    if p.weight.shape[2] != stride or p.weight.shape[3] != stride:
+        raise ValueError("conv_transpose2d: kernel size must equal the stride")
+    b = None if p.bias is None else p.bias.to(x.dtype)
+    return F.conv_transpose2d(x, p.weight.to(x.dtype), b, stride=stride)
+
+
+def attention_layer(p: Attention, x: torch.Tensor, num_heads: int,
+                    scale: float,
+                    rope_cos_sin: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                    attn_impl: str) -> torch.Tensor:
+    """Self-attention sublayer on x (B, N, C).  q, k and v stay strided views
+    of the qkv projection's (B, N, 3, H, D) output; RoPE, when given,
+    rotates q and k in fp32."""
+    B, N, C = x.shape
+    qkv = linear(p.qkv, x).reshape(B, N, 3, num_heads, C // num_heads)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    if rope_cos_sin is not None:
+        cos, sin = rope_cos_sin
+        q = apply_rope2d_bnhd(q, cos, sin)
+        k = apply_rope2d_bnhd(k, cos, sin)
+    o = dot_product_attention(q, k, v, scale=scale, impl=attn_impl)
+    return linear(p.proj, o.reshape(B, N, C))
+
+
+def vit_block(p: Block, x: torch.Tensor, num_heads: int, scale: float,
+              rope_cos_sin=None, attn_impl: str = "pallas",
+              ln_eps: float = 1e-6) -> torch.Tensor:
+    """Pre-LN ViT block (the plain composition of the JAX package)."""
+    x = x + attention_layer(p.attn, layernorm(p.norm1, x, ln_eps), num_heads,
+                            scale, rope_cos_sin, attn_impl)
+    return x + mlp(p.mlp, layernorm(p.norm2, x, ln_eps))
+
+
+def check_fused_blocks(fused_blocks: bool, x: torch.Tensor) -> None:
+    """The fused-GEMM blocks (LN -> QKV -> RoPE, matmul + residual, whole
+    MLP) have no CUDA kernels yet: on the CPU they are the same function as
+    the plain composition, on CUDA asking for them raises."""
+    if fused_blocks and x.device.type == "cuda":
+        raise NotImplementedError(
+            "fused_blocks=True needs the fused-GEMM block kernels (ROADMAP "
+            "Queue 2, K3-K6), which are not ported yet; use fused_blocks=False")
+
+
+def run_vit_stack(blocks: Sequence[Block], x: torch.Tensor, num_heads: int,
+                  scale: float, rope_cos_sin=None, attn_impl: str = "pallas",
+                  ln_eps: float = 1e-6, hooks: Sequence[int] = ()
+                  ) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
+    """Run the blocks; return (output, {hook: activation}) with hook i the
+    output after block i (1-based)."""
+    outputs: Dict[int, torch.Tensor] = {}
+    for i, block in enumerate(blocks):
+        x = vit_block(block, x, num_heads, scale, rope_cos_sin, attn_impl,
+                      ln_eps)
+        if i + 1 in hooks:
+            outputs[i + 1] = x
+    return x, outputs

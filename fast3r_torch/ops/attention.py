@@ -1,0 +1,31 @@
+"""Multi-head attention with a selectable implementation, (B, N, H, D) layout.
+
+Counterpart of ``fast3r_tpu/ops/attention.py``.  Implementations:
+
+  * "batched" (the encoder's per-view heads) and "pallas" (the decoder's
+    long fused sequence): :func:`fast3r_torch.ops.flash_attention.flash_attention`,
+    which launches the CUDA kernel on CUDA tensors and takes the plain
+    version on the CPU;
+  * "naive": the plain version,
+    :func:`fast3r_torch.ops.flash_attention.attention_ref`, on any device.
+
+Any other name raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fast3r_torch.ops.flash_attention import attention_ref, flash_attention
+
+IMPLS = ("batched", "pallas", "naive")
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: float, impl: str) -> torch.Tensor:
+    """softmax(scale * q k^T) v; q, k, v (B, N, H, D) -> (B, N, H, D)."""
+    if impl in ("batched", "pallas"):
+        return flash_attention(q, k, v, scale)
+    if impl == "naive":
+        return attention_ref(q, k, v, scale)
+    raise ValueError(f"unknown attention impl {impl!r}; expected one of {IMPLS}")

@@ -1,0 +1,99 @@
+"""Load a ``fast3r_tpu`` parameter tree into the port.
+
+The JAX package keeps params as nested dicts and lists of arrays
+(``fast3r_tpu/nn/layers.py`` contract):
+
+  Linear     {"w": (in, out), "b": (out,)}          -> weight (out, in), bias
+  LayerNorm  {"scale": (d,), "bias": (d,)}          -> weight, bias
+  Conv       {"w": HWIO (kh, kw, cin, cout), "b"}   -> weight OIHW, bias
+  ConvT      {"w": HWIO (k, k, cin, cout), "b"}     -> weight (cin, cout, k, k)
+  "blocks"   every leaf stacked on a leading depth axis -> blocks.{i}
+  lists      ("layer_rn", "refinenet")             -> ModuleList index
+
+Which layout a leaf takes is decided by the port module it lands in, so the
+converter needs no table of names: the module path is the JAX key path.
+Leaves may be numpy arrays or anything ``numpy.asarray`` accepts.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+_LEAF_NAMES = {"w": "weight", "b": "bias", "scale": "weight", "bias": "bias"}
+
+
+def _leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
+    """(dotted path, array) for every leaf; ``blocks`` subtrees unstacked."""
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            path = f"{prefix}{key}"
+            if key == "blocks":
+                depth = {np.asarray(a).shape[0] for _, a in _leaves(sub)}
+                if len(depth) != 1:
+                    raise ValueError(f"{path}: leaves disagree on depth {depth}")
+                for i in range(depth.pop()):
+                    yield from _leaves(_index(sub, i), f"{path}.{i}.")
+            else:
+                yield from _leaves(sub, path + ".")
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            yield from _leaves(sub, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], np.asarray(tree)
+
+
+def _index(tree: Any, i: int) -> Any:
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_index(v, i) for v in tree]
+    return np.asarray(tree)[i]
+
+
+def _to_port(module: nn.Module, leaf: str, a: np.ndarray) -> np.ndarray:
+    if leaf == "w" and isinstance(module, nn.Linear):
+        return a.T
+    if leaf == "w" and isinstance(module, nn.Conv2d):
+        return a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    if leaf == "w" and isinstance(module, nn.ConvTranspose2d):
+        return a.transpose(2, 3, 0, 1)  # HWIO -> (cin, cout, kh, kw)
+    return a
+
+
+def params_from_jax(tree: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """Float32 state dict of ``Fast3RNet(cfg)`` from the JAX param tree of
+    ``fast3r_tpu.models.fast3r.init_fast3r`` for the same configuration.
+
+    Raises if a JAX leaf has no place in the port, if a shape disagrees, or
+    if a port parameter is left without a value.
+    """
+    from fast3r_torch.models.fast3r import Fast3RNet
+
+    with torch.device("meta"):
+        net = Fast3RNet(cfg)
+    expected = dict(net.state_dict())
+    out: Dict[str, torch.Tensor] = {}
+    for path, a in _leaves(tree):
+        mod_path, _, leaf = path.rpartition(".")
+        if leaf not in _LEAF_NAMES:
+            raise KeyError(f"unknown JAX leaf {path!r}")
+        name = f"{mod_path}.{_LEAF_NAMES[leaf]}" if mod_path else _LEAF_NAMES[leaf]
+        if name not in expected:
+            raise KeyError(f"JAX leaf {path!r} has no port parameter {name!r}")
+        module = net.get_submodule(mod_path)
+        t = torch.tensor(_to_port(module, leaf, a), dtype=torch.float32)
+        if tuple(t.shape) != tuple(expected[name].shape):
+            raise ValueError(f"{path}: shape {tuple(t.shape)} after conversion, "
+                             f"port expects {tuple(expected[name].shape)}")
+        if name in out:
+            raise KeyError(f"two JAX leaves map to {name!r}")
+        out[name] = t
+    missing = sorted(set(expected) - set(out))
+    if missing:
+        raise KeyError(f"port parameters without a JAX leaf: {missing[:8]}"
+                       f"{' ...' if len(missing) > 8 else ''}")
+    return out

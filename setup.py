@@ -10,7 +10,8 @@ setup(
         "3D reconstruction: N unposed images -> pointmaps + poses in one "
         "forward pass"
     ),
-    packages=find_packages(include=["fast3r_tpu", "fast3r_tpu.*"]),
+    packages=find_packages(include=["fast3r_tpu", "fast3r_tpu.*",
+                                    "fast3r_torch", "fast3r_torch.*"]),
     python_requires=">=3.10",
     install_requires=[
         "jax",
@@ -29,5 +30,6 @@ setup(
         "eval": ["scikit-learn"],
     },
     include_package_data=True,
-    package_data={"fast3r_tpu": ["configs/*.yaml", "configs/experiment/*.yaml"]},
+    package_data={"fast3r_tpu": ["configs/*.yaml", "configs/experiment/*.yaml"],
+                  "fast3r_torch": ["csrc/*.cu"]},
 )
