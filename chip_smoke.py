@@ -6,18 +6,29 @@ Builds the port's hand-written kernels from ``fast3r_torch/csrc`` and
 ``fast3r_torch/ops`` and runs five phases, synchronising after each:
 
   1. device: the card's name and power limit, torch / CUDA versions, the
-     kernel build time;
+     kernel build time and what ptxas reports for the fused-GEMM kernels;
   2. kernels: each kernel against its plain PyTorch version on the card at
-     the flagship forward's shapes, in float32 (tight tolerance) and bfloat16
-     (the served type), with max abs / rel errors and median CUDA-event times;
+     the flagship forward's shapes, in float32 (tight tolerance, where the
+     kernel has an fp32 variant) and bfloat16 (the served type), with max
+     abs / rel errors, median CUDA-event times of the kernel, of the plain
+     version and of the PyTorch library calls that compute the same
+     function (named in each line), and the kernel's bound: the larger of
+     its FLOPs over the card's 989 TFLOP/s bf16 peak and its bytes (inputs
+     read once, outputs written once) over 3.35 TB/s;
   3. requests: the flagship model with random weights (seed 0) in bfloat16
-     serves three ``fast3r_torch.inference`` requests of 2, 8 and 20 views at
-     512x384, each twice; outputs must be finite, of the right shapes,
-     with conf >= 1;
-  4. end to end: the same weights in float32 on the CPU (the plain path) and
-     in bfloat16 on the card (the kernels) answer one 2-view 224x224 request;
-     pts3d and conf must agree within the stated tolerance;
-  5. launch counts: every kernel must have launched during phase 3.
+     serves ``fast3r_torch.inference`` requests at 512x384 on three paths,
+     the launch counts set to 0 just before each path and read just after:
+       * fused (the default, fused-GEMM blocks): 2, 8 and 20 views, twice
+         each;
+       * plain (the plain block road, fused_blocks=False): 20 views, twice;
+       * two-kernel MLP (fused blocks with PREFER_FUSED_MLP = False): 8
+         views, once;
+     outputs must be finite, of the right shapes, with conf >= 1;
+  4. end to end: the same weights in float32 on the CPU (the plain
+     versions) and in bfloat16 on the card, on the fused and on the plain
+     road, answer one 2-view 224x224 request; every output must agree
+     within the stated tolerance;
+  5. launch counts: every kernel of a path must have launched on it.
 
 Any failure raises (exit code 1).  Without a CUDA device the script exits
 with code 2 before printing any result.  The last line of standard output
@@ -35,14 +46,26 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 from fast3r_torch import Fast3R, Fast3RConfig, inference
 from fast3r_torch.kernels import build
+from fast3r_torch.nn import fused_block as fb
+from fast3r_torch.ops.batched_attention import packed_qkv_attention
 from fast3r_torch.ops.flash_attention import attention_ref, flash_attention
 from fast3r_torch.ops.fused_layernorm import fused_layernorm, layernorm_ref
+from fast3r_torch.ops.rope2d import (
+    expand_rope_tables,
+    rope2d_cos_sin,
+    rotate_half_lanes,
+)
 from fast3r_torch.ops.trunk_kernel import _plain_head, fused_regression_head_t
 
 DEC_SCALE = 0.125 * math.sqrt(math.log(137) / math.log(20))
+PEAK_FLOPS = {torch.bfloat16: 989e12,  # H100 SXM: dense bf16 tensor cores
+              torch.float32: 67e12}    # fp32 outside the tensor cores
+PEAK_BYTES = 3.35e12                   # H100 SXM HBM3
+M_TOK, C, HID = 15360, 1024, 4096  # 20 views x 768 tokens; width; MLP hidden
 
 # Tolerances, elementwise |kernel - plain| <= atol + rtol * |plain|.
 #  * float32: both sides compute in fp32 and differ only in summation order
@@ -61,6 +84,13 @@ TOL = {
     ("layernorm", torch.bfloat16): dict(atol=1e-2, rtol=2 ** -7),
     ("trunk", torch.float32): dict(atol=1e-4, rtol=1e-4),
     ("trunk", torch.bfloat16): dict(atol_of_max=0.03, rtol=0.0),
+    # the fused-GEMM kernels (bf16 only): the plain versions round at the
+    # same points and differ in summation order, so outputs land at most
+    # one bf16 step apart (2^-7 relative), plus a bf16 intermediate (LN
+    # output, q / k before RoPE, the MLP's h) on the other side of a step
+    # on outputs of magnitude ~1-10
+    ("fused_gemm", torch.bfloat16): dict(atol=2e-2, rtol=2 ** -7),
+    ("ln_mlp", torch.bfloat16): dict(atol=2e-2, rtol=2 ** -7),
 }
 
 
@@ -73,6 +103,16 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def bound(flops: float, nbytes: float, dtype=torch.bfloat16) -> dict:
+    """The least time the card could take: FLOPs at the card's peak for
+    their type or bytes at the HBM rate, whichever is larger."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_mem = nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_mem),
+            "bound_by": "operations" if t_ops >= t_mem else "bytes",
+            "flops": flops, "bytes": nbytes}
 
 
 def median_ms(fn, reps: int) -> float:
@@ -126,6 +166,11 @@ def phase_device() -> dict:
     t_build = time.perf_counter() - t0
     log(f"cuda kernels built and loaded in {t_build:.2f} s "
         f"({build.library_path().name})")
+    blog = build.library_path().with_suffix(".log")
+    if blog.exists():  # registers / spills of every kernel
+        for entry in blog.read_text().splitlines():
+            if "registers" in entry or "spill" in entry or "Compiling" in entry:
+                log("ptxas: " + entry.strip())
     torch.cuda.synchronize()
     return {"gpu": line, "build_s": t_build}
 
@@ -152,18 +197,24 @@ def check_attention(results: list) -> None:
             torch.cuda.synchronize()
             r = compare("attention", out, ref, dtype)
             del ref
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             r.update(kernel="attention", case=f"{name} {B}x{N}x{H}x{D}",
                      dtype=str(dtype).split(".")[-1],
                      ms=median_ms(lambda: flash_attention(q, k, v, scale), 10),
-                     plain_ms=median_ms(lambda: attention_ref(q, k, v, scale), 3))
+                     plain_ms=median_ms(lambda: attention_ref(q, k, v, scale), 3),
+                     library="F.scaled_dot_product_attention",
+                     library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+                         qt, kt, vt, scale=scale), 10),
+                     **bound(4.0 * B * H * N * N * D,
+                             4 * B * N * H * D * qkv.element_size(), dtype))
             results.append(r)
             log(json.dumps(r))
-            del qkv, q, k, v, out
+            del qkv, q, k, v, out, qt, kt, vt
             torch.cuda.empty_cache()
 
 
 def check_layernorm(results: list) -> None:
-    M, C = 15360, 1024
+    M = M_TOK
     for dtype in (torch.float32, torch.bfloat16):
         for eps in (1e-6, 1e-5):
             g = _gen(2)
@@ -177,7 +228,12 @@ def check_layernorm(results: list) -> None:
             r.update(kernel="layernorm", case=f"{M}x{C} eps={eps:g}",
                      dtype=str(dtype).split(".")[-1],
                      ms=median_ms(lambda: fused_layernorm(x, w, b, eps), 20),
-                     plain_ms=median_ms(lambda: layernorm_ref(x, w, b, eps), 20))
+                     plain_ms=median_ms(lambda: layernorm_ref(x, w, b, eps), 20),
+                     library="F.layer_norm",
+                     library_ms=median_ms(lambda: F.layer_norm(
+                         x, (C,), w, b, eps), 20),
+                     **bound(8.0 * M * C, 2 * M * C * x.element_size(),
+                             torch.float32))
             results.append(r)
             log(json.dumps(r))
 
@@ -202,6 +258,13 @@ def check_trunk(results: list) -> None:
         def plain():
             return _plain_head(xc, *args).reshape(n, 4, H * W)
 
+        def library():
+            y = F.conv2d(xc, w1, b1, padding=1)
+            y = F.interpolate(y, size=(H, W), mode="bilinear",
+                              align_corners=True)
+            y = F.relu(F.conv2d(y, w2, b2, padding=1))
+            return F.conv2d(y, w3, b3).reshape(n, 4, H * W)
+
         out = fused_regression_head_t(x, *args)
         ref = plain()
         torch.cuda.synchronize()
@@ -209,9 +272,143 @@ def check_trunk(results: list) -> None:
         r.update(kernel="trunk", case=f"{n}x{hh}x{wc}x{cin} -> {H}x{W}",
                  dtype=str(dtype).split(".")[-1],
                  ms=median_ms(lambda: fused_regression_head_t(x, *args), 5),
-                 plain_ms=median_ms(plain, 5))
+                 plain_ms=median_ms(plain, 5),
+                 library="F.conv2d + F.interpolate(bilinear, align_corners) + "
+                         "F.conv2d + F.relu + F.conv2d",
+                 library_ms=median_ms(library, 5),
+                 **bound(2.0 * (n * hh * wc * c1 * cin * 9
+                                + n * H * W * (c1 * c1 * 9 + c1 * 4)),
+                         (x.numel() + n * 4 * H * W) * x.element_size(),
+                         dtype))
         results.append(r)
         log(json.dumps(r))
+
+
+def _linear(n_out, n_in, g):
+    bound_ = n_in ** -0.5
+    w = ((torch.rand((n_out, n_in), generator=g, device="cuda") * 2 - 1)
+         * bound_).to(torch.bfloat16)
+    b = (torch.randn((n_out,), generator=g, device="cuda") * 0.02).to(
+        torch.bfloat16)
+    return w, b
+
+
+def _record(results, kernel, kind, case, out, ref, fn, plain, library,
+            library_name, flops, nbytes, reps=10, **extra):
+    torch.cuda.synchronize()
+    r = compare(kind, out, ref, torch.bfloat16)
+    r.update(kernel=kernel, case=case, dtype="bfloat16",
+             ms=median_ms(fn, reps), plain_ms=median_ms(plain, 3),
+             library=library_name, library_ms=median_ms(library, reps),
+             **bound(flops, nbytes), **extra)
+    results.append(r)
+    log(json.dumps(r))
+
+
+def check_fused_blocks(results: list) -> None:
+    """The fused-GEMM block kernels at the flagship's 20-view shapes: every
+    product has M = 15360 rows (20 x 768 encoder tokens, or the decoder's
+    fused sequence of the same length), C = 1024, hidden 4096."""
+    g = _gen(4)
+    bf = torch.bfloat16
+    x = (torch.randn((M_TOK, C), generator=g, device="cuda") * 2 + 0.5).to(bf)
+    gamma = (1 + 0.1 * torch.randn((C,), generator=g, device="cuda")).to(bf)
+    beta = (0.1 * torch.randn((C,), generator=g, device="cuda")).to(bf)
+    wqkv, bqkv = _linear(3 * C, C, g)
+    wproj, bproj = _linear(C, C, g)
+    w1, b1 = _linear(HID, C, g)
+    w2, b2 = _linear(C, HID, g)
+    # the encoder's RoPE tables: 20 views of 24 x 32 patches
+    yy, xx = torch.meshgrid(torch.arange(24), torch.arange(32), indexing="ij")
+    pos = torch.stack([yy, xx], -1).reshape(1, -1, 2).repeat(20, 1, 1).cuda()
+    cos, sin = rope2d_cos_sin(pos, 64)
+    ct, st = expand_rope_tables(cos, sin, C, bf)
+    it = 2  # bytes per bf16 element
+    qkv_flops = 2.0 * M_TOK * C * 3 * C
+    qkv_w_bytes = (3 * C * C + 3 * C + 2 * C) * it
+
+    def ln_linear(w, b, eps):
+        return F.linear(F.layer_norm(x, (C,), gamma, beta, eps), w, b)
+
+    def library_rope():
+        y = ln_linear(wqkv, bqkv, 1e-6)
+
+        def rope(t):
+            t = t.float()
+            return (t * ct + rotate_half_lanes(t, 32) * st).to(bf)
+        return torch.stack([rope(y[:, :C]), rope(y[:, C:2 * C]), y[:, 2 * C:]])
+
+    args = (x, gamma, beta, wqkv, bqkv, ct, st, 16, 1e-6)
+    _record(results, "ln_qkv_rope", "fused_gemm", f"{M_TOK}x{C} -> 3x{C}",
+            fb.ln_qkv_rope(*args), fb.ln_qkv_rope_ref(*args),
+            lambda: fb.ln_qkv_rope(*args), lambda: fb.ln_qkv_rope_ref(*args),
+            library_rope, "F.layer_norm + F.linear + torch elementwise RoPE",
+            qkv_flops, qkv_w_bytes + (M_TOK * C * 3 + 3 * M_TOK * C) * it)
+
+    args = (x, gamma, beta, wqkv, bqkv, 1e-5)
+    _record(results, "ln_qkv", "fused_gemm", f"{M_TOK}x{C} -> 3x{C}",
+            torch.stack(fb.ln_qkv(*args)), torch.stack(fb.ln_qkv_ref(*args)),
+            lambda: fb.ln_qkv(*args), lambda: fb.ln_qkv_ref(*args),
+            lambda: ln_linear(wqkv, bqkv, 1e-5).split(C, dim=1),
+            "F.layer_norm + F.linear", qkv_flops,
+            qkv_w_bytes + (M_TOK * C + 3 * M_TOK * C) * it)
+
+    args = (x, gamma, beta, w1, b1, 1e-6)
+    _record(results, "ln_matmul", "fused_gemm", f"{M_TOK}x{C} -> {HID} gelu",
+            fb.ln_matmul(*args, act="gelu"), fb.ln_matmul_ref(*args, act="gelu"),
+            lambda: fb.ln_matmul(*args, act="gelu"),
+            lambda: fb.ln_matmul_ref(*args, act="gelu"),
+            lambda: F.gelu(ln_linear(w1, b1, 1e-6)),
+            "F.layer_norm + F.linear + F.gelu", 2.0 * M_TOK * C * HID,
+            (M_TOK * C + HID * C + HID + 2 * C + M_TOK * HID) * it)
+
+    o = (torch.randn((M_TOK, C), generator=g, device="cuda") * 0.5).to(bf)
+    args = (o, wproj, bproj, x)
+    _record(results, "matmul_residual", "fused_gemm", f"proj {M_TOK}x{C} -> {C}",
+            fb.matmul_residual(*args), fb.matmul_residual_ref(*args),
+            lambda: fb.matmul_residual(*args),
+            lambda: fb.matmul_residual_ref(*args),
+            lambda: F.linear(o, wproj, bproj) + x, "F.linear + add",
+            2.0 * M_TOK * C * C, (3 * M_TOK * C + C * C + C) * it, reps=20)
+    h = fb.ln_matmul(x, gamma, beta, w1, b1, 1e-6, act="gelu")
+    args = (h, w2, b2, x)
+    _record(results, "matmul_residual", "fused_gemm", f"fc2 {M_TOK}x{HID} -> {C}",
+            fb.matmul_residual(*args), fb.matmul_residual_ref(*args),
+            lambda: fb.matmul_residual(*args),
+            lambda: fb.matmul_residual_ref(*args),
+            lambda: F.linear(h, w2, b2) + x, "F.linear + add",
+            2.0 * M_TOK * HID * C, (M_TOK * HID + 2 * M_TOK * C + HID * C + C) * it)
+
+    args = (x, gamma, beta, w1, b1, w2, b2, 1e-6)
+
+    def two_kernel():
+        hh = fb.ln_matmul(x, gamma, beta, w1, b1, 1e-6, act="gelu")
+        return fb.matmul_residual(hh, w2, b2, x)
+
+    _record(results, "ln_mlp", "ln_mlp", f"{M_TOK}x{C}, hidden {HID}",
+            fb.ln_mlp(*args), fb.ln_mlp_ref(*args),
+            lambda: fb.ln_mlp(*args), lambda: fb.ln_mlp_ref(*args),
+            lambda: x + F.linear(F.gelu(ln_linear(w1, b1, 1e-6)), w2, b2),
+            "F.layer_norm + F.linear + F.gelu + F.linear + add",
+            4.0 * M_TOK * C * HID,
+            (2 * M_TOK * C + 2 * HID * C + HID + 3 * C) * it,
+            two_kernel_ms=median_ms(two_kernel, 10))
+    del h, o
+
+    # the encoder's attention, read in place from the packed qkv buffer
+    B, N, H, D = 20, 768, 16, 64
+    qkv3 = torch.randn((3, B, N, C), generator=g, device="cuda").to(bf)
+    q, k, v = (qkv3[i].view(B, N, H, D) for i in range(3))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    _record(results, "packed_qkv_attention", "attention",
+            f"(3, {B}, {N}, {C}), {H} heads",
+            packed_qkv_attention(qkv3, H, 0.125),
+            attention_ref(q, k, v, 0.125).reshape(B, N, C),
+            lambda: packed_qkv_attention(qkv3, H, 0.125),
+            lambda: attention_ref(q, k, v, 0.125),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=0.125),
+            "F.scaled_dot_product_attention", 4.0 * B * H * N * N * D,
+            4 * B * N * C * it)
 
 
 def phase_kernels() -> list:
@@ -223,6 +420,7 @@ def phase_kernels() -> list:
     check_layernorm(results)
     check_attention(results)
     check_trunk(results)
+    check_fused_blocks(results)
     torch.cuda.synchronize()
     return results
 
@@ -231,14 +429,37 @@ def phase_kernels() -> list:
 # phases 3-5
 # ---------------------------------------------------------------------------
 
-KERNELS = {  # wrapper -> (name, route, source, TPU kernel it replaces)
+FUSED_CU = "fast3r_torch/csrc/fused_gemm.cu"
+KERNELS = {  # name -> (wrapper, route, source, TPU kernel it replaces)
     "attention": (flash_attention, "cuda", "fast3r_torch/csrc/attention_fwd.cu",
                   "fast3r_tpu/ops/flash_attention.py:745 (_fwd_kernel_packed); "
                   "fast3r_tpu/ops/batched_attention.py:340 (_packed_kernel)"),
+    "packed_qkv_attention": (
+        packed_qkv_attention, "cuda", "fast3r_torch/csrc/attention_fwd.cu",
+        "fast3r_tpu/ops/batched_attention.py:497 (_fusedqkv_kernel)"),
     "layernorm": (fused_layernorm, "triton", "fast3r_torch/ops/fused_layernorm.py",
                   "fast3r_tpu/ops/fused_layernorm.py:46 (_fwd_kernel)"),
     "trunk": (fused_regression_head_t, "cuda", "fast3r_torch/csrc/trunk.cu",
               "fast3r_tpu/ops/trunk_kernel.py:165 (_trunk_kern)"),
+    "ln_qkv_rope": (fb.ln_qkv_rope, "cuda", FUSED_CU,
+                    "fast3r_tpu/nn/fused_block.py:595 (_ln_qkv_rope_kernel)"),
+    "ln_qkv": (fb.ln_qkv, "cuda", FUSED_CU,
+               "fast3r_tpu/nn/fused_block.py:276 (_ln_qkv_kernel)"),
+    "ln_matmul": (fb.ln_matmul, "cuda", FUSED_CU,
+                  "fast3r_tpu/nn/fused_block.py:264 (_ln_matmul_kernel)"),
+    "matmul_residual": (fb.matmul_residual, "cuda", FUSED_CU,
+                        "fast3r_tpu/nn/fused_block.py:310 (_matmul_res_kernel)"),
+    "ln_mlp": (fb.ln_mlp, "cuda", "fast3r_torch/csrc/ln_mlp.cu",
+               "fast3r_tpu/nn/fused_block.py:318 (_ln_mlp_kernel)"),
+}
+# the kernels each path of phase 3 must launch
+PATHS = {
+    "fused": ("attention", "packed_qkv_attention", "layernorm", "trunk",
+              "ln_qkv_rope", "ln_qkv", "matmul_residual", "ln_mlp"),
+    "plain": ("attention", "layernorm", "trunk"),
+    "two_kernel_mlp": ("attention", "packed_qkv_attention", "layernorm",
+                       "trunk", "ln_qkv_rope", "ln_qkv", "ln_matmul",
+                       "matmul_residual"),
 }
 OUT_KEYS = ("pts3d_in_other_view", "conf", "pts3d_local", "conf_local")
 # phase 4: |gpu bf16 - cpu fp32| / |cpu fp32| in the L2 norm, per output.
@@ -271,24 +492,18 @@ def check_preds(preds: list, n: int, H: int, W: int) -> None:
                 raise AssertionError(f"view {i} {k}: below 1")
 
 
-def phase_requests(gpu: str):
-    log("== phase 3: requests (flagship, random weights seed 0, bfloat16)")
-    t0 = time.perf_counter()
-    cpu_model = Fast3R.from_random(Fast3RConfig.flagship(), seed=0)
-    model = cpu_model.to(device="cuda", dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.params.parameters())
-    log(f"model: {n_params} parameters, built and moved in "
-        f"{time.perf_counter() - t0:.1f} s")
+def serve_path(path: str, model, sizes, gpu: str) -> dict:
+    """Serve the requests of one path with every launch count set to 0
+    just before and read just after."""
     H, W = 384, 512
-    inference(request_views(2, H, W, 99), model, verbose=False)  # warm-up
     torch.cuda.synchronize()
     for fn, *_ in KERNELS.values():
         fn.launches = 0
-    for n in (2, 8, 20):
-        # twice per size: the first request of a size also pays its one-off
-        # costs (allocator growth, pinned host buffers, conv algorithm picks)
-        for serve in (1, 2):
+    for n, serves in sizes:
+        # twice per size where asked: the first request of a size also pays
+        # its one-off costs (allocator growth, pinned host buffers, conv
+        # algorithm picks)
+        for serve in range(1, serves + 1):
             views = request_views(n, H, W, n + serve)
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -297,59 +512,103 @@ def phase_requests(gpu: str):
             dt = time.perf_counter() - t
             check_preds(out["preds"], n, H, W)
             log(json.dumps({
-                "request_views": n, "serve": serve, "image_hw": [H, W],
-                "latency_s": dt, "images_per_s": n / dt, "gpu": gpu,
+                "path": path, "request_views": n, "serve": serve,
+                "image_hw": [H, W], "latency_s": dt, "images_per_s": n / dt,
+                "gpu": gpu,
                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
-    counts = {name: fn.launches for name, (fn, *_) in KERNELS.items()}
-    return cpu_model, model, counts
+    return {name: fn.launches for name, (fn, *_) in KERNELS.items()}
 
 
-def phase_end_to_end(cpu_model, model) -> dict:
-    log("== phase 4: bf16 kernel path on the card vs fp32 plain path on the CPU")
+def phase_requests(gpu: str):
+    log("== phase 3: requests (flagship, random weights seed 0, bfloat16)")
+    t0 = time.perf_counter()
+    cpu_model = Fast3R.from_random(Fast3RConfig.flagship(), seed=0,
+                                   device="cpu")
+    model = cpu_model.to(device="cuda", dtype=torch.bfloat16)
+    plain = Fast3R(model.cfg.with_fused_blocks(False), model.params)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.params.parameters())
+    log(f"model: {n_params} parameters, built and moved in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for m in (model, plain):  # warm-up
+        inference(request_views(2, 384, 512, 99), m, verbose=False)
+    counts = {"fused": serve_path("fused", model, ((2, 2), (8, 2), (20, 2)),
+                                  gpu),
+              "plain": serve_path("plain", plain, ((20, 2),), gpu)}
+    fb.PREFER_FUSED_MLP = False
+    try:
+        counts["two_kernel_mlp"] = serve_path("two_kernel_mlp", model,
+                                              ((8, 1),), gpu)
+    finally:
+        fb.PREFER_FUSED_MLP = True
+    return cpu_model, model, plain, counts
+
+
+def phase_end_to_end(cpu_model, model, plain) -> dict:
+    log("== phase 4: bf16 kernel paths on the card vs fp32 plain versions "
+        "on the CPU")
     views = request_views(2, 224, 224, 7)
     t = time.perf_counter()
     ref = inference(views, cpu_model, verbose=False)["preds"]
     t_cpu = time.perf_counter() - t
-    out = inference(views, model, verbose=False)["preds"]
-    torch.cuda.synchronize()
-    check_preds(out, 2, 224, 224)
+    bad = {}
     errs = {}
-    for k in OUT_KEYS:
-        a = torch.cat([p[k] for p in out])
-        b = torch.cat([p[k] for p in ref])
-        errs[k] = ((a - b).norm() / b.norm()).item()
+    for road, m in (("fused", model), ("plain", plain)):
+        out = inference(views, m, verbose=False)["preds"]
+        torch.cuda.synchronize()
+        check_preds(out, 2, 224, 224)
+        errs[road] = {}
+        for k in OUT_KEYS:
+            a = torch.cat([p[k] for p in out])
+            b = torch.cat([p[k] for p in ref])
+            e = ((a - b).norm() / b.norm()).item()
+            errs[road][k] = e
+            if not e <= E2E_REL_L2:
+                bad[f"{road} {k}"] = e
     log(json.dumps({"rel_l2_err": errs, "tolerance": E2E_REL_L2,
                     "cpu_fp32_s": t_cpu}))
-    bad = {k: e for k, e in errs.items() if not e <= E2E_REL_L2}
     if bad:
         raise AssertionError(f"end-to-end error above {E2E_REL_L2}: {bad}")
     return errs
 
 
 def phase_counts(counts: dict) -> None:
-    log("== phase 5: kernel launches during phase 3")
+    log("== phase 5: kernel launches on each path of phase 3")
     log(json.dumps(counts))
-    missing = [k for k, c in counts.items() if c <= 0]
+    missing = [f"{path}: {k}" for path, names in PATHS.items()
+               for k in names if counts[path][k] <= 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        raise AssertionError(f"kernels never launched on their path: {missing}")
+
+
+# the heaviest main-path shape of each kernel, for the summary line
+MAIN_CASE = {"attention": "decoder", "layernorm": "eps=1e-05",
+             "matmul_residual": "proj"}
 
 
 def kernel_summary(results: list, counts: dict) -> dict:
-    """One entry per kernel: launches from phase 3; the largest bfloat16
-    error and the bfloat16 times at its heaviest main-path shape (decoder
-    attention, decoder-block LN eps 1e-5, the trunk) from phase 2."""
-    heaviest = {"attention": "decoder", "layernorm": "eps=1e-05", "trunk": ""}
+    """One entry per kernel: launches summed over the paths of phase 3 (and
+    per path); the largest bfloat16 error, and the bfloat16 times and bound
+    at its heaviest main-path shape, from phase 2."""
     kernels = []
     for name, (_, route, source, replaces) in KERNELS.items():
         rows = [r for r in results
                 if r["kernel"] == name and r["dtype"] == "bfloat16"]
-        main = next(r for r in rows if heaviest[name] in r["case"])
-        kernels.append({
+        main = next(r for r in rows if MAIN_CASE.get(name, "") in r["case"])
+        entry = {
             "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": counts[name],
+            "replaces": replaces,
+            "launches": sum(c[name] for c in counts.values()),
+            "launches_by_path": {p: c[name] for p, c in counts.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "atol": main["atol"], "rtol": main["rtol"],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "case": main["case"] + " bfloat16"})
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "library": main["library"],
+            "case": main["case"] + " bfloat16"}
+        if "two_kernel_ms" in main:
+            entry["two_kernel_ms"] = main["two_kernel_ms"]
+        kernels.append(entry)
     return {"kernels": kernels}
 
 
@@ -359,8 +618,8 @@ def main() -> int:
         return 2
     gpu = phase_device()["gpu"]
     results = phase_kernels()
-    cpu_model, model, counts = phase_requests(gpu)
-    phase_end_to_end(cpu_model, model)
+    cpu_model, model, plain, counts = phase_requests(gpu)
+    phase_end_to_end(cpu_model, model, plain)
     phase_counts(counts)
     log(json.dumps(kernel_summary(results, counts)))
     log(gpu_line())

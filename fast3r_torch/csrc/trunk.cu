@@ -36,7 +36,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ptx.cuh"
+
 namespace {
+
+using namespace fast3r_ptx;
 
 using bf16 = __nv_bfloat16;
 
@@ -242,25 +246,6 @@ constexpr int kKc = 16;   // input channels per staged chunk: one k16 per tap
 constexpr int kLdc = 24;  // padded smem row (bf16): 48 B, ldmatrix conflict-free
 constexpr int kMmaSmem =
     (9 * kCo + kHalo) * kLdc * (int)sizeof(bf16) + 2 * kTH * kTW * kC3 * 4;
-
-__device__ inline uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ inline void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-// d += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate
-__device__ inline void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // halo position of staged pixel `pix` and whether it lies inside the grid
 __device__ inline bool halo_pixel(int pix, int y0, int x0, int H, int W,

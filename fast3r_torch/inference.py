@@ -52,7 +52,7 @@ class Fast3R:
 
     @classmethod
     def from_random(cls, cfg: Optional[Fast3RConfig] = None, seed: int = 0,
-                    dtype=torch.float32, device="cpu") -> "Fast3R":
+                    dtype=torch.float32, device="cuda") -> "Fast3R":
         """Random weights from ``seed`` (``models.fast3r.init_fast3r``);
         the flagship configuration by default."""
         cfg = cfg or Fast3RConfig.flagship()
@@ -60,9 +60,9 @@ class Fast3R:
 
     @classmethod
     def from_jax_params(cls, tree, cfg: Fast3RConfig, dtype=torch.float32,
-                        device="cpu") -> "Fast3R":
+                        device="cuda") -> "Fast3R":
         """Weights from a ``fast3r_tpu`` param tree of numpy arrays."""
-        net = empty_fast3r(cfg)
+        net = empty_fast3r(cfg, device="cpu")
         net.load_state_dict(params_from_jax(tree, cfg), strict=True)
         return cls(cfg, net.to(device=device, dtype=dtype))
 

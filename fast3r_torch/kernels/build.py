@@ -1,10 +1,13 @@
 """Build and load the port's CUDA C++ kernels (``fast3r_torch/csrc/*.cu``).
 
-All sources compile with one ``nvcc`` call into one shared library with a
+Each source compiles with its own ``nvcc`` process, all started together,
+and one more ``nvcc`` call links the objects into one shared library with a
 plain C interface, loaded through ``ctypes`` (no PyTorch headers, so the
 build takes seconds).  The library lands in ``fast3r_torch/_build/`` (listed
 in ``.gitignore``) under a name that carries a hash of the sources and the
 flags, so an edited source rebuilds and an unchanged one loads at once.
+``ptxas`` reports each kernel's registers, shared memory and spills into a
+``.log`` file beside the library.
 
 Each C entry point returns ``cudaGetLastError()`` after its launches; the
 wrappers call :func:`check` on it, which raises on anything but 0.  A build
@@ -26,7 +29,7 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +42,9 @@ SIGNATURES = {
                              _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
     "fast3r_trunk_head_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _P],
+    "fast3r_fused_gemm": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _F, _P],
+    "fast3r_ln_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
 }
 
 
@@ -60,10 +66,18 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in _sources():
+    for s in sorted(CSRC_DIR.glob("*.cu*")):  # the sources and their headers
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return BUILD_DIR / f"libfast3r_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run(cmd):
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                           f"{res.stdout}\n{res.stderr}")
+    return res.stdout + res.stderr
 
 
 def build() -> Path:
@@ -72,16 +86,26 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)  # atomic: another process never loads half a file
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / (s.stem + ".o") for s in _sources()]
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True))
+                 for cmd in ([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
+                             for s, o in zip(_sources(), objs))]
+        logs, failed = [], []
+        for cmd, p in procs:
+            text = p.communicate()[0]
+            logs.append(f"$ {' '.join(cmd)}\n{text}")
+            if p.returncode != 0:
+                failed.append(f"nvcc failed ({p.returncode}):\n{logs[-1]}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = Path(tmpdir) / out.name
+        logs.append(_run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                          *map(str, objs)]))
+        out.with_suffix(".log").write_text("\n".join(logs))
+        os.replace(tmp, out)  # atomic: another process never loads half a file
     return out
 
 

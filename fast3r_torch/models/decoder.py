@@ -22,7 +22,6 @@ import torch
 from torch import nn
 
 from fast3r_torch.nn.layers import (
-    check_fused_blocks,
     layernorm,
     linear,
     make_vit_stack,
@@ -50,9 +49,8 @@ class DecoderConfig:
     attn_impl: str = "pallas"
     block_ln_eps: float = 1e-5
     final_ln_eps: float = 1e-6
-    # the fused-GEMM blocks of the JAX package; no CUDA kernels yet
-    # (nn.layers.check_fused_blocks)
-    fused_blocks: bool = False
+    # the fused-GEMM blocks (nn.fused_block), as in the JAX package
+    fused_blocks: bool = True
 
     @property
     def head_dim(self) -> int:
@@ -117,7 +115,6 @@ def decoder_forward(params: Decoder, cfg: DecoderConfig, feats: torch.Tensor,
     """
     outputs: Dict[int, torch.Tensor] = {0: feats}
     x = linear(params.decoder_embed, feats)
-    check_fused_blocks(cfg.fused_blocks, x)
     table = torch.as_tensor(image_idx_table(cfg.embed_dim), device=x.device,
                             dtype=x.dtype)
     x = x + table[image_ids.to(device=x.device, dtype=torch.long)]
@@ -126,7 +123,8 @@ def decoder_forward(params: Decoder, cfg: DecoderConfig, feats: torch.Tensor,
     x, hooked = run_vit_stack(params.blocks, x, cfg.num_heads,
                               cfg.attn_scale(),
                               rope_cos_sin=None, attn_impl=cfg.attn_impl,
-                              ln_eps=cfg.block_ln_eps, hooks=inner_hooks)
+                              ln_eps=cfg.block_ln_eps, hooks=inner_hooks,
+                              fused=cfg.fused_blocks)
     outputs.update(hooked)
     outputs[cfg.depth] = layernorm(params.norm, x, cfg.final_ln_eps)
     return outputs

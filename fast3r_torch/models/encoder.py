@@ -19,7 +19,6 @@ from fast3r_torch.models.patch_embed import (
     patch_embed_simple,
 )
 from fast3r_torch.nn.layers import (
-    check_fused_blocks,
     layernorm,
     make_vit_stack,
     run_vit_stack,
@@ -38,9 +37,8 @@ class EncoderConfig:
     rope_base: float = 100.0
     attn_impl: str = "batched"
     ln_eps: float = 1e-6
-    # the fused-GEMM blocks of the JAX package; no CUDA kernels yet
-    # (nn.layers.check_fused_blocks)
-    fused_blocks: bool = False
+    # the fused-GEMM blocks (nn.fused_block), as in the JAX package
+    fused_blocks: bool = True
 
 
 class Encoder(nn.Module):
@@ -67,11 +65,10 @@ def encoder_forward(params: Encoder, cfg: EncoderConfig, img: torch.Tensor,
                                     cfg.patch_size)
     else:
         x, pos = patch_embed_simple(params.patch_embed, img, cfg.patch_size)
-    check_fused_blocks(cfg.fused_blocks, x)
 
     head_dim = cfg.embed_dim // cfg.num_heads
     rope = rope2d_cos_sin(pos, head_dim, cfg.rope_base)
     x, _ = run_vit_stack(params.blocks, x, cfg.num_heads, head_dim ** -0.5,
                          rope_cos_sin=rope, attn_impl=cfg.attn_impl,
-                         ln_eps=cfg.ln_eps)
+                         ln_eps=cfg.ln_eps, fused=cfg.fused_blocks)
     return layernorm(params.norm, x, cfg.ln_eps), pos

@@ -37,17 +37,23 @@ class Fast3RConfig:
 
     @staticmethod
     def flagship() -> "Fast3RConfig":
-        """ViT-L/16 encoder + 1024 x 24 fusion decoder + dual DPT heads, with
-        the plain block composition (fused_blocks=False in both stacks): the
-        encoder's per-view attention and the decoder's global attention both
-        run the port's attention kernel."""
+        """ViT-L/16 encoder + 1024 x 24 fusion decoder + dual DPT heads, both
+        stacks on their default fused-GEMM blocks (``fused_blocks=True``),
+        as the JAX package's flagship; :meth:`with_fused_blocks` gives the
+        plain block composition."""
         enc = EncoderConfig(embed_dim=1024, num_heads=16, depth=24,
-                            attn_impl="batched", fused_blocks=False)
+                            attn_impl="batched")
         dec = DecoderConfig(enc_embed_dim=1024, embed_dim=1024, num_heads=16,
-                            depth=24, attn_impl="pallas", fused_blocks=False)
+                            depth=24, attn_impl="pallas")
         head = DPTHeadConfig(dim_tokens=(enc.embed_dim, dec.embed_dim,
                                          dec.embed_dim, dec.embed_dim))
         return Fast3RConfig(encoder=enc, decoder=dec, head=head)
+
+    def with_fused_blocks(self, fused: bool) -> "Fast3RConfig":
+        """This configuration with ``fused_blocks`` set in both stacks."""
+        return dataclasses.replace(
+            self, encoder=dataclasses.replace(self.encoder, fused_blocks=fused),
+            decoder=dataclasses.replace(self.decoder, fused_blocks=fused))
 
     @staticmethod
     def tiny(with_local_head: bool = True) -> "Fast3RConfig":
@@ -73,7 +79,7 @@ class Fast3RNet(nn.Module):
             self.head_local = DPTHead(cfg.head)
 
 
-def empty_fast3r(cfg: Fast3RConfig, device="cpu") -> Fast3RNet:
+def empty_fast3r(cfg: Fast3RConfig, device="cuda") -> Fast3RNet:
     """Fast3RNet with uninitialised float32 storage on ``device``."""
     with torch.device("meta"):
         net = Fast3RNet(cfg)
@@ -81,11 +87,12 @@ def empty_fast3r(cfg: Fast3RConfig, device="cpu") -> Fast3RNet:
 
 
 def init_fast3r(cfg: Fast3RConfig, seed: int = 0, dtype=torch.float32,
-                device="cpu") -> Fast3RNet:
+                device="cuda") -> Fast3RNet:
     """Random parameters with the JAX package's initialisation scheme, drawn
     on the CPU from a ``torch.Generator`` seeded ``seed`` (so the same seed
-    gives the same weights on any device), then cast to ``dtype``."""
-    net = empty_fast3r(cfg)
+    gives the same weights on any device), then cast to ``dtype`` and moved
+    to ``device``."""
+    net = empty_fast3r(cfg, device="cpu")
     init_params_(net, torch.Generator().manual_seed(seed))
     return net.to(device=device, dtype=dtype).eval()
 

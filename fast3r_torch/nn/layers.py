@@ -9,10 +9,13 @@ block); ``fast3r_torch.utils.convert`` maps one onto the other.  The apply
 functions take a module and a tensor, like the JAX ones take a dict.
 
 Block math is the pre-LN ViT block: x + attn(LN(x)), then x + MLP(LN(x)),
-exact-erf GELU.  LayerNorm goes through ``ops.fused_layernorm`` (the Triton
-kernel on CUDA) and attention through ``ops.attention`` (the CUDA kernel for
-the "batched" and "pallas" implementations).  The products are cuBLAS
-matmuls, as the JAX package leaves them to XLA in this configuration.
+exact-erf GELU.  With ``fused=True`` (the models' default, ``fused_blocks``)
+a block is :func:`fast3r_torch.nn.fused_block.fused_vit_block`, whose
+products are the hand-written fused-GEMM kernels.  The plain composition
+(``fused=False``) runs LayerNorm through ``ops.fused_layernorm`` (the Triton
+kernel on CUDA), attention through ``ops.attention`` (the CUDA kernel for
+the "batched" and "pallas" implementations) and its products as cuBLAS
+matmuls, as the JAX package leaves them to XLA in that configuration.
 """
 
 from __future__ import annotations
@@ -24,9 +27,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fast3r_torch.nn.fused_block import fused_vit_block
 from fast3r_torch.ops.attention import dot_product_attention
 from fast3r_torch.ops.fused_layernorm import fused_layernorm
-from fast3r_torch.ops.rope2d import apply_rope2d_bnhd
+from fast3r_torch.ops.rope2d import apply_rope2d_bnhd, expand_rope_tables
 
 
 # ----------------------------------------------------------------------------
@@ -151,33 +155,35 @@ def attention_layer(p: Attention, x: torch.Tensor, num_heads: int,
 
 def vit_block(p: Block, x: torch.Tensor, num_heads: int, scale: float,
               rope_cos_sin=None, attn_impl: str = "pallas",
-              ln_eps: float = 1e-6) -> torch.Tensor:
-    """Pre-LN ViT block (the plain composition of the JAX package)."""
+              ln_eps: float = 1e-6, fused: bool = False) -> torch.Tensor:
+    """Pre-LN ViT block: the fused block with ``fused=True``, else the plain
+    composition of the JAX package."""
+    if fused:
+        return fused_vit_block(p, x, rope_cos_sin, num_heads, scale,
+                               attn_impl, ln_eps)
     x = x + attention_layer(p.attn, layernorm(p.norm1, x, ln_eps), num_heads,
                             scale, rope_cos_sin, attn_impl)
     return x + mlp(p.mlp, layernorm(p.norm2, x, ln_eps))
 
 
-def check_fused_blocks(fused_blocks: bool, x: torch.Tensor) -> None:
-    """The fused-GEMM blocks (LN -> QKV -> RoPE, matmul + residual, whole
-    MLP) have no CUDA kernels yet: on the CPU they are the same function as
-    the plain composition, on CUDA asking for them raises."""
-    if fused_blocks and x.device.type == "cuda":
-        raise NotImplementedError(
-            "fused_blocks=True needs the fused-GEMM block kernels (ROADMAP "
-            "Queue 2, K3-K6), which are not ported yet; use fused_blocks=False")
-
-
 def run_vit_stack(blocks: Sequence[Block], x: torch.Tensor, num_heads: int,
                   scale: float, rope_cos_sin=None, attn_impl: str = "pallas",
-                  ln_eps: float = 1e-6, hooks: Sequence[int] = ()
+                  ln_eps: float = 1e-6, hooks: Sequence[int] = (),
+                  fused: bool = False
                   ) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
     """Run the blocks; return (output, {hook: activation}) with hook i the
-    output after block i (1-based)."""
+    output after block i (1-based).  On the fused road with "batched"
+    attention and RoPE, the flat (M, C) RoPE lane tables are expanded once
+    for the whole stack and every block gets (cos, sin, ct, st)."""
+    if (fused and attn_impl == "batched" and rope_cos_sin is not None
+            and len(rope_cos_sin) == 2):
+        ct, st = expand_rope_tables(rope_cos_sin[0], rope_cos_sin[1],
+                                    x.shape[-1], x.dtype)
+        rope_cos_sin = (rope_cos_sin[0], rope_cos_sin[1], ct, st)
     outputs: Dict[int, torch.Tensor] = {}
     for i, block in enumerate(blocks):
         x = vit_block(block, x, num_heads, scale, rope_cos_sin, attn_impl,
-                      ln_eps)
+                      ln_eps, fused)
         if i + 1 in hooks:
             outputs[i + 1] = x
     return x, outputs

@@ -48,17 +48,11 @@ def _check(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
             "(head dim contiguous, other strides multiples of 16 bytes)")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float) -> torch.Tensor:
-    """softmax(scale * q k^T) v over (B, N, H, D) inputs; (B, Nq, H, D) out.
-
-    CPU tensors take :func:`attention_ref`.  CUDA tensors launch the kernel,
-    which reads q, k and v through their strides (no copy of the qkv
-    projection's views) and takes D == 64 in float32 or bfloat16; anything
-    else raises.
-    """
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, scale)
+def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float) -> torch.Tensor:
+    """Launch the kernel on CUDA q, k, v (B, N, H, 64) read through their
+    strides; (B, Nq, H, 64) contiguous out.  Checks what the kernel takes and
+    raises on anything else; counts nothing (each caller keeps its count)."""
     if q.device.type != "cuda":
         raise ValueError(f"attention: no kernel for device {q.device}")
     if q.dtype not in _DTYPES:
@@ -79,6 +73,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o.data_ptr(), B, H, Nq, Nk, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], float(scale), build.stream_handle(q.device))
     build.check(err, "fast3r_attention_fwd")
+    return o
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """softmax(scale * q k^T) v over (B, N, H, D) inputs; (B, Nq, H, D) out.
+
+    CPU tensors take :func:`attention_ref`.  CUDA tensors launch the kernel
+    (:func:`launch_attention`), which reads q, k and v through their strides
+    (no copy of the qkv projection's views) and takes D == 64 in float32 or
+    bfloat16; anything else raises.
+    """
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, scale)
+    o = launch_attention(q, k, v, scale)
     flash_attention.launches += 1
     return o
 

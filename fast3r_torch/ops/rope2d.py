@@ -47,3 +47,34 @@ def apply_rope2d_bnhd(tokens: torch.Tensor, cos: torch.Tensor,
     y = y * cy + _rotate_half(y) * sy
     x = x * cx + _rotate_half(x) * sx
     return torch.cat([y, x], dim=-1).to(tokens.dtype)
+
+
+def expand_rope_tables(cos: torch.Tensor, sin: torch.Tensor, dim: int,
+                       dtype) -> tuple:
+    """Flat per-token lane tables (B * N, dim) in ``dtype`` from (B, N, 2,
+    half) cos / sin: lane l of a head carries the y table for the head's
+    first ``half`` lanes and the x table for the rest, tiled over the heads,
+    so ``t * ct + rotate_half_lanes(t, half) * st`` on (B * N, dim) rows is
+    :func:`apply_rope2d_bnhd` (counterpart of ``fast3r_tpu/ops/rope2d.py``
+    ``expand_rope_tables``; the tables are rounded to ``dtype``, the
+    activation dtype, as there)."""
+    B, N, _, half = cos.shape
+    head = 2 * half
+    if dim % head:
+        raise ValueError(f"dim={dim} is not a multiple of head_dim={head}")
+
+    def flat(t):
+        per_head = torch.cat([t[:, :, 0, :], t[:, :, 1, :]], dim=-1)
+        return per_head.repeat(1, 1, dim // head).reshape(B * N, dim).to(dtype)
+
+    return flat(cos), flat(sin)
+
+
+def rotate_half_lanes(x: torch.Tensor, half: int) -> torch.Tensor:
+    """Rotate-half on flat (..., C) lanes: within every ``half``-lane group
+    [a | b] (a quarter head each) -> [-b | a] (counterpart of
+    ``fast3r_tpu/ops/rope2d.py`` ``rotate_half_lanes``)."""
+    q = half // 2
+    lane = torch.arange(x.shape[-1], device=x.device) % half
+    return torch.where(lane < q, -torch.roll(x, -q, dims=-1),
+                       torch.roll(x, q, dims=-1))

@@ -1,0 +1,132 @@
+"""Profile one warm serving request of the port on one GPU.
+
+    python -m fast3r_torch.profile_request [--views 20] \
+        [--roads fused,plain,two_kernel_mlp] [--out runs/profile]
+
+For each road it builds the flagship with random weights (seed 0) in
+bfloat16 at 512x384 and serves one request of ``--views`` views as a warm-up,
+then one more under ``torch.profiler`` (CPU and CUDA activities):
+
+  * fused: the default configuration (fused-GEMM blocks, whole-MLP kernel);
+  * plain: both stacks with ``fused_blocks=False``;
+  * two_kernel_mlp: fused blocks with ``PREFER_FUSED_MLP = False``.
+
+It prints one JSON line per road: the request's wall time (host clock,
+profiler on, ending in a synchronise), the sum of kernel time, the device's
+busy share (kernel time over wall), kernel time by category and the
+heaviest kernels by name; and writes a Chrome trace per road under
+``--out``.  It needs a CUDA device and raises without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from fast3r_torch.inference import Fast3R, inference
+from fast3r_torch.models.fast3r import Fast3RConfig
+from fast3r_torch.nn import fused_block
+
+# (category, substrings of the kernel name), first match wins
+CATEGORIES = (
+    ("attention kernel", ("attention_fwd",)),
+    ("fused GEMM kernel", ("fused_gemm_kernel",)),
+    ("whole-MLP kernel", ("ln_mlp_kernel",)),
+    ("LayerNorm kernel", ("ln_fwd_kernel",)),
+    ("trunk kernel", ("conv3x3_mma", "conv3x3_f32")),
+    ("library convs", ("conv", "fprop", "dgrad", "implicit", "winograd")),
+    ("library GEMMs", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
+    ("copies", ("memcpy", "memset")),
+)
+EPILOGUES = {"0": "ln_matmul", "1": "ln_matmul gelu", "2": "ln_qkv",
+             "3": "ln_qkv_rope", "4": "matmul_residual"}
+
+
+def category(name: str) -> str:
+    low = name.lower()
+    for cat, keys in CATEGORIES:
+        if any(k in low for k in keys):
+            return cat
+    return "elementwise and other"
+
+
+def kernel_label(name: str) -> str:
+    """fused_gemm_kernel<LN, EPI> by the wrapper it serves."""
+    if "fused_gemm_kernel<" in name:
+        epi = name.split("fused_gemm_kernel<", 1)[1].split(">", 1)[0]
+        return "fused_gemm " + EPILOGUES.get(epi.split(",")[-1].strip(), epi)
+    return name[:90]
+
+
+def profile_road(model: Fast3R, road: str, views: list, out_dir: Path) -> dict:
+    m = Fast3R(model.cfg.with_fused_blocks(road != "plain"), model.params)
+    fused_block.PREFER_FUSED_MLP = road != "two_kernel_mlp"
+    try:
+        inference(views, m, verbose=False)  # warm-up of the same size
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            inference(views, m, verbose=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+    finally:
+        fused_block.PREFER_FUSED_MLP = True
+    by_cat, by_name, total = {}, {}, 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us <= 0:
+            continue
+        ms = us / 1e3
+        total += ms
+        cat = category(evt.key)
+        by_cat[cat] = by_cat.get(cat, 0.0) + ms
+        label = kernel_label(evt.key)
+        n, t_ms = by_name.get(label, (0, 0.0))
+        by_name[label] = (n + evt.count, t_ms + ms)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out_dir / f"trace_{road}_{len(views)}.json"))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    return {"road": road, "views": len(views), "wall_ms": wall * 1e3,
+            "kernel_ms": total, "busy_share": total / (wall * 1e3),
+            "by_category_ms": dict(sorted(by_cat.items(),
+                                          key=lambda kv: -kv[1])),
+            "top_kernels": [{"name": k, "calls": n, "ms": t}
+                            for k, (n, t) in top]}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--views", type=int, default=20)
+    ap.add_argument("--roads", default="fused,plain,two_kernel_mlp")
+    ap.add_argument("--out", default="runs/profile")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_request: no CUDA device")
+    gpu = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"gpu: {gpu}", flush=True)
+    model = Fast3R.from_random(Fast3RConfig.flagship(), seed=0,
+                               dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(args.views)
+    views = [{"img": torch.rand((1, 384, 512, 3), generator=g) * 2 - 1,
+              "true_shape": [[384, 512]]} for _ in range(args.views)]
+    for road in args.roads.split(","):
+        res = profile_road(model, road, views, Path(args.out))
+        res["gpu"] = gpu
+        print(json.dumps(res), flush=True)
+
+
+if __name__ == "__main__":
+    main()

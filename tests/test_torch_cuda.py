@@ -134,35 +134,58 @@ def test_trunk_kernel_rejects_other_widths(dev):
         t_trunk.fused_regression_head_t(x, w, b, w, b, w, b, 8, 8)
 
 
-def test_fused_blocks_raise_on_cuda(dev):
-    import dataclasses
-
-    import fast3r_torch
-
-    cfg = fast3r_torch.Fast3RConfig.tiny()
-    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
-        cfg.encoder, fused_blocks=True))
-    model = fast3r_torch.Fast3R.from_random(cfg, device="cuda")
-    with pytest.raises(NotImplementedError, match="K3-K6"):
-        fast3r_torch.fast3r_forward(model.params, cfg,
-                                    torch.zeros((1, 2, 64, 64, 3), device=dev))
-
-
-def test_forward_on_cuda_matches_cpu(dev):
-    """head_dim 64 and the flagship head widths (the kernels' widths) at
-    shallow depth, 2 views at 128x128: the kernel path on the card in fp32
-    vs the plain path on the CPU, 1e-3 relative to max |ref|."""
+def _shallow_cfg(width, heads, fused):
     import fast3r_torch
     from fast3r_torch.models.decoder import DecoderConfig
     from fast3r_torch.models.dpt_head import DPTHeadConfig
     from fast3r_torch.models.encoder import EncoderConfig
 
-    cfg = fast3r_torch.Fast3RConfig(
-        encoder=EncoderConfig(embed_dim=128, num_heads=2, depth=2),
-        decoder=DecoderConfig(enc_embed_dim=128, embed_dim=128, num_heads=2,
-                              depth=4),
-        head=DPTHeadConfig(dim_tokens=(128,) * 4))
-    cpu = fast3r_torch.Fast3R.from_random(cfg, seed=0)
+    return fast3r_torch.Fast3RConfig(
+        encoder=EncoderConfig(embed_dim=width, num_heads=heads, depth=2,
+                              fused_blocks=fused),
+        decoder=DecoderConfig(enc_embed_dim=width, embed_dim=width,
+                              num_heads=heads, depth=4, fused_blocks=fused),
+        head=DPTHeadConfig(dim_tokens=(width,) * 4))
+
+
+def test_fused_forward_on_cuda_matches_cpu(dev):
+    """The fused-GEMM road at the flagship widths (1024, 16 heads of 64) and
+    shallow depth, 2 views at 112x128 (56 tokens a view: ragged row tiles),
+    bf16 on the card vs the fp32 plain versions on the CPU, same weights:
+    relative L2 within 2e-2 on every output (bf16 through 6 blocks), and
+    every fused kernel launched."""
+    import fast3r_torch
+    from fast3r_torch.nn import fused_block as t_fb
+    from fast3r_torch.ops import batched_attention as t_ba
+
+    cfg = _shallow_cfg(1024, 16, fused=True)
+    cpu = fast3r_torch.Fast3R.from_random(cfg, seed=0, device="cpu")
+    gpu = cpu.to(device="cuda", dtype=torch.bfloat16)
+    imgs = torch.rand((1, 2, 112, 128, 3),
+                      generator=torch.Generator().manual_seed(0)) * 2 - 1
+    ref = fast3r_torch.fast3r_forward(cpu.params, cfg, imgs)
+    fns = (t_fb.ln_qkv_rope, t_ba.packed_qkv_attention, t_fb.ln_qkv,
+           t_fb.matmul_residual, t_fb.ln_mlp)
+    before = [f.launches for f in fns]
+    out = fast3r_torch.fast3r_forward(gpu.params, cfg,
+                                      imgs.to(dev, torch.bfloat16))
+    torch.cuda.synchronize()
+    assert all(f.launches > b for f, b in zip(fns, before))
+    for k in ref:
+        a, b = out[k].float().cpu(), ref[k]
+        assert torch.isfinite(a).all(), k
+        assert ((a - b).norm() / b.norm()).item() < 2e-2, k
+
+
+def test_forward_on_cuda_matches_cpu(dev):
+    """The plain block road (fused_blocks=False), head_dim 64 and the
+    flagship head widths (the kernels' widths) at shallow depth, 2 views at
+    128x128: the kernel path on the card in fp32 vs the plain path on the
+    CPU, 1e-3 relative to max |ref|."""
+    import fast3r_torch
+
+    cfg = _shallow_cfg(128, 2, fused=False)
+    cpu = fast3r_torch.Fast3R.from_random(cfg, seed=0, device="cpu")
     gpu = cpu.to(device="cuda")
     imgs = torch.randn((1, 2, 128, 128, 3), generator=torch.Generator()
                        .manual_seed(0))
@@ -176,3 +199,130 @@ def test_forward_on_cuda_matches_cpu(dev):
     for k in ref:
         a, b = out[k].cpu(), ref[k]
         assert (a - b).abs().max().item() <= 1e-3 * b.abs().max().item(), k
+
+
+# --------------------------------------------------------------------------
+# fused-GEMM block kernels (csrc/fused_gemm.cu, csrc/ln_mlp.cu) and the
+# packed-qkv attention road, bfloat16 (the kernels' only dtype)
+# --------------------------------------------------------------------------
+
+def _bf(shape, g, scale=1.0, shift=0.0):
+    return (torch.randn(shape, generator=g, device="cuda") * scale
+            + shift).to(torch.bfloat16)
+
+
+def _linear(n_out, n_in, g):
+    bound = n_in ** -0.5
+    w = ((torch.rand((n_out, n_in), generator=g, device="cuda") * 2 - 1)
+         * bound).to(torch.bfloat16)
+    return w, _bf((n_out,), g, 0.02)
+
+
+def _assert_bf16_close(out, ref, atol):
+    """One bf16 step of the output (2^-7 relative) plus ``atol`` for a bf16
+    intermediate (LN output, q / k, h) that rounds to the other side of a
+    step because the two sides sum in different orders."""
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    a, b = out.float(), ref.float()
+    assert torch.isfinite(a).all()
+    bad = (a - b).abs() > atol + 2 ** -7 * b.abs()
+    assert not bad.any(), (a - b).abs().max().item()
+
+
+@pytest.mark.parametrize("M", [128, 300, 37])
+@pytest.mark.parametrize("kind", ["ln_matmul", "ln_matmul_gelu", "ln_qkv",
+                                  "ln_qkv_rope", "matmul_residual"])
+def test_fused_gemm_kernels_match_plain(dev, kind, M):
+    """Every epilogue of fused_gemm.cu vs its plain version, at whole and
+    ragged row counts (C = 256, 4 heads of 64; hidden 1024)."""
+    from fast3r_torch.nn import fused_block as t_fb
+    from fast3r_torch.ops.rope2d import expand_rope_tables, rope2d_cos_sin
+
+    g = _gen(4)
+    C = 256
+    x = _bf((M, C), g, 2.0, 0.5)
+    gamma, beta = _bf((C,), g, 0.1, 1.0), _bf((C,), g, 0.1)
+    fn = {"ln_matmul_gelu": "ln_matmul"}.get(kind, kind)
+    wrapper = getattr(t_fb, fn)
+    before = wrapper.launches
+    if kind.startswith("ln_matmul"):
+        w, b = _linear(4 * C, C, g)
+        act = "gelu" if kind.endswith("gelu") else None
+        args = (x, gamma, beta, w, b, 1e-6)
+        out = wrapper(*args, act=act)
+        ref = t_fb.ln_matmul_ref(*args, act=act)
+    elif kind == "ln_qkv":
+        w, b = _linear(3 * C, C, g)
+        out = torch.stack(wrapper(x, gamma, beta, w, b, 1e-5))
+        ref = torch.stack(t_fb.ln_qkv_ref(x, gamma, beta, w, b, 1e-5))
+    elif kind == "ln_qkv_rope":
+        w, b = _linear(3 * C, C, g)
+        pos = torch.randint(0, 40, (1, M, 2), device="cuda", generator=g)
+        ct, st = expand_rope_tables(*rope2d_cos_sin(pos, 64), C,
+                                    torch.bfloat16)
+        args = (x, gamma, beta, w, b, ct, st, 4, 1e-6)
+        out = wrapper(*args)
+        ref = t_fb.ln_qkv_rope_ref(*args)
+    else:
+        w, b = _linear(C, 4 * C, g)
+        h = _bf((M, 4 * C), g, 0.5)
+        out = wrapper(h, w, b, x)
+        ref = t_fb.matmul_residual_ref(h, w, b, x)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    _assert_bf16_close(out, ref, atol=2e-2)
+
+
+@pytest.mark.parametrize("M,hidden", [(128, 4096), (300, 1024), (37, 64)])
+def test_ln_mlp_kernel_matches_plain(dev, M, hidden):
+    """The whole-MLP kernel (C = 1024) vs its plain version, ragged rows
+    and short hidden loops included."""
+    from fast3r_torch.nn import fused_block as t_fb
+
+    g = _gen(5)
+    C = 1024
+    x = _bf((M, C), g, 2.0, 0.5)
+    gamma, beta = _bf((C,), g, 0.1, 1.0), _bf((C,), g, 0.1)
+    w1, b1 = _linear(hidden, C, g)
+    w2, b2 = _linear(C, hidden, g)
+    args = (x, gamma, beta, w1, b1, w2, b2, 1e-6)
+    before = t_fb.ln_mlp.launches
+    out = t_fb.ln_mlp(*args)
+    ref = t_fb.ln_mlp_ref(*args)
+    torch.cuda.synchronize()
+    assert t_fb.ln_mlp.launches == before + 1
+    _assert_bf16_close(out, ref, atol=2e-2)
+
+
+@pytest.mark.parametrize("B,N", [(2, 768), (3, 196)])
+def test_packed_qkv_attention_kernel_matches_plain(dev, B, N):
+    from fast3r_torch.ops import batched_attention as t_ba
+
+    qkv3 = _bf((3, B, N, 256), _gen(6))
+    before = t_ba.packed_qkv_attention.launches
+    out = t_ba.packed_qkv_attention(qkv3, 4, 0.125)
+    q, k, v = (qkv3[i].view(B, N, 4, 64) for i in range(3))
+    ref = t_flash.attention_ref(q, k, v, 0.125).reshape(B, N, 256)
+    torch.cuda.synchronize()
+    assert t_ba.packed_qkv_attention.launches == before + 1
+    assert (out.float() - ref.float()).abs().max().item() < 1e-2
+
+
+def test_fused_kernels_reject_what_they_cannot_take(dev):
+    from fast3r_torch.nn import fused_block as t_fb
+
+    g = _gen(7)
+    x = _bf((64, 256), g)
+    w, b = _linear(768, 256, g)
+    ones, zeros = torch.ones(256, device=dev), torch.zeros(256, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        t_fb.ln_matmul(x.float(), ones, zeros, w, b, 1e-6)
+    with pytest.raises(ValueError, match="N % 128"):
+        t_fb.ln_matmul(x, ones, zeros, w[:700], b[:700], 1e-6)
+    with pytest.raises(ValueError, match="head_dim"):
+        ct = torch.zeros((64, 256), device=dev, dtype=torch.bfloat16)
+        t_fb.ln_qkv_rope(x, ones, zeros, w, b, ct, ct, 8, 1e-6)
+    with pytest.raises(ValueError, match="1024"):
+        w1, b1 = _linear(1024, 256, g)
+        w2, b2 = _linear(256, 1024, g)
+        t_fb.ln_mlp(x, ones, zeros, w1, b1, w2, b2, 1e-6)

@@ -97,7 +97,8 @@ def _models(name):
         params = _jax_params(jcfg)
         tree = jax.tree.map(np.asarray, params)
         _MODELS[name] = (jcfg, params,
-                         Fast3R.from_jax_params(tree, _port_cfg(jcfg)))
+                         Fast3R.from_jax_params(tree, _port_cfg(jcfg),
+                                                device="cpu"))
     return _MODELS[name]
 
 
@@ -114,12 +115,17 @@ def _images(B, V, H, W, seed=0):
         (B, V, H, W, 3)).astype(np.float32)
 
 
+@pytest.mark.parametrize("fused", [True, False])
 @pytest.mark.parametrize("mixed,chunk", [(False, None), (False, 2),
                                          (True, None), (True, 3)])
-def test_fast3r_forward_matches_jax(mixed, chunk):
+def test_fast3r_forward_matches_jax(mixed, chunk, fused):
     """tiny config, B=2 V=4 at 64x96: landscape and mixed orientation, with
-    and without head chunking (chunk 3 rounds down to 2 views)."""
+    and without head chunking (chunk 3 rounds down to 2 views), on the
+    port's fused-GEMM blocks (the default) and on its plain blocks; the JAX
+    forward takes its plain blocks off the TPU.  Both roads read the same
+    converted ``Block`` parameters."""
     jcfg, params, model = _models("tiny")
+    cfg = model.cfg.with_fused_blocks(fused)
     B, V, H, W = 2, 4, 64, 96
     imgs = _images(B, V, H, W)
     shapes = np.broadcast_to(np.array([H, W], np.int32), (B, V, 2)).copy()
@@ -131,7 +137,7 @@ def test_fast3r_forward_matches_jax(mixed, chunk):
         p, jcfg, x, s, mixed_orientation=mixed, head_chunk_views=chunk))(
             params, jnp.asarray(imgs), jnp.asarray(shapes))
     out = fast3r_torch.fast3r_forward(
-        model.params, model.cfg, torch.from_numpy(imgs),
+        model.params, cfg, torch.from_numpy(imgs),
         torch.from_numpy(shapes), mixed_orientation=mixed,
         head_chunk_views=chunk, view_ids=torch.tensor(ids))
     _assert_close(out, ref)
@@ -247,14 +253,45 @@ def test_converter_rejects_extra_and_missing_leaves():
 
 
 def test_from_random_is_seeded_and_flagship_plain_blocks():
+    """The flagship takes the fused-GEMM blocks in both stacks (the JAX
+    package's default); ``with_fused_blocks(False)`` gives its plain
+    blocks.  Random weights are seeded."""
     cfg = fast3r_torch.Fast3RConfig.flagship()
-    assert not cfg.encoder.fused_blocks and not cfg.decoder.fused_blocks
+    assert cfg.encoder.fused_blocks and cfg.decoder.fused_blocks
     assert (cfg.encoder.attn_impl, cfg.decoder.attn_impl) == ("batched", "pallas")
-    a = Fast3R.from_random(fast3r_torch.Fast3RConfig.tiny(), seed=3)
-    b = Fast3R.from_random(fast3r_torch.Fast3RConfig.tiny(), seed=3)
+    plain = cfg.with_fused_blocks(False)
+    assert not plain.encoder.fused_blocks and not plain.decoder.fused_blocks
+    a = Fast3R.from_random(fast3r_torch.Fast3RConfig.tiny(), seed=3,
+                           device="cpu")
+    b = Fast3R.from_random(fast3r_torch.Fast3RConfig.tiny(), seed=3,
+                           device="cpu")
     for (ka, va), (kb, vb) in zip(a.params.state_dict().items(),
                                   b.params.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
     w = a.params.decoder.blocks[0].attn.qkv.weight
     assert w.abs().max() <= 64 ** -0.5 and w.std() > 0
     assert torch.equal(a.params.encoder.norm.weight, torch.ones(64))
+
+
+@pytest.mark.parametrize("entry", ["from_random", "from_jax_params",
+                                   "init_fast3r", "empty_fast3r"])
+def test_entry_points_default_to_cuda(entry):
+    """With no device argument the model lands on the card; without one,
+    torch's own error, and no fallback to the CPU."""
+    from fast3r_torch.models import fast3r as tf
+
+    cfg = fast3r_torch.Fast3RConfig.tiny()
+    calls = {
+        "from_random": lambda: Fast3R.from_random(cfg).params,
+        "from_jax_params": lambda: Fast3R.from_jax_params(
+            jax.tree.map(np.asarray, _models("tiny")[1]),
+            _models("tiny")[2].cfg).params,
+        "init_fast3r": lambda: tf.init_fast3r(cfg),
+        "empty_fast3r": lambda: tf.empty_fast3r(cfg),
+    }
+    if torch.cuda.is_available():
+        net = calls[entry]()
+        assert next(net.parameters()).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            calls[entry]()

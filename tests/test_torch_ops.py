@@ -138,19 +138,39 @@ def test_attention_unknown_impl_raises():
         t_attention.dot_product_attention(q, q, q, 1.0, impl="xla")
 
 
-@pytest.mark.parametrize("fn", ["attention", "layernorm", "trunk"])
+@pytest.mark.parametrize("fn", ["attention", "layernorm", "trunk",
+                                "packed_qkv_attention", "ln_matmul", "ln_qkv",
+                                "ln_qkv_rope", "matmul_residual", "ln_mlp"])
 def test_kernel_wrappers_raise_off_cpu_without_kernel(fn):
     """A tensor that is neither on the CPU nor on CUDA has no kernel and no
     fallback: the wrappers raise instead of computing anything."""
+    from fast3r_torch.nn import fused_block as t_fb
+    from fast3r_torch.ops import batched_attention as t_ba
+
     x = torch.empty(2, 64, 1, 64, device="meta")
+    x2 = torch.empty(128, 1024, device="meta", dtype=torch.bfloat16)
+    w = torch.empty(3072, 1024, device="meta", dtype=torch.bfloat16)
+    v = torch.empty(3072, device="meta")
+    calls = {
+        "attention": lambda: t_flash.flash_attention(x, x, x, 1.0),
+        "layernorm": lambda: t_ln.fused_layernorm(x, x[0, 0, 0], x[0, 0, 0],
+                                                  1e-6),
+        "trunk": lambda: t_trunk.fused_regression_head_t(
+            x, *[torch.empty(128, 64, 3, 3, device="meta")] * 6, 4, 4),
+        "packed_qkv_attention": lambda: t_ba.packed_qkv_attention(
+            torch.empty(3, 2, 64, 128, device="meta"), 2, 1.0),
+        "ln_matmul": lambda: t_fb.ln_matmul(x2, v[:1024], v[:1024], w, v,
+                                            1e-6, act="gelu"),
+        "ln_qkv": lambda: t_fb.ln_qkv(x2, v[:1024], v[:1024], w, v, 1e-6),
+        "ln_qkv_rope": lambda: t_fb.ln_qkv_rope(
+            x2, v[:1024], v[:1024], w, v, x2, x2, 16, 1e-6),
+        "matmul_residual": lambda: t_fb.matmul_residual(x2, w[:1024],
+                                                        v[:1024], x2),
+        "ln_mlp": lambda: t_fb.ln_mlp(x2, v[:1024], v[:1024], w, v, w.t(),
+                                      v[:1024], 1e-6),
+    }
     with pytest.raises(ValueError, match="no kernel"):
-        if fn == "attention":
-            t_flash.flash_attention(x, x, x, 1.0)
-        elif fn == "layernorm":
-            t_ln.fused_layernorm(x, x[0, 0, 0], x[0, 0, 0], 1e-6)
-        else:
-            w = torch.empty(128, 64, 3, 3, device="meta")
-            t_trunk.fused_regression_head_t(x, w, w, w, w, w, w, 4, 4)
+        calls[fn]()
 
 
 # --------------------------------------------------------------------------
