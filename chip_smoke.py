@@ -3,18 +3,24 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written kernels from ``fast3r_torch/csrc`` and
-``fast3r_torch/ops`` and runs five phases, synchronising after each:
+``fast3r_torch/ops`` and runs its phases, synchronising after each and
+printing each one's seconds:
 
   1. device: the card's name and power limit, torch / CUDA versions, the
      kernel build time and what ptxas reports for the fused-GEMM kernels;
   2. kernels: each kernel against its plain PyTorch version on the card at
-     the flagship forward's shapes, in float32 (tight tolerance, where the
-     kernel has an fp32 variant) and bfloat16 (the served type), with max
+     the flagship forward's and training step's shapes, in float32 (tight
+     tolerance, where the kernel has an fp32 variant) and bfloat16 (the
+     served and trained type), with max
      abs / rel errors, median CUDA-event times of the kernel, of the plain
      version and of the PyTorch library calls that compute the same
      function (named in each line), and the kernel's bound: the larger of
      its FLOPs over the card's 989 TFLOP/s bf16 peak and its bytes (inputs
-     read once, outputs written once) over 3.35 TB/s;
+     read once, outputs written once) over 3.35 TB/s.  The training kernels:
+     the LayerNorm backward, the attention backward on the decoder shape
+     (held against the plain version one head at a time: its score
+     matrices would not fit at once) and from the encoder's packed buffer,
+     and the LN -> GEMM replay on the qkv, RoPE and fc1 GELU products;
   3. requests: the flagship model with random weights (seed 0) in bfloat16
      serves ``fast3r_torch.inference`` requests at 512x384 on three paths,
      the launch counts set to 0 just before each path and read just after:
@@ -28,7 +34,17 @@ Builds the port's hand-written kernels from ``fast3r_torch/csrc`` and
      versions) and in bfloat16 on the card, on the fused and on the plain
      road, answer one 2-view 224x224 request; every output must agree
      within the stated tolerance;
-  5. launch counts: every kernel of a path must have launched on it.
+  5. training: the same flagship weights in bfloat16 (and bf16 moments)
+     take 4 ``train_step``s of 20 views at 512x384 (remat,
+     ``OptimConfig(warmup_steps=2, total_steps=1000)``) on a fixed
+     ``make_dummy_batch`` batch on the fused road, then 2 on the plain road
+     and 2 on the two-kernel MLP road, the launch counts set to 0 just
+     before each road and read just after; every loss and gradient norm
+     must be finite and no step skipped;
+  6. training end to end: one 2-view 224x224 batch, the loss and each
+     top-level group's gradient in bfloat16 on the card (fused and plain
+     road) against float32 on the CPU (the plain versions);
+  7. launch counts: every kernel of a path must have launched on it.
 
 Any failure raises (exit code 1).  Without a CUDA device the script exits
 with code 2 before printing any result.  The last line of standard output
@@ -48,18 +64,36 @@ import time
 import torch
 import torch.nn.functional as F
 
-from fast3r_torch import Fast3R, Fast3RConfig, inference
+from fast3r_torch import Fast3R, Fast3RConfig, fast3r_forward, inference
+from fast3r_torch.data.dummy import make_dummy_batch
 from fast3r_torch.kernels import build
+from fast3r_torch.models.decoder import sample_random_image_ids
 from fast3r_torch.nn import fused_block as fb
-from fast3r_torch.ops.batched_attention import packed_qkv_attention
-from fast3r_torch.ops.flash_attention import attention_ref, flash_attention
-from fast3r_torch.ops.fused_layernorm import fused_layernorm, layernorm_ref
+from fast3r_torch.ops.batched_attention import (
+    packed_qkv_attention,
+    packed_qkv_attention_bwd,
+)
+from fast3r_torch.ops.flash_attention import (
+    attention_bwd,
+    attention_bwd_ref,
+    attention_fwd_lse,
+    attention_ref,
+    flash_attention,
+)
+from fast3r_torch.ops.fused_layernorm import (
+    fused_layernorm,
+    layernorm_bwd,
+    layernorm_bwd_ref,
+    layernorm_ref,
+)
 from fast3r_torch.ops.rope2d import (
     expand_rope_tables,
     rope2d_cos_sin,
     rotate_half_lanes,
 )
 from fast3r_torch.ops.trunk_kernel import _plain_head, fused_regression_head_t
+from fast3r_torch.train.losses import conf_loss_multiview_v2
+from fast3r_torch.train.step import OptimConfig, init_train_state, train_step
 
 DEC_SCALE = 0.125 * math.sqrt(math.log(137) / math.log(20))
 PEAK_FLOPS = {torch.bfloat16: 989e12,  # H100 SXM: dense bf16 tensor cores
@@ -91,6 +125,19 @@ TOL = {
     # on outputs of magnitude ~1-10
     ("fused_gemm", torch.bfloat16): dict(atol=2e-2, rtol=2 ** -7),
     ("ln_mlp", torch.bfloat16): dict(atol=2e-2, rtol=2 ** -7),
+    # training kernels (bf16).  The attention backward's plain version
+    # rounds p and ds to bf16 at the kernel's points, from the same o and
+    # lse; a p or ds on the other side of a bf16 step moves a gradient,
+    # a sum over up to 15360 keys, by a small fraction of its largest value,
+    # so the bound is taken on max |plain|.  The LayerNorm backward's dx and
+    # the replay's u round once from fp32 values that differ in summation
+    # order (one bf16 step); its product and z as the fused-GEMM kernels;
+    # the fp32 dweight / dbias sums over 15360 rows in another order.
+    ("attention_bwd", torch.bfloat16): dict(atol_of_max=2e-2, rtol=2 ** -7),
+    ("layernorm_bwd", torch.bfloat16): dict(atol=1e-2, rtol=2 ** -7),
+    ("layernorm_bwd_w", torch.bfloat16): dict(atol_of_max=1e-4, rtol=0.0),
+    ("replay_u", torch.bfloat16): dict(atol=1e-2, rtol=2 ** -7),
+    ("replay_stats", torch.bfloat16): dict(atol=1e-6, rtol=1e-5),
 }
 
 
@@ -411,6 +458,188 @@ def check_fused_blocks(results: list) -> None:
             4 * B * N * C * it)
 
 
+TRAIN_SCALE = 0.125  # head_dim ** -0.5: training has no entropy bias
+
+
+def _rope_tables_20views(dtype):
+    """The encoder's flat RoPE lane tables for 20 views of 24 x 32 patches."""
+    yy, xx = torch.meshgrid(torch.arange(24), torch.arange(32), indexing="ij")
+    pos = torch.stack([yy, xx], -1).reshape(1, -1, 2).repeat(20, 1, 1).cuda()
+    cos, sin = rope2d_cos_sin(pos, 64)
+    return expand_rope_tables(cos, sin, C, dtype)
+
+
+def _grad_ms(out, inputs, cot, reps: int) -> float:
+    """Median time of one backward through a kept autograd graph."""
+    return median_ms(lambda: torch.autograd.grad(out, inputs, cot,
+                                                 retain_graph=True), reps)
+
+
+def check_layernorm_bwd(results: list) -> None:
+    """The LayerNorm backward at the block shape (15360, 1024), bf16."""
+    g = _gen(5)
+    bf, eps = torch.bfloat16, 1e-6
+    x = (torch.randn((M_TOK, C), generator=g, device="cuda") * 3 + 1).to(bf)
+    w = (1 + 0.1 * torch.randn((C,), generator=g, device="cuda")).to(bf)
+    b = (0.1 * torch.randn((C,), generator=g, device="cuda")).to(bf)
+    dy = torch.randn((M_TOK, C), generator=g, device="cuda").to(bf)
+    dx, dw, db = layernorm_bwd(x, w, dy, eps)
+    rdx, rdw, rdb = layernorm_bwd_ref(x, w, dy, eps)
+    torch.cuda.synchronize()
+    r = compare("layernorm_bwd", dx, rdx, bf)
+    rw = [compare("layernorm_bwd_w", u, v, bf) for u, v in ((dw, rdw),
+                                                          (db, rdb))]
+    xl, wl, bl = (t.detach().clone().requires_grad_() for t in (x, w, b))
+    y = F.layer_norm(xl, (C,), wl, bl, eps)
+    r.update(kernel="layernorm_bwd", case=f"{M_TOK}x{C}", dtype="bfloat16",
+             max_abs_err_dweight_dbias=max(q["max_abs_err"] for q in rw),
+             ms=median_ms(lambda: layernorm_bwd(x, w, dy, eps), 20),
+             plain_ms=median_ms(lambda: layernorm_bwd_ref(x, w, dy, eps), 5),
+             library="autograd of F.layer_norm (dx, dweight, dbias)",
+             library_ms=_grad_ms(y, (xl, wl, bl), dy, 20),
+             **bound(16.0 * M_TOK * C, 3 * M_TOK * C * 2 + 3 * C * 2 + 2 * C * 4,
+                     torch.float32))
+    results.append(r)
+    log(json.dumps(r))
+
+
+def _attn_bwd_bound(B, N, H, D):
+    """2.5x the forward's 4 B H N^2 D FLOPs (five products); q, k, v, o, do
+    read and dq, dk, dv written in bf16, lse and delta in fp32."""
+    return bound(10.0 * B * H * N * N * D,
+                 8 * B * N * H * D * 2 + 2 * B * H * N * 4)
+
+
+def _merge(errs: list) -> dict:
+    return {"max_abs_err": max(e["max_abs_err"] for e in errs),
+            "max_rel_err": max(e["max_rel_err"] for e in errs),
+            "atol": max(e["atol"] for e in errs), "rtol": errs[0]["rtol"]}
+
+
+def check_attention_bwd(results: list) -> None:
+    """The attention backward at the training step's shapes (scale
+    head_dim ** -0.5), from the forward kernel's o and lse: the decoder's
+    (1, 15360, 16, 64) strided views, held against the plain version one
+    head at a time, and the encoder's packed (3, 20, 768, 1024) buffer."""
+    bf = torch.bfloat16
+    B, N, H, D = 1, M_TOK, 16, 64
+    g = _gen(6)
+    qkv = torch.randn((B, N, 3, H, D), generator=g, device="cuda").to(bf)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn((B, N, H, D), generator=g, device="cuda").to(bf)
+    o, lse = attention_fwd_lse(q, k, v, TRAIN_SCALE)
+    got = attention_bwd(q, k, v, o, lse, do, TRAIN_SCALE)
+    torch.cuda.synchronize()
+
+    def plain_head(h):
+        sl = slice(h, h + 1)
+        return attention_bwd_ref(q[:, :, sl], k[:, :, sl], v[:, :, sl],
+                                 o[:, :, sl], lse[:, sl], do[:, :, sl],
+                                 TRAIN_SCALE)
+
+    errs = [compare("attention_bwd", a[:, :, h:h + 1], ref, bf)
+            for h in range(H) for a, ref in zip(got, plain_head(h))]
+    torch.cuda.empty_cache()
+    ql, kl, vl = (t.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, scale=TRAIN_SCALE)
+    r = dict(_merge(errs), kernel="attention_bwd",
+             case=f"decoder {B}x{N}x{H}x{D}", dtype="bfloat16",
+             ms=median_ms(lambda: attention_bwd(q, k, v, o, lse, do,
+                                                TRAIN_SCALE), 10),
+             plain_ms=median_ms(lambda: [plain_head(h) for h in range(H)], 1),
+             plain="attention_bwd_ref, one head at a time",
+             library="autograd of F.scaled_dot_product_attention",
+             library_ms=_grad_ms(ol, (ql, kl, vl), do.transpose(1, 2), 10),
+             **_attn_bwd_bound(B, N, H, D))
+    results.append(r)
+    log(json.dumps(r))
+    del qkv, q, k, v, do, o, lse, got, ql, kl, vl, ol
+    torch.cuda.empty_cache()
+
+    B, N = 20, 768
+    qkv3 = torch.randn((3, B, N, C), generator=g, device="cuda").to(bf)
+    q, k, v = (qkv3[i].view(B, N, H, D) for i in range(3))
+    do = torch.randn((B, N, C), generator=g, device="cuda").to(bf)
+    o, lse = attention_fwd_lse(q, k, v, TRAIN_SCALE)
+    got = packed_qkv_attention_bwd(qkv3, o, lse, do, H, TRAIN_SCALE)
+    ref = attention_bwd_ref(q, k, v, o, lse, do.view(B, N, H, D), TRAIN_SCALE)
+    torch.cuda.synchronize()
+    errs = [compare("attention_bwd", got[i], ref[i].reshape(B, N, C), bf)
+            for i in range(3)]
+    del ref
+    ql, kl, vl = (t.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, scale=TRAIN_SCALE)
+    r = dict(_merge(errs), kernel="packed_qkv_attention_bwd",
+             case=f"(3, {B}, {N}, {C}), {H} heads", dtype="bfloat16",
+             ms=median_ms(lambda: packed_qkv_attention_bwd(
+                 qkv3, o, lse, do, H, TRAIN_SCALE), 10),
+             plain_ms=median_ms(lambda: attention_bwd_ref(
+                 q, k, v, o, lse, do.view(B, N, H, D), TRAIN_SCALE), 2),
+             library="autograd of F.scaled_dot_product_attention",
+             library_ms=_grad_ms(ol, (ql, kl, vl),
+                                 do.view(B, N, H, D).transpose(1, 2), 10),
+             **_attn_bwd_bound(B, N, H, D))
+    results.append(r)
+    log(json.dumps(r))
+    torch.cuda.empty_cache()
+
+
+def check_replay(results: list) -> None:
+    """The replay launch of fused_gemm.cu (the forward that also writes u,
+    mean, rstd and, with GELU, z) at the training step's products."""
+    g = _gen(7)
+    bf, it = torch.bfloat16, 2
+    x = (torch.randn((M_TOK, C), generator=g, device="cuda") * 2 + 0.5).to(bf)
+    gamma = (1 + 0.1 * torch.randn((C,), generator=g, device="cuda")).to(bf)
+    beta = (0.1 * torch.randn((C,), generator=g, device="cuda")).to(bf)
+    wqkv, bqkv = _linear(3 * C, C, g)
+    w1, b1 = _linear(HID, C, g)
+    ct, st = _rope_tables_20views(bf)
+
+    def ln(eps):
+        return F.layer_norm(x, (C,), gamma, beta, eps)
+
+    cases = (
+        ("qkv", wqkv, bqkv, None, 1e-5, f"qkv {M_TOK}x{C} -> 3x{C}",
+         "F.layer_norm + F.linear",
+         lambda: F.linear(ln(1e-5), wqkv, bqkv)),
+        ("rope", wqkv, bqkv, (ct, st), 1e-6, f"qkv+rope {M_TOK}x{C} -> 3x{C}",
+         "F.layer_norm + F.linear (RoPE in torch elementwise not included)",
+         lambda: F.linear(ln(1e-6), wqkv, bqkv)),
+        ("gelu", w1, b1, None, 1e-6, f"fc1 {M_TOK}x{C} -> {HID} gelu",
+         "F.layer_norm + F.linear + F.gelu",
+         lambda: F.gelu(F.linear(ln(1e-6), w1, b1))),
+    )
+    for mode, w, b, tables, eps, case, lib_name, lib in cases:
+        args = (mode, x, gamma, beta, w, b, eps, tables, 16)
+        got = fb._replay(*args)
+        ref = fb._replay_ref(*args)
+        torch.cuda.synchronize()
+        n = w.shape[0]
+        errs = [compare("fused_gemm", got[0], ref[0], bf),
+                compare("replay_u", got[1], ref[1], bf)]
+        errs += [compare("replay_stats", a, c, bf) for a, c in
+                 zip(got[2:4], ref[2:4])]
+        if mode == "gelu":
+            errs.append(compare("fused_gemm", got[4], ref[4], bf))
+        nbytes = ((M_TOK * C + n * C + M_TOK * n + M_TOK * C) * it
+                  + (n + 2 * C + 2 * M_TOK) * 4
+                  + (M_TOK * n * it if mode == "gelu" else 0)
+                  + (2 * M_TOK * C * it if mode == "rope" else 0))
+        r = dict(errs[0], kernel="ln_matmul_replay", case=case,
+                 dtype="bfloat16", max_abs_err_residuals=max(
+                     e["max_abs_err"] for e in errs[1:]),
+                 ms=median_ms(lambda: fb._replay(*args), 10),
+                 plain_ms=median_ms(lambda: fb._replay_ref(*args), 3),
+                 library=lib_name, library_ms=median_ms(lib, 10),
+                 **bound(2.0 * M_TOK * C * n, nbytes))
+        results.append(r)
+        log(json.dumps(r))
+    torch.cuda.empty_cache()
+
+
 def phase_kernels() -> list:
     log("== phase 2: kernels vs plain versions")
     # the plain versions compute fp32 products in full fp32
@@ -421,6 +650,9 @@ def phase_kernels() -> list:
     check_attention(results)
     check_trunk(results)
     check_fused_blocks(results)
+    check_layernorm_bwd(results)
+    check_attention_bwd(results)
+    check_replay(results)
     torch.cuda.synchronize()
     return results
 
@@ -451,7 +683,23 @@ KERNELS = {  # name -> (wrapper, route, source, TPU kernel it replaces)
                         "fast3r_tpu/nn/fused_block.py:310 (_matmul_res_kernel)"),
     "ln_mlp": (fb.ln_mlp, "cuda", "fast3r_torch/csrc/ln_mlp.cu",
                "fast3r_tpu/nn/fused_block.py:318 (_ln_mlp_kernel)"),
+    "layernorm_bwd": (layernorm_bwd, "triton",
+                      "fast3r_torch/ops/fused_layernorm.py",
+                      "fast3r_tpu/ops/fused_layernorm.py:56 (_bwd_kernel)"),
+    "attention_bwd": (
+        attention_bwd, "cuda", "fast3r_torch/csrc/attention_bwd.cu",
+        "fast3r_tpu/ops/flash_attention.py:874 (_bwd_dq_kernel_packed), "
+        ":914 (_bwd_dkv_kernel_packed); :475 (_bwd_dq_kernel), "
+        ":520 (_bwd_dkv_kernel)"),
+    "packed_qkv_attention_bwd": (
+        packed_qkv_attention_bwd, "cuda", "fast3r_torch/csrc/attention_bwd.cu",
+        "fast3r_tpu/ops/batched_attention.py:696 (_fusedqkv_bwd_kernel)"),
+    "ln_matmul_replay": (
+        fb.ln_matmul_replay, "cuda", FUSED_CU,
+        "fast3r_tpu/nn/fused_block.py:340 (_ln_matmul_replay_kernel)"),
 }
+TRAIN_KERNELS = ("layernorm_bwd", "attention_bwd", "packed_qkv_attention_bwd",
+                 "ln_matmul_replay")
 # the kernels each path of phase 3 must launch
 PATHS = {
     "fused": ("attention", "packed_qkv_attention", "layernorm", "trunk",
@@ -461,6 +709,12 @@ PATHS = {
                        "trunk", "ln_qkv_rope", "ln_qkv", "ln_matmul",
                        "matmul_residual"),
 }
+# the training roads of phase 5: the forward kernels of the serving road,
+# plus the backward kernels and the replay (the plain road has no fused
+# products and no packed attention)
+PATHS["train"] = PATHS["fused"] + TRAIN_KERNELS
+PATHS["train_plain"] = PATHS["plain"] + ("layernorm_bwd", "attention_bwd")
+PATHS["train_two_kernel_mlp"] = PATHS["two_kernel_mlp"] + TRAIN_KERNELS
 OUT_KEYS = ("pts3d_in_other_view", "conf", "pts3d_local", "conf_local")
 # phase 4: |gpu bf16 - cpu fp32| / |cpu fp32| in the L2 norm, per output.
 # bf16 keeps 8 bits of mantissa; through 48 blocks and two heads the
@@ -546,7 +800,7 @@ def phase_requests(gpu: str):
 
 def phase_end_to_end(cpu_model, model, plain) -> dict:
     log("== phase 4: bf16 kernel paths on the card vs fp32 plain versions "
-        "on the CPU")
+        "on the CPU (serving)")
     views = request_views(2, 224, 224, 7)
     t = time.perf_counter()
     ref = inference(views, cpu_model, verbose=False)["preds"]
@@ -572,8 +826,125 @@ def phase_end_to_end(cpu_model, model, plain) -> dict:
     return errs
 
 
+BATCH_KEYS = ("imgs", "true_shapes", "pts3d", "valid_mask", "camera_pose")
+TRAIN_OPT = OptimConfig(warmup_steps=2, total_steps=1000)
+
+
+def _reset_counts() -> None:
+    torch.cuda.synchronize()
+    for fn, *_ in KERNELS.values():
+        fn.launches = 0
+
+
+def train_road(road: str, net, cfg, batch, steps: int, gpu: str) -> dict:
+    """``steps`` train_steps from fresh optimizer state, the launch counts
+    set to 0 just before and read just after; every loss and gradient norm
+    finite, no step skipped."""
+    state = init_train_state(net, TRAIN_OPT)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    V = batch["imgs"].shape[1]
+    for i in range(steps):
+        t = time.perf_counter()
+        state, m = train_step(state, batch, cfg, TRAIN_OPT, remat=True)
+        torch.cuda.synchronize()
+        rec = {"path": road, "train_step": i + 1, "views": V,
+               "image_hw": list(batch["imgs"].shape[2:4]),
+               "step_s": time.perf_counter() - t, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]), "lr": m["lr"],
+               "skipped_nonfinite": int(m["skipped_nonfinite"]),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "gpu": gpu}
+        log(json.dumps(rec))
+        if rec["skipped_nonfinite"] or not (math.isfinite(rec["loss"])
+                                            and math.isfinite(rec["grad_norm"])):
+            raise AssertionError(f"{road} step {i + 1} not finite or skipped")
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, (fn, *_) in KERNELS.items()}
+
+
+def phase_training(gpu: str, cpu_model) -> dict:
+    log("== phase 5: training steps (flagship, random weights seed 0, "
+        "bf16 params and moments, 20 views at 512x384, remat)")
+    net = cpu_model.to(device="cuda", dtype=torch.bfloat16).params
+    cfg = cpu_model.cfg
+    batch = {k: torch.as_tensor(v).cuda() for k, v in
+             make_dummy_batch(1, 20, 384, 512, seed=0).items()
+             if k in BATCH_KEYS}
+    counts = {"train": train_road("train", net, cfg, batch, 4, gpu),
+              "train_plain": train_road("train_plain", net,
+                                        cfg.with_fused_blocks(False), batch, 2,
+                                        gpu)}
+    fb.PREFER_FUSED_MLP = False
+    try:
+        counts["train_two_kernel_mlp"] = train_road(
+            "train_two_kernel_mlp", net, cfg, batch, 2, gpu)
+    finally:
+        fb.PREFER_FUSED_MLP = True
+    del net, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+# phase 6: |gpu bf16 - cpu fp32| / |cpu fp32|, of the loss and in the L2
+# norm of each top-level group's gradient.  Start from the forward's 0.05
+# (phase 4): the backward runs through the same 48 bf16 blocks, rounds
+# du, dh and each weight gradient to bf16 once more and sums the weight
+# gradients over 392 tokens, which adds error of the forward's order.
+E2E_TRAIN_REL = 0.05
+
+
+def _loss_and_grads(net, cfg, batch, ids):
+    """The training forward's loss and each top-level group's gradient,
+    flattened, fp32 on the CPU."""
+    p0 = next(net.parameters())
+    b = {k: v.to(p0.device) for k, v in batch.items()}
+    with torch.enable_grad():
+        preds = fast3r_forward(net, cfg, b["imgs"].to(p0.dtype),
+                               batch["true_shapes"], view_ids=ids,
+                               is_training=True, remat=True)
+        loss, _ = conf_loss_multiview_v2(b, preds)
+        names, ps = zip(*net.named_parameters())
+        gs = torch.autograd.grad(loss, ps, allow_unused=True)
+    groups: dict = {}
+    for n, p, g in zip(names, ps, gs):
+        g = torch.zeros_like(p) if g is None else g
+        groups.setdefault(n.split(".")[0], []).append(g.float().cpu().reshape(-1))
+    return loss.item(), {k: torch.cat(v) for k, v in groups.items()}
+
+
+def phase_train_end_to_end(cpu_model) -> dict:
+    log("== phase 6: one training step's loss and gradients, bf16 on the "
+        "card vs fp32 plain versions on the CPU")
+    batch = {k: torch.as_tensor(v) for k, v in
+             make_dummy_batch(1, 2, 224, 224, seed=1).items()
+             if k in BATCH_KEYS}
+    ids = sample_random_image_ids(torch.Generator().manual_seed(0), 1, 2)
+    t = time.perf_counter()
+    ref_loss, ref = _loss_and_grads(cpu_model.params, cpu_model.cfg, batch, ids)
+    t_cpu = time.perf_counter() - t
+    gpu_model = cpu_model.to(device="cuda", dtype=torch.bfloat16)
+    errs, bad = {}, {}
+    for road, cfg in (("fused", cpu_model.cfg),
+                      ("plain", cpu_model.cfg.with_fused_blocks(False))):
+        loss, grads = _loss_and_grads(gpu_model.params, cfg, batch, ids)
+        errs[road] = {"loss": abs(loss - ref_loss) / abs(ref_loss),
+                      **{f"grad/{k}": ((grads[k] - ref[k]).norm()
+                                       / ref[k].norm()).item() for k in ref}}
+        bad.update({f"{road} {k}": e for k, e in errs[road].items()
+                    if not e <= E2E_TRAIN_REL})
+    log(json.dumps({"train_rel_err": errs, "tolerance": E2E_TRAIN_REL,
+                    "loss_cpu_fp32": ref_loss, "cpu_fp32_s": t_cpu}))
+    del gpu_model
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"training end-to-end error above "
+                             f"{E2E_TRAIN_REL}: {bad}")
+    return errs
+
+
 def phase_counts(counts: dict) -> None:
-    log("== phase 5: kernel launches on each path of phase 3")
+    log("== phase 7: kernel launches on each path of phases 3 and 5")
     log(json.dumps(counts))
     missing = [f"{path}: {k}" for path, names in PATHS.items()
                for k in names if counts[path][k] <= 0]
@@ -583,13 +954,14 @@ def phase_counts(counts: dict) -> None:
 
 # the heaviest main-path shape of each kernel, for the summary line
 MAIN_CASE = {"attention": "decoder", "layernorm": "eps=1e-05",
-             "matmul_residual": "proj"}
+             "matmul_residual": "proj", "attention_bwd": "decoder",
+             "ln_matmul_replay": "fc1"}
 
 
 def kernel_summary(results: list, counts: dict) -> dict:
-    """One entry per kernel: launches summed over the paths of phase 3 (and
-    per path); the largest bfloat16 error, and the bfloat16 times and bound
-    at its heaviest main-path shape, from phase 2."""
+    """One entry per kernel: launches summed over the paths of phases 3 and
+    5 (and per path); the largest bfloat16 error, and the bfloat16 times
+    and bound at its heaviest main-path shape, from phase 2."""
     kernels = []
     for name, (_, route, source, replaces) in KERNELS.items():
         rows = [r for r in results
@@ -616,10 +988,25 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t0 = time.perf_counter()
+
+    def done(phase: str) -> None:
+        log(f"-- {phase} done at {time.perf_counter() - t0:.1f} s")
+
     gpu = phase_device()["gpu"]
+    done("phase 1")
     results = phase_kernels()
+    done("phase 2")
     cpu_model, model, plain, counts = phase_requests(gpu)
+    done("phase 3")
     phase_end_to_end(cpu_model, model, plain)
+    del model, plain
+    torch.cuda.empty_cache()
+    done("phase 4")
+    counts.update(phase_training(gpu, cpu_model))
+    done("phase 5")
+    phase_train_end_to_end(cpu_model)
+    done("phase 6")
     phase_counts(counts)
     log(json.dumps(kernel_summary(results, counts)))
     log(gpu_line())

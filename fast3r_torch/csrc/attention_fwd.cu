@@ -25,8 +25,11 @@
 //     The row sum adds the unrounded fp32 p.
 // q, k and v are read through their (batch, token, head) strides, so the
 // three views of the qkv projection's (B, N, 3, H, 64) output need no copy;
-// the output is contiguous (B, N, H, 64).  The fp32 kernel (used to check
-// the algorithm tightly on the card) is a scalar version of the same tiling.
+// the output is contiguous (B, N, H, 64).  For training each kernel also
+// writes the rows' fp32 logsumexp (lse, natural log), which the backward
+// (attention_bwd.cu) reads; inference passes no lse buffer.  The fp32
+// kernel (used to check the algorithm tightly on the card) is a scalar
+// version of the same tiling.
 // Not yet: wgmma, TMA, warp specialisation.
 
 #include <cuda_bf16.h>
@@ -45,6 +48,7 @@ constexpr int kBQ = 64;       // query rows per block, 16 per warp
 constexpr int kBK = 64;       // keys per tile
 constexpr int kThreads = 128;
 constexpr int kLd = kD + 8;   // bf16 smem row stride: 144 B, ldmatrix conflict-free
+constexpr float kLn2 = 0.6931471805599453f;
 
 using bf16 = __nv_bfloat16;
 
@@ -52,26 +56,14 @@ using bf16 = __nv_bfloat16;
 // bf16 kernel (tensor cores)
 // ---------------------------------------------------------------------------
 
-// rows [row0, row0 + 64) of one (batch, head) slice -> smem, async
-__device__ inline void load_tile_async(bf16* dst, const bf16* src,
-                                       long long s_tok, int row0,
-                                       int n_valid) {
-  for (int c = threadIdx.x; c < 64 * (kD / 8); c += kThreads) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    const int n = row0 + r;
-    const bool ok = n < n_valid;
-    cp_async16(dst + r * kLd + col, ok ? src + (long long)n * s_tok + col : src,
-               ok);
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, bf16* __restrict__ o,
                           int H, int Nq, int Nk, long long qsb, long long qsn,
                           long long qsh, long long ksb, long long ksn,
                           long long ksh, long long vsb, long long vsn,
-                          long long vsh, float scale_log2) {
+                          long long vsh, float scale_log2,
+                          float* __restrict__ lse, int ldl) {
   __shared__ __align__(128) bf16 Qs[kBQ * kLd];
   __shared__ __align__(128) bf16 Ks[2][kBK * kLd];
   __shared__ __align__(128) bf16 Vs[2][kBK * kLd];
@@ -84,9 +76,9 @@ attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const bf16* kb = k + b * ksb + h * ksh;
   const bf16* vb = v + b * vsb + h * vsh;
 
-  load_tile_async(Qs, qb, qsn, q0, Nq);
-  load_tile_async(Ks[0], kb, ksn, 0, Nk);
-  load_tile_async(Vs[0], vb, vsn, 0, Nk);
+  cp_async_rows64<kLd>(Qs, qb, qsn, q0, Nq);
+  cp_async_rows64<kLd>(Ks[0], kb, ksn, 0, Nk);
+  cp_async_rows64<kLd>(Vs[0], vb, vsn, 0, Nk);
   cp_async_commit();
 
   uint32_t qf[4][4];  // this warp's 16 query rows as A fragments, 4 k-steps
@@ -102,8 +94,8 @@ attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   for (int t = 0; t < ntiles; ++t) {
     const int st = t & 1;
     if (t + 1 < ntiles) {  // prefetch the next tile into the other buffer
-      load_tile_async(Ks[st ^ 1], kb, ksn, (t + 1) * kBK, Nk);
-      load_tile_async(Vs[st ^ 1], vb, vsn, (t + 1) * kBK, Nk);
+      cp_async_rows64<kLd>(Ks[st ^ 1], kb, ksn, (t + 1) * kBK, Nk);
+      cp_async_rows64<kLd>(Vs[st ^ 1], vb, vsn, (t + 1) * kBK, Nk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -199,6 +191,11 @@ attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  if (lse != nullptr && c == 0) {  // natural-log logsumexp of the scaled scores
+    float* lrow = lse + ((long long)b * H + h) * ldl;
+    if (r0 < Nq) lrow[r0] = (m0 + log2f(l0)) * kLn2;
+    if (r1 < Nq) lrow[r1] = (m1 + log2f(l1)) * kLn2;
+  }
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     const int col = n * 8 + 2 * c;
@@ -236,7 +233,8 @@ attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
                          int H, int Nq, int Nk, long long qsb, long long qsn,
                          long long qsh, long long ksb, long long ksn,
                          long long ksh, long long vsb, long long vsn,
-                         long long vsh, float scale_log2) {
+                         long long vsh, float scale_log2,
+                         float* __restrict__ lse, int ldl) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
   float* Ks = Qs + kBQ * kLdF;
@@ -301,6 +299,8 @@ attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   }
 
   const int n = q0 + r;
+  if (lse != nullptr && c0 == 0 && n < Nq)
+    lse[((long long)b * H + h) * ldl + n] = (m + log2f(l)) * kLn2;
   if (n < Nq) {
     const float inv = 1.f / l;
     float* dst = o + (((long long)b * Nq + n) * H + h) * kD + c0;
@@ -314,13 +314,15 @@ attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the wrapper
-// checks the 16-byte alignment of every row.  Returns cudaGetLastError().
+// checks the 16-byte alignment of every row.  lse (may be null): fp32
+// natural-log logsumexp per query row, at lse[(b * H + h) * ldl + n].
+// Returns cudaGetLastError().
 int fast3r_attention_fwd(int dtype, const void* q, const void* k,
                          const void* v, void* o, int B, int H, int Nq, int Nk,
                          long long qsb, long long qsn, long long qsh,
                          long long ksb, long long ksn, long long ksh,
                          long long vsb, long long vsn, long long vsh,
-                         float scale, void* stream) {
+                         float scale, void* lse, int ldl, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((Nq + kBQ - 1) / kBQ, H, B);
   const float scale_log2 = scale * 1.4426950408889634f;
@@ -328,7 +330,8 @@ int fast3r_attention_fwd(int dtype, const void* q, const void* k,
     attention_fwd_bf16_kernel<<<grid, kThreads, 0, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(o), H, Nq, Nk, qsb,
-        qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, scale_log2);
+        qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, scale_log2,
+        static_cast<float*>(lse), ldl);
     return cudaGetLastError();
   }
   if (dtype == 0) {
@@ -340,7 +343,8 @@ int fast3r_attention_fwd(int dtype, const void* q, const void* k,
     attention_fwd_f32_kernel<<<grid, kThreads, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), H, Nq, Nk, qsb,
-        qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, scale_log2);
+        qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, scale_log2,
+        static_cast<float*>(lse), ldl);
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;

@@ -7,8 +7,12 @@
 //   _ln_qkv_rope_kernel (LN prologue; bias, RoPE2D on q and k, packed
 //                        (3, M, C) store)
 //   _matmul_res_kernel  (no prologue; bias + residual, rounded once)
-// One template covers all four: the prologue is a compile-time flag and the
-// epilogue a compile-time mode.
+// and, for the training backward, _ln_matmul_replay_kernel (the replay):
+// with the LN prologue the same launch also writes the backward's
+// residuals, u = LN(x) in bf16 (the product's A operand) and the rows' fp32
+// mean and rstd, and with GELU the bf16 pre-activation z.  One template
+// covers all of them: the prologue is a compile-time flag and the epilogue
+// a compile-time mode; the replay outputs are optional pointers.
 //
 // What bounds it on an H100: at the flagship's 15360 rows the products do
 // 2 * M * K * N FLOPs against (M K + K N + M N) * 2 bytes, 300-700 FLOPs a
@@ -27,6 +31,11 @@
 //     double-buffered tile one slice ahead of the products: fp32 affine,
 //     rounded to bf16 (the TPU kernel's rounding point), one barrier a
 //     slice as without the prologue;
+//   * replay: every column-tile block of a row tile computes the same
+//     statistics and normalised slices, so only the blocks of column tile
+//     0 write u, mean and rstd (each row once); u is written from the
+//     double-buffered normalised slice as it is made, one 16-byte chunk per
+//     thread, and z from the GELU epilogue's registers;
 //   * epilogues work on the accumulators in registers: bias, GELU, the
 //     residual tile read straight from device memory and added in fp32 with
 //     a single rounding, or RoPE: q and k are rounded to bf16 first, then
@@ -72,6 +81,10 @@ struct GemmArgs {
   const bf16* ct;      // (M, N / 3) RoPE cos lanes (kRope)
   const bf16* st;      // (M, N / 3) RoPE sin lanes
   bf16* out;           // (M, N), or (3, M, N / 3) for kQkv / kRope
+  bf16* u;             // replay (optional, LN only): (M, K) LN output
+  float* mean;         // (M,) row mean
+  float* rstd;         // (M,) row 1 / sqrt(var + eps)
+  bf16* z;             // (M, N) pre-activation (kGelu)
   int M, N, K;
   float eps;
 };
@@ -98,6 +111,7 @@ fused_gemm_kernel(const GemmArgs a) {
   // this thread copies (and, with LN, normalises) the 16-byte chunks at
   // rows lrow + 32 j, columns lch .. lch + 7 of every 128 x 32 slice
   const int lrow = tid >> 2, lch = (tid & 3) * 8;
+  const bool replay = a.u != nullptr && blockIdx.x == 0;
 
   auto issue = [&](int kt) {
     const int slot = kt % kStages, k0 = kt * kBK;
@@ -139,6 +153,8 @@ fused_gemm_kernel(const GemmArgs a) {
                          (f.y - mu) * rs * gg[2 * e + 1] + bb[2 * e + 1]);
       }
       *reinterpret_cast<uint4*>(dst + r * kLd + lch) = v;
+      if (replay && m0 + r < M)
+        *reinterpret_cast<uint4*>(a.u + (long long)(m0 + r) * K + k) = v;
     }
   };
 
@@ -197,6 +213,10 @@ fused_gemm_kernel(const GemmArgs a) {
         if (lane == 0) {
           sMean[r0 + q] = mean;
           sRstd[r0 + q] = rstd;
+          if (replay && m0 + r0 + q < M) {
+            a.mean[m0 + r0 + q] = mean;
+            a.rstd[m0 + r0 + q] = rstd;
+          }
         }
       }
     }
@@ -266,6 +286,8 @@ fused_gemm_kernel(const GemmArgs a) {
           const long long off = (long long)row * N + col;
           float o0 = v0, o1 = v1;
           if constexpr (kEpi == kGelu) {
+            if (a.z != nullptr)
+              *reinterpret_cast<uint32_t*>(a.z + off) = pack_bf16(v0, v1);
             o0 = gelu_erf(v0);
             o1 = gelu_erf(v1);
           }
@@ -321,12 +343,14 @@ extern "C" {
 
 // epi: 0 bias, 1 bias + GELU, 2 q|k|v split, 3 RoPE packed (all with the LN
 // prologue), 4 bias + residual (no prologue).  bf16 tensors, fp32 gamma /
-// beta / bias.  Returns cudaGetLastError() after the launch.
+// beta / bias.  u, mean, rstd (all three or none; LN epilogues only) and z
+// (GELU only) may be null: given, the launch is the replay and also writes
+// them.  Returns cudaGetLastError() after the launch.
 int fast3r_fused_gemm(int epi, const void* x, const void* gamma,
                       const void* beta, const void* w, const void* bias,
                       const void* res, const void* ct, const void* st,
-                      void* out, int M, int N, int K, float eps,
-                      void* stream) {
+                      void* out, void* u, void* mean, void* rstd, void* z,
+                      int M, int N, int K, float eps, void* stream) {
   GemmArgs a;
   a.x = static_cast<const bf16*>(x);
   a.gamma = static_cast<const float*>(gamma);
@@ -337,6 +361,13 @@ int fast3r_fused_gemm(int epi, const void* x, const void* gamma,
   a.ct = static_cast<const bf16*>(ct);
   a.st = static_cast<const bf16*>(st);
   a.out = static_cast<bf16*>(out);
+  a.u = static_cast<bf16*>(u);
+  a.mean = static_cast<float*>(mean);
+  a.rstd = static_cast<float*>(rstd);
+  a.z = static_cast<bf16*>(z);
+  if ((u == nullptr) != (mean == nullptr) || (u == nullptr) != (rstd == nullptr) ||
+      (u != nullptr && epi == kResidual) || (z != nullptr && epi != kGelu))
+    return cudaErrorInvalidValue;
   a.M = M;
   a.N = N;
   a.K = K;

@@ -1,6 +1,7 @@
-// Device helpers shared by the port's kernels: cp.async copies, ldmatrix
-// loads and the m16n8k16 bf16 tensor-core product (mma.sync), bf16 packing,
-// a warp sum and the exact-erf GELU.
+// Device helpers shared by the port's kernels: cp.async copies (and the
+// attention kernels' 64-row tile loader), ldmatrix loads and the m16n8k16
+// bf16 tensor-core product (mma.sync), bf16 packing, a warp sum and the
+// exact-erf GELU.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -27,6 +28,23 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// rows [row0, row0 + 64) x 64 bf16 of a strided (row stride s_row) source
+// -> a padded shared tile of row stride kLdT, by 128 threads, async; rows
+// at or past n_valid are zero-filled
+template <int kLdT>
+__device__ __forceinline__ void cp_async_rows64(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* src,
+                                                long long s_row, int row0,
+                                                int n_valid) {
+  for (int c = threadIdx.x; c < 64 * 8; c += 128) {
+    const int r = c >> 3, col = (c & 7) * 8;
+    const int n = row0 + r;
+    const bool ok = n < n_valid;
+    cp_async16(dst + r * kLdT + col, ok ? src + (long long)n * s_row + col : src,
+               ok);
+  }
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {

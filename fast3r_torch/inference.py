@@ -107,9 +107,11 @@ def _inference_image_ids(cfg: Fast3RConfig, num_views: int,
     return torch.arange(num_views, dtype=torch.int32)[None]
 
 
+@torch.inference_mode()
 def forward_views(model: Fast3R, views: Sequence[Dict],
                   image_ids=None) -> List[Dict[str, torch.Tensor]]:
-    """Run the model on same-shape view dicts -> per-view predictions."""
+    """Run the model on same-shape view dicts -> per-view predictions, under
+    ``torch.inference_mode`` (no autograd state)."""
     imgs_np, shapes = _views_to_arrays(views)
     found = {im.shape[1:3] for im in imgs_np} | set(shapes)
     if len(found) != 1:

@@ -39,11 +39,13 @@ _F = ctypes.c_float
 # C signature of every entry point (see the extern "C" blocks in csrc/)
 SIGNATURES = {
     "fast3r_attention_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
+                             _L, _L, _L, _L, _L, _L, _L, _L, _L, _F,
+                             _P, _I, _P],
+    "fast3r_attention_bwd": [_P] * 9 + [_I] * 5 + [_L] * 21 + [_F, _P],
     "fast3r_trunk_head_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _P],
     "fast3r_fused_gemm": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _F, _P],
+                          _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "fast3r_ln_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
 }
 

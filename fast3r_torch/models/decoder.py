@@ -5,7 +5,8 @@ fused into one (B, S = V * P, D_enc) sequence -> linear ``decoder_embed`` ->
 plus the image-index sincos embedding of each token's view id -> depth x
 global self-attention pre-LN ViT blocks (no RoPE, block LayerNorm eps 1e-5)
 -> ``dec_norm`` (eps 1e-6).  At inference the softmax scale carries the
-attention-entropy bias ``head_dim**-0.5 * sqrt(log(137) / log(20))``.
+attention-entropy bias ``head_dim**-0.5 * sqrt(log(137) / log(20))``; a
+training forward uses ``head_dim**-0.5``.
 Returns the DPT hooks [0, d/2, 3d/4, d]: hook 0 is the raw encoder tokens,
 the last is normed.
 """
@@ -22,6 +23,7 @@ import torch
 from torch import nn
 
 from fast3r_torch.nn.layers import (
+    check_no_dropout,
     layernorm,
     linear,
     make_vit_stack,
@@ -51,15 +53,19 @@ class DecoderConfig:
     final_ln_eps: float = 1e-6
     # the fused-GEMM blocks (nn.fused_block), as in the JAX package
     fused_blocks: bool = True
+    # the reference Block's dropout rates; only 0 is supported
+    drop: float = 0.0
+    attn_drop: float = 0.0
+    drop_path: float = 0.0
 
     @property
     def head_dim(self) -> int:
         return self.embed_dim // self.num_heads
 
-    def attn_scale(self) -> float:
-        """Inference softmax scale, with the attention-entropy bias."""
+    def attn_scale(self, is_training: bool = False) -> float:
+        """Softmax scale: at inference with the attention-entropy bias."""
         base = self.head_dim ** -0.5
-        if self.attn_bias_for_inference_enabled:
+        if not is_training and self.attn_bias_for_inference_enabled:
             return base * math.sqrt(
                 math.log(_INFERENCE_SEQLEN) / math.log(_TRAIN_SEQLEN))
         return base
@@ -107,12 +113,16 @@ def sample_random_image_ids(generator: Optional[torch.Generator],
 
 
 def decoder_forward(params: Decoder, cfg: DecoderConfig, feats: torch.Tensor,
-                    image_ids: torch.Tensor) -> Dict[int, torch.Tensor]:
-    """Run the fusion decoder at inference.
+                    image_ids: torch.Tensor, is_training: bool = False,
+                    remat: bool = False) -> Dict[int, torch.Tensor]:
+    """Run the fusion decoder.
 
     feats: (B, S, D_enc) fused encoder tokens; image_ids: (B, S) integer image
-    id per token.  Returns {hook: activation} for ``cfg.hooks``.
+    id per token; ``is_training`` selects the softmax scale, ``remat``
+    recomputes the blocks in the backward.  Returns {hook: activation} for
+    ``cfg.hooks``.
     """
+    check_no_dropout(cfg, is_training)
     outputs: Dict[int, torch.Tensor] = {0: feats}
     x = linear(params.decoder_embed, feats)
     table = torch.as_tensor(image_idx_table(cfg.embed_dim), device=x.device,
@@ -121,10 +131,10 @@ def decoder_forward(params: Decoder, cfg: DecoderConfig, feats: torch.Tensor,
 
     inner_hooks = [h for h in cfg.hooks if 0 < h < cfg.depth]
     x, hooked = run_vit_stack(params.blocks, x, cfg.num_heads,
-                              cfg.attn_scale(),
+                              cfg.attn_scale(is_training),
                               rope_cos_sin=None, attn_impl=cfg.attn_impl,
                               ln_eps=cfg.block_ln_eps, hooks=inner_hooks,
-                              fused=cfg.fused_blocks)
+                              fused=cfg.fused_blocks, remat=remat)
     outputs.update(hooked)
     outputs[cfg.depth] = layernorm(params.norm, x, cfg.final_ln_eps)
     return outputs

@@ -3,7 +3,9 @@
 Counterpart of ``fast3r_tpu/models/encoder.py``: patch embed -> depth x pre-LN
 ViT block with 2D RoPE (base 100) -> final LayerNorm (eps 1e-6).  Flagship:
 ViT-L/16, embed_dim 1024, depth 24, 16 heads, mlp_ratio 4.  The RoPE tables
-are computed once per forward and shared by every block.
+are computed once per forward and shared by every block.  The dropout knobs
+(``drop``, ``attn_drop``, ``drop_path``) are 0 in every shipped
+configuration; a training forward with a non-zero rate raises.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from fast3r_torch.models.patch_embed import (
     patch_embed_simple,
 )
 from fast3r_torch.nn.layers import (
+    check_no_dropout,
     layernorm,
     make_vit_stack,
     run_vit_stack,
@@ -39,6 +42,10 @@ class EncoderConfig:
     ln_eps: float = 1e-6
     # the fused-GEMM blocks (nn.fused_block), as in the JAX package
     fused_blocks: bool = True
+    # the reference Block's dropout rates; only 0 is supported
+    drop: float = 0.0
+    attn_drop: float = 0.0
+    drop_path: float = 0.0
 
 
 class Encoder(nn.Module):
@@ -52,11 +59,14 @@ class Encoder(nn.Module):
 
 
 def encoder_forward(params: Encoder, cfg: EncoderConfig, img: torch.Tensor,
-                    true_shape: Optional[torch.Tensor] = None
+                    true_shape: Optional[torch.Tensor] = None,
+                    remat: bool = False, is_training: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Encode (B, H, W, 3) images (landscape storage layout, normalised to
     [-1, 1]); true_shape (B, 2) int (height, width) defaults to the storage
-    shape.  Returns feats (B, P, embed_dim) and positions (B, P, 2)."""
+    shape.  ``remat`` recomputes the blocks in the backward.  Returns feats
+    (B, P, embed_dim) and positions (B, P, 2)."""
+    check_no_dropout(cfg, is_training)
     B, H, W, _ = img.shape
     if true_shape is None:
         true_shape = torch.tensor([H, W], dtype=torch.int32).expand(B, 2)
@@ -70,5 +80,6 @@ def encoder_forward(params: Encoder, cfg: EncoderConfig, img: torch.Tensor,
     rope = rope2d_cos_sin(pos, head_dim, cfg.rope_base)
     x, _ = run_vit_stack(params.blocks, x, cfg.num_heads, head_dim ** -0.5,
                          rope_cos_sin=rope, attn_impl=cfg.attn_impl,
-                         ln_eps=cfg.ln_eps, fused=cfg.fused_blocks)
+                         ln_eps=cfg.ln_eps, fused=cfg.fused_blocks,
+                         remat=remat)
     return layernorm(params.norm, x, cfg.ln_eps), pos

@@ -6,7 +6,9 @@ in each view's own frame), with the transpose-to-landscape handling of
 mixed portrait / landscape batches.
 
 Outputs, stacked per view: pts3d_in_other_view (B, V, H, W, 3),
-conf (B, V, H, W) >= 1, pts3d_local, conf_local.
+conf (B, V, H, W) >= 1, pts3d_local, conf_local.  ``fast3r_forward`` is
+differentiable (the training step's forward); ``inference`` runs it under
+``torch.inference_mode``.
 """
 
 from __future__ import annotations
@@ -122,14 +124,27 @@ def _chunk_views(head_chunk_views: Optional[int], V: int) -> Optional[int]:
     return None if cv == V else cv
 
 
-@torch.inference_mode()
+def freeze_mask(params: Fast3RNet, cfg: Fast3RConfig,
+                freeze: str) -> Dict[str, bool]:
+    """Trainability of every parameter, by name (True = trainable): the
+    counterpart of ``fast3r_tpu``'s ``freeze_mask`` (reference
+    ``set_freeze``): "none" trains everything, "encoder" freezes the
+    encoder, "sandwich" freezes the encoder and the global head."""
+    frozen = {"none": (), "encoder": ("encoder",),
+              "sandwich": ("encoder", "head_global")}[freeze]
+    return {name: name.split(".", 1)[0] not in frozen
+            for name, _ in params.named_parameters()}
+
+
 def fast3r_forward(params: Fast3RNet, cfg: Fast3RConfig, imgs: torch.Tensor,
                    true_shapes: Optional[torch.Tensor] = None,
                    mixed_orientation: bool = False,
                    head_chunk_views: Optional[int] = None,
-                   view_ids: Optional[torch.Tensor] = None
+                   view_ids: Optional[torch.Tensor] = None,
+                   is_training: bool = False, remat: bool = False,
+                   generator: Optional[torch.Generator] = None
                    ) -> Dict[str, torch.Tensor]:
-    """Inference forward.
+    """The forward, for inference and for training (differentiable).
 
     Args:
       imgs: (B, V, H, W, 3) normalised images, landscape storage layout, on
@@ -138,8 +153,11 @@ def fast3r_forward(params: Fast3RNet, cfg: Fast3RConfig, imgs: torch.Tensor,
       mixed_orientation: set iff the batch holds portrait samples.
       head_chunk_views: run the heads over groups of this many views (rounded
         down to a divisor of V) to bound memory.
-      view_ids: (B, V) image ids for the decoder's index embedding; drawn by
-        :func:`sample_random_image_ids` with a generator seeded 0 when None.
+      view_ids: (B, V) image ids for the decoder's index embedding; when
+        None, drawn by :func:`sample_random_image_ids` from ``generator``
+        (training needs one) or, at inference, from a generator seeded 0.
+      is_training: the decoder's training softmax scale (no entropy bias).
+      remat: recompute the plain road's blocks in the backward.
 
     Returns pts3d_in_other_view (B, V, H, W, 3), conf (B, V, H, W)
     [, pts3d_local, conf_local].
@@ -149,17 +167,22 @@ def fast3r_forward(params: Fast3RNet, cfg: Fast3RConfig, imgs: torch.Tensor,
         true_shapes = torch.tensor([H, W], dtype=torch.int32).expand(B, V, 2)
     flat_shapes = true_shapes.reshape(B * V, 2)
     feats, _ = encoder_forward(params.encoder, cfg.encoder,
-                               imgs.reshape(B * V, H, W, 3), flat_shapes)
+                               imgs.reshape(B * V, H, W, 3), flat_shapes,
+                               remat=remat, is_training=is_training)
     P = feats.shape[1]
     fused = feats.reshape(B, V * P, -1)
 
     if cfg.decoder.random_image_idx_embedding:
         if view_ids is None:
-            view_ids = sample_random_image_ids(None, B, V)
+            if is_training and generator is None:
+                raise ValueError("a training forward needs view_ids or a "
+                                 "generator to draw them")
+            view_ids = sample_random_image_ids(generator, B, V)
     else:
         view_ids = torch.arange(V, dtype=torch.int32).expand(B, V)
     image_ids = view_ids.to(fused.device).repeat_interleave(P, dim=1)
-    dec_out = decoder_forward(params.decoder, cfg.decoder, fused, image_ids)
+    dec_out = decoder_forward(params.decoder, cfg.decoder, fused, image_ids,
+                              is_training=is_training, remat=remat)
     hook_seq = [dec_out[h] for h in cfg.decoder.hooks]  # each (B, V*P, C)
     is_portrait = ((flat_shapes[:, 1] < flat_shapes[:, 0]).to(imgs.device)
                    if mixed_orientation else None)

@@ -1,21 +1,33 @@
-"""Fused ViT-block forward: LayerNorm, bias, GELU, RoPE and the residual
-folded into the block's products.
+"""Fused ViT block: LayerNorm, bias, GELU, RoPE and the residual folded into
+the block's products, forward and (for training) backward.
 
-Counterpart of ``fast3r_tpu/nn/fused_block.py`` (forward only; the backward
-belongs to the training slice).  The products run the hand-written kernels
-of ``csrc/fused_gemm.cu`` and ``csrc/ln_mlp.cu``, whose source notes say what
-bounds them on the H100:
+Counterpart of ``fast3r_tpu/nn/fused_block.py``.  The products run the
+hand-written kernels of ``csrc/fused_gemm.cu`` and ``csrc/ln_mlp.cu``, whose
+source notes say what bounds them on the H100:
 
   ln_matmul        act(LN(x) W^T + b)                    (_ln_matmul_kernel)
   ln_qkv           q, k, v = split(LN(x) Wqkv^T + b)     (_ln_qkv_kernel)
   ln_qkv_rope      packed (3, M, C) with RoPE2D on q, k  (_ln_qkv_rope_kernel)
   matmul_residual  r + x W^T + b                         (_matmul_res_kernel)
   ln_mlp           x + GELU(LN(x) W1^T + b1) W2^T + b2   (_ln_mlp_kernel)
+  ln_matmul_replay the LN products' forward that also writes the backward's
+                   residuals u = LN(x), mean, rstd (and z before GELU)
+                   (_ln_matmul_replay_kernel)
 
 Weights are in the ``nn.Linear`` layout, (out, in).  Each function takes its
 plain version (``*_ref``) on CPU tensors and launches its kernel on CUDA
-tensors; the kernels take bfloat16 (the served type) and raise on anything
-else.  Each keeps a ``launches`` count.
+tensors; the kernels take bfloat16 (the served and trained type) and raise
+on anything else.  Each keeps a ``launches`` count.
+
+Training, as the JAX package's custom VJPs: under autograd the LN products
+run the replay and their backward (:func:`_ln_backward`, after
+``_ln_backward_xla``) is plain products and elementwise code; the RoPE
+backward is RoPE with the sine negated; ``matmul_residual``'s backward is
+plain products; ``ln_mlp``'s replays the two-kernel road.
+:func:`fused_vit_block` saves only (x, params) and recomputes in its
+backward, without rerunning the MLP's forward product.  The backward's
+products are cuBLAS matmuls (the JAX package leaves them to XLA): in bf16
+they round du and dh to bf16 where the JAX package keeps fp32.
 
 Rounding points, those of the TPU kernels (the plain versions compute the
 products in fp32 from operands rounded where the kernels round them):
@@ -27,13 +39,14 @@ added in fp32 and rounded once; the MLP's h rounded between fc1 and fc2.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from fast3r_torch.kernels import build
 from fast3r_torch.ops.attention import dot_product_attention
 from fast3r_torch.ops.batched_attention import packed_qkv_attention
-from fast3r_torch.ops.fused_layernorm import layernorm_ref
 from fast3r_torch.ops.rope2d import apply_rope2d_bnhd, rotate_half_lanes
 
 # The whole-MLP kernel (ln_mlp) on every block, as in the JAX package; False
@@ -59,29 +72,69 @@ def _gelu(z: torch.Tensor) -> torch.Tensor:
     return F.gelu(z, approximate="none")
 
 
+def _gelu_grad(z: torch.Tensor) -> torch.Tensor:
+    """d/dz [z Phi(z)] = Phi(z) + z phi(z), fp32."""
+    cdf = 0.5 * (1.0 + torch.erf(z * 0.7071067811865476))
+    return cdf + z * torch.exp(-0.5 * z * z) / math.sqrt(2.0 * math.pi)
+
+
+def _rope_flat(t: torch.Tensor, ct, st, half: int) -> torch.Tensor:
+    """t * ct + rotate_half_lanes(t) * st in fp32 on flat (M, C) lanes."""
+    t = t.float()
+    return t * ct.float() + rotate_half_lanes(t, half) * st.float()
+
+
+def _replay_ref(mode: str, x, gamma, beta, w, bias, eps: float, tables=None,
+                num_heads: int = 0):
+    """(out, u, mean, rstd, z): the plain LN product of ``mode`` ("bias",
+    "gelu", "qkv" or "rope", as the kernel's epilogues) with the backward's
+    residuals, u = LN(x) in x's dtype, fp32 (M,) mean and rstd, and for
+    "gelu" the pre-activation z in x's dtype (else None)."""
+    dt = x.dtype
+    xf = x.float()
+    mean = xf.mean(-1)
+    xc = xf - mean[:, None]
+    rstd = torch.rsqrt((xc * xc).mean(-1) + eps)
+    u = (xc * rstd[:, None] * gamma.float() + beta.float()).to(dt)
+    y = _mm(u, w) + bias.float()
+    z = None
+    if mode == "gelu":
+        z = y.to(dt)
+        out = _gelu(y).to(dt)
+    elif mode == "qkv":
+        out = y.to(dt).reshape(x.shape[0], 3, -1).transpose(0, 1)
+    elif mode == "rope":
+        c = y.shape[1] // 3
+        half = c // num_heads // 2
+        ct, st = tables
+        out = torch.stack([
+            _rope_flat(y[:, :c].to(dt), ct, st, half).to(dt),  # round, rotate
+            _rope_flat(y[:, c:2 * c].to(dt), ct, st, half).to(dt),
+            y[:, 2 * c:].to(dt)])
+    else:
+        out = y.to(dt)
+    return out, u, mean, rstd, z
+
+
 def ln_matmul_ref(x, gamma, beta, w, bias, eps: float, act=None):
-    z = _mm(layernorm_ref(x, gamma, beta, eps), w) + bias.float()
-    return (_gelu(z) if act == "gelu" else z).to(x.dtype)
+    return _replay_ref("gelu" if act == "gelu" else "bias", x, gamma, beta, w,
+                       bias, eps)[0]
 
 
 def ln_qkv_ref(x, gamma, beta, w, bias, eps: float):
-    y = ln_matmul_ref(x, gamma, beta, w, bias, eps)
-    return tuple(y.reshape(x.shape[0], 3, -1).unbind(1))
+    return tuple(_replay_ref("qkv", x, gamma, beta, w, bias, eps)[0].unbind(0))
 
 
 def ln_qkv_rope_ref(x, gamma, beta, w, bias, ct, st, num_heads: int,
                     eps: float):
-    y = _mm(layernorm_ref(x, gamma, beta, eps), w) + bias.float()
-    c = y.shape[1] // 3
-    half = c // num_heads // 2
+    return _replay_ref("rope", x, gamma, beta, w, bias, eps, (ct, st),
+                       num_heads)[0]
 
-    def rope(t):  # round first, then rotate in fp32
-        t = t.to(x.dtype).float()
-        return (t * ct.float() + rotate_half_lanes(t, half) * st.float()
-                ).to(x.dtype)
 
-    return torch.stack([rope(y[:, :c]), rope(y[:, c:2 * c]),
-                        y[:, 2 * c:].to(x.dtype)])
+def ln_matmul_replay_ref(x, gamma, beta, w, bias, eps: float, act=None):
+    """(y, u, mean, rstd, z) of :func:`ln_matmul_replay`, plain."""
+    return _replay_ref("gelu" if act == "gelu" else "bias", x, gamma, beta, w,
+                       bias, eps)
 
 
 def matmul_residual_ref(x, w, bias, residual):
@@ -120,9 +173,14 @@ def _check_device(fn: str, x: torch.Tensor) -> None:
         raise ValueError(f"{fn}: the kernel takes bfloat16, got {x.dtype}")
 
 
-def _gemm(fn: str, epilogue: str, x, w, bias, out_shape, ln=None,
-          residual=None, tables=None) -> torch.Tensor:
-    """Check what fused_gemm.cu takes and launch it; a new output."""
+def _out_shape(epilogue: str, M: int, N: int):
+    return (3, M, N // 3) if epilogue in ("qkv", "rope") else (M, N)
+
+
+def _gemm(fn: str, epilogue: str, x, w, bias, ln=None, residual=None,
+          tables=None, replay: bool = False):
+    """Check what fused_gemm.cu takes and launch it; a new output, or with
+    ``replay`` (LN epilogues) the tuple (out, u, mean, rstd, z)."""
     _check_device(fn, x)
     if x.dim() != 2 or w.dim() != 2:
         raise ValueError(f"{fn}: x must be (M, K) and w (N, K)")
@@ -150,39 +208,142 @@ def _gemm(fn: str, epilogue: str, x, w, bias, out_shape, ln=None,
     if tables is not None:
         for name, t in zip(("ct", "st"), tables):
             _bf16_rows(f"{fn} {name}", t, (M, N // 3), dev)
-    out = torch.empty(out_shape, device=dev, dtype=x.dtype)
-    if M == 0:
+    out = torch.empty(_out_shape(epilogue, M, N), device=dev, dtype=x.dtype)
+    u = mean = rstd = z = None
+    if replay:
+        u = torch.empty_like(x)
+        mean = torch.empty((M,), device=dev, dtype=torch.float32)
+        rstd = torch.empty_like(mean)
+        if epilogue == "gelu":
+            z = torch.empty((M, N), device=dev, dtype=x.dtype)
+    if M:
+        ptr = (lambda t: 0 if t is None else t.data_ptr())
+        ct, st = tables if tables is not None else (None, None)
+        err = build.library().fast3r_fused_gemm(
+            _EPILOGUE[epilogue], x.data_ptr(), ptr(gamma), ptr(beta),
+            w.data_ptr(), bias.data_ptr(), ptr(residual), ptr(ct), ptr(st),
+            out.data_ptr(), ptr(u), ptr(mean), ptr(rstd), ptr(z), M, N, K,
+            float(eps), build.stream_handle(dev))
+        build.check(err, "fast3r_fused_gemm")
+    return (out, u, mean, rstd, z) if replay else out
+
+
+def _check_rope_heads(fn: str, w, num_heads: int) -> None:
+    c = w.shape[0] // 3
+    if c % num_heads or c // num_heads != ROPE_HEAD_DIM:
+        raise ValueError(f"{fn}: the kernel takes head_dim "
+                         f"{ROPE_HEAD_DIM}, got C={c} over {num_heads} heads")
+
+
+def _replay(mode: str, x, gamma, beta, w, bias, eps: float, tables=None,
+            num_heads: int = 0):
+    """The LN product of ``mode`` with the backward's residuals (see
+    :func:`_replay_ref`): the plain version on the CPU, the replay launch of
+    fused_gemm.cu on CUDA."""
+    if x.device.type == "cpu":
+        return _replay_ref(mode, x, gamma, beta, w, bias, eps, tables,
+                           num_heads)
+    if mode == "rope":
+        _check_rope_heads("ln_matmul_replay", w, num_heads)
+    res = _gemm("ln_matmul_replay", mode, x, w, bias, ln=(gamma, beta, eps),
+                tables=tables, replay=True)
+    if x.shape[0]:
+        ln_matmul_replay.launches += 1
+    return res
+
+
+def ln_matmul_replay(x, gamma, beta, w, bias, eps: float, act=None):
+    """(y, u, mean, rstd, z) for the training backward
+    (``_ln_matmul_replay``): y = act(LN(x) @ w^T + bias) as
+    :func:`ln_matmul`, u = LN(x) in x's dtype, the rows' fp32 mean and rstd
+    (M,), and with ``act == "gelu"`` the pre-activation z in x's dtype
+    (else None).  One launch; the qkv and RoPE products' replays go through
+    the same launch (and count)."""
+    return _replay("gelu" if act == "gelu" else "bias", x, gamma, beta, w,
+                   bias, eps)
+
+
+def _ln_backward(x, gamma, w, u, mean, rstd, dz):
+    """(dx, dgamma, dbeta, dw, dbias) of y = LN(x) w^T + bias from the
+    replay's residuals and the cotangent dz of the pre-activation
+    (``_ln_backward_xla``): du, dw and dx from plain products, the LN
+    backward in fp32; dx and dw in the primal dtypes, the vectors fp32."""
+    dzc = dz.to(x.dtype)
+    du = (dzc @ w).float()
+    dw = dzc.t() @ u
+    xhat = (x.float() - mean[:, None]) * rstd[:, None]
+    dxhat = du * gamma.float()
+    dx = rstd[:, None] * (dxhat - dxhat.mean(-1, keepdim=True)
+                          - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    return (dx.to(x.dtype), (du * xhat).sum(0), du.sum(0), dw.to(w.dtype),
+            dz.float().sum(0))
+
+
+class _LnProduct(torch.autograd.Function):
+    """ln_matmul / ln_qkv / ln_qkv_rope under autograd: the replay forward,
+    saved residuals (x, gamma, w, u, mean, rstd[, z][, tables])."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w, bias, ct, st, eps, mode, num_heads):
+        tables = (ct, st) if mode == "rope" else None
+        out, u, mean, rstd, z = _replay(mode, x, gamma, beta, w, bias, eps,
+                                        tables, num_heads)
+        ctx.save_for_backward(x, gamma, w, u, mean, rstd, z, ct, st)
+        ctx.mode, ctx.num_heads = mode, num_heads
+        ctx.vec_dtypes = (gamma.dtype, beta.dtype, bias.dtype)
         return out
-    ptr = (lambda t: 0 if t is None else t.data_ptr())
-    ct, st = tables if tables is not None else (None, None)
-    err = build.library().fast3r_fused_gemm(
-        _EPILOGUE[epilogue], x.data_ptr(), ptr(gamma), ptr(beta), w.data_ptr(),
-        bias.data_ptr(), ptr(residual), ptr(ct), ptr(st), out.data_ptr(),
-        M, N, K, float(eps), build.stream_handle(dev))
-    build.check(err, "fast3r_fused_gemm")
-    return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, w, u, mean, rstd, z, ct, st = ctx.saved_tensors
+        if ctx.mode == "gelu":
+            dz = g.float() * _gelu_grad(z.float())
+        elif ctx.mode == "qkv":
+            dz = g.transpose(0, 1).reshape(x.shape[0], -1)
+        elif ctx.mode == "rope":
+            # P^T = -P and the tables commute with P: RoPE with -sin
+            half = g.shape[2] // ctx.num_heads // 2
+            dz = torch.cat([_rope_flat(g[0], ct, -st, half),
+                            _rope_flat(g[1], ct, -st, half), g[2].float()], 1)
+        else:
+            dz = g
+        dx, dgamma, dbeta, dw, dbias = _ln_backward(x, gamma, w, u, mean,
+                                                    rstd, dz)
+        gd, bd, biasd = ctx.vec_dtypes
+        return (dx, dgamma.to(gd), dbeta.to(bd), dw, dbias.to(biasd), None,
+                None, None, None, None)
+
+
+def _training(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def ln_matmul(x, gamma, beta, w, bias, eps: float, act=None):
     """act(LN(x) @ w^T + bias); x (M, K), w (N, K); (M, N) in x.dtype.
-    ``act`` is None or "gelu" (exact erf)."""
+    ``act`` is None or "gelu" (exact erf).  Differentiable (the replay)."""
     if act not in (None, "gelu"):
         raise ValueError(f"ln_matmul: unknown act {act!r}")
+    mode = act or "bias"
+    if _training(x, gamma, beta, w, bias):
+        return _LnProduct.apply(x, gamma, beta, w, bias, None, None, eps, mode,
+                                0)
     if x.device.type == "cpu":
         return ln_matmul_ref(x, gamma, beta, w, bias, eps, act)
-    out = _gemm("ln_matmul", act or "bias", x, w, bias,
-                (x.shape[0], w.shape[0]), ln=(gamma, beta, eps))
+    out = _gemm("ln_matmul", mode, x, w, bias, ln=(gamma, beta, eps))
     ln_matmul.launches += 1
     return out
 
 
 def ln_qkv(x, gamma, beta, w, bias, eps: float):
     """LN(x) @ wqkv^T + bias split into q, k, v, each (M, C); wqkv (3C, K).
-    On CUDA the three are the slices of one (3, M, C) buffer."""
+    On CUDA the three are the slices of one (3, M, C) buffer.
+    Differentiable (the replay)."""
+    if _training(x, gamma, beta, w, bias):
+        return tuple(_LnProduct.apply(x, gamma, beta, w, bias, None, None,
+                                      eps, "qkv", 0).unbind(0))
     if x.device.type == "cpu":
         return ln_qkv_ref(x, gamma, beta, w, bias, eps)
-    out = _gemm("ln_qkv", "qkv", x, w, bias, (3, x.shape[0], w.shape[0] // 3),
-                ln=(gamma, beta, eps))
+    out = _gemm("ln_qkv", "qkv", x, w, bias, ln=(gamma, beta, eps))
     ln_qkv.launches += 1
     return tuple(out.unbind(0))
 
@@ -191,34 +352,52 @@ def ln_qkv_rope(x, gamma, beta, w, bias, ct, st, num_heads: int, eps: float):
     """LN(x) @ wqkv^T + bias with RoPE2D on q and k, as ONE packed (3, M, C)
     tensor; ct / st are the flat (M, C) lane tables of
     :func:`fast3r_torch.ops.rope2d.expand_rope_tables` in x.dtype.  The
-    kernel takes head_dim 64."""
+    kernel takes head_dim 64.  Differentiable (the replay)."""
+    if _training(x, gamma, beta, w, bias):
+        return _LnProduct.apply(x, gamma, beta, w, bias, ct, st, eps, "rope",
+                                num_heads)
     if x.device.type == "cpu":
         return ln_qkv_rope_ref(x, gamma, beta, w, bias, ct, st, num_heads, eps)
-    c = w.shape[0] // 3
-    if c % num_heads or c // num_heads != ROPE_HEAD_DIM:
-        raise ValueError(f"ln_qkv_rope: the kernel takes head_dim "
-                         f"{ROPE_HEAD_DIM}, got C={c} over {num_heads} heads")
-    out = _gemm("ln_qkv_rope", "rope", x, w, bias, (3, x.shape[0], c),
-                ln=(gamma, beta, eps), tables=(ct, st))
+    _check_rope_heads("ln_qkv_rope", w, num_heads)
+    out = _gemm("ln_qkv_rope", "rope", x, w, bias, ln=(gamma, beta, eps),
+                tables=(ct, st))
     ln_qkv_rope.launches += 1
     return out
 
 
-def matmul_residual(x, w, bias, residual):
-    """residual + x @ w^T + bias, added in fp32 and rounded once; x (M, K),
-    w (N, K), residual (M, N).  The output is a new tensor."""
+def _matmul_residual(x, w, bias, residual):
     if x.device.type == "cpu":
         return matmul_residual_ref(x, w, bias, residual)
-    out = _gemm("matmul_residual", "residual", x, w, bias,
-                (x.shape[0], w.shape[0]), residual=residual)
+    out = _gemm("matmul_residual", "residual", x, w, bias, residual=residual)
     matmul_residual.launches += 1
     return out
 
 
-def ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float):
-    """x + GELU(LN(x) @ w1^T + b1) @ w2^T + b2 in one kernel; x (M, C),
-    w1 (hidden, C), w2 (C, hidden).  The kernel takes C == 1024 and
-    hidden % 32 == 0."""
+class _MatmulResidual(torch.autograd.Function):
+    """Backward of r + x w^T + b: plain products (``_matmul_res_p_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, residual):
+        ctx.save_for_backward(x, w)
+        ctx.bias_dtype = bias.dtype
+        return _matmul_residual(x, w, bias, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return (g @ w, g.t() @ x, g.float().sum(0).to(ctx.bias_dtype), g)
+
+
+def matmul_residual(x, w, bias, residual):
+    """residual + x @ w^T + bias, added in fp32 and rounded once; x (M, K),
+    w (N, K), residual (M, N).  The output is a new tensor.
+    Differentiable."""
+    if _training(x, w, bias, residual):
+        return _MatmulResidual.apply(x, w, bias, residual)
+    return _matmul_residual(x, w, bias, residual)
+
+
+def _ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float):
     if x.device.type == "cpu":
         return ln_mlp_ref(x, gamma, beta, w1, b1, w2, b2, eps)
     _check_device("ln_mlp", x)
@@ -249,13 +428,131 @@ def ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float):
     return out
 
 
-for _fn in (ln_matmul, ln_qkv, ln_qkv_rope, matmul_residual, ln_mlp):
+def _mlp_backward(x, gamma, beta, w1, b1, w2, b2, eps: float, g):
+    """Gradients of x + GELU(LN(x) w1^T + b1) w2^T + b2 for the cotangent g,
+    through the two-kernel road (``_ln_mlp_p_bwd``): the fc1 replay gives h
+    and z, fc2's backward is plain products, fc1's is :func:`_ln_backward`.
+    Returns (dx, dgamma, dbeta, dw1, db1, dw2, db2); fc2's forward product
+    is not run."""
+    h, u, mean, rstd, z = _replay("gelu", x, gamma, beta, w1, b1, eps)
+    g = g.to(x.dtype)
+    dh = g @ w2
+    dw2, db2 = g.t() @ h, g.float().sum(0)
+    dz = dh.float() * _gelu_grad(z.float())
+    dx, dgamma, dbeta, dw1, db1 = _ln_backward(x, gamma, w1, u, mean, rstd, dz)
+    return dx + g, dgamma, dbeta, dw1, db1, dw2.to(w2.dtype), db2
+
+
+class _LnMlp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps):
+        ctx.save_for_backward(x, gamma, beta, w1, b1, w2, b2)
+        ctx.eps = eps
+        return _ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        ts = ctx.saved_tensors
+        grads = _mlp_backward(*ts, ctx.eps, g)
+        return (*(d.to(t.dtype) for d, t in zip(grads, ts)), None)
+
+
+def ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float):
+    """x + GELU(LN(x) @ w1^T + b1) @ w2^T + b2 in one kernel; x (M, C),
+    w1 (hidden, C), w2 (C, hidden).  The kernel takes C == 1024 and
+    hidden % 32 == 0.  Differentiable (the two-kernel road's replay)."""
+    if _training(x, gamma, beta, w1, b1, w2, b2):
+        return _LnMlp.apply(x, gamma, beta, w1, b1, w2, b2, eps)
+    return _ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps)
+
+
+for _fn in (ln_matmul, ln_qkv, ln_qkv_rope, matmul_residual, ln_mlp,
+            ln_matmul_replay):
     _fn.launches = 0
 
 
 # ---------------------------------------------------------------------------
 # the fused pre-LN ViT block
 # ---------------------------------------------------------------------------
+
+BLOCK_PARAMS = ("norm1.weight", "norm1.bias", "attn.qkv.weight",
+                "attn.qkv.bias", "attn.proj.weight", "attn.proj.bias",
+                "norm2.weight", "norm2.bias", "mlp.fc1.weight", "mlp.fc1.bias",
+                "mlp.fc2.weight", "mlp.fc2.bias")
+
+
+def _attention_sublayer(t, x2, shape, rope_cos_sin, num_heads: int,
+                        scale: float, attn_impl: str, ln_eps: float):
+    """x2 + proj(attention(LN1(x2))) on x2 (B * N, C); ``t`` the block's
+    tensors in BLOCK_PARAMS order, already in x2's dtype."""
+    B, N, C = shape
+    g1, b1, wqkv, bqkv, wproj, bproj = t[:6]
+    if (attn_impl == "batched" and rope_cos_sin is not None
+            and len(rope_cos_sin) == 4):
+        ct, st = rope_cos_sin[2], rope_cos_sin[3]
+        qkv3 = ln_qkv_rope(x2, g1, b1, wqkv, bqkv, ct, st, num_heads, ln_eps)
+        o = packed_qkv_attention(qkv3.reshape(3, B, N, C), num_heads, scale)
+    else:
+        q, k, v = (u.reshape(B, N, num_heads, C // num_heads)
+                   for u in ln_qkv(x2, g1, b1, wqkv, bqkv, ln_eps))
+        if rope_cos_sin is not None:
+            cos, sin = rope_cos_sin[0], rope_cos_sin[1]
+            q = apply_rope2d_bnhd(q, cos, sin)
+            k = apply_rope2d_bnhd(k, cos, sin)
+        o = dot_product_attention(q, k, v, scale=scale, impl=attn_impl)
+    return matmul_residual(o.reshape(B * N, C).contiguous(), wproj, bproj, x2)
+
+
+def _fused_block_impl(t, x, rope_cos_sin, num_heads: int, scale: float,
+                      attn_impl: str, ln_eps: float) -> torch.Tensor:
+    B, N, C = x.shape
+    t = [p.to(x.dtype) for p in t]
+    x2 = _attention_sublayer(t, x.reshape(B * N, C).contiguous(), x.shape,
+                             rope_cos_sin, num_heads, scale, attn_impl, ln_eps)
+    if PREFER_FUSED_MLP:
+        x2 = ln_mlp(x2, *t[6:], ln_eps)
+    else:
+        h = ln_matmul(x2, *t[6:10], ln_eps, act="gelu")
+        x2 = matmul_residual(h, t[10], t[11], x2)
+    return x2.reshape(B, N, C)
+
+
+class _FusedBlock(torch.autograd.Function):
+    """The fused block under autograd (``_fused_block_fwd`` / ``_bwd``):
+    saves (x, params) only; the backward recomputes the attention sublayer
+    through the differentiable fused functions (the replay, attention with
+    lse) and differentiates it with autograd, and takes the MLP sublayer's
+    gradients from :func:`_mlp_backward` (the MLP's output is not needed)."""
+
+    @staticmethod
+    def forward(ctx, x, rope_cos_sin, cfg, *params):
+        ctx.save_for_backward(x, *params)
+        ctx.rope_cos_sin, ctx.cfg = rope_cos_sin, cfg
+        return _fused_block_impl(params, x, rope_cos_sin, *cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        num_heads, scale, attn_impl, ln_eps = ctx.cfg
+        need = ctx.needs_input_grad
+        B, N, C = x.shape
+        with torch.enable_grad():
+            xs = x.detach().requires_grad_(need[0])
+            ps = [p.detach().requires_grad_(n) for p, n in zip(params, need[3:])]
+            t = [p.to(x.dtype) for p in ps]
+            x2 = _attention_sublayer(t, xs.reshape(B * N, C), x.shape,
+                                     ctx.rope_cos_sin, num_heads, scale,
+                                     attn_impl, ln_eps)
+        dx2, *dmlp = _mlp_backward(x2.detach(), *(p.detach() for p in t[6:]),
+                                   ln_eps, g.reshape(B * N, C))
+        leaves = [u for u in (xs, *ps[:6]) if u.requires_grad]
+        got = iter(torch.autograd.grad(x2, leaves, dx2) if leaves else ())
+        dx = next(got).reshape(B, N, C) if need[0] else None
+        dattn = [next(got) if n else None for n in need[3:9]]
+        dmlp = [d.to(p.dtype) if n else None
+                for d, p, n in zip(dmlp, params[6:], need[9:])]
+        return (dx, None, None, *dattn, *dmlp)
+
 
 def fused_vit_block(p, x: torch.Tensor, rope_cos_sin, num_heads: int,
                     scale: float, attn_impl: str, ln_eps: float) -> torch.Tensor:
@@ -265,38 +562,11 @@ def fused_vit_block(p, x: torch.Tensor, rope_cos_sin, num_heads: int,
     (cos, sin, ct, st) of RoPE tables, q, k and v come out of
     :func:`ln_qkv_rope` as one packed buffer that the attention reads in
     place; otherwise :func:`ln_qkv`, the (B, N, H, D) RoPE when given, and
-    :func:`dot_product_attention`.  A shape or dtype a kernel cannot take
-    raises on CUDA."""
-    B, N, C = x.shape
-    hd = C // num_heads
-    dt = x.dtype
-    x2 = x.reshape(B * N, C).contiguous()
-    n1, attn, n2, m = p.norm1, p.attn, p.norm2, p.mlp
-
-    if (attn_impl == "batched" and rope_cos_sin is not None
-            and len(rope_cos_sin) == 4):
-        ct, st = rope_cos_sin[2], rope_cos_sin[3]
-        qkv3 = ln_qkv_rope(x2, n1.weight, n1.bias, attn.qkv.weight.to(dt),
-                           attn.qkv.bias.to(dt), ct, st, num_heads, ln_eps)
-        o = packed_qkv_attention(qkv3.reshape(3, B, N, C), num_heads, scale)
-    else:
-        q, k, v = (t.reshape(B, N, num_heads, hd) for t in ln_qkv(
-            x2, n1.weight, n1.bias, attn.qkv.weight.to(dt),
-            attn.qkv.bias.to(dt), ln_eps))
-        if rope_cos_sin is not None:
-            cos, sin = rope_cos_sin[0], rope_cos_sin[1]
-            q = apply_rope2d_bnhd(q, cos, sin)
-            k = apply_rope2d_bnhd(k, cos, sin)
-        o = dot_product_attention(q, k, v, scale=scale, impl=attn_impl)
-
-    x2 = matmul_residual(o.reshape(B * N, C).contiguous(), attn.proj.weight.to(dt),
-                         attn.proj.bias.to(dt), x2)
-    if PREFER_FUSED_MLP:
-        x2 = ln_mlp(x2, n2.weight, n2.bias, m.fc1.weight.to(dt),
-                    m.fc1.bias.to(dt), m.fc2.weight.to(dt), m.fc2.bias.to(dt),
-                    ln_eps)
-    else:
-        h = ln_matmul(x2, n2.weight, n2.bias, m.fc1.weight.to(dt),
-                      m.fc1.bias.to(dt), ln_eps, act="gelu")
-        x2 = matmul_residual(h, m.fc2.weight.to(dt), m.fc2.bias.to(dt), x2)
-    return x2.reshape(B, N, C)
+    :func:`dot_product_attention`.  Differentiable: under autograd the block
+    saves (x, params) and recomputes in its backward (``fused_vit_block``'s
+    custom VJP).  A shape or dtype a kernel cannot take raises on CUDA."""
+    params = [p.get_parameter(name) for name in BLOCK_PARAMS]
+    cfg = (num_heads, scale, attn_impl, ln_eps)
+    if _training(x, *params):
+        return _FusedBlock.apply(x, rope_cos_sin, cfg, *params)
+    return _fused_block_impl(params, x, rope_cos_sin, *cfg)

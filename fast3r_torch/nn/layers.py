@@ -16,6 +16,9 @@ products are the hand-written fused-GEMM kernels.  The plain composition
 kernel on CUDA), attention through ``ops.attention`` (the CUDA kernel for
 the "batched" and "pallas" implementations) and its products as cuBLAS
 matmuls, as the JAX package leaves them to XLA in that configuration.
+Training: every block is differentiable; with ``remat`` the plain road's
+blocks run under ``torch.utils.checkpoint`` (the JAX package's
+``jax.checkpoint``), while the fused block recomputes in its own backward.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from fast3r_torch.nn.fused_block import fused_vit_block
@@ -60,6 +64,15 @@ class Block(nn.Module):
         self.attn = Attention(dim, qkv_bias)
         self.norm2 = nn.LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+
+def check_no_dropout(cfg, is_training: bool) -> None:
+    """Raise if a training forward would need the Block's dropout knobs
+    (``drop``, ``attn_drop``, ``drop_path`` of a stack config): 0 in every
+    shipped configuration, and not ported."""
+    rates = {k: getattr(cfg, k) for k in ("drop", "attn_drop", "drop_path")}
+    if is_training and any(r > 0 for r in rates.values()):
+        raise NotImplementedError(f"dropout is not ported: {rates}")
 
 
 def make_vit_stack(depth: int, dim: int, mlp_ratio: float = 4.0,
@@ -169,21 +182,27 @@ def vit_block(p: Block, x: torch.Tensor, num_heads: int, scale: float,
 def run_vit_stack(blocks: Sequence[Block], x: torch.Tensor, num_heads: int,
                   scale: float, rope_cos_sin=None, attn_impl: str = "pallas",
                   ln_eps: float = 1e-6, hooks: Sequence[int] = (),
-                  fused: bool = False
+                  fused: bool = False, remat: bool = False
                   ) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
     """Run the blocks; return (output, {hook: activation}) with hook i the
     output after block i (1-based).  On the fused road with "batched"
     attention and RoPE, the flat (M, C) RoPE lane tables are expanded once
-    for the whole stack and every block gets (cos, sin, ct, st)."""
+    for the whole stack and every block gets (cos, sin, ct, st).  ``remat``
+    recomputes each plain block in the backward (the fused block always
+    does)."""
     if (fused and attn_impl == "batched" and rope_cos_sin is not None
             and len(rope_cos_sin) == 2):
         ct, st = expand_rope_tables(rope_cos_sin[0], rope_cos_sin[1],
                                     x.shape[-1], x.dtype)
         rope_cos_sin = (rope_cos_sin[0], rope_cos_sin[1], ct, st)
     outputs: Dict[int, torch.Tensor] = {}
+    checkpoint = remat and not fused and torch.is_grad_enabled()
     for i, block in enumerate(blocks):
-        x = vit_block(block, x, num_heads, scale, rope_cos_sin, attn_impl,
-                      ln_eps, fused)
+        args = (block, x, num_heads, scale, rope_cos_sin, attn_impl, ln_eps,
+                fused)
+        x = (torch.utils.checkpoint.checkpoint(vit_block, *args,
+                                               use_reentrant=False)
+             if checkpoint else vit_block(*args))
         if i + 1 in hooks:
             outputs[i + 1] = x
     return x, outputs

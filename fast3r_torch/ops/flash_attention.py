@@ -1,17 +1,25 @@
-"""Attention forward over (B, N, H, D): the hand-written CUDA kernel
-(``csrc/attention_fwd.cu``, kernel 2 of the port) and its plain version.
+"""Attention over (B, N, H, D), forward and backward: the hand-written CUDA
+kernels (``csrc/attention_fwd.cu``, ``csrc/attention_bwd.cu``) and their
+plain versions.
 
 Counterpart of ``fast3r_tpu/ops/flash_attention.py`` (the decoder's packed
-flash kernel) and ``fast3r_tpu/ops/batched_attention.py`` (the encoder's
-many-small-heads kernel): one strided kernel serves both.  The source note
-in ``attention_fwd.cu`` says what bounds it on the H100 and how it is laid
-out.
+flash kernels, forward and backward) and ``fast3r_tpu/ops/batched_attention.py``
+(the encoder's many-small-heads kernels): one strided kernel serves both in
+each direction.  The source notes say what bounds them on the H100 and how
+they are laid out.
 
-Numerics: scores and softmax statistics in fp32.  The kernel rounds the
-unnormalised probabilities to bf16 before the p @ v product (tensor cores)
-and sums the unrounded ones; :func:`attention_ref` rounds the normalised
-weights instead (``fast3r_tpu/ops/attention.py`` "naive").  The two agree in
-fp32 at summation-order level and in bf16 at bf16 rounding.
+Numerics: scores and softmax statistics in fp32.  The forward kernel rounds
+the unnormalised probabilities to bf16 before the p @ v product (tensor
+cores) and sums the unrounded ones; :func:`attention_ref` rounds the
+normalised weights instead (``fast3r_tpu/ops/attention.py`` "naive").  The
+two agree in fp32 at summation-order level and in bf16 at bf16 rounding.
+For training the forward also returns the rows' fp32 logsumexp (lse), and
+the backward recomputes p from it; :func:`attention_bwd_ref` states the
+backward's rounding points.
+
+:func:`flash_attention` is differentiable: under autograd it runs the
+forward with lse and the backward kernel (plain versions on the CPU);
+without autograd (inference) it launches the forward alone.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import torch
 from fast3r_torch.kernels import build
 
 HEAD_DIM = 64
+LSE_ROWS = 64  # lse / delta rows are padded to whole 64-query tiles
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -31,6 +40,34 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+
+def attention_lse_ref(q, k, v, scale: float):
+    """:func:`attention_ref` and the rows' fp32 natural-log logsumexp of the
+    scaled scores, (B, H, Nq)."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    return (torch.einsum("bhqk,bkhd->bqhd", w, v),
+            torch.logsumexp(logits, dim=-1))
+
+
+def attention_bwd_ref(q, k, v, o, lse, do, scale: float):
+    """Plain backward: (dq, dk, dv) in q's dtype from the forward's output o
+    and lse (B, H, Nq).  p = exp(scale q k^T - lse) and ds = p (do v^T -
+    delta) in fp32, delta = rowsum(do o) from the rounded o; p and ds
+    rounded to the input dtype before their products (the TPU kernels'
+    rounding points), fp32 products."""
+    dt = q.dtype
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)  # (B, H, Nq)
+    ds = (p * (dp - delta[..., None])).to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
 def _check(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
@@ -48,11 +85,21 @@ def _check(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
             "(head dim contiguous, other strides multiples of 16 bytes)")
 
 
+def _lse_buffer(B: int, H: int, Nq: int, device) -> torch.Tensor:
+    """(B, H, Nq) fp32 view of a buffer whose rows are padded to whole
+    64-query tiles, the layout the backward kernel reads."""
+    ldl = -(-Nq // LSE_ROWS) * LSE_ROWS
+    return torch.empty((B, H, ldl), device=device,
+                       dtype=torch.float32)[..., :Nq]
+
+
 def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     scale: float) -> torch.Tensor:
-    """Launch the kernel on CUDA q, k, v (B, N, H, 64) read through their
-    strides; (B, Nq, H, 64) contiguous out.  Checks what the kernel takes and
-    raises on anything else; counts nothing (each caller keeps its count)."""
+                     scale: float, lse: torch.Tensor = None) -> torch.Tensor:
+    """Launch the forward kernel on CUDA q, k, v (B, N, H, 64) read through
+    their strides; (B, Nq, H, 64) contiguous out, and the rows' lse written
+    into ``lse`` (a :func:`_lse_buffer`) when given.  Checks what the kernel
+    takes and raises on anything else; counts nothing (each caller keeps its
+    count)."""
     if q.device.type != "cuda":
         raise ValueError(f"attention: no kernel for device {q.device}")
     if q.dtype not in _DTYPES:
@@ -71,25 +118,108 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = lib.fast3r_attention_fwd(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), B, H, Nq, Nk, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], float(scale), build.stream_handle(q.device))
+        *v.stride()[:3], float(scale),
+        0 if lse is None else lse.data_ptr(),
+        0 if lse is None else lse.stride(1), build.stream_handle(q.device))
     build.check(err, "fast3r_attention_fwd")
     return o
+
+
+def attention_fwd_lse(q, k, v, scale: float):
+    """(o, lse) for the backward: the plain version on CPU tensors, the
+    forward kernel with its lse output on CUDA ones (counts nothing)."""
+    if q.device.type == "cpu":
+        return attention_lse_ref(q, k, v, scale)
+    lse = _lse_buffer(q.shape[0], q.shape[2], q.shape[1], q.device)
+    return launch_attention(q, k, v, scale, lse), lse
+
+
+def launch_attention_bwd(q, k, v, o, lse, do, scale: float, dq, dk, dv):
+    """Launch the backward kernels (dq, then dk / dv) on CUDA bf16 tensors:
+    q, k, v and do (B, N, H, 64) read and dq, dk, dv written through their
+    strides (views of one packed buffer are fine); lse from
+    :func:`attention_fwd_lse`.  delta = rowsum(do o) is computed here, in
+    fp32, into lse's padded layout.  Counts nothing."""
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"attention backward: the kernel takes bfloat16, "
+                         f"got {q.dtype}")
+    if do.stride(3) != 1 or any(s % 8 for s in do.stride()[:3]) \
+            or do.data_ptr() % 16:
+        do = do.contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do), ("dq", dq),
+                    ("dk", dk), ("dv", dv)):
+        _check(name, t, q if name in ("q", "do", "dq") else k)
+    if q.shape != do.shape or k.shape != v.shape:
+        raise ValueError("attention backward: q / do and k / v shapes differ")
+    B, Nq, H, _ = q.shape
+    ldl = lse.stride(1)
+    if (lse.dtype != torch.float32 or lse.shape != (B, H, Nq)
+            or lse.stride(2) != 1 or ldl % LSE_ROWS or lse.stride(0) != H * ldl):
+        raise ValueError("attention backward: lse must come from "
+                         "attention_fwd_lse")
+    delta = _lse_buffer(B, H, Nq, q.device)
+    delta.copy_((do.float() * o.float()).sum(-1).transpose(1, 2))
+    err = build.library().fast3r_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, H, Nq, k.shape[1], ldl,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3], float(scale),
+        build.stream_handle(q.device))
+    build.check(err, "fast3r_attention_bwd")
+
+
+def attention_bwd(q, k, v, o, lse, do, scale: float):
+    """(dq, dk, dv) of attention from the forward's o and lse.  CPU tensors
+    take :func:`attention_bwd_ref`; CUDA tensors launch the backward kernels
+    into new contiguous (B, N, H, 64) tensors."""
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, lse, do, scale)
+    dq = torch.empty(q.shape, device=q.device, dtype=q.dtype)
+    dk = torch.empty(k.shape, device=k.device, dtype=k.dtype)
+    dv = torch.empty(v.shape, device=v.device, dtype=v.dtype)
+    launch_attention_bwd(q, k, v, o, lse, do, scale, dq, dk, dv)
+    attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """Forward with lse, saved (q, k, v, o, lse); backward from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = attention_fwd_lse(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*attention_bwd(q, k, v, o, lse, do, ctx.scale), None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """softmax(scale * q k^T) v over (B, N, H, D) inputs; (B, Nq, H, D) out.
 
-    CPU tensors take :func:`attention_ref`.  CUDA tensors launch the kernel
-    (:func:`launch_attention`), which reads q, k and v through their strides
-    (no copy of the qkv projection's views) and takes D == 64 in float32 or
-    bfloat16; anything else raises.
+    CPU tensors take the plain versions.  CUDA tensors launch the kernels
+    (:func:`launch_attention`, and under autograd :func:`attention_bwd`),
+    which read q, k and v through their strides (no copy of the qkv
+    projection's views) and take D == 64, in float32 or bfloat16 forward
+    and bfloat16 backward; anything else raises.
     """
-    if q.device.type == "cpu":
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        o = _Attention.apply(q, k, v, scale)
+    elif q.device.type == "cpu":
         return attention_ref(q, k, v, scale)
-    o = launch_attention(q, k, v, scale)
-    flash_attention.launches += 1
+    else:
+        o = launch_attention(q, k, v, scale)
+    if q.device.type != "cpu":
+        flash_attention.launches += 1
     return o
 
 
 flash_attention.launches = 0
+attention_bwd.launches = 0

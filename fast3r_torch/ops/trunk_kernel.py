@@ -8,6 +8,9 @@ bilinear resize to (out_h, out_w) -> conv2 3x3 (128 -> 128, + b2) -> ReLU ->
 1x1 conv3 (128 -> 4, + b3), emitted channel-major as (B, 4, out_h * out_w).
 The source note in ``trunk.cu`` says what bounds it on the H100 and how it
 is laid out.  Weights come in the port's torch layouts (OIHW).
+
+Differentiable: the forward is the kernel, the backward recomputes through
+:func:`_plain_head` and differentiates that, as ``_head_t_bwd`` does.
 """
 
 from __future__ import annotations
@@ -51,6 +54,33 @@ def _check_kernel_args(x, w1, w2, w3):
                          f"{step}, or x not 16-byte aligned")
 
 
+def _plain_head_t(x, w1, b1, w2, b2, w3, b3, out_h: int, out_w: int):
+    """:func:`_plain_head` on NHWC x, channel-major (B, c3, H * W) out."""
+    y = _plain_head(x.permute(0, 3, 1, 2), w1, b1, w2, b2, w3, b3, out_h,
+                    out_w)
+    return y.reshape(y.shape[0], y.shape[1], out_h * out_w)
+
+
+class _TrunkHead(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, w3, b3, out_h, out_w):
+        ctx.save_for_backward(x, w1, b1, w2, b2, w3, b3)
+        ctx.hw = (out_h, out_w)
+        return _launch(x, w1, b1, w2, b2, w3, b3, out_h, out_w)
+
+    @staticmethod
+    def backward(ctx, g):
+        ins = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n)
+                      for t, n in zip(ins, ctx.needs_input_grad)]
+            y = _plain_head_t(*leaves, *ctx.hw)
+        want = [t for t in leaves if t.requires_grad]
+        got = iter(torch.autograd.grad(y, want, g) if want else ())
+        return (*(next(got) if t.requires_grad else None for t in leaves),
+                None, None)
+
+
 def fused_regression_head_t(x: torch.Tensor, w1, b1, w2, b2, w3, b3,
                             out_h: int, out_w: int) -> torch.Tensor:
     """Head trunk + conv3 on NHWC x (B, hh, wc, Cin); (B, c3, out_h*out_w).
@@ -58,12 +88,22 @@ def fused_regression_head_t(x: torch.Tensor, w1, b1, w2, b2, w3, b3,
     CPU tensors take :func:`_plain_head`.  CUDA tensors launch the kernel
     chain, which takes float32 x with Cin % 8 == 0 or bfloat16 x with
     Cin % 16 == 0, 128 trunk channels and 4 output channels; anything else
-    raises.
+    raises.  Differentiable (the backward through :func:`_plain_head`).
     """
     if x.device.type == "cpu":
-        y = _plain_head(x.permute(0, 3, 1, 2), w1, b1, w2, b2, w3, b3,
-                        out_h, out_w)
-        return y.reshape(y.shape[0], y.shape[1], out_h * out_w)
+        return _plain_head_t(x, w1, b1, w2, b2, w3, b3, out_h, out_w)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w1, b1, w2, b2, w3, b3)):
+        out = _TrunkHead.apply(x, w1, b1, w2, b2, w3, b3, out_h, out_w)
+    else:
+        out = _launch(x, w1, b1, w2, b2, w3, b3, out_h, out_w)
+    if x.shape[0]:
+        fused_regression_head_t.launches += 1
+    return out
+
+
+def _launch(x, w1, b1, w2, b2, w3, b3, out_h: int, out_w: int):
+    """Check what the kernel chain takes and launch it (counts nothing)."""
     if x.device.type != "cuda":
         raise ValueError(f"trunk: no kernel for device {x.device}")
     _check_kernel_args(x, w1, w2, w3)
@@ -97,7 +137,6 @@ def fused_regression_head_t(x: torch.Tensor, w1, b1, w2, b2, w3, b3,
         y1.data_ptr(), out.data_ptr(), n, hh, wc, cin, out_h, out_w,
         build.stream_handle(x.device))
     build.check(err, "fast3r_trunk_head_fwd")
-    fused_regression_head_t.launches += 1
     return out
 
 

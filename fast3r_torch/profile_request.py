@@ -1,18 +1,23 @@
-"""Profile one warm serving request of the port on one GPU.
+"""Profile one warm serving request, or one warm training step, of the port
+on one GPU.
 
-    python -m fast3r_torch.profile_request [--views 20] \
+    python -m fast3r_torch.profile_request [--views 20] [--train] \
         [--roads fused,plain,two_kernel_mlp] [--out runs/profile]
 
 For each road it builds the flagship with random weights (seed 0) in
 bfloat16 at 512x384 and serves one request of ``--views`` views as a warm-up,
-then one more under ``torch.profiler`` (CPU and CUDA activities):
+then one more under ``torch.profiler`` (CPU and CUDA activities).  With
+``--train`` it instead takes one ``train_step`` (remat, bf16 params and
+moments, a ``make_dummy_batch`` batch of ``--views`` views) as the warm-up
+and profiles the next one:
 
   * fused: the default configuration (fused-GEMM blocks, whole-MLP kernel);
   * plain: both stacks with ``fused_blocks=False``;
   * two_kernel_mlp: fused blocks with ``PREFER_FUSED_MLP = False``.
 
-It prints one JSON line per road: the request's wall time (host clock,
-profiler on, ending in a synchronise), the sum of kernel time, the device's
+It prints one JSON line per road: the request's or step's wall time (host
+clock, profiler on, ending in a synchronise), the sum of kernel time, the
+device's
 busy share (kernel time over wall), kernel time by category and the
 heaviest kernels by name; and writes a Chrome trace per road under
 ``--out``.  It needs a CUDA device and raises without one.
@@ -29,18 +34,24 @@ from pathlib import Path
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from fast3r_torch.data.dummy import make_dummy_batch
 from fast3r_torch.inference import Fast3R, inference
 from fast3r_torch.models.fast3r import Fast3RConfig
 from fast3r_torch.nn import fused_block
+from fast3r_torch.train.step import OptimConfig, init_train_state, train_step
 
 # (category, substrings of the kernel name), first match wins
 CATEGORIES = (
     ("attention kernel", ("attention_fwd",)),
-    ("fused GEMM kernel", ("fused_gemm_kernel",)),
+    ("attention backward kernels", ("attention_bwd",)),
+    # the replay is a launch of the same kernel with extra outputs
+    ("fused GEMM kernel (and replay)", ("fused_gemm_kernel",)),
     ("whole-MLP kernel", ("ln_mlp_kernel",)),
     ("LayerNorm kernel", ("ln_fwd_kernel",)),
+    ("LayerNorm backward kernel", ("ln_bwd_kernel",)),
     ("trunk kernel", ("conv3x3_mma", "conv3x3_f32")),
-    ("library convs", ("conv", "fprop", "dgrad", "implicit", "winograd")),
+    ("library convs", ("conv", "fprop", "dgrad", "wgrad", "implicit",
+                       "winograd")),
     ("library GEMMs", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
     ("copies", ("memcpy", "memset")),
 )
@@ -64,16 +75,35 @@ def kernel_label(name: str) -> str:
     return name[:90]
 
 
-def profile_road(model: Fast3R, road: str, views: list, out_dir: Path) -> dict:
+def _request(model: Fast3R, views: list):
+    """One serving request (the work to profile)."""
+    return lambda: inference(views, model, verbose=False)
+
+
+def _train_step(model: Fast3R, views: int):
+    """One training step from a fixed state and batch (the work to
+    profile)."""
+    opt = OptimConfig(warmup_steps=2, total_steps=1000)
+    state = init_train_state(model.params, opt)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in
+             make_dummy_batch(1, views, 384, 512, seed=0).items()
+             if k in ("imgs", "true_shapes", "pts3d", "valid_mask",
+                      "camera_pose")}
+    return lambda: train_step(state, batch, model.cfg, opt, remat=True)
+
+
+def profile_road(model: Fast3R, road: str, views: list, out_dir: Path,
+                 train: bool = False) -> dict:
     m = Fast3R(model.cfg.with_fused_blocks(road != "plain"), model.params)
     fused_block.PREFER_FUSED_MLP = road != "two_kernel_mlp"
     try:
-        inference(views, m, verbose=False)  # warm-up of the same size
+        work = _train_step(m, len(views)) if train else _request(m, views)
+        work()  # warm-up of the same size
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
-            inference(views, m, verbose=False)
+            work()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
     finally:
@@ -95,9 +125,11 @@ def profile_road(model: Fast3R, road: str, views: list, out_dir: Path) -> dict:
         n, t_ms = by_name.get(label, (0, 0.0))
         by_name[label] = (n + evt.count, t_ms + ms)
     out_dir.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out_dir / f"trace_{road}_{len(views)}.json"))
+    what = "train" if train else "request"
+    prof.export_chrome_trace(str(out_dir / f"trace_{what}_{road}_{len(views)}.json"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
-    return {"road": road, "views": len(views), "wall_ms": wall * 1e3,
+    return {"road": road, "work": what, "views": len(views),
+            "wall_ms": wall * 1e3,
             "kernel_ms": total, "busy_share": total / (wall * 1e3),
             "by_category_ms": dict(sorted(by_cat.items(),
                                           key=lambda kv: -kv[1])),
@@ -109,6 +141,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--views", type=int, default=20)
     ap.add_argument("--roads", default="fused,plain,two_kernel_mlp")
+    ap.add_argument("--train", action="store_true",
+                    help="profile a training step instead of a request")
     ap.add_argument("--out", default="runs/profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -123,7 +157,7 @@ def main() -> None:
     views = [{"img": torch.rand((1, 384, 512, 3), generator=g) * 2 - 1,
               "true_shape": [[384, 512]]} for _ in range(args.views)]
     for road in args.roads.split(","):
-        res = profile_road(model, road, views, Path(args.out))
+        res = profile_road(model, road, views, Path(args.out), args.train)
         res["gpu"] = gpu
         print(json.dumps(res), flush=True)
 

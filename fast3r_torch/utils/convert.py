@@ -1,4 +1,4 @@
-"""Load a ``fast3r_tpu`` parameter tree into the port.
+"""Move parameters between a ``fast3r_tpu`` parameter tree and the port.
 
 The JAX package keeps params as nested dicts and lists of arrays
 (``fast3r_tpu/nn/layers.py`` contract):
@@ -13,6 +13,8 @@ The JAX package keeps params as nested dicts and lists of arrays
 Which layout a leaf takes is decided by the port module it lands in, so the
 converter needs no table of names: the module path is the JAX key path.
 Leaves may be numpy arrays or anything ``numpy.asarray`` accepts.
+:func:`params_to_jax` is the inverse (for comparing gradients and updated
+params leaf by leaf with the JAX tree).
 """
 
 from __future__ import annotations
@@ -96,4 +98,84 @@ def params_from_jax(tree: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
     if missing:
         raise KeyError(f"port parameters without a JAX leaf: {missing[:8]}"
                        f"{' ...' if len(missing) > 8 else ''}")
+    return out
+
+
+def _to_jax(module: nn.Module, leaf: str, a: np.ndarray) -> np.ndarray:
+    if leaf == "weight" and isinstance(module, nn.Linear):
+        return a.T
+    if leaf == "weight" and isinstance(module, nn.Conv2d):
+        return a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+    if leaf == "weight" and isinstance(module, nn.ConvTranspose2d):
+        return a.transpose(2, 3, 0, 1)  # (cin, cout, kh, kw) -> HWIO
+    return a
+
+
+def _jax_leaf(module: nn.Module, leaf: str) -> str:
+    if isinstance(module, nn.LayerNorm):
+        return {"weight": "scale", "bias": "bias"}[leaf]
+    return {"weight": "w", "bias": "b"}[leaf]
+
+
+def params_to_jax(tensors: Dict[str, torch.Tensor], cfg) -> Dict[str, Any]:
+    """The ``fast3r_tpu`` param tree (nested dicts and lists of float32
+    numpy arrays, block leaves stacked on a leading depth axis) of a state
+    dict of ``Fast3RNet(cfg)``, or of any name -> tensor map of the same
+    names and shapes (gradients, updated params): the inverse of
+    :func:`params_from_jax`."""
+    from fast3r_torch.models.fast3r import Fast3RNet
+
+    with torch.device("meta"):
+        net = Fast3RNet(cfg)
+    tree: Dict[str, Any] = {}
+    for name, t in tensors.items():
+        mod_path, _, leaf = name.rpartition(".")
+        module = net.get_submodule(mod_path)
+        a = _to_jax(module, leaf, t.detach().float().cpu().numpy())
+        node, parts = tree, mod_path.split(".")
+        i = 0
+        while i < len(parts):
+            key = parts[i]
+            if key == "blocks":  # stacked: collect per block, stack below
+                node = node.setdefault("blocks", {})
+                depth_i = int(parts[i + 1])
+                i += 2
+                path = parts[i:] + [_jax_leaf(module, leaf)]
+                node.setdefault(tuple(path), {})[depth_i] = a
+                break
+            nxt = parts[i + 1] if i + 1 < len(parts) else None
+            if nxt is not None and nxt.isdigit():
+                lst = node.setdefault(key, [])
+                j = int(nxt)
+                lst.extend({} for _ in range(j + 1 - len(lst)))
+                node = lst[j]
+                i += 2
+            else:
+                node = node.setdefault(key, {})
+                i += 1
+        else:
+            node[_jax_leaf(module, leaf)] = a
+    return _stack_blocks(tree)
+
+
+def _stack_blocks(tree: Any) -> Any:
+    """Turn every blocks {(path...): {i: array}} map into nested dicts of
+    depth-stacked arrays."""
+    if isinstance(tree, list):
+        return [_stack_blocks(v) for v in tree]
+    if not isinstance(tree, dict):
+        return tree
+    out: Dict[str, Any] = {}
+    for key, sub in tree.items():
+        if key == "blocks":
+            stacked: Dict[str, Any] = {}
+            for path, per_block in sub.items():
+                node = stacked
+                for part in path[:-1]:
+                    node = node.setdefault(part, {})
+                node[path[-1]] = np.stack([per_block[i]
+                                           for i in range(len(per_block))])
+            out[key] = stacked
+        else:
+            out[key] = _stack_blocks(sub)
     return out

@@ -326,3 +326,226 @@ def test_fused_kernels_reject_what_they_cannot_take(dev):
         w1, b1 = _linear(1024, 256, g)
         w2, b2 = _linear(256, 1024, g)
         t_fb.ln_mlp(x, ones, zeros, w1, b1, w2, b2, 1e-6)
+
+
+# --------------------------------------------------------------------------
+# training kernels: attention backward (csrc/attention_bwd.cu) and the
+# forward's lse, the LayerNorm backward (Triton), the LN -> GEMM replay
+# --------------------------------------------------------------------------
+
+def _rel_max(out, ref):
+    """max |out - ref| over max |ref| (bf16 gradients: p and ds rounded to
+    bf16 on both sides, summed in other orders)."""
+    a, b = out.float(), ref.float()
+    assert torch.isfinite(a).all()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+@pytest.mark.parametrize("B,N,H", [(2, 768, 4), (1, 196, 2), (1, 392, 2),
+                                   (3, 64, 1), (1, 1000, 2)])
+def test_attention_bwd_kernel_matches_plain(dev, B, N, H):
+    """Strided q/k/v views of (B, N, 3, H, 64), ragged N included: the
+    forward's lse against the plain logsumexp (fp32, 1e-3 absolute on
+    values ~5), and dq, dk, dv against the plain backward on the same o and
+    lse within 2e-2 of max |plain|."""
+    g = _gen(8)
+    qkv = torch.randn((B, N, 3, H, 64), generator=g, device=dev).to(
+        torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn((B, N, H, 64), generator=g, device=dev).to(torch.bfloat16)
+    o, lse = t_flash.attention_fwd_lse(q, k, v, 0.125)
+    _, lse_ref = t_flash.attention_lse_ref(q, k, v, 0.125)
+    assert (lse - lse_ref).abs().max().item() < 1e-3
+    before = t_flash.attention_bwd.launches
+    got = t_flash.attention_bwd(q, k, v, o, lse, do, 0.125)
+    ref = t_flash.attention_bwd_ref(q, k, v, o, lse, do, 0.125)
+    torch.cuda.synchronize()
+    assert t_flash.attention_bwd.launches == before + 1
+    for name, a, b in zip("qkv", got, ref):
+        assert a.shape == b.shape and a.dtype == torch.bfloat16
+        assert _rel_max(a, b) < 2e-2, name
+
+
+def test_flash_attention_autograd_on_cuda(dev):
+    """flash_attention under autograd: forward with lse, backward kernel;
+    gradients match autograd through the fp32 plain version on the CPU
+    (relative L2 2e-2, bf16 inputs and products)."""
+    g = _gen(9)
+    q, k, v = (torch.randn((1, 300, 2, 64), generator=g, device=dev)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    do = torch.randn((1, 300, 2, 64), generator=g, device=dev).to(
+        torch.bfloat16)
+    before = t_flash.attention_bwd.launches
+    torch.autograd.backward(t_flash.flash_attention(q, k, v, 0.15), do)
+    assert t_flash.attention_bwd.launches == before + 1
+    qc, kc, vc = (t.detach().float().cpu().requires_grad_() for t in (q, k, v))
+    torch.autograd.backward(t_flash.attention_ref(qc, kc, vc, 0.15),
+                            do.float().cpu())
+    for a, b in ((q, qc), (k, kc), (v, vc)):
+        ga, gb = a.grad.float().cpu(), b.grad
+        assert ((ga - gb).norm() / gb.norm()).item() < 2e-2
+
+
+@pytest.mark.parametrize("B,N", [(2, 768), (3, 196)])
+def test_packed_qkv_attention_bwd_kernel_matches_plain(dev, B, N):
+    """dq, dk, dv written through strides into one packed (3, B, N, C)
+    buffer, against the plain backward of the same views."""
+    from fast3r_torch.ops import batched_attention as t_ba
+
+    g = _gen(10)
+    qkv3 = _bf((3, B, N, 256), g).requires_grad_()
+    do = _bf((B, N, 256), g)
+    before = t_ba.packed_qkv_attention_bwd.launches
+    torch.autograd.backward(t_ba.packed_qkv_attention(qkv3, 4, 0.125), do)
+    torch.cuda.synchronize()
+    assert t_ba.packed_qkv_attention_bwd.launches == before + 1
+    q, k, v = (qkv3.detach()[i].view(B, N, 4, 64) for i in range(3))
+    o, lse = t_flash.attention_fwd_lse(q, k, v, 0.125)
+    ref = t_flash.attention_bwd_ref(q, k, v, o, lse, do.view(B, N, 4, 64),
+                                    0.125)
+    for i in range(3):
+        assert _rel_max(qkv3.grad[i], ref[i].reshape(B, N, 256)) < 2e-2
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", [(300, 1024), (2, 5, 64), (7, 96),
+                                   (1500, 1024)])
+def test_layernorm_bwd_kernel_matches_plain(dev, dtype, tol, shape):
+    """dx within tol of max |plain| (bf16: one output rounding); fp32
+    dweight / dbias sums over the rows in another order, 1e-4 relative."""
+    g = _gen(11)
+    x = (torch.randn(shape, generator=g, device=dev) * 3 + 1).to(dtype)
+    w = torch.randn(shape[-1], generator=g, device=dev).to(dtype)
+    dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+    before = t_ln.layernorm_bwd.launches
+    dx, dw, db = t_ln.layernorm_bwd(x, w, dy, 1e-6)
+    rdx, rdw, rdb = t_ln.layernorm_bwd_ref(x, w, dy, 1e-6)
+    torch.cuda.synchronize()
+    assert t_ln.layernorm_bwd.launches == before + 1
+    assert dx.dtype == dtype and _rel_max(dx, rdx) < tol
+    assert _rel_max(dw, rdw) < 1e-4 and _rel_max(db, rdb) < 1e-4
+
+
+def test_layernorm_autograd_on_cuda(dev):
+    g = _gen(12)
+    x = _bf((64, 1024), g, 2.0, 0.5).requires_grad_()
+    w = _bf((1024,), g, 0.1, 1.0).requires_grad_()
+    b = _bf((1024,), g, 0.1).requires_grad_()
+    dy = _bf((64, 1024), g)
+    torch.autograd.backward(t_ln.fused_layernorm(x, w, b, 1e-6), dy)
+    rdx, rdw, rdb = t_ln.layernorm_bwd_ref(x.detach(), w.detach(), dy, 1e-6)
+    assert _rel_max(x.grad, rdx) < 2e-2
+    assert _rel_max(w.grad, rdw) < 1e-2 and _rel_max(b.grad, rdb) < 1e-2
+
+
+@pytest.mark.parametrize("M", [128, 300, 37])
+@pytest.mark.parametrize("mode", ["bias", "gelu", "qkv", "rope"])
+def test_ln_matmul_replay_matches_plain(dev, mode, M):
+    """The replay launch of fused_gemm.cu: the product as the plain version
+    (one bf16 step + 2e-2) and the residuals u (bf16, one step), mean and
+    rstd (fp32, 1e-5 relative) and z (bf16)."""
+    from fast3r_torch.nn import fused_block as t_fb
+    from fast3r_torch.ops.rope2d import expand_rope_tables, rope2d_cos_sin
+
+    g = _gen(13)
+    C = 256
+    x = _bf((M, C), g, 2.0, 0.5)
+    gamma, beta = _bf((C,), g, 0.1, 1.0), _bf((C,), g, 0.1)
+    n_out = 4 * C if mode in ("bias", "gelu") else 3 * C
+    w, b = _linear(n_out, C, g)
+    tables = None
+    if mode == "rope":
+        pos = torch.randint(0, 40, (1, M, 2), device="cuda", generator=g)
+        tables = expand_rope_tables(*rope2d_cos_sin(pos, 64), C,
+                                    torch.bfloat16)
+    before = t_fb.ln_matmul_replay.launches
+    got = t_fb._replay(mode, x, gamma, beta, w, b, 1e-6, tables, 4)
+    ref = t_fb._replay_ref(mode, x, gamma, beta, w, b, 1e-6, tables, 4)
+    torch.cuda.synchronize()
+    assert t_fb.ln_matmul_replay.launches == before + 1
+    _assert_bf16_close(got[0], ref[0].contiguous(), atol=2e-2)
+    _assert_bf16_close(got[1], ref[1], atol=1e-2)
+    for a, r in zip(got[2:4], ref[2:4]):
+        assert ((a - r).abs() <= 1e-5 * r.abs() + 1e-6).all()
+    if mode == "gelu":
+        _assert_bf16_close(got[4], ref[4], atol=2e-2)
+    else:
+        assert got[4] is None
+
+
+@pytest.mark.parametrize("prefer_fused_mlp", [True, False])
+def test_fused_block_grads_on_cuda_match_cpu(dev, prefer_fused_mlp,
+                                             monkeypatch):
+    """The fused block at the flagship width (1024, 16 heads) on 2 x 56
+    tokens, both roads of attention (encoder: RoPE + packed; decoder):
+    bf16 gradients on the card vs fp32 on the CPU within 3e-2 relative L2
+    (bf16 through the block's products and the backward's)."""
+    from fast3r_torch.nn import fused_block as t_fb
+    from fast3r_torch.nn.layers import Block
+    from fast3r_torch.ops.rope2d import expand_rope_tables, rope2d_cos_sin
+
+    monkeypatch.setattr(t_fb, "PREFER_FUSED_MLP", prefer_fused_mlp)
+    torch.manual_seed(0)
+    blk = Block(1024)
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.add_(0.05 * torch.randn_like(p))
+    x = torch.randn((2, 56, 1024)) * 2 + 0.5
+    dy = torch.randn((2, 56, 1024))
+    yy, xx = torch.meshgrid(torch.arange(7), torch.arange(8), indexing="ij")
+    pos = torch.stack([yy, xx], -1).reshape(1, 56, 2).repeat(2, 1, 1)
+    for impl, with_rope in (("batched", True), ("pallas", False)):
+        res = {}
+        for where, dt in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+            b = Block(1024)
+            b.load_state_dict(blk.state_dict())
+            b = b.to(where, dt)
+            xi = x.to(where, dt).detach().requires_grad_()
+            rope = None
+            if with_rope:
+                cos, sin = rope2d_cos_sin(pos.to(where), 64)
+                rope = (cos, sin) + expand_rope_tables(cos, sin, 1024, dt)
+            y = t_fb.fused_vit_block(b, xi, rope, 16, 0.125, impl, 1e-6)
+            torch.autograd.backward(y, dy.to(where, dt))
+            res[where] = [xi.grad] + [p.grad for p in b.parameters()]
+        for a, r in zip(res["cuda"], res["cpu"]):
+            a = a.float().cpu()
+            assert ((a - r).norm() / r.norm()).item() < 3e-2, impl
+
+
+def test_train_step_on_cuda_matches_cpu(dev):
+    """One train_step of the fused road at the flagship widths, shallow
+    depth, 2 views at 112x128: bf16 params on the card vs fp32 on the CPU,
+    the same weights, batch and image ids.  The first step runs at lr 0,
+    so the loss (1e-2 relative) and each top-level group's gradient norm
+    (3e-2 relative: bf16 through 6 blocks and their backward) are compared.
+    Every training kernel launched."""
+    from fast3r_torch.data.dummy import make_dummy_batch
+    from fast3r_torch.nn import fused_block as t_fb
+    from fast3r_torch.ops import batched_attention as t_ba
+    from fast3r_torch.train.step import (OptimConfig, init_train_state,
+                                         train_step)
+    import fast3r_torch
+
+    cfg = _shallow_cfg(1024, 16, fused=True)
+    cpu = fast3r_torch.Fast3R.from_random(cfg, seed=0, device="cpu")
+    gpu = cpu.to(device="cuda", dtype=torch.bfloat16)
+    batch = make_dummy_batch(1, 2, 112, 128, seed=0)
+    ids = torch.tensor([[0, 17]], dtype=torch.int32)
+    opt = OptimConfig(warmup_steps=2, total_steps=100)
+    fns = (t_flash.attention_bwd, t_ba.packed_qkv_attention_bwd,
+           t_ln.layernorm_bwd, t_fb.ln_matmul_replay)
+    before = [f.launches for f in fns]
+    metrics = {}
+    for where, model in (("cpu", cpu), ("cuda", gpu)):
+        state = init_train_state(model.params, opt)
+        _, metrics[where] = train_step(state, batch, cfg, opt, view_ids=ids)
+    torch.cuda.synchronize()
+    assert all(f.launches > b for f, b in zip(fns, before))
+    m, r = metrics["cuda"], metrics["cpu"]
+    assert m["skipped_nonfinite"] == 0
+    assert abs(m["loss"].item() - r["loss"].item()) < 1e-2 * abs(r["loss"].item())
+    for k in r:
+        if k.startswith("watch/grad_norm/"):
+            assert abs(m[k].item() - r[k].item()) < 3e-2 * r[k].item(), k

@@ -103,9 +103,11 @@ def _models(name):
 
 
 def _assert_close(out, ref):
+    """``fast3r_forward`` is differentiable: its outputs carry autograd
+    history when the params require grad."""
     assert set(out) == set(ref)
     for k in ref:
-        a, b = out[k].numpy(), np.asarray(ref[k])
+        a, b = out[k].detach().numpy(), np.asarray(ref[k])
         assert a.shape == b.shape, k
         np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL, err_msg=k)
 
