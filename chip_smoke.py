@@ -20,7 +20,12 @@ printing each one's seconds:
      the LayerNorm backward, the attention backward on the decoder shape
      (held against the plain version one head at a time: its score
      matrices would not fit at once) and from the encoder's packed buffer,
-     and the LN -> GEMM replay on the qkv, RoPE and fc1 GELU products;
+     and the LN -> GEMM replay on the qkv, RoPE and fc1 GELU products.  The
+     llama decoder's RMS -> GEMM kernels (K13) at its shapes (M = 15360,
+     K = 1024): ``rms_qkv3`` (N = 3072, and 1536 with 4 kv heads),
+     ``rms_matmul`` with SiLU (w1) and without (w3) at N = 2816, the RMS
+     replay (y, u, rstd and z) on the qkv, w1 and w3 products, and
+     ``matmul_residual`` at w2's K = 2816;
   3. requests: the flagship model with random weights (seed 0) in bfloat16
      serves ``fast3r_torch.inference`` requests at 512x384 on three paths,
      the launch counts set to 0 just before each path and read just after:
@@ -44,7 +49,18 @@ printing each one's seconds:
   6. training end to end: one 2-view 224x224 batch, the loss and each
      top-level group's gradient in bfloat16 on the card (fused and plain
      road) against float32 on the CPU (the plain versions);
-  7. launch counts: every kernel of a path must have launched on it.
+  7. llama requests: the ``llama_dec`` model (the flagship with its decoder
+     replaced by the 1024 x 24 llama decoder, 653,572,488 parameters),
+     random weights (seed 0) in bfloat16, serves 20 views at 512x384 twice
+     on the fused road and once on the decoder's plain road
+     (``fused_blocks=False`` in the decoder), counts reset and read per
+     road;
+  8. llama end to end: phase 4 for the llama model;
+  9. llama training: 3 ``train_step``s of 20 views on the fused road, each
+     step's time and the peak memory;
+  10. llama training end to end: phase 6 for the llama model;
+  11. launch counts: every kernel of a path must have launched on it, and
+     the RMS kernels on no path but the llama fused road's.
 
 Any failure raises (exit code 1).  Without a CUDA device the script exits
 with code 2 before printing any result.  The last line of standard output
@@ -54,6 +70,7 @@ name and power limit, and before that one JSON line describes each kernel.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -68,6 +85,7 @@ from fast3r_torch import Fast3R, Fast3RConfig, fast3r_forward, inference
 from fast3r_torch.data.dummy import make_dummy_batch
 from fast3r_torch.kernels import build
 from fast3r_torch.models.decoder import sample_random_image_ids
+from fast3r_torch.models.llama_decoder import LlamaDecoderConfig
 from fast3r_torch.nn import fused_block as fb
 from fast3r_torch.ops.batched_attention import (
     packed_qkv_attention,
@@ -100,6 +118,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,  # H100 SXM: dense bf16 tensor cores
               torch.float32: 67e12}    # fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12                   # H100 SXM HBM3
 M_TOK, C, HID = 15360, 1024, 4096  # 20 views x 768 tokens; width; MLP hidden
+L_HID = 2816  # the llama FFN hidden: round_up(int(2 * 4 * 1024 / 3), 256)
 
 # Tolerances, elementwise |kernel - plain| <= atol + rtol * |plain|.
 #  * float32: both sides compute in fp32 and differ only in summation order
@@ -640,6 +659,88 @@ def check_replay(results: list) -> None:
     torch.cuda.empty_cache()
 
 
+def check_rms(results: list) -> None:
+    """The RMS -> GEMM modes of fused_gemm.cu (K13) at the llama slice's
+    shapes, M = 15360, K = 1024, bf16 scale and weights as the model's:
+    q | k | v (N = 3072, and 1536 with 4 kv heads), w1 with SiLU and w3
+    without (N = 2816), the replay on the qkv, w1 and w3 products, and
+    matmul_residual at w2's K = 2816."""
+    g = _gen(8)
+    bf, it, eps = torch.bfloat16, 2, 1e-5
+    x = (torch.randn((M_TOK, C), generator=g, device="cuda") * 2 + 0.5).to(bf)
+    gamma = (1 + 0.1 * torch.randn((C,), generator=g, device="cuda")).to(bf)
+    wq, wk, wv = (_linear(C, C, g)[0] for _ in range(3))
+    w1, w3 = (_linear(L_HID, C, g)[0] for _ in range(2))
+    w2 = _linear(C, L_HID, g)[0]
+
+    def rms():
+        return F.rms_norm(x, (C,), gamma, eps)
+
+    def io_bytes(n, replay=False, z=False):
+        """x, w and gamma read, y written; the replay's u, rstd and z."""
+        return ((M_TOK * C + n * C + C + M_TOK * n) * it
+                + ((M_TOK * C * it + M_TOK * 4) if replay else 0)
+                + (M_TOK * n * it if z else 0))
+
+    for case, kv in (("qkv", C), ("qkv gqa 4 kv heads", C // 4)):
+        ws = (wq, wk[:kv], wv[:kv])
+        wcat, n = torch.cat(ws), C + 2 * kv
+        args = (x, gamma, *ws, eps)
+        _record(results, "rms_qkv3", "fused_gemm", f"{case} {M_TOK}x{C} -> {n}",
+                torch.cat(fb.rms_qkv3(*args), 1),
+                torch.cat(fb.rms_qkv3_ref(*args), 1),
+                lambda: fb.rms_qkv3(*args), lambda: fb.rms_qkv3_ref(*args),
+                lambda: F.linear(rms(), wcat).split([C, kv, kv], 1),
+                "F.rms_norm + F.linear", 2.0 * M_TOK * C * n, io_bytes(n))
+    for case, w, act in (("w1 silu", w1, "silu"), ("w3", w3, None)):
+        args = (x, gamma, w, eps)
+        _record(results, "rms_matmul", "fused_gemm",
+                f"{case} {M_TOK}x{C} -> {L_HID}",
+                fb.rms_matmul(*args, act=act), fb.rms_matmul_ref(*args, act=act),
+                lambda: fb.rms_matmul(*args, act=act),
+                lambda: fb.rms_matmul_ref(*args, act=act),
+                (lambda: F.silu(F.linear(rms(), w))) if act
+                else (lambda: F.linear(rms(), w)),
+                "F.rms_norm + F.linear" + (" + F.silu" if act else ""),
+                2.0 * M_TOK * C * L_HID, io_bytes(L_HID))
+    for case, w, act in (("qkv", torch.cat([wq, wk, wv]), None),
+                         ("w1 silu", w1, "silu"), ("w3", w3, None)):
+        n = w.shape[0]
+        args = (x, gamma, w, eps, act)
+        got = fb.rms_matmul_replay(*args)
+        ref = fb.rms_matmul_replay_ref(*args)
+        torch.cuda.synchronize()
+        errs = [compare("fused_gemm", got[0], ref[0], bf),
+                compare("replay_u", got[1], ref[1], bf),
+                compare("replay_stats", got[2], ref[2], bf)]
+        if act:
+            errs.append(compare("fused_gemm", got[3], ref[3], bf))
+        lib = ((lambda: F.silu(F.linear(rms(), w))) if act
+               else (lambda: F.linear(rms(), w)))
+        r = dict(errs[0], kernel="rms_matmul_replay",
+                 case=f"{case} {M_TOK}x{C} -> {n}", dtype="bfloat16",
+                 max_abs_err_residuals=max(e["max_abs_err"] for e in errs[1:]),
+                 ms=median_ms(lambda: fb.rms_matmul_replay(*args), 10),
+                 plain_ms=median_ms(lambda: fb.rms_matmul_replay_ref(*args), 3),
+                 library="F.rms_norm + F.linear" + (" + F.silu" if act else ""),
+                 library_ms=median_ms(lib, 10),
+                 **bound(2.0 * M_TOK * C * n, io_bytes(n, True, bool(act))))
+        results.append(r)
+        log(json.dumps(r))
+    h = fb.rms_matmul(x, gamma, w1, eps, act="silu")
+    zero = torch.zeros((C,), device="cuda", dtype=bf)
+    args = (h, w2, zero, x)
+    _record(results, "matmul_residual", "fused_gemm",
+            f"w2 {M_TOK}x{L_HID} -> {C}",
+            fb.matmul_residual(*args), fb.matmul_residual_ref(*args),
+            lambda: fb.matmul_residual(*args),
+            lambda: fb.matmul_residual_ref(*args),
+            lambda: F.linear(h, w2) + x, "F.linear + add",
+            2.0 * M_TOK * L_HID * C,
+            (M_TOK * L_HID + 2 * M_TOK * C + L_HID * C + C) * it)
+    torch.cuda.empty_cache()
+
+
 def phase_kernels() -> list:
     log("== phase 2: kernels vs plain versions")
     # the plain versions compute fp32 products in full fp32
@@ -653,6 +754,7 @@ def phase_kernels() -> list:
     check_layernorm_bwd(results)
     check_attention_bwd(results)
     check_replay(results)
+    check_rms(results)
     torch.cuda.synchronize()
     return results
 
@@ -697,6 +799,13 @@ KERNELS = {  # name -> (wrapper, route, source, TPU kernel it replaces)
     "ln_matmul_replay": (
         fb.ln_matmul_replay, "cuda", FUSED_CU,
         "fast3r_tpu/nn/fused_block.py:340 (_ln_matmul_replay_kernel)"),
+    "rms_qkv3": (fb.rms_qkv3, "cuda", FUSED_CU,
+                 "fast3r_tpu/nn/fused_block.py:300 (_rms_qkv3_kernel)"),
+    "rms_matmul": (fb.rms_matmul, "cuda", FUSED_CU,
+                   "fast3r_tpu/nn/fused_block.py:288 (_rms_matmul_kernel)"),
+    "rms_matmul_replay": (
+        fb.rms_matmul_replay, "cuda", FUSED_CU,
+        "fast3r_tpu/nn/fused_block.py:712 (_rms_matmul_replay_kernel)"),
 }
 TRAIN_KERNELS = ("layernorm_bwd", "attention_bwd", "packed_qkv_attention_bwd",
                  "ln_matmul_replay")
@@ -715,6 +824,17 @@ PATHS = {
 PATHS["train"] = PATHS["fused"] + TRAIN_KERNELS
 PATHS["train_plain"] = PATHS["plain"] + ("layernorm_bwd", "attention_bwd")
 PATHS["train_two_kernel_mlp"] = PATHS["two_kernel_mlp"] + TRAIN_KERNELS
+# the llama model (phases 7 and 9): the encoder's fused road, the heads, and
+# on the decoder's fused road the RMS kernels, attention and matmul_residual
+K13 = ("rms_qkv3", "rms_matmul", "rms_matmul_replay")
+LLAMA_ENCODER = ("packed_qkv_attention", "layernorm", "trunk", "ln_qkv_rope",
+                 "matmul_residual", "ln_mlp", "attention")
+PATHS["llama"] = LLAMA_ENCODER + K13[:2]
+PATHS["llama_plain"] = LLAMA_ENCODER
+PATHS["llama_train"] = PATHS["llama"] + TRAIN_KERNELS + K13[2:]
+# K13 launches on the llama fused roads only
+NO_LAUNCH = {path: K13 for path in PATHS if path not in ("llama",
+                                                         "llama_train")}
 OUT_KEYS = ("pts3d_in_other_view", "conf", "pts3d_local", "conf_local")
 # phase 4: |gpu bf16 - cpu fp32| / |cpu fp32| in the L2 norm, per output.
 # bf16 keeps 8 bits of mantissa; through 48 blocks and two heads the
@@ -798,8 +918,8 @@ def phase_requests(gpu: str):
     return cpu_model, model, plain, counts
 
 
-def phase_end_to_end(cpu_model, model, plain) -> dict:
-    log("== phase 4: bf16 kernel paths on the card vs fp32 plain versions "
+def phase_end_to_end(cpu_model, model, plain, phase: str = "phase 4") -> dict:
+    log(f"== {phase}: bf16 kernel paths on the card vs fp32 plain versions "
         "on the CPU (serving)")
     views = request_views(2, 224, 224, 7)
     t = time.perf_counter()
@@ -913,8 +1033,9 @@ def _loss_and_grads(net, cfg, batch, ids):
     return loss.item(), {k: torch.cat(v) for k, v in groups.items()}
 
 
-def phase_train_end_to_end(cpu_model) -> dict:
-    log("== phase 6: one training step's loss and gradients, bf16 on the "
+def phase_train_end_to_end(cpu_model, plain_cfg,
+                           phase: str = "phase 6") -> dict:
+    log(f"== {phase}: one training step's loss and gradients, bf16 on the "
         "card vs fp32 plain versions on the CPU")
     batch = {k: torch.as_tensor(v) for k, v in
              make_dummy_batch(1, 2, 224, 224, seed=1).items()
@@ -925,8 +1046,7 @@ def phase_train_end_to_end(cpu_model) -> dict:
     t_cpu = time.perf_counter() - t
     gpu_model = cpu_model.to(device="cuda", dtype=torch.bfloat16)
     errs, bad = {}, {}
-    for road, cfg in (("fused", cpu_model.cfg),
-                      ("plain", cpu_model.cfg.with_fused_blocks(False))):
+    for road, cfg in (("fused", cpu_model.cfg), ("plain", plain_cfg)):
         loss, grads = _loss_and_grads(gpu_model.params, cfg, batch, ids)
         errs[road] = {"loss": abs(loss - ref_loss) / abs(ref_loss),
                       **{f"grad/{k}": ((grads[k] - ref[k]).norm()
@@ -943,25 +1063,81 @@ def phase_train_end_to_end(cpu_model) -> dict:
     return errs
 
 
+# the slice of phases 7-10: the flagship with its decoder replaced by the
+# reference's llama_dec decoder (configs/experiment/llama_dec.yaml)
+LLAMA_DEC = LlamaDecoderConfig(
+    enc_embed_dim=1024, embed_dim=1024, n_layers=24, n_heads=16,
+    n_kv_heads=None, multiple_of=256, norm_eps=1e-5, rope_theta=10000.0,
+    max_seq_len=1000, random_image_idx_embedding=True, attn_impl="pallas",
+    fused_blocks=True)
+LLAMA_PARAMS = 653_572_488
+
+
+def llama_cfg(fused_decoder: bool = True) -> Fast3RConfig:
+    return dataclasses.replace(
+        Fast3RConfig.flagship(),
+        decoder=dataclasses.replace(LLAMA_DEC, fused_blocks=fused_decoder))
+
+
+def phase_llama_requests(gpu: str):
+    log("== phase 7: llama requests (llama_dec: flagship encoder and heads, "
+        "1024 x 24 llama decoder; random weights seed 0, bfloat16)")
+    t0 = time.perf_counter()
+    cpu_model = Fast3R.from_random(llama_cfg(), seed=0, device="cpu")
+    model = cpu_model.to(device="cuda", dtype=torch.bfloat16)
+    plain = Fast3R(llama_cfg(fused_decoder=False), model.params)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.params.parameters())
+    log(f"model: {n_params} parameters, built and moved in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if n_params != LLAMA_PARAMS:
+        raise AssertionError(f"llama model has {n_params} parameters, "
+                             f"expected {LLAMA_PARAMS}")
+    for m in (model, plain):  # warm-up
+        inference(request_views(2, 384, 512, 98), m, verbose=False)
+    counts = {"llama": serve_path("llama", model, ((20, 2),), gpu),
+              "llama_plain": serve_path("llama_plain", plain, ((20, 1),), gpu)}
+    return cpu_model, model, plain, counts
+
+
+def phase_llama_training(gpu: str, cpu_model) -> dict:
+    log("== phase 9: llama training steps (random weights seed 0, bf16 "
+        "params and moments, 20 views at 512x384, fused road)")
+    net = cpu_model.to(device="cuda", dtype=torch.bfloat16).params
+    batch = {k: torch.as_tensor(v).cuda() for k, v in
+             make_dummy_batch(1, 20, 384, 512, seed=0).items()
+             if k in BATCH_KEYS}
+    counts = {"llama_train": train_road("llama_train", net, cpu_model.cfg,
+                                        batch, 3, gpu)}
+    del net, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_counts(counts: dict) -> None:
-    log("== phase 7: kernel launches on each path of phases 3 and 5")
+    log("== phase 11: kernel launches on each path of phases 3, 5, 7 and 9")
     log(json.dumps(counts))
     missing = [f"{path}: {k}" for path, names in PATHS.items()
                for k in names if counts[path][k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing}")
+    stray = [f"{path}: {k}" for path, names in NO_LAUNCH.items()
+             for k in names if counts[path][k] != 0]
+    if stray:
+        raise AssertionError(f"kernels launched off their path: {stray}")
 
 
 # the heaviest main-path shape of each kernel, for the summary line
 MAIN_CASE = {"attention": "decoder", "layernorm": "eps=1e-05",
              "matmul_residual": "proj", "attention_bwd": "decoder",
-             "ln_matmul_replay": "fc1"}
+             "ln_matmul_replay": "fc1", "rms_qkv3": f"qkv {M_TOK}",
+             "rms_matmul": "w1", "rms_matmul_replay": "w1"}
 
 
 def kernel_summary(results: list, counts: dict) -> dict:
-    """One entry per kernel: launches summed over the paths of phases 3 and
-    5 (and per path); the largest bfloat16 error, and the bfloat16 times
-    and bound at its heaviest main-path shape, from phase 2."""
+    """One entry per kernel: launches summed over the paths of phases 3, 5,
+    7 and 9 (and per path); the largest bfloat16 error, and the bfloat16
+    times and bound at its heaviest main-path shape, from phase 2."""
     kernels = []
     for name, (_, route, source, replaces) in KERNELS.items():
         rows = [r for r in results
@@ -1005,8 +1181,21 @@ def main() -> int:
     done("phase 4")
     counts.update(phase_training(gpu, cpu_model))
     done("phase 5")
-    phase_train_end_to_end(cpu_model)
+    phase_train_end_to_end(cpu_model, cpu_model.cfg.with_fused_blocks(False))
+    del cpu_model
     done("phase 6")
+    cpu_model, model, plain, llama_counts = phase_llama_requests(gpu)
+    counts.update(llama_counts)
+    done("phase 7")
+    phase_end_to_end(cpu_model, model, plain, "phase 8 (llama)")
+    del model, plain
+    torch.cuda.empty_cache()
+    done("phase 8")
+    counts.update(phase_llama_training(gpu, cpu_model))
+    done("phase 9")
+    phase_train_end_to_end(cpu_model, llama_cfg(fused_decoder=False),
+                           "phase 10 (llama)")
+    done("phase 10")
     phase_counts(counts)
     log(json.dumps(kernel_summary(results, counts)))
     log(gpu_line())

@@ -1,7 +1,7 @@
 // Device helpers shared by the port's kernels: cp.async copies (and the
 // attention kernels' 64-row tile loader), ldmatrix loads and the m16n8k16
-// bf16 tensor-core product (mma.sync), bf16 packing, a warp sum and the
-// exact-erf GELU.
+// bf16 tensor-core product (mma.sync), bf16 packing, a warp sum, the
+// exact-erf GELU and SiLU.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -91,6 +91,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 // x * Phi(x) with the exact erf (torch's nn.GELU default)
 __device__ __forceinline__ float gelu_erf(float v) {
   return v * 0.5f * (1.f + erff(v * 0.70710678118654752f));
+}
+
+// x * sigmoid(x) with an exact division (torch's nn.SiLU)
+__device__ __forceinline__ float silu(float v) {
+  return v * (1.f / (1.f + expf(-v)));
 }
 
 }  // namespace fast3r_ptx

@@ -1,7 +1,8 @@
 """Serving entry: the ``Fast3R`` model container and ``inference(views, model)``.
 
-Counterpart of ``fast3r_tpu/inference.py`` (``Fast3R``, ``inference``,
-``forward_views`` and ``_build_varshape_forward``):
+Counterpart of ``fast3r_tpu/inference.py`` (``config_from_reference_args``,
+``Fast3R``, ``inference``, ``forward_views`` and
+``_build_varshape_forward``):
 
     model = Fast3R.from_random(seed=0, dtype=torch.bfloat16, device="cuda")
     out = inference(views, model)
@@ -24,7 +25,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from fast3r_torch.models.decoder import sample_random_image_ids
+from fast3r_torch.models.decoder import DecoderConfig, sample_random_image_ids
+from fast3r_torch.models.dpt_head import DPTHeadConfig
+from fast3r_torch.models.encoder import EncoderConfig
 from fast3r_torch.models.fast3r import (
     Fast3RConfig,
     Fast3RNet,
@@ -32,7 +35,90 @@ from fast3r_torch.models.fast3r import (
     fast3r_forward,
     init_fast3r,
 )
+from fast3r_torch.models.llama_decoder import LlamaDecoderConfig
 from fast3r_torch.utils.convert import params_from_jax
+
+
+def config_from_reference_args(encoder_args: Dict, decoder_args: Dict,
+                               head_args: Dict,
+                               attn_impl: str = "pallas") -> Fast3RConfig:
+    """A Fast3RConfig from the reference's ``*_args`` dicts (the HF
+    checkpoint's config.json, or a ``configs/experiment`` overlay), with
+    the JAX package's defaults for missing keys.  ``attn_impl`` is one of
+    ``ops.attention.IMPLS`` for the decoder; with "pallas" the encoder
+    takes "batched" (both are the attention kernel on CUDA), as
+    ``Fast3RConfig.flagship()``.  The DINO encoder is not ported: see
+    ROADMAP.md, Queue 1 item 7."""
+    if encoder_args.get("encoder_type", "croco") == "dino":
+        raise NotImplementedError(
+            "encoder_type 'dino' is not ported to fast3r_torch (ROADMAP.md, "
+            "Queue 1 item 7)")
+    enc = EncoderConfig(
+        patch_size=encoder_args.get("patch_size", 16),
+        patch_embed_cls=encoder_args.get("patch_embed_cls",
+                                         "ManyAR_PatchEmbed"),
+        embed_dim=encoder_args.get("embed_dim", 1024),
+        num_heads=encoder_args.get("num_heads", 16),
+        depth=encoder_args.get("depth", 24),
+        mlp_ratio=encoder_args.get("mlp_ratio", 4),
+        rope_base=float(str(encoder_args.get("pos_embed",
+                                             "RoPE100"))[len("RoPE"):]),
+        attn_impl="batched" if attn_impl == "pallas" else attn_impl,
+        drop=encoder_args.get("drop", 0.0),
+        attn_drop=encoder_args.get("attn_drop", 0.0),
+        drop_path=encoder_args.get("drop_path", 0.0),
+    )
+    return _assemble_config(enc, decoder_args, head_args, attn_impl)
+
+
+def _assemble_config(enc: EncoderConfig, decoder_args: Dict, head_args: Dict,
+                     attn_impl: str) -> Fast3RConfig:
+    if decoder_args.get("decoder_type", "fast3r") == "llama":
+        dec = LlamaDecoderConfig(
+            enc_embed_dim=decoder_args.get("enc_embed_dim", enc.embed_dim),
+            embed_dim=decoder_args.get("embed_dim", 1024),
+            n_layers=decoder_args.get("n_layers", 24),
+            n_heads=decoder_args.get("n_heads", 16),
+            n_kv_heads=decoder_args.get("n_kv_heads"),
+            multiple_of=decoder_args.get("multiple_of", 256),
+            ffn_dim_multiplier=decoder_args.get("ffn_dim_multiplier"),
+            norm_eps=decoder_args.get("norm_eps", 1e-5),
+            rope_theta=decoder_args.get("rope_theta", 10000.0),
+            max_seq_len=decoder_args.get("max_seq_len", 1000),
+            random_image_idx_embedding=decoder_args.get(
+                "random_image_idx_embedding", True),
+            attn_impl=attn_impl,
+        )
+    else:
+        dec = DecoderConfig(
+            enc_embed_dim=decoder_args.get("enc_embed_dim", enc.embed_dim),
+            embed_dim=decoder_args.get("embed_dim", 768),
+            num_heads=decoder_args.get("num_heads", 12),
+            depth=decoder_args.get("depth", 12),
+            mlp_ratio=decoder_args.get("mlp_ratio", 4.0),
+            qkv_bias=decoder_args.get("qkv_bias", True),
+            random_image_idx_embedding=decoder_args.get(
+                "random_image_idx_embedding", True),
+            attn_bias_for_inference_enabled=decoder_args.get(
+                "attn_bias_for_inference_enabled", True),
+            attn_impl=attn_impl,
+            drop=decoder_args.get("drop", 0.0),
+            attn_drop=decoder_args.get("attn_drop", 0.0),
+            drop_path=decoder_args.get("drop_path", 0.0),
+        )
+    conf_mode = head_args.get("conf_mode", ("exp", 1, float("inf")))
+    head = DPTHeadConfig(
+        patch_size=head_args.get("patch_size", 16),
+        num_channels=3 + bool(conf_mode),
+        dim_tokens=(enc.embed_dim, dec.embed_dim, dec.embed_dim,
+                    dec.embed_dim),
+        depth_mode=tuple(head_args.get("depth_mode",
+                                       ("exp", -float("inf"), float("inf")))),
+        conf_mode=tuple(conf_mode),
+    )
+    return Fast3RConfig(encoder=enc, decoder=dec, head=head,
+                        with_local_head=head_args.get("with_local_head",
+                                                      False))
 
 
 class Fast3R:
@@ -149,7 +235,8 @@ def inference(multiple_views_in_one_sample: Sequence[Dict], model: Fast3R,
     ``device`` / ``dtype`` move a copy of the model for this call when they
     differ from the model's.  ``image_ids`` (V ints, view 0 first) replace
     the randomly drawn decoder image ids, e.g. to reproduce another
-    implementation's draw.
+    implementation's draw; for the llama decoder they are the rotary
+    index, and its view-0 mask stays on the first view.
     """
     if verbose:
         print(f">> Inference with model on "

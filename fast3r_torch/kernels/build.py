@@ -44,8 +44,7 @@ SIGNATURES = {
     "fast3r_attention_bwd": [_P] * 9 + [_I] * 5 + [_L] * 21 + [_F, _P],
     "fast3r_trunk_head_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _P],
-    "fast3r_fused_gemm": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "fast3r_fused_gemm": [_I, _I] + [_P] * 13 + [_I, _I, _I, _F, _P],
     "fast3r_ln_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
 }
 

@@ -1,9 +1,11 @@
 """Fast3R: N images -> per-view global + local pointmaps and confidence.
 
 Counterpart of ``fast3r_tpu/models/fast3r.py``: CroCo encoder -> fusion
-decoder -> two DPT heads ("global": pts3d in view 0's frame, "local": pts3d
-in each view's own frame), with the transpose-to-landscape handling of
-mixed portrait / landscape batches.
+decoder (the ViT decoder, or the llama decoder of the ``llama_dec``
+ablation when ``cfg.decoder`` is a ``LlamaDecoderConfig``) -> two DPT heads
+("global": pts3d in view 0's frame, "local": pts3d in each view's own
+frame), with the transpose-to-landscape handling of mixed portrait /
+landscape batches.
 
 Outputs, stacked per view: pts3d_in_other_view (B, V, H, W, 3),
 conf (B, V, H, W) >= 1, pts3d_local, conf_local.  ``fast3r_forward`` is
@@ -14,7 +16,7 @@ differentiable (the training step's forward); ``inference`` runs it under
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -27,15 +29,25 @@ from fast3r_torch.models.decoder import (
 )
 from fast3r_torch.models.dpt_head import DPTHead, DPTHeadConfig, dpt_head_forward
 from fast3r_torch.models.encoder import Encoder, EncoderConfig, encoder_forward
+from fast3r_torch.models.llama_decoder import (
+    LlamaDecoder,
+    LlamaDecoderConfig,
+    llama_decoder_forward,
+)
 from fast3r_torch.nn.layers import init_params_
 
 
 @dataclasses.dataclass(frozen=True)
 class Fast3RConfig:
     encoder: EncoderConfig = EncoderConfig()
-    decoder: DecoderConfig = DecoderConfig()
+    decoder: Union[DecoderConfig, LlamaDecoderConfig] = DecoderConfig()
     head: DPTHeadConfig = DPTHeadConfig()
     with_local_head: bool = True
+
+    @property
+    def decoder_type(self) -> str:
+        return ("llama" if isinstance(self.decoder, LlamaDecoderConfig)
+                else "fast3r")
 
     @staticmethod
     def flagship() -> "Fast3RConfig":
@@ -75,7 +87,8 @@ class Fast3RNet(nn.Module):
     def __init__(self, cfg: Fast3RConfig):
         super().__init__()
         self.encoder = Encoder(cfg.encoder)
-        self.decoder = Decoder(cfg.decoder)
+        self.decoder = (LlamaDecoder(cfg.decoder) if cfg.decoder_type == "llama"
+                        else Decoder(cfg.decoder))
         self.head_global = DPTHead(cfg.head)
         if cfg.with_local_head:
             self.head_local = DPTHead(cfg.head)
@@ -153,10 +166,13 @@ def fast3r_forward(params: Fast3RNet, cfg: Fast3RConfig, imgs: torch.Tensor,
       mixed_orientation: set iff the batch holds portrait samples.
       head_chunk_views: run the heads over groups of this many views (rounded
         down to a divisor of V) to bound memory.
-      view_ids: (B, V) image ids for the decoder's index embedding; when
-        None, drawn by :func:`sample_random_image_ids` from ``generator``
-        (training needs one) or, at inference, from a generator seeded 0.
-      is_training: the decoder's training softmax scale (no entropy bias).
+      view_ids: (B, V) image ids for the decoder's index embedding (the
+        llama decoder's rotary index); when None, drawn by
+        :func:`sample_random_image_ids` from ``generator`` (training needs
+        one) or, at inference, from a generator seeded 0.  The llama
+        decoder's view-0 mask reads the views' order (arange ids).
+      is_training: the decoder's training softmax scale (no entropy bias;
+        the llama decoder has none in either case).
       remat: recompute the plain road's blocks in the backward.
 
     Returns pts3d_in_other_view (B, V, H, W, 3), conf (B, V, H, W)
@@ -181,8 +197,15 @@ def fast3r_forward(params: Fast3RNet, cfg: Fast3RConfig, imgs: torch.Tensor,
     else:
         view_ids = torch.arange(V, dtype=torch.int32).expand(B, V)
     image_ids = view_ids.to(fused.device).repeat_interleave(P, dim=1)
-    dec_out = decoder_forward(params.decoder, cfg.decoder, fused, image_ids,
-                              is_training=is_training, remat=remat)
+    if cfg.decoder_type == "llama":
+        order = torch.arange(V, device=fused.device).expand(B, V)
+        dec_out = llama_decoder_forward(
+            params.decoder, cfg.decoder, fused,
+            order.repeat_interleave(P, dim=1), rope_ids=image_ids, remat=remat)
+    else:
+        dec_out = decoder_forward(params.decoder, cfg.decoder, fused,
+                                  image_ids, is_training=is_training,
+                                  remat=remat)
     hook_seq = [dec_out[h] for h in cfg.decoder.hooks]  # each (B, V*P, C)
     is_portrait = ((flat_shapes[:, 1] < flat_shapes[:, 0]).to(imgs.device)
                    if mixed_orientation else None)

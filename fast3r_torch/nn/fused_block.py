@@ -1,5 +1,6 @@
-"""Fused ViT block: LayerNorm, bias, GELU, RoPE and the residual folded into
-the block's products, forward and (for training) backward.
+"""Fused ViT and llama blocks: LayerNorm / RMSNorm, bias, GELU / SiLU, RoPE
+and the residual folded into the blocks' products, forward and (for
+training) backward.
 
 Counterpart of ``fast3r_tpu/nn/fused_block.py``.  The products run the
 hand-written kernels of ``csrc/fused_gemm.cu`` and ``csrc/ln_mlp.cu``, whose
@@ -13,6 +14,12 @@ source notes say what bounds them on the H100:
   ln_matmul_replay the LN products' forward that also writes the backward's
                    residuals u = LN(x), mean, rstd (and z before GELU)
                    (_ln_matmul_replay_kernel)
+  rms_matmul       act(RMS(x) W^T), bias-free, act None or SiLU
+                   (_rms_matmul_kernel)
+  rms_qkv3         q, k, v = column views of RMS(x) [Wq | Wk | Wv]^T, k and
+                   v narrower than q under GQA (_rms_qkv3_kernel)
+  rms_matmul_replay the RMS products' forward that also writes u = RMS(x),
+                   rstd (and z before SiLU) (_rms_matmul_replay_kernel)
 
 Weights are in the ``nn.Linear`` layout, (out, in).  Each function takes its
 plain version (``*_ref``) on CPU tensors and launches its kernel on CUDA
@@ -25,16 +32,24 @@ run the replay and their backward (:func:`_ln_backward`, after
 backward is RoPE with the sine negated; ``matmul_residual``'s backward is
 plain products; ``ln_mlp``'s replays the two-kernel road.
 :func:`fused_vit_block` saves only (x, params) and recomputes in its
-backward, without rerunning the MLP's forward product.  The backward's
-products are cuBLAS matmuls (the JAX package leaves them to XLA): in bf16
-they round du and dh to bf16 where the JAX package keeps fp32.
+backward, without rerunning the MLP's forward product.  The RMS products
+run their replay under autograd too, and their backward (:func:`_rms_backward`,
+after ``_rms_backward_xla``) is plain products and elementwise code;
+:func:`fused_llama_block` saves (x, params) and recomputes the whole block
+in its backward (``_fused_llama_bwd``).  The backward's products are cuBLAS
+matmuls (the JAX package leaves them to XLA): in bf16 they round du and dh
+to bf16 where the JAX package keeps fp32.
 
 Rounding points, those of the TPU kernels (the plain versions compute the
 products in fp32 from operands rounded where the kernels round them):
 LN statistics and affine in fp32, LN output rounded to the activation dtype
-before the product; fp32 accumulation and bias; q and k rounded before the
-fp32 rotation with tables rounded to the activation dtype; the residual
-added in fp32 and rounded once; the MLP's h rounded between fc1 and fc2.
+before the product; RMS statistics in fp32, x * rstd rounded to the
+activation dtype, then times gamma and rounded again (``_rms_f32``: gamma
+rounded to the activation dtype in the forward, as given in the replay);
+fp32 accumulation and bias; SiLU on the fp32 accumulator with an exact
+division; q and k rounded before the fp32 rotation with tables rounded to
+the activation dtype; the residual added in fp32 and rounded once; the
+MLP's h rounded between fc1 and fc2.
 """
 
 from __future__ import annotations
@@ -54,9 +69,12 @@ from fast3r_torch.ops.rope2d import apply_rope2d_bnhd, rotate_half_lanes
 PREFER_FUSED_MLP = True
 
 ROPE_HEAD_DIM = 64  # the RoPE epilogue's rotate-half groups are 32 lanes
-LN_MAX_K = 1024     # the LN prologue holds a row's statistics pass in registers
+LN_MAX_K = 1024     # the norm prologues hold a row's statistics in registers
 MLP_WIDTH = 1024    # ln_mlp's fc2 accumulator layout: 8 warps x 128 columns
-_EPILOGUE = {"bias": 0, "gelu": 1, "qkv": 2, "rope": 3, "residual": 4}
+# fused_gemm.cu's modes; with the RMS prologue "bias" is the bias-free product
+_PROLOGUE = {None: 0, "ln": 1, "rms": 2}
+_EPILOGUE = {"bias": 0, "gelu": 1, "qkv": 2, "rope": 3, "residual": 4,
+             "silu": 5}
 
 
 # ---------------------------------------------------------------------------
@@ -146,6 +164,39 @@ def ln_mlp_ref(x, gamma, beta, w1, b1, w2, b2, eps: float):
     return (x.float() + (_mm(h, w2) + b2.float())).to(x.dtype)
 
 
+def _silu(z: torch.Tensor) -> torch.Tensor:
+    """z * sigmoid(z) with an exact division, fp32."""
+    return z * (1.0 / (1.0 + torch.exp(-z)))
+
+
+def rms_matmul_replay_ref(x, gamma, w, eps: float, act=None):
+    """(y, u, rstd, z) of :func:`rms_matmul_replay`, plain, at the rounding
+    points of ``_rms_matmul_replay_kernel``: fp32 rstd (M,); x * rstd
+    rounded to x's dtype, times gamma in fp32 and rounded again (u); the
+    product in fp32; with ``act == "silu"`` z = the rounded pre-activation
+    and y = SiLU of the fp32 one, rounded (else z is None)."""
+    dt = x.dtype
+    xf = x.float()
+    rstd = torch.rsqrt((xf * xf).mean(-1) + eps)
+    u = ((xf * rstd[:, None]).to(dt).float() * gamma.float()).to(dt)
+    y = _mm(u, w)
+    if act == "silu":
+        return _silu(y).to(dt), u, rstd, y.to(dt)
+    return y.to(dt), u, rstd, None
+
+
+def rms_matmul_ref(x, gamma, w, eps: float, act=None):
+    """act(RMSNorm(x) @ w^T) as ``_rms_matmul_kernel`` computes it: gamma
+    rounded to x's dtype before the multiply (``_rms_f32``)."""
+    return rms_matmul_replay_ref(x, gamma.to(x.dtype), w, eps, act)[0]
+
+
+def rms_qkv3_ref(x, gamma, wq, wk, wv, eps: float):
+    """(q, k, v): column views of one RMSNorm(x) @ [wq | wk | wv]^T."""
+    y = rms_matmul_ref(x, gamma, torch.cat([wq, wk, wv]), eps)
+    return tuple(y.split([wq.shape[0], wk.shape[0], wv.shape[0]], dim=1))
+
+
 # ---------------------------------------------------------------------------
 # kernel launches
 # ---------------------------------------------------------------------------
@@ -177,10 +228,13 @@ def _out_shape(epilogue: str, M: int, N: int):
     return (3, M, N // 3) if epilogue in ("qkv", "rope") else (M, N)
 
 
-def _gemm(fn: str, epilogue: str, x, w, bias, ln=None, residual=None,
-          tables=None, replay: bool = False):
-    """Check what fused_gemm.cu takes and launch it; a new output, or with
-    ``replay`` (LN epilogues) the tuple (out, u, mean, rstd, z)."""
+def _gemm(fn: str, epilogue: str, x, w, bias, ln=None, rms=None,
+          residual=None, tables=None, replay: bool = False):
+    """Check what fused_gemm.cu takes and launch it: the LN prologue with
+    ``ln = (gamma, beta, eps)``, the RMS prologue (bias-free: ``bias`` is
+    None) with ``rms = (gamma, eps)``.  A new output, or with ``replay``
+    (norm prologues) the tuple (out, u, mean, rstd, z); mean is None with
+    RMS, z None but for GELU and SiLU."""
     _check_device(fn, x)
     if x.dim() != 2 or w.dim() != 2:
         raise ValueError(f"{fn}: x must be (M, K) and w (N, K)")
@@ -193,16 +247,21 @@ def _gemm(fn: str, epilogue: str, x, w, bias, ln=None, residual=None,
                          f"K={K}, N={N}")
     if epilogue in ("qkv", "rope") and (N % 3 or (N // 3) % 128):
         raise ValueError(f"{fn}: needs N = 3 C with C % 128 == 0, got N={N}")
-    bias = _f32_vec(f"{fn} bias", bias, N, dev)
+    pro = "ln" if ln is not None else "rms" if rms is not None else None
+    if pro is not None and (K % 256 or K > LN_MAX_K):
+        raise ValueError(f"{fn}: the {pro.upper()} prologue takes "
+                         f"K % 256 == 0 and K <= {LN_MAX_K}, got K={K}")
     gamma = beta = None
     eps = 0.0
-    if ln is not None and (K % 256 or K > LN_MAX_K):
-        raise ValueError(f"{fn}: the LN prologue takes K % 256 == 0 and "
-                         f"K <= {LN_MAX_K}, got K={K}")
-    if ln is not None:
+    if pro == "ln":
         gamma, beta, eps = ln
-        gamma = _f32_vec(f"{fn} gamma", gamma, K, dev)
         beta = _f32_vec(f"{fn} beta", beta, K, dev)
+    elif pro == "rms":
+        gamma, eps = rms
+    if gamma is not None:
+        gamma = _f32_vec(f"{fn} gamma", gamma, K, dev)
+    if pro != "rms":
+        bias = _f32_vec(f"{fn} bias", bias, N, dev)
     if residual is not None:
         _bf16_rows(f"{fn} residual", residual, (M, N), dev)
     if tables is not None:
@@ -212,18 +271,19 @@ def _gemm(fn: str, epilogue: str, x, w, bias, ln=None, residual=None,
     u = mean = rstd = z = None
     if replay:
         u = torch.empty_like(x)
-        mean = torch.empty((M,), device=dev, dtype=torch.float32)
-        rstd = torch.empty_like(mean)
-        if epilogue == "gelu":
+        rstd = torch.empty((M,), device=dev, dtype=torch.float32)
+        if pro == "ln":
+            mean = torch.empty_like(rstd)
+        if epilogue in ("gelu", "silu"):
             z = torch.empty((M, N), device=dev, dtype=x.dtype)
     if M:
         ptr = (lambda t: 0 if t is None else t.data_ptr())
         ct, st = tables if tables is not None else (None, None)
         err = build.library().fast3r_fused_gemm(
-            _EPILOGUE[epilogue], x.data_ptr(), ptr(gamma), ptr(beta),
-            w.data_ptr(), bias.data_ptr(), ptr(residual), ptr(ct), ptr(st),
-            out.data_ptr(), ptr(u), ptr(mean), ptr(rstd), ptr(z), M, N, K,
-            float(eps), build.stream_handle(dev))
+            _PROLOGUE[pro], _EPILOGUE[epilogue], x.data_ptr(), ptr(gamma),
+            ptr(beta), w.data_ptr(), ptr(bias), ptr(residual), ptr(ct),
+            ptr(st), out.data_ptr(), ptr(u), ptr(mean), ptr(rstd), ptr(z), M,
+            N, K, float(eps), build.stream_handle(dev))
         build.check(err, "fast3r_fused_gemm")
     return (out, u, mean, rstd, z) if replay else out
 
@@ -466,8 +526,108 @@ def ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float):
     return _ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps)
 
 
+# ---------------------------------------------------------------------------
+# the RMS products (llama blocks: bias-free linears)
+# ---------------------------------------------------------------------------
+
+def _rms_act(fn: str, act) -> str:
+    if act not in (None, "silu"):
+        raise ValueError(f"{fn}: unknown act {act!r}")
+    return act or "bias"
+
+
+def rms_matmul_replay(x, gamma, w, eps: float, act=None):
+    """(y, u, rstd, z) for the training backward (``_rms_matmul_replay``):
+    y = act(RMSNorm(x) @ w^T) with gamma multiplied as given (fp32 when the
+    caller's gamma is), u = RMSNorm(x) in x's dtype, the rows' fp32 rstd
+    (M,), and with ``act == "silu"`` the pre-activation z in x's dtype
+    (else None).  The plain version on the CPU, one replay launch of
+    fused_gemm.cu on CUDA."""
+    mode = _rms_act("rms_matmul_replay", act)
+    if x.device.type == "cpu":
+        return rms_matmul_replay_ref(x, gamma, w, eps, act)
+    out, u, _, rstd, z = _gemm("rms_matmul_replay", mode, x, w, None,
+                               rms=(gamma, eps), replay=True)
+    if x.shape[0]:
+        rms_matmul_replay.launches += 1
+    return out, u, rstd, z
+
+
+def _rms_backward(x, gamma, w, u, rstd, z, g, act):
+    """(dx, dgamma, dw) of y = act(RMSNorm(x) w^T) from the replay's
+    residuals (``_rms_backward_xla``): the SiLU derivative and the RMS
+    backward in fp32, du and dw from plain products; dx and dw in the
+    primal dtypes, dgamma fp32."""
+    dz = g.float()
+    if act == "silu":
+        zf = z.float()
+        sig = torch.sigmoid(zf)
+        dz = dz * sig * (1.0 + zf * (1.0 - sig))
+    dzc = dz.to(x.dtype)
+    du = (dzc @ w).float()
+    dw = dzc.t() @ u
+    xhat = (x.float() * rstd[:, None]).to(x.dtype).float()
+    dxhat = du * gamma.float()
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    dx = rstd[:, None] * (dxhat - xhat * m2)
+    return dx.to(x.dtype), (du * xhat).sum(0), dw.to(w.dtype)
+
+
+class _RmsProduct(torch.autograd.Function):
+    """rms_matmul (and rms_qkv3's product over the concatenated weights)
+    under autograd: the replay forward, saved residuals (x, gamma, w, u,
+    rstd[, z])."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, w, eps, act):
+        y, u, rstd, z = rms_matmul_replay(x, gamma, w, eps, act)
+        ctx.save_for_backward(x, gamma, w, u, rstd, z)
+        ctx.act = act
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, w, u, rstd, z = ctx.saved_tensors
+        dx, dgamma, dw = _rms_backward(x, gamma, w, u, rstd, z, g, ctx.act)
+        return dx, dgamma.to(gamma.dtype), dw, None, None
+
+
+def rms_matmul(x, gamma, w, eps: float, act=None):
+    """act(RMSNorm(x) @ w^T), no bias; x (M, K), w (N, K); (M, N) in
+    x.dtype.  ``act`` is None or "silu" (exact division).  Differentiable
+    (the replay)."""
+    mode = _rms_act("rms_matmul", act)
+    if _training(x, gamma, w):
+        return _RmsProduct.apply(x, gamma, w, eps, act)
+    if x.device.type == "cpu":
+        return rms_matmul_ref(x, gamma, w, eps, act)
+    out = _gemm("rms_matmul", mode, x, w, None, rms=(gamma.to(x.dtype), eps))
+    rms_matmul.launches += 1
+    return out
+
+
+def rms_qkv3(x, gamma, wq, wk, wv, eps: float):
+    """RMSNorm(x) projected through three bias-free weights (llama GQA
+    attention: wk and wv may be narrower than wq): (q, k, v), column views
+    of one (M, Nq + Nk + Nv) product over the concatenated weights, on
+    CUDA one launch with the plain (M, N) store.  Differentiable: the
+    replay over the concatenated weights, whose gradient autograd splits
+    (``_rms_qkv3_p_fwd`` / ``_bwd``)."""
+    splits = [wq.shape[0], wk.shape[0], wv.shape[0]]
+    wcat = torch.cat([wq, wk, wv])
+    if _training(x, gamma, wq, wk, wv):
+        y = _RmsProduct.apply(x, gamma, wcat, eps, None)
+    elif x.device.type == "cpu":
+        return rms_qkv3_ref(x, gamma, wq, wk, wv, eps)
+    else:
+        y = _gemm("rms_qkv3", "bias", x, wcat, None,
+                  rms=(gamma.to(x.dtype), eps))
+        rms_qkv3.launches += 1
+    return tuple(y.split(splits, dim=1))
+
+
 for _fn in (ln_matmul, ln_qkv, ln_qkv_rope, matmul_residual, ln_mlp,
-            ln_matmul_replay):
+            ln_matmul_replay, rms_matmul, rms_qkv3, rms_matmul_replay):
     _fn.launches = 0
 
 
@@ -570,3 +730,100 @@ def fused_vit_block(p, x: torch.Tensor, rope_cos_sin, num_heads: int,
     if _training(x, *params):
         return _FusedBlock.apply(x, rope_cos_sin, cfg, *params)
     return _fused_block_impl(params, x, rope_cos_sin, *cfg)
+
+
+# ---------------------------------------------------------------------------
+# the fused llama block (RMSNorm / GQA attention / SwiGLU)
+# ---------------------------------------------------------------------------
+
+LLAMA_PARAMS = ("attention_norm.weight", "attn.wq.weight", "attn.wk.weight",
+                "attn.wv.weight", "attn.wo.weight", "ffn_norm.weight",
+                "ffn.w1.weight", "ffn.w2.weight", "ffn.w3.weight")
+
+
+def _fused_llama_impl(t, x, cos, sin, cfg) -> torch.Tensor:
+    """``_fused_llama_impl`` of the JAX package; ``t`` the block's tensors in
+    LLAMA_PARAMS order.  The weights are cast to x's dtype, the RMS scales
+    go to the products as they are; ``matmul_residual`` takes a zero bias
+    (the llama linears have none)."""
+    from fast3r_torch.models.llama_decoder import apply_rotary_pairs
+
+    B, S, D = x.shape
+    dt = x.dtype
+    g1, wq, wk, wv, wo, g2, w1, w2, w3 = t
+    wq, wk, wv, wo, w1, w2, w3 = (w.to(dt) for w in (wq, wk, wv, wo, w1, w2,
+                                                     w3))
+    x2 = x.reshape(B * S, D)
+    q, k, v = rms_qkv3(x2, g1, wq, wk, wv, cfg.norm_eps)
+    hd = cfg.head_dim
+    q = apply_rotary_pairs(q.reshape(B, S, cfg.n_heads, hd), cos, sin)
+    k = apply_rotary_pairs(k.reshape(B, S, cfg.kv_heads, hd), cos, sin)
+    v = v.reshape(B, S, cfg.kv_heads, hd)  # a strided view of the product
+    n_rep = cfg.n_heads // cfg.kv_heads
+    if n_rep > 1:  # GQA: repeat each kv head n_rep times in place
+        k = k.repeat_interleave(n_rep, dim=2)
+        v = v.repeat_interleave(n_rep, dim=2)
+    o = dot_product_attention(q, k, v, scale=hd ** -0.5, impl=cfg.attn_impl)
+    zero = torch.zeros((D,), device=x.device, dtype=dt)
+    x2 = matmul_residual(o.reshape(B * S, D).contiguous(), wo, zero, x2)
+    # SwiGLU as two RMS products (x2 read twice, as the JAX package does)
+    h1 = rms_matmul(x2, g2, w1, cfg.norm_eps, act="silu")
+    h3 = rms_matmul(x2, g2, w3, cfg.norm_eps)
+    return matmul_residual(h1 * h3, w2, zero, x2).reshape(B, S, D)
+
+
+class _FusedLlama(torch.autograd.Function):
+    """The fused llama block under autograd (``fused_llama_block``'s custom
+    VJP): saves (x, params) only; the backward recomputes the block through
+    the differentiable fused functions (the RMS replays, attention with
+    lse) and differentiates it with autograd."""
+
+    @staticmethod
+    def forward(ctx, x, cos, sin, cfg, *params):
+        ctx.save_for_backward(x, cos, sin, *params)
+        ctx.cfg = cfg
+        return _fused_llama_impl(params, x, cos, sin, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, cos, sin, *params = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            xs = x.detach().requires_grad_(need[0])
+            ps = [p.detach().requires_grad_(n) for p, n in zip(params, need[4:])]
+            y = _fused_llama_impl(ps, xs, cos, sin, ctx.cfg)
+        leaves = [u for u in (xs, *ps) if u.requires_grad]
+        got = iter(torch.autograd.grad(y, leaves, g) if leaves else ())
+        dx = next(got) if need[0] else None
+        return (dx, None, None, None,
+                *(next(got) if n else None for n in need[4:]))
+
+
+def fused_llama_supported(x_shape, cfg) -> bool:
+    """Whether the port's kernels take the fused llama block at these
+    shapes (x (B, S, D); bfloat16 is checked at launch): the RMS prologue's
+    K = D with D % 256 == 0 and D <= 1024; every product's N (q | k | v,
+    D, the FFN hidden) % 128 == 0 and w2's K = hidden % 32 == 0; head_dim
+    64 for the attention kernel."""
+    d, hidden = cfg.embed_dim, cfg.ffn_hidden
+    n_qkv = d + 2 * cfg.kv_heads * cfg.head_dim
+    return (len(x_shape) == 3 and x_shape[-1] == d and d % 256 == 0
+            and d <= LN_MAX_K and n_qkv % 128 == 0 and hidden % 128 == 0
+            and cfg.head_dim == ROPE_HEAD_DIM
+            and cfg.n_heads % cfg.kv_heads == 0)
+
+
+def fused_llama_block(p, x: torch.Tensor, cos, sin, cfg) -> torch.Tensor:
+    """Llama block (``p`` a ``models.llama_decoder.LlamaBlock``) on x
+    (B, S, D) with RMSNorm, SiLU and the residuals inside the products
+    (``fused_llama_block`` of the JAX package): :func:`rms_qkv3`, the
+    consecutive-pair rotary on q and k (fp32, torch), the GQA repeat, the
+    attention kernel, :func:`matmul_residual` for wo, :func:`rms_matmul`
+    for w1 (SiLU) and w3, their product, and :func:`matmul_residual` for
+    w2.  cos / sin (B, S, head_dim / 2) fp32.  Differentiable: saves (x,
+    params) and recomputes in its backward.  A shape or dtype a kernel
+    cannot take raises on CUDA."""
+    params = [p.get_parameter(name) for name in LLAMA_PARAMS]
+    if _training(x, *params):
+        return _FusedLlama.apply(x, cos, sin, cfg, *params)
+    return _fused_llama_impl(params, x, cos, sin, cfg)

@@ -66,6 +66,14 @@ class Block(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
 
+class RMSNorm(nn.Module):
+    """RMSNorm scale (the llama decoder's norms; JAX key ``scale``)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+
+
 def check_no_dropout(cfg, is_training: bool) -> None:
     """Raise if a training forward would need the Block's dropout knobs
     (``drop``, ``attn_drop``, ``drop_path`` of a stack config): 0 in every
@@ -84,7 +92,8 @@ def make_vit_stack(depth: int, dim: int, mlp_ratio: float = 4.0,
 def init_params_(module: nn.Module, generator: torch.Generator) -> None:
     """The JAX package's initialisation, drawn from ``generator``: linear and
     conv weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (torch's
-    default bound), LayerNorm scale 1 and bias 0."""
+    default bound), LayerNorm scale 1 and bias 0, RMSNorm scale 1, and the
+    llama decoder's ``view0_embed`` N(0, 0.02)."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             w = m.weight
@@ -103,6 +112,11 @@ def init_params_(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
             m.bias.fill_(0.0)
+        elif isinstance(m, RMSNorm):
+            m.weight.fill_(1.0)
+    for name, p in module.named_parameters():
+        if name.rsplit(".", 1)[-1] == "view0_embed":
+            p.copy_(torch.randn(p.shape, generator=generator) * 0.02)
 
 
 # ----------------------------------------------------------------------------

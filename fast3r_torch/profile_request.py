@@ -2,9 +2,12 @@
 on one GPU.
 
     python -m fast3r_torch.profile_request [--views 20] [--train] \
-        [--roads fused,plain,two_kernel_mlp] [--out runs/profile]
+        [--model flagship|llama] [--roads fused,plain,two_kernel_mlp] \
+        [--out runs/profile]
 
-For each road it builds the flagship with random weights (seed 0) in
+For each road it builds the model (``--model``: the flagship, or
+``llama``, the flagship with the llama_dec decoder of
+``configs/experiment/llama_dec.yaml``) with random weights (seed 0) in
 bfloat16 at 512x384 and serves one request of ``--views`` views as a warm-up,
 then one more under ``torch.profiler`` (CPU and CUDA activities).  With
 ``--train`` it instead takes one ``train_step`` (remat, bf16 params and
@@ -26,6 +29,7 @@ heaviest kernels by name; and writes a Chrome trace per road under
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
@@ -37,6 +41,7 @@ from torch.profiler import ProfilerActivity, profile
 from fast3r_torch.data.dummy import make_dummy_batch
 from fast3r_torch.inference import Fast3R, inference
 from fast3r_torch.models.fast3r import Fast3RConfig
+from fast3r_torch.models.llama_decoder import LlamaDecoderConfig
 from fast3r_torch.nn import fused_block
 from fast3r_torch.train.step import OptimConfig, init_train_state, train_step
 
@@ -55,8 +60,10 @@ CATEGORIES = (
     ("library GEMMs", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
     ("copies", ("memcpy", "memset")),
 )
-EPILOGUES = {"0": "ln_matmul", "1": "ln_matmul gelu", "2": "ln_qkv",
-             "3": "ln_qkv_rope", "4": "matmul_residual"}
+# fused_gemm_kernel<prologue, epilogue> by the wrapper it serves
+MODES = {"1, 0": "ln_matmul", "1, 1": "ln_matmul gelu", "1, 2": "ln_qkv",
+         "1, 3": "ln_qkv_rope", "0, 4": "matmul_residual",
+         "2, 0": "rms_qkv3 / rms_matmul", "2, 5": "rms_matmul silu"}
 
 
 def category(name: str) -> str:
@@ -68,10 +75,10 @@ def category(name: str) -> str:
 
 
 def kernel_label(name: str) -> str:
-    """fused_gemm_kernel<LN, EPI> by the wrapper it serves."""
+    """fused_gemm_kernel<PRO, EPI> by the wrapper it serves."""
     if "fused_gemm_kernel<" in name:
-        epi = name.split("fused_gemm_kernel<", 1)[1].split(">", 1)[0]
-        return "fused_gemm " + EPILOGUES.get(epi.split(",")[-1].strip(), epi)
+        mode = name.split("fused_gemm_kernel<", 1)[1].split(">", 1)[0]
+        return "fused_gemm " + MODES.get(mode.strip(), mode)
     return name[:90]
 
 
@@ -141,6 +148,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--views", type=int, default=20)
     ap.add_argument("--roads", default="fused,plain,two_kernel_mlp")
+    ap.add_argument("--model", choices=("flagship", "llama"),
+                    default="flagship")
     ap.add_argument("--train", action="store_true",
                     help="profile a training step instead of a request")
     ap.add_argument("--out", default="runs/profile")
@@ -151,14 +160,16 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"gpu: {gpu}", flush=True)
-    model = Fast3R.from_random(Fast3RConfig.flagship(), seed=0,
-                               dtype=torch.bfloat16)
+    cfg = Fast3RConfig.flagship()
+    if args.model == "llama":
+        cfg = dataclasses.replace(cfg, decoder=LlamaDecoderConfig())
+    model = Fast3R.from_random(cfg, seed=0, dtype=torch.bfloat16)
     g = torch.Generator().manual_seed(args.views)
     views = [{"img": torch.rand((1, 384, 512, 3), generator=g) * 2 - 1,
               "true_shape": [[384, 512]]} for _ in range(args.views)]
     for road in args.roads.split(","):
         res = profile_road(model, road, views, Path(args.out), args.train)
-        res["gpu"] = gpu
+        res["gpu"], res["model"] = gpu, args.model
         print(json.dumps(res), flush=True)
 
 

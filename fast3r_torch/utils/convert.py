@@ -5,10 +5,13 @@ The JAX package keeps params as nested dicts and lists of arrays
 
   Linear     {"w": (in, out), "b": (out,)}          -> weight (out, in), bias
   LayerNorm  {"scale": (d,), "bias": (d,)}          -> weight, bias
+  RMSNorm    {"scale": (d,)}                        -> weight
   Conv       {"w": HWIO (kh, kw, cin, cout), "b"}   -> weight OIHW, bias
   ConvT      {"w": HWIO (k, k, cin, cout), "b"}     -> weight (cin, cout, k, k)
-  "blocks"   every leaf stacked on a leading depth axis -> blocks.{i}
+  "blocks", "layers"  (dicts: the ViT and llama stacks) every leaf stacked on
+             a leading depth axis                   -> blocks.{i}, layers.{i}
   lists      ("layer_rn", "refinenet")             -> ModuleList index
+  "view0_embed"  a bare (d,) leaf of the llama decoder -> the same parameter
 
 Which layout a leaf takes is decided by the port module it lands in, so the
 converter needs no table of names: the module path is the JAX key path.
@@ -25,15 +28,19 @@ import numpy as np
 import torch
 from torch import nn
 
-_LEAF_NAMES = {"w": "weight", "b": "bias", "scale": "weight", "bias": "bias"}
+from fast3r_torch.nn.layers import RMSNorm
+
+_LEAF_NAMES = {"w": "weight", "b": "bias", "scale": "weight", "bias": "bias",
+               "view0_embed": "view0_embed"}
+_STACKED = ("blocks", "layers")  # subtrees stacked on a leading depth axis
 
 
 def _leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
-    """(dotted path, array) for every leaf; ``blocks`` subtrees unstacked."""
+    """(dotted path, array) for every leaf; stacked subtrees unstacked."""
     if isinstance(tree, dict):
         for key, sub in tree.items():
             path = f"{prefix}{key}"
-            if key == "blocks":
+            if key in _STACKED and isinstance(sub, dict):  # not head lists
                 depth = {np.asarray(a).shape[0] for _, a in _leaves(sub)}
                 if len(depth) != 1:
                     raise ValueError(f"{path}: leaves disagree on depth {depth}")
@@ -112,16 +119,16 @@ def _to_jax(module: nn.Module, leaf: str, a: np.ndarray) -> np.ndarray:
 
 
 def _jax_leaf(module: nn.Module, leaf: str) -> str:
-    if isinstance(module, nn.LayerNorm):
+    if isinstance(module, (nn.LayerNorm, RMSNorm)):
         return {"weight": "scale", "bias": "bias"}[leaf]
-    return {"weight": "w", "bias": "b"}[leaf]
+    return {"weight": "w", "bias": "b", "view0_embed": "view0_embed"}[leaf]
 
 
 def params_to_jax(tensors: Dict[str, torch.Tensor], cfg) -> Dict[str, Any]:
     """The ``fast3r_tpu`` param tree (nested dicts and lists of float32
-    numpy arrays, block leaves stacked on a leading depth axis) of a state
-    dict of ``Fast3RNet(cfg)``, or of any name -> tensor map of the same
-    names and shapes (gradients, updated params): the inverse of
+    numpy arrays, block and layer leaves stacked on a leading depth axis)
+    of a state dict of ``Fast3RNet(cfg)``, or of any name -> tensor map of
+    the same names and shapes (gradients, updated params): the inverse of
     :func:`params_from_jax`."""
     from fast3r_torch.models.fast3r import Fast3RNet
 
@@ -136,8 +143,8 @@ def params_to_jax(tensors: Dict[str, torch.Tensor], cfg) -> Dict[str, Any]:
         i = 0
         while i < len(parts):
             key = parts[i]
-            if key == "blocks":  # stacked: collect per block, stack below
-                node = node.setdefault("blocks", {})
+            if key in _STACKED:  # stacked: collect per block, stack below
+                node = node.setdefault(key, {})
                 depth_i = int(parts[i + 1])
                 i += 2
                 path = parts[i:] + [_jax_leaf(module, leaf)]
@@ -159,7 +166,7 @@ def params_to_jax(tensors: Dict[str, torch.Tensor], cfg) -> Dict[str, Any]:
 
 
 def _stack_blocks(tree: Any) -> Any:
-    """Turn every blocks {(path...): {i: array}} map into nested dicts of
+    """Turn every stacked {(path...): {i: array}} map into nested dicts of
     depth-stacked arrays."""
     if isinstance(tree, list):
         return [_stack_blocks(v) for v in tree]
@@ -167,7 +174,7 @@ def _stack_blocks(tree: Any) -> Any:
         return tree
     out: Dict[str, Any] = {}
     for key, sub in tree.items():
-        if key == "blocks":
+        if key in _STACKED:
             stacked: Dict[str, Any] = {}
             for path, per_block in sub.items():
                 node = stacked

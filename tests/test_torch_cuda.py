@@ -549,3 +549,159 @@ def test_train_step_on_cuda_matches_cpu(dev):
     for k in r:
         if k.startswith("watch/grad_norm/"):
             assert abs(m[k].item() - r[k].item()) < 3e-2 * r[k].item(), k
+
+
+# --------------------------------------------------------------------------
+# the llama decoder's RMS products (csrc/fused_gemm.cu, RMS prologue: K13)
+# and the llama model on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("M", [1000, 128, 37])
+@pytest.mark.parametrize("kind", ["rms_matmul", "rms_matmul_silu", "rms_qkv3",
+                                  "rms_qkv3_gqa", "replay", "replay_silu"])
+def test_rms_kernels_match_plain(dev, kind, M):
+    """Every RMS mode of fused_gemm.cu vs its plain version at K = 1024 (the
+    prologue's width), ragged rows included: the product one bf16 step +
+    2e-2 (as the LN modes); the replay's u one bf16 step + 1e-2, rstd
+    1e-5 relative, z as the product.  gamma in fp32, so the forward's
+    rounding of it and the replay's fp32 multiply both show."""
+    from fast3r_torch.nn import fused_block as t_fb
+
+    g = _gen(14)
+    K = 1024
+    x = _bf((M, K), g, 2.0, 0.5)
+    gamma = 1 + 0.1 * torch.randn((K,), generator=g, device=dev)
+    act = "silu" if kind.endswith("silu") else None
+    if kind.startswith("rms_qkv3"):
+        kvd = 256 if kind.endswith("gqa") else K  # 4 of 16 heads: N = 1536
+        wq, _ = _linear(K, K, g)
+        wk, _ = _linear(kvd, K, g)
+        wv, _ = _linear(kvd, K, g)
+        wrapper = t_fb.rms_qkv3
+        before = wrapper.launches
+        out = torch.cat(wrapper(x, gamma, wq, wk, wv, 1e-5), dim=1)
+        ref = torch.cat(t_fb.rms_qkv3_ref(x, gamma, wq, wk, wv, 1e-5), dim=1)
+    else:
+        w, _ = _linear(2816, K, g)
+        replay = kind.startswith("replay")
+        wrapper = t_fb.rms_matmul_replay if replay else t_fb.rms_matmul
+        before = wrapper.launches
+        if replay:
+            got = wrapper(x, gamma, w, 1e-5, act)
+            ref = t_fb.rms_matmul_replay_ref(x, gamma, w, 1e-5, act)
+            torch.cuda.synchronize()
+            _assert_bf16_close(got[1], ref[1], atol=1e-2)
+            assert ((got[2] - ref[2]).abs() <= 1e-5 * ref[2].abs()).all()
+            if act:
+                _assert_bf16_close(got[3], ref[3], atol=2e-2)
+            else:
+                assert got[3] is None
+            out, ref = got[0], ref[0]
+        else:
+            out = wrapper(x, gamma, w, 1e-5, act=act)
+            ref = t_fb.rms_matmul_ref(x, gamma, w, 1e-5, act=act)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    _assert_bf16_close(out, ref, atol=2e-2)
+
+
+def test_matmul_residual_at_ffn_hidden_depth(dev):
+    """The llama block's w2 product: K = 2816 (88 k-slices), N = 1024."""
+    from fast3r_torch.nn import fused_block as t_fb
+
+    g = _gen(15)
+    h = _bf((300, 2816), g, 0.5)
+    x = _bf((300, 1024), g, 2.0, 0.5)
+    w, _ = _linear(1024, 2816, g)
+    zero = torch.zeros(1024, device=dev, dtype=torch.bfloat16)
+    out = t_fb.matmul_residual(h, w, zero, x)
+    _assert_bf16_close(out, t_fb.matmul_residual_ref(h, w, zero, x), 2e-2)
+
+
+def test_rms_kernels_reject_what_they_cannot_take(dev):
+    from fast3r_torch.nn import fused_block as t_fb
+
+    g = _gen(16)
+    x = _bf((64, 640), g)
+    w, _ = _linear(256, 640, g)
+    with pytest.raises(ValueError, match="RMS prologue"):
+        t_fb.rms_matmul(x, torch.ones(640, device=dev), w, 1e-5)
+    x = _bf((64, 1024), g)
+    w, _ = _linear(200, 1024, g)
+    with pytest.raises(ValueError, match="N % 128"):
+        t_fb.rms_matmul(x, torch.ones(1024, device=dev), w, 1e-5)
+
+
+def _llama_shallow_cfg(n_kv_heads=None):
+    """The slice's widths (1024, 16 heads of 64, hidden 2816): 2 encoder
+    blocks, 4 llama layers, the flagship head."""
+    import dataclasses
+
+    from fast3r_torch.models.llama_decoder import LlamaDecoderConfig
+
+    return dataclasses.replace(
+        _shallow_cfg(1024, 16, fused=True),
+        decoder=LlamaDecoderConfig(n_layers=4, n_kv_heads=n_kv_heads))
+
+
+@pytest.mark.parametrize("n_kv_heads", [None, 4])
+def test_llama_request_on_cuda_matches_cpu(dev, n_kv_heads):
+    """A 2-view 112x128 llama request (56 tokens a view) on the fused road,
+    bf16 on the card vs fp32 plain versions on the CPU, the same weights
+    and ids: relative L2 within 2e-2 per output; the K13 kernels
+    launched (and none on the plain road)."""
+    import fast3r_torch
+    from fast3r_torch.nn import fused_block as t_fb
+
+    cfg = _llama_shallow_cfg(n_kv_heads)
+    cpu = fast3r_torch.Fast3R.from_random(cfg, seed=0, device="cpu")
+    gpu = cpu.to(device="cuda", dtype=torch.bfloat16)
+    views = [{"img": torch.rand((1, 112, 128, 3), generator=torch.Generator()
+                                .manual_seed(i)) * 2 - 1} for i in range(2)]
+    ref = fast3r_torch.inference(views, cpu, verbose=False)["preds"]
+    fns = (t_fb.rms_qkv3, t_fb.rms_matmul, t_fb.matmul_residual)
+    before = [f.launches for f in fns]
+    out = fast3r_torch.inference(views, gpu, verbose=False)["preds"]
+    assert all(f.launches > b for f, b in zip(fns, before))
+    for p, r in zip(out, ref):
+        for k in r:
+            assert torch.isfinite(p[k]).all(), k
+            assert ((p[k] - r[k]).norm() / r[k].norm()).item() < 2e-2, k
+    plain = fast3r_torch.Fast3R(cfg.with_fused_blocks(False), gpu.params)
+    before = [f.launches for f in fns[:2]]
+    fast3r_torch.inference(views, plain, verbose=False)
+    assert [f.launches for f in fns[:2]] == before
+
+
+def test_llama_train_step_on_cuda_matches_cpu(dev):
+    """One llama train_step on the fused road at the slice's widths,
+    shallow depth, 2 views at 112x128: bf16 on the card vs fp32 on the
+    CPU, the same weights, batch and rotary ids.  The first step runs at
+    lr 0: the loss (1e-2 relative) and each group's gradient norm (3e-2
+    relative) are compared, and the replay launched."""
+    import fast3r_torch
+    from fast3r_torch.data.dummy import make_dummy_batch
+    from fast3r_torch.nn import fused_block as t_fb
+    from fast3r_torch.train.step import (OptimConfig, init_train_state,
+                                         train_step)
+
+    cfg = _llama_shallow_cfg()
+    cpu = fast3r_torch.Fast3R.from_random(cfg, seed=0, device="cpu")
+    gpu = cpu.to(device="cuda", dtype=torch.bfloat16)
+    batch = make_dummy_batch(1, 2, 112, 128, seed=0)
+    ids = torch.tensor([[0, 17]], dtype=torch.int32)
+    opt = OptimConfig(warmup_steps=2, total_steps=100)
+    fns = (t_fb.rms_matmul_replay, t_flash.attention_bwd)
+    before = [f.launches for f in fns]
+    metrics = {}
+    for where, model in (("cpu", cpu), ("cuda", gpu)):
+        state = init_train_state(model.params, opt)
+        _, metrics[where] = train_step(state, batch, cfg, opt, view_ids=ids)
+    torch.cuda.synchronize()
+    assert all(f.launches > b for f, b in zip(fns, before))
+    m, r = metrics["cuda"], metrics["cpu"]
+    assert m["skipped_nonfinite"] == 0
+    assert abs(m["loss"].item() - r["loss"].item()) < 1e-2 * abs(r["loss"].item())
+    for k in r:
+        if k.startswith("watch/grad_norm/"):
+            assert abs(m[k].item() - r[k].item()) < 3e-2 * r[k].item(), k
