@@ -59,8 +59,27 @@ printing each one's seconds:
   9. llama training: 3 ``train_step``s of 20 views on the fused road, each
      step's time and the peak memory;
   10. llama training end to end: phase 6 for the llama model;
-  11. launch counts: every kernel of a path must have launched on it, and
-     the RMS kernels on no path but the llama fused road's.
+  11. a square request: the flagship (random weights, seed 0, bfloat16,
+     fused road) serves 20 views at 512x512 twice, the head on its unfused
+     road, so the trunk kernel must launch 0 times and the resize kernel
+     (K12) once per head call; then once with ``profiling=True`` at
+     512x512 and at 384x512 (the trunk kernel's road);
+  12. a mixed request: 8 views at 384x512, 6 at 512x384 and 6 at 448x512 in
+     one request; the trunk kernel must launch for the first two shape
+     groups' heads only and K12 for the third's only;
+  13. the head end to end at a K12 shape: ``dpt_head_forward`` on one
+     512x512 view from seeded hook tokens, bf16 on the card (unfused road,
+     K12) against fp32 on the CPU;
+  14. images to poses: ``fast3r_torch.cli.reconstruct`` on 6 seeded
+     1152x1008 PNGs (448x512 views) on the card, its poses.json and
+     scene.ply checked and each stage timed; ``inference_from_raw`` against
+     ``load_images`` + ``inference`` on the same frames; pose recovery on
+     the card against fp32 on the CPU for the same predictions (a seeded
+     scene of three known cameras at 448x512) and minimal samples;
+  15. launch counts: every kernel of a path must have launched on it, the
+     RMS kernels on no path but the llama fused road's, K12 on no path of
+     384x512 views and the trunk kernel on no path of 512x512 or 448x512
+     views.
 
 Any failure raises (exit code 1).  Without a CUDA device the script exits
 with code 2 before printing any result.  The last line of standard output
@@ -73,18 +92,28 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+
+import numpy as np
+import PIL.Image
 
 import torch
 import torch.nn.functional as F
 
 from fast3r_torch import Fast3R, Fast3RConfig, fast3r_forward, inference
+from fast3r_torch.cli import reconstruct
 from fast3r_torch.data.dummy import make_dummy_batch
+from fast3r_torch.eval.pose import estimate_camera_poses
+from fast3r_torch.eval.recon import align_local_pts3d_to_global
+from fast3r_torch.inference import inference_from_raw
 from fast3r_torch.kernels import build
 from fast3r_torch.models.decoder import sample_random_image_ids
+from fast3r_torch.models.dpt_head import dpt_head_forward
 from fast3r_torch.models.llama_decoder import LlamaDecoderConfig
 from fast3r_torch.nn import fused_block as fb
 from fast3r_torch.ops.batched_attention import (
@@ -104,6 +133,9 @@ from fast3r_torch.ops.fused_layernorm import (
     layernorm_bwd_ref,
     layernorm_ref,
 )
+from fast3r_torch.ops.pnp import draw_samples
+from fast3r_torch.ops.resize import resize_matmul
+from fast3r_torch.ops.resize_kernel import resize_bilinear_kernel
 from fast3r_torch.ops.rope2d import (
     expand_rope_tables,
     rope2d_cos_sin,
@@ -112,6 +144,7 @@ from fast3r_torch.ops.rope2d import (
 from fast3r_torch.ops.trunk_kernel import _plain_head, fused_regression_head_t
 from fast3r_torch.train.losses import conf_loss_multiview_v2
 from fast3r_torch.train.step import OptimConfig, init_train_state, train_step
+from fast3r_torch.utils.image import load_images, load_images_raw
 
 DEC_SCALE = 0.125 * math.sqrt(math.log(137) / math.log(20))
 PEAK_FLOPS = {torch.bfloat16: 989e12,  # H100 SXM: dense bf16 tensor cores
@@ -157,6 +190,11 @@ TOL = {
     ("layernorm_bwd_w", torch.bfloat16): dict(atol_of_max=1e-4, rtol=0.0),
     ("replay_u", torch.bfloat16): dict(atol=1e-2, rtol=2 ** -7),
     ("replay_stats", torch.bfloat16): dict(atol=1e-6, rtol=1e-5),
+    # the resize kernel rounds at the plain version's two points (the H
+    # pass and the W pass, each a 2-tap fp32 sum); a value within an fp32
+    # rounding of a bf16 tie lands one step away: one bf16 step at the
+    # output's largest magnitude
+    ("resize", torch.bfloat16): dict(bf16_steps_of_max=1, rtol=0.0),
 }
 
 
@@ -205,7 +243,10 @@ def compare(kind: str, out: torch.Tensor, ref: torch.Tensor, dtype) -> dict:
         raise AssertionError(f"{kind}: kernel output is not finite")
     tol = TOL[(kind, dtype)]
     err = (a - b).abs()
-    atol = tol.get("atol", 0.0) + tol.get("atol_of_max", 0.0) * b.abs().max().item()
+    top = b.abs().max().item()
+    atol = tol.get("atol", 0.0) + tol.get("atol_of_max", 0.0) * top
+    if "bf16_steps_of_max" in tol:  # one step = 2^(exponent - 7)
+        atol += tol["bf16_steps_of_max"] * 2.0 ** (math.floor(math.log2(top)) - 7)
     bound = atol + tol["rtol"] * b.abs()
     max_abs = err.max().item()
     max_rel = (err / b.abs().clamp(min=1e-6)).max().item()
@@ -346,6 +387,33 @@ def check_trunk(results: list) -> None:
                                 + n * H * W * (c1 * c1 * 9 + c1 * 4)),
                          (x.numel() + n * 4 * H * W) * x.element_size(),
                          dtype))
+        results.append(r)
+        log(json.dumps(r))
+
+
+def check_resize(results: list) -> None:
+    """K12 at the regression trunk's shapes on the unfused road: one view's
+    conv1 output at 512x512 and at 448x512 (bf16, 128 channels)."""
+    bf = torch.bfloat16
+    for shape, (H, W) in (((1, 128, 256, 256), (512, 512)),
+                          ((1, 128, 224, 256), (448, 512))):
+        x = torch.randn(shape, generator=_gen(9), device="cuda").to(bf)
+        out = resize_bilinear_kernel(x, H, W)
+        ref = resize_matmul(x, H, W)
+        torch.cuda.synchronize()
+        b, c, h, w = shape
+        r = compare("resize", out, ref, bf)
+        r.update(kernel="resize", case=f"{b}x{c}x{h}x{w} -> {H}x{W}",
+                 dtype="bfloat16",
+                 ms=median_ms(lambda: resize_bilinear_kernel(x, H, W), 50),
+                 plain_ms=median_ms(lambda: resize_matmul(x, H, W), 20),
+                 library="F.interpolate(bilinear, align_corners=True)",
+                 library_ms=median_ms(lambda: F.interpolate(
+                     x, size=(H, W), mode="bilinear", align_corners=True), 50),
+                 # a 3-flop lerp per H-pass value (b c H w) and per output,
+                 # in fp32 on the CUDA cores
+                 **bound(3.0 * b * c * H * (w + W),
+                         (x.numel() + out.numel()) * 2, torch.float32))
         results.append(r)
         log(json.dumps(r))
 
@@ -750,6 +818,7 @@ def phase_kernels() -> list:
     check_layernorm(results)
     check_attention(results)
     check_trunk(results)
+    check_resize(results)
     check_fused_blocks(results)
     check_layernorm_bwd(results)
     check_attention_bwd(results)
@@ -775,6 +844,8 @@ KERNELS = {  # name -> (wrapper, route, source, TPU kernel it replaces)
                   "fast3r_tpu/ops/fused_layernorm.py:46 (_fwd_kernel)"),
     "trunk": (fused_regression_head_t, "cuda", "fast3r_torch/csrc/trunk.cu",
               "fast3r_tpu/ops/trunk_kernel.py:165 (_trunk_kern)"),
+    "resize": (resize_bilinear_kernel, "cuda", "fast3r_torch/csrc/resize.cu",
+               "fast3r_tpu/ops/resize_kernel.py:141 (_resize_kern)"),
     "ln_qkv_rope": (fb.ln_qkv_rope, "cuda", FUSED_CU,
                     "fast3r_tpu/nn/fused_block.py:595 (_ln_qkv_rope_kernel)"),
     "ln_qkv": (fb.ln_qkv, "cuda", FUSED_CU,
@@ -832,9 +903,21 @@ LLAMA_ENCODER = ("packed_qkv_attention", "layernorm", "trunk", "ln_qkv_rope",
 PATHS["llama"] = LLAMA_ENCODER + K13[:2]
 PATHS["llama_plain"] = LLAMA_ENCODER
 PATHS["llama_train"] = PATHS["llama"] + TRAIN_KERNELS + K13[2:]
-# K13 launches on the llama fused roads only
-NO_LAUNCH = {path: K13 for path in PATHS if path not in ("llama",
-                                                         "llama_train")}
+# phases 11, 12 and 14: the flagship's fused road at 512x512 (the head's
+# unfused road with K12), mixed 384x512 / 512x384 / 448x512 views (both
+# roads) and the CLI's 448x512 views (K12)
+PATHS["square"] = tuple(k for k in PATHS["fused"] if k != "trunk") + (
+    "resize",)
+PATHS["mixed"] = PATHS["fused"] + ("resize",)
+PATHS["images_to_poses"] = PATHS["square"]
+# K13 launches on the llama fused roads only, K12 on no path of 384x512
+# views, the trunk kernel on no path of 512x512 or 448x512 views
+NO_LAUNCH = {
+    path: ((() if path in ("llama", "llama_train") else K13)
+           + (() if path in ("square", "mixed", "images_to_poses")
+              else ("resize",))
+           + (("trunk",) if path in ("square", "images_to_poses") else ()))
+    for path in PATHS}
 OUT_KEYS = ("pts3d_in_other_view", "conf", "pts3d_local", "conf_local")
 # phase 4: |gpu bf16 - cpu fp32| / |cpu fp32| in the L2 norm, per output.
 # bf16 keeps 8 bits of mantissa; through 48 blocks and two heads the
@@ -849,10 +932,12 @@ def request_views(n: int, H: int, W: int, seed: int) -> list:
             for i in range(n)]
 
 
-def check_preds(preds: list, n: int, H: int, W: int) -> None:
-    if len(preds) != n:
-        raise AssertionError(f"{len(preds)} predictions for {n} views")
-    for i, p in enumerate(preds):
+def check_preds(preds: list, shapes: list) -> None:
+    """Every output of view i finite, of shape shapes[i], conf >= 1."""
+    if len(preds) != len(shapes):
+        raise AssertionError(f"{len(preds)} predictions for {len(shapes)} "
+                             "views")
+    for i, (p, (H, W)) in enumerate(zip(preds, shapes)):
         if set(p) != set(OUT_KEYS):
             raise AssertionError(f"view {i}: outputs {sorted(p)}")
         for k, v in p.items():
@@ -869,28 +954,15 @@ def check_preds(preds: list, n: int, H: int, W: int) -> None:
 def serve_path(path: str, model, sizes, gpu: str) -> dict:
     """Serve the requests of one path with every launch count set to 0
     just before and read just after."""
-    H, W = 384, 512
-    torch.cuda.synchronize()
-    for fn, *_ in KERNELS.values():
-        fn.launches = 0
+    _reset_counts()
     for n, serves in sizes:
         # twice per size where asked: the first request of a size also pays
         # its one-off costs (allocator growth, pinned host buffers, conv
         # algorithm picks)
         for serve in range(1, serves + 1):
-            views = request_views(n, H, W, n + serve)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = inference(views, model, verbose=False)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t
-            check_preds(out["preds"], n, H, W)
-            log(json.dumps({
-                "path": path, "request_views": n, "serve": serve,
-                "image_hw": [H, W], "latency_s": dt, "images_per_s": n / dt,
-                "gpu": gpu,
-                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
-    return {name: fn.launches for name, (fn, *_) in KERNELS.items()}
+            _serve(path, model, request_views(n, 384, 512, n + serve), serve,
+                   gpu)
+    return _read_counts()
 
 
 def phase_requests(gpu: str):
@@ -930,7 +1002,7 @@ def phase_end_to_end(cpu_model, model, plain, phase: str = "phase 4") -> dict:
     for road, m in (("fused", model), ("plain", plain)):
         out = inference(views, m, verbose=False)["preds"]
         torch.cuda.synchronize()
-        check_preds(out, 2, 224, 224)
+        check_preds(out, [(224, 224)] * 2)
         errs[road] = {}
         for k in OUT_KEYS:
             a = torch.cat([p[k] for p in out])
@@ -956,6 +1028,11 @@ def _reset_counts() -> None:
         fn.launches = 0
 
 
+def _read_counts() -> dict:
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, (fn, *_) in KERNELS.items()}
+
+
 def train_road(road: str, net, cfg, batch, steps: int, gpu: str) -> dict:
     """``steps`` train_steps from fresh optimizer state, the launch counts
     set to 0 just before and read just after; every loss and gradient norm
@@ -979,8 +1056,7 @@ def train_road(road: str, net, cfg, batch, steps: int, gpu: str) -> dict:
         if rec["skipped_nonfinite"] or not (math.isfinite(rec["loss"])
                                             and math.isfinite(rec["grad_norm"])):
             raise AssertionError(f"{road} step {i + 1} not finite or skipped")
-    torch.cuda.synchronize()
-    return {name: fn.launches for name, (fn, *_) in KERNELS.items()}
+    return _read_counts()
 
 
 def phase_training(gpu: str, cpu_model) -> dict:
@@ -1114,8 +1190,257 @@ def phase_llama_training(gpu: str, cpu_model) -> dict:
     return counts
 
 
+def _serve(path: str, model, views, serve: int, gpu: str) -> dict:
+    """One timed request; its outputs checked."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = inference(views, model, verbose=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    shapes = [tuple(np.asarray(v["true_shape"]).reshape(-1)) for v in views]
+    check_preds(out["preds"], shapes)
+    rec = {"path": path, "request_views": len(views), "serve": serve,
+           "image_hw": sorted({(int(h), int(w)) for h, w in shapes}),
+           "latency_s": dt, "images_per_s": len(views) / dt, "gpu": gpu,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(json.dumps(rec))
+    return rec
+
+
+def _expect(path: str, counts: dict, **want) -> None:
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{path}: launches {got}, expected {want}")
+
+
+def phase_square(gpu: str):
+    log("== phase 11: a square request (flagship, random weights seed 0, "
+        "bfloat16, fused road, 20 views at 512x512)")
+    t0 = time.perf_counter()
+    cpu_model = Fast3R.from_random(Fast3RConfig.flagship(), seed=0,
+                                   device="cpu")
+    model = cpu_model.to(device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"model built and moved in {time.perf_counter() - t0:.1f} s")
+    inference(request_views(2, 512, 512, 97), model, verbose=False)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    for serve in (1, 2):
+        _serve("square", model, request_views(20, 512, 512, 200 + serve),
+               serve, gpu)
+    counts = _read_counts()
+    # two requests x two head calls (global, local), all on the unfused road
+    _expect("square", counts, trunk=0, resize=4)
+    # the stage split at 512x512 (unfused head road) and, for the heads'
+    # other road, at 384x512 (trunk kernel)
+    for H, W in ((512, 512), (384, 512)):
+        result, info = inference(request_views(20, H, W, 203), model,
+                                 verbose=False, profiling=True)
+        check_preds(result["preds"], [(H, W)] * 20)
+        log(json.dumps({"path": "square", "request_views": 20,
+                        "image_hw": [H, W], "profiling_info": info,
+                        "gpu": gpu}))
+    return cpu_model, model, {"square": counts}
+
+
+def phase_mixed(gpu: str, model) -> dict:
+    log("== phase 12: a mixed request (8 views at 384x512, 6 at 512x384, 6 "
+        "at 448x512)")
+    g = torch.Generator().manual_seed(12)
+    views = [{"img": torch.rand((1, H, W, 3), generator=g) * 2 - 1,
+              "true_shape": [[H, W]]}
+             for n, H, W in ((8, 384, 512), (6, 512, 384), (6, 448, 512))
+             for _ in range(n)]
+    _reset_counts()
+    for serve in (1, 2):
+        _serve("mixed", model, views, serve, gpu)
+    counts = _read_counts()
+    # per request: the heads run once per shape group, global and local;
+    # the 384x512 and 512x384 groups on the trunk kernel, 448x512 on K12
+    _expect("mixed", counts, trunk=8, resize=4)
+    return {"mixed": counts}
+
+
+def phase_head_end_to_end(cpu_model, model) -> dict:
+    log("== phase 13: the head at 512x512, bf16 on the card (unfused road, "
+        "K12) vs fp32 on the CPU")
+    g = torch.Generator().manual_seed(13)
+    toks = [torch.randn((1, 1024, 1024), generator=g) for _ in range(4)]
+    hw = (512, 512)
+    with torch.inference_mode():
+        t = time.perf_counter()
+        ref = dpt_head_forward(cpu_model.params.head_global,
+                               cpu_model.cfg.head, toks, hw)
+        t_cpu = time.perf_counter() - t
+        _reset_counts()
+        out = dpt_head_forward(model.params.head_global, model.cfg.head,
+                               [x.cuda().bfloat16() for x in toks], hw)
+        counts = _read_counts()
+    _expect("head 512x512", counts, trunk=0, resize=1)
+    errs = {k: ((out[k].float().cpu() - ref[k]).norm() / ref[k].norm()).item()
+            for k in ref}
+    log(json.dumps({"head_rel_l2_err": errs, "tolerance": E2E_REL_L2,
+                    "cpu_fp32_s": t_cpu}))
+    bad = {k: e for k, e in errs.items() if not e <= E2E_REL_L2}
+    if bad:
+        raise AssertionError(f"head end-to-end error above {E2E_REL_L2}: "
+                             f"{bad}")
+    return errs
+
+
+# phase 14: the device resample against PIL's moves inputs by a few uint8
+# steps, and outputs by less than this (relative, L2)
+RAW_REL_L2 = 0.02
+POSE_ATOL = 1e-3  # card vs CPU, fp32, same predictions and minimal samples
+
+
+def _photo(h: int, w: int, seed: int) -> np.ndarray:
+    """A smooth seeded photo (low-frequency content, as photos have)."""
+    rng = np.random.default_rng(seed)
+    small = rng.uniform(0, 255, (h // 32, w // 32, 3)).astype(np.uint8)
+    return np.asarray(PIL.Image.fromarray(small).resize(
+        (w, h), PIL.Image.BICUBIC), np.uint8)
+
+
+def _read_ply_header(path: str):
+    with open(path, "rb") as f:
+        lines = []
+        while not lines or lines[-1] != b"end_header":
+            lines.append(f.readline().strip())
+        return [x.decode() for x in lines], f.tell(), os.path.getsize(path)
+
+
+def phase_images_to_poses(gpu: str, model) -> dict:
+    log("== phase 14: images to poses (fast3r_torch.cli.reconstruct on 6 "
+        "seeded 1152x1008 PNGs, random flagship weights seed 0, bfloat16)")
+    with tempfile.TemporaryDirectory() as tmp:
+        images, out_dir = os.path.join(tmp, "images"), os.path.join(tmp, "out")
+        os.makedirs(images)
+        for i in range(6):
+            PIL.Image.fromarray(_photo(1008, 1152, 140 + i)).save(
+                os.path.join(images, f"{i:02d}.png"))
+        _reset_counts()
+        t = time.perf_counter()
+        res = reconstruct.main([images, "--out", out_dir])
+        total = time.perf_counter() - t
+        counts = _read_counts()
+        check_preds([{k: p[k] for k in OUT_KEYS} for p in res["preds"]],
+                    [(448, 512)] * 6)
+        with open(os.path.join(out_dir, "poses.json")) as f:
+            poses = json.load(f)
+        c2w, focals = np.asarray(poses["poses_c2w"]), np.asarray(
+            poses["focals"])
+        if c2w.shape != (6, 4, 4) or focals.shape != (6,) or not (
+                np.isfinite(c2w).all() and np.isfinite(focals).all()):
+            raise AssertionError(f"poses.json: c2w {c2w.shape}, focals "
+                                 f"{focals.tolist()}")
+        header, start, size = _read_ply_header(os.path.join(out_dir,
+                                                            "scene.ply"))
+        n = int(header[2].split()[-1])
+        if (header[:2] != ["ply", "format binary_little_endian 1.0"]
+                or n != res["points"] or n == 0 or size != start + 15 * n):
+            raise AssertionError(f"scene.ply: header {header}, {size} bytes, "
+                                 f"{res['points']} points")
+        log(json.dumps({"path": "images_to_poses", "views": 6,
+                        "image_hw": [448, 512], "stage_s": res["times"],
+                        "total_s": total, "points": n, "gpu": gpu}))
+
+        # the device resample against PIL, same model and frames
+        t = time.perf_counter()
+        raw = inference_from_raw(load_images_raw(images, verbose=False),
+                                 model, verbose=False)["preds"]
+        t_raw = time.perf_counter() - t
+        host = inference(load_images(images, size=512, verbose=False), model,
+                         verbose=False)["preds"]
+        errs = {k: (torch.cat([p[k] for p in raw])
+                    - torch.cat([p[k] for p in host])).norm().item()
+                / torch.cat([p[k] for p in host]).norm().item()
+                for k in OUT_KEYS}
+        log(json.dumps({"raw_vs_host_rel_l2": errs, "tolerance": RAW_REL_L2,
+                        "inference_from_raw_s": t_raw}))
+        if max(errs.values()) > RAW_REL_L2:
+            raise AssertionError(f"inference_from_raw vs load_images: {errs}")
+
+    # the CLI's first calls pay one-off costs (the linear-algebra
+    # libraries' set-up): its align and pose stages again, warm
+    t = time.perf_counter()
+    align_local_pts3d_to_global(res["preds"], min_conf_thr_percentile=85.0)
+    torch.cuda.synchronize()
+    t_align = time.perf_counter() - t
+    t = time.perf_counter()
+    estimate_camera_poses(res["preds"])
+    log(json.dumps({"path": "images_to_poses", "warm_align_s": t_align,
+                    "warm_pose_s": time.perf_counter() - t}))
+
+    # pose recovery: the card against fp32 on the CPU on the same
+    # predictions and minimal samples.  The random model's pointmaps give an
+    # ill-posed problem (any tie between hypotheses decides), so the
+    # predictions are a seeded scene seen by known cameras, with noise and
+    # confident outliers, at the CLI's view shape
+    preds, gt = pose_scene(3, 448, 512, seed=14)
+    mask = torch.stack([torch.as_tensor(p["conf"][0]).reshape(-1) > 1.0
+                        for p in preds]).cuda()
+    idx = draw_samples(mask, 32, 8,
+                       torch.Generator(device="cuda").manual_seed(0))
+    t = time.perf_counter()
+    on_gpu, f_gpu = estimate_camera_poses(preds, device="cuda",
+                                          sample_idx=[idx])
+    t_gpu = time.perf_counter() - t
+    t = time.perf_counter()
+    on_cpu, f_cpu = estimate_camera_poses(preds, device="cpu",
+                                          sample_idx=[idx.cpu()])
+    t_cpu = time.perf_counter() - t
+    err = float(np.abs(np.stack(on_gpu[0]) - np.stack(on_cpu[0])).max())
+    gt_err = float(np.abs(np.stack(on_gpu[0]) - gt).max())
+    log(json.dumps({"pose_gpu_vs_cpu_max_abs": err, "tolerance": POSE_ATOL,
+                    "pose_gpu_vs_truth_max_abs": gt_err,
+                    "focal_gpu": f_gpu[0][0], "focal_cpu": f_cpu[0][0],
+                    "focal_truth": POSE_FOCAL, "pose_gpu_s": t_gpu,
+                    "pose_cpu_s": t_cpu}))
+    if not err <= POSE_ATOL:
+        raise AssertionError(f"pose recovery, card vs CPU: {err}")
+    return {"images_to_poses": counts}
+
+
+POSE_FOCAL = 420.0
+
+
+def pose_scene(V: int, H: int, W: int, seed: int):
+    """Predictions of a seeded scene: V cameras (view 0 the identity) with
+    focal POSE_FOCAL see depths of 2-4, the pointmaps in view 0's frame with
+    1% depth noise, 5% confident outliers and 15% pixels under the conf > 1
+    mask.  Returns the preds and the true c2w (V, 4, 4)."""
+    rng = np.random.default_rng(seed)
+    c2w = np.tile(np.eye(4), (V, 1, 1))
+    for v in range(1, V):
+        a = rng.normal(size=3)
+        a *= rng.uniform(0.05, 0.25) / np.linalg.norm(a)
+        K = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+        th = np.linalg.norm(a)
+        c2w[v, :3, :3] = (np.eye(3) + np.sin(th) / th * K
+                          + (1 - np.cos(th)) / th ** 2 * K @ K)
+        c2w[v, :3, 3] = rng.normal(size=3) * 0.3
+    ys, xs = np.mgrid[:H, :W].astype(np.float64)
+    depth = rng.uniform(2.0, 4.0, (V, H, W))
+    cam = np.stack([depth * (xs - W / 2) / POSE_FOCAL,
+                    depth * (ys - H / 2) / POSE_FOCAL, depth], -1)
+    cam *= 1 + 0.01 * rng.normal(size=(V, H, W, 1))
+    pts = np.einsum("vij,vhwj->vhwi", c2w[:, :3, :3], cam) \
+        + c2w[:, None, None, :3, 3]
+    conf = rng.uniform(1.2, 3.0, (V, H, W))
+    out = rng.random((V, H, W)) < 0.05
+    pts[out] += rng.normal(0, 0.5, (int(out.sum()), 3))
+    conf[rng.random((V, H, W)) < 0.15] = 0.5
+    preds = [{"pts3d_in_other_view": torch.from_numpy(
+                  pts[v:v + 1].astype(np.float32)),
+              "conf": torch.from_numpy(conf[v:v + 1].astype(np.float32))}
+             for v in range(V)]
+    return preds, c2w.astype(np.float32)
+
+
 def phase_counts(counts: dict) -> None:
-    log("== phase 11: kernel launches on each path of phases 3, 5, 7 and 9")
+    log("== phase 15: kernel launches on each path of phases 3, 5, 7, 9, 11, "
+        "12 and 14")
     log(json.dumps(counts))
     missing = [f"{path}: {k}" for path, names in PATHS.items()
                for k in names if counts[path][k] <= 0]
@@ -1131,13 +1456,15 @@ def phase_counts(counts: dict) -> None:
 MAIN_CASE = {"attention": "decoder", "layernorm": "eps=1e-05",
              "matmul_residual": "proj", "attention_bwd": "decoder",
              "ln_matmul_replay": "fc1", "rms_qkv3": f"qkv {M_TOK}",
-             "rms_matmul": "w1", "rms_matmul_replay": "w1"}
+             "rms_matmul": "w1", "rms_matmul_replay": "w1",
+             "resize": "256x256"}
 
 
 def kernel_summary(results: list, counts: dict) -> dict:
     """One entry per kernel: launches summed over the paths of phases 3, 5,
-    7 and 9 (and per path); the largest bfloat16 error, and the bfloat16
-    times and bound at its heaviest main-path shape, from phase 2."""
+    7, 9, 11, 12 and 14 (and per path); the largest bfloat16 error, and the
+    bfloat16 times and bound at its heaviest main-path shape, from phase
+    2."""
     kernels = []
     for name, (_, route, source, replaces) in KERNELS.items():
         rows = [r for r in results
@@ -1195,7 +1522,20 @@ def main() -> int:
     done("phase 9")
     phase_train_end_to_end(cpu_model, llama_cfg(fused_decoder=False),
                            "phase 10 (llama)")
+    del cpu_model
     done("phase 10")
+    cpu_model, model, square_counts = phase_square(gpu)
+    counts.update(square_counts)
+    done("phase 11")
+    counts.update(phase_mixed(gpu, model))
+    done("phase 12")
+    phase_head_end_to_end(cpu_model, model)
+    del cpu_model
+    done("phase 13")
+    counts.update(phase_images_to_poses(gpu, model))
+    del model
+    torch.cuda.empty_cache()
+    done("phase 14")
     phase_counts(counts)
     log(json.dumps(kernel_summary(results, counts)))
     log(gpu_line())

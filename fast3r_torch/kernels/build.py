@@ -46,6 +46,7 @@ SIGNATURES = {
                               _I, _I, _I, _I, _I, _I, _P],
     "fast3r_fused_gemm": [_I, _I] + [_P] * 13 + [_I, _I, _I, _F, _P],
     "fast3r_ln_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    "fast3r_resize_bilinear": [_P] * 8 + [_L, _I, _I, _I, _I, _P],
 }
 
 

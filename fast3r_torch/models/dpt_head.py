@@ -7,10 +7,17 @@ refinenet cascade (residual conv units + 2x align-corners bilinear upsample
 + 1x1 out conv) -> regression trunk (3x3 conv, resize to H x W, 3x3 conv,
 ReLU, 1x1 conv to 4 channels) -> postprocess.
 
-The convs are cuDNN calls on NCHW tensors.  The regression trunk is the
-port's CUDA kernel chain on CUDA tensors (``ops.trunk_kernel``), followed by
-the channel-major postprocess; on the CPU it is the plain composition
-followed by the channel-last postprocess.
+The convs are cuDNN calls on NCHW tensors.  On CUDA the regression trunk
+takes the JAX head's road for the view's shape (``fast3r_tpu``
+``dpt_head.py:189-211``, decided by :func:`head_road`): the port's fused
+kernel chain (``ops.trunk_kernel``) followed by the channel-major
+postprocess where the reference's fused trunk takes the shape, else the
+unfused composition (conv1 -> ``resize_bilinear_align_corners``, which
+launches the resize kernel K12 at trunk scale -> conv2 -> ReLU -> conv3)
+followed by the channel-last postprocess.  float32 on CUDA keeps the fused
+chain at every shape: the reference's road refuses float32, and the
+chain's fp32 variant is the port's own.  On the CPU the trunk is the plain
+composition.
 """
 
 from __future__ import annotations
@@ -24,8 +31,16 @@ from torch import nn
 
 from fast3r_torch.nn.layers import conv2d, conv_transpose2d
 from fast3r_torch.ops.postprocess import postprocess, postprocess_transposed
-from fast3r_torch.ops.resize import upsample2x_align_corners
-from fast3r_torch.ops.trunk_kernel import _plain_head, fused_regression_head_t
+from fast3r_torch.ops.resize import (
+    resize_bilinear_align_corners,
+    upsample2x_align_corners,
+)
+from fast3r_torch.ops.resize_kernel import resize_kernel_supported
+from fast3r_torch.ops.trunk_kernel import (
+    _plain_head,
+    fused_regression_head_t,
+    reference_trunk_road,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +114,22 @@ def _fusion_block(p: FusionBlock, x: torch.Tensor, skip=None) -> torch.Tensor:
     return conv2d(p.out_conv, x)
 
 
+def head_road(x_shape, out_hw: Tuple[int, int], c1: int, c2: int, c3: int,
+              dtype) -> str:
+    """The trunk road of a CUDA head whose path1 has NCHW shape
+    (B, Cin, H/2, W/2), for conv widths c1, c2, c3: "trunk" (the fused
+    kernel chain), "resize_kernel" (unfused, K12 resize) or "resize_matmul"
+    (unfused, matmul resize)."""
+    b, cin, hh, wc = x_shape
+    H, W = out_hw
+    if dtype != torch.bfloat16 or (
+            c1 == c2 and reference_trunk_road((b, hh, wc, cin), H, W, c1, c3)):
+        return "trunk"
+    if resize_kernel_supported((b, c1, hh, wc), H, W, dtype):
+        return "resize_kernel"
+    return "resize_matmul"
+
+
 def dpt_head_forward(params: DPTHead, cfg: DPTHeadConfig,
                      hook_tokens: Sequence[torch.Tensor],
                      image_hw: Tuple[int, int]) -> Dict[str, torch.Tensor]:
@@ -134,6 +165,12 @@ def dpt_head_forward(params: DPTHead, cfg: DPTHeadConfig,
         x = _plain_head(path1, *trunk)  # (B, c3, H, W)
         return postprocess(x.permute(0, 2, 3, 1), cfg.depth_mode,
                            cfg.conf_mode)
-    xt = fused_regression_head_t(path1.permute(0, 2, 3, 1).contiguous(),
-                                 *trunk)
-    return postprocess_transposed(xt, cfg.depth_mode, cfg.conf_mode, H, W)
+    c1, c2, c3 = (hp[k].weight.shape[0] for k in ("conv1", "conv2", "conv3"))
+    if head_road(path1.shape, (H, W), c1, c2, c3, path1.dtype) == "trunk":
+        xt = fused_regression_head_t(path1.permute(0, 2, 3, 1).contiguous(),
+                                     *trunk)
+        return postprocess_transposed(xt, cfg.depth_mode, cfg.conf_mode, H, W)
+    x = resize_bilinear_align_corners(conv2d(hp["conv1"], path1, padding=1),
+                                      H, W)
+    x = conv2d(hp["conv3"], F.relu(conv2d(hp["conv2"], x, padding=1)))
+    return postprocess(x.permute(0, 2, 3, 1), cfg.depth_mode, cfg.conf_mode)

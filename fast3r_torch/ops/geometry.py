@@ -1,12 +1,21 @@
-"""Rigid transforms of pointmaps, for the training losses.
+"""Pixel grids and rigid transforms of pointmaps, for the training losses
+and pose recovery.
 
-Counterpart of ``fast3r_tpu/ops/geometry.py`` (``geotrf``, ``se3_inverse``):
-batched einsums, the SE(3) inverse in closed form.
+Counterpart of ``fast3r_tpu/ops/geometry.py`` (``xy_grid``, ``geotrf``,
+``se3_inverse``): batched einsums, the SE(3) inverse in closed form.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def xy_grid(W: int, H: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """(H, W, 2) with out[j, i] = (i, j): pixel x, y coordinates."""
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=dtype, device=device),
+                            torch.arange(W, dtype=dtype, device=device),
+                            indexing="ij")
+    return torch.stack([xs, ys], dim=-1)
 
 
 def geotrf(trf: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:

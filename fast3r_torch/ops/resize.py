@@ -1,9 +1,12 @@
-"""Bilinear resize with ``align_corners=True`` semantics, as two matmuls.
+"""Bilinear resize with ``align_corners=True`` semantics.
 
 Counterpart of ``fast3r_tpu/ops/resize.py``: the same (out, in) interpolation
 matrices and 2-tap form, built on the host in numpy, applied to NCHW tensors
-(rows first, then columns).  Plain PyTorch: the JAX package runs these as
-XLA matmuls at the fusion-block shapes, not as a Pallas kernel.
+(rows first, then columns).  :func:`resize_matmul` is the plain version (the
+JAX package's ``_resize_matmul``); :func:`resize_bilinear_align_corners`
+sends a CUDA bf16 tensor at the regression trunk's scale to the
+hand-written kernel (``ops/resize_kernel.py``, K12), as the JAX package
+sends it to its Pallas kernel, and everything else to the plain version.
 """
 
 from __future__ import annotations
@@ -41,10 +44,9 @@ def _interp_taps(out_size: int, in_size: int):
     return lo.astype(np.int32), hi.astype(np.int32), frac
 
 
-def resize_bilinear_align_corners(x: torch.Tensor, out_h: int,
-                                  out_w: int) -> torch.Tensor:
+def resize_matmul(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Resize NCHW (B, C, H, W) -> (B, C, out_h, out_w), align_corners=True,
-    with the interpolation matrices in the input dtype."""
+    as two products with the interpolation matrices in the input dtype."""
     _, _, h, w = x.shape
     if h != out_h:
         mh = torch.as_tensor(_interp_matrix(out_h, h), dtype=x.dtype,
@@ -55,6 +57,24 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_h: int,
                              device=x.device)
         x = torch.einsum("Ow,bchw->bchO", mw, x)
     return x
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, out_h: int,
+                                  out_w: int) -> torch.Tensor:
+    """Resize NCHW (B, C, H, W) -> (B, C, out_h, out_w), align_corners=True.
+
+    A CUDA tensor that ``resize_kernel_supported`` accepts (bf16, 128k
+    channels, trunk scale) launches the kernel; everything else, every
+    fusion-block upsample included, takes :func:`resize_matmul`."""
+    if x.device.type == "cuda":
+        from fast3r_torch.ops.resize_kernel import (
+            resize_bilinear_kernel,
+            resize_kernel_supported,
+        )
+
+        if resize_kernel_supported(x.shape, out_h, out_w, x.dtype):
+            return resize_bilinear_kernel(x, out_h, out_w)
+    return resize_matmul(x, out_h, out_w)
 
 
 def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:

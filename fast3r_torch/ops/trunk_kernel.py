@@ -15,21 +15,100 @@ Differentiable: the forward is the kernel, the backward recomputes through
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from fast3r_torch.kernels import build
-from fast3r_torch.ops.resize import resize_bilinear_align_corners
+from fast3r_torch.ops.resize import _interp_taps, resize_matmul
 
 TRUNK_CHANNELS = 128
 OUT_CHANNELS = 4
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# fast3r_tpu's trunk road (trunk_kernel.py:54-74): its Pallas kernel's VMEM
+# plan, for a 2-byte dtype.  Read by reference_trunk_road only.
+_REF_NSLOTS = 4
+_REF_LANE = 128
+_REF_OUT3 = 8
+_REF_VMEM_LIMIT = 124 * 1024 * 1024
+_REF_MOSAIC_STACK_MARGIN = 58 * 1024 * 1024
+_REF_CHUNK_FINE_ROWS = 8
+
+
+@functools.lru_cache(maxsize=64)
+def _ref_window_rows(hh: int, out_h: int, rb: int) -> int:
+    """``_trunk_plan``'s coarse window height for blocks of rb fine rows
+    (its rin_c), or 0 where it has no plan."""
+    if out_h % rb or hh < 4:
+        return 0
+    lo_t, _, frac_t = _interp_taps(out_h, hh)
+    nrb = out_h // rb
+    rows = np.zeros((nrb, rb + 2), np.int64)
+    for b in range(nrb):
+        for i in range(rb + 2):
+            f = min(max(b * rb - 1 + i, 0), out_h - 1)
+            rows[b, i] = min(int(lo_t[f]), hh - 2)  # l + 1 stays in range
+    rin_c = int((rows.max(1) + 3 - (rows.min(1) - 1)).max())
+    return 0 if rin_c > hh else rin_c
+
+
+def _ref_pick_rb(out_h: int, hh: int) -> int:
+    for rb in (48, 64, 32, 24, 16, 8):
+        if out_h % rb or rb % _REF_CHUNK_FINE_ROWS:
+            continue
+        if _ref_window_rows(hh, out_h, rb):
+            return rb
+    return 0
+
+
+def _ref_vmem_estimate(rin_c, wc, cin, c1, rb, out_w, c3) -> int:
+    itemsize = 2
+    lb = rin_c * wc + 2 * (wc + 8)
+    lz = (rb + 2) * out_w + 16
+    ring = _REF_NSLOTS * lb * cin * itemsize
+    copies1 = 2 * lb * cin * itemsize
+    y1 = rin_c * wc * c1 * itemsize
+    wide = rin_c * out_w * c1 * itemsize
+    z = lz * c1 * itemsize
+    copies2 = 2 * lz * c1 * itemsize
+    acc = _REF_CHUNK_FINE_ROWS * out_w * c1 * 4 + rin_c * wc * c1 * 4
+    out = _REF_NSLOTS * rb * out_w * (_REF_OUT3 if c3 else c1) * itemsize
+    w_res = (9 * cin * c1 + 9 * c1 * c1 + out_w * wc) * itemsize
+    return ring + copies1 + y1 + wide + z + copies2 + acc + out + w_res
+
+
+def reference_trunk_road(x_shape, out_h: int, out_w: int, c1: int = 128,
+                         c3: int = 0) -> bool:
+    """Whether fast3r_tpu's head takes its fused trunk kernel for a bf16
+    head input of NHWC shape (B, Hh, Wc, Cin) resized to (out_h, out_w):
+    the port's copy of ``trunk_kernel_supported`` and the plan arithmetic
+    it needs, for a 2-byte dtype.
+
+    Those are TPU VMEM budgets.  They decide a road only, so that the port
+    runs the reference's road at every view shape and each road's rounding
+    can be held against fast3r_tpu; no launch parameter of the port
+    derives from them."""
+    _, hh, wc, cin = x_shape
+    if cin % _REF_LANE or c1 % _REF_LANE or wc % 8 or out_w % 8 \
+            or c3 > _REF_OUT3:
+        return False
+    if hh * wc * cin < 96 * 128 * 256:
+        return False
+    rb = _ref_pick_rb(out_h, hh)
+    if rb == 0:
+        return False
+    rin_c = _ref_window_rows(hh, out_h, rb)
+    est = _ref_vmem_estimate(rin_c, wc, cin, c1, rb, out_w, c3)
+    return est + _REF_MOSAIC_STACK_MARGIN <= _REF_VMEM_LIMIT
+
 
 def _plain_head(x, w1, b1, w2, b2, w3, b3, out_h: int, out_w: int):
     """conv1 -> resize -> conv2 -> ReLU -> conv3 on NCHW x; (B, c3, H, W)."""
     y = F.conv2d(x, w1.to(x.dtype), b1.to(x.dtype), padding=1)
-    y = resize_bilinear_align_corners(y, out_h, out_w)
+    y = resize_matmul(y, out_h, out_w)
     y = F.relu(F.conv2d(y, w2.to(x.dtype), b2.to(x.dtype), padding=1))
     return F.conv2d(y, w3.to(x.dtype), b3.to(x.dtype))
 

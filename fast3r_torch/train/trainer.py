@@ -15,6 +15,8 @@ one device:
     to run, so a resume continues rather than repeats) and
     ``epoch_{epoch:04d}`` every ``ckpt_every_n_epochs``; ``fit`` resumes
     from "last" when it exists;
+  * ``model_config.json`` beside the checkpoints, so that
+    ``utils.checkpoint_utils.load_model`` serves a run directory;
   * validation: the mean loss of every val loader.  The pose and
     reconstruction suites wait for the eval modules.
 
@@ -44,6 +46,7 @@ from fast3r_torch.train.step import (
     init_train_state,
     train_step,
 )
+from fast3r_torch.utils.checkpoint_utils import RUN_CONFIG, config_to_dict
 
 
 @dataclasses.dataclass
@@ -87,6 +90,8 @@ class Trainer:
         self.loss_cfg = loss_cfg
         self.cfg = trainer_cfg
         os.makedirs(self.cfg.run_dir, exist_ok=True)
+        with open(os.path.join(self.cfg.run_dir, RUN_CONFIG), "w") as f:
+            json.dump(config_to_dict(model_cfg), f, indent=2)
         if params is None:
             params = init_fast3r(model_cfg, trainer_cfg.seed, dtype, device)
         self.state = init_train_state(params.train(), optim_cfg,

@@ -1,0 +1,200 @@
+"""Reference-format Fast3R checkpoints -> the port's parameters.
+
+Counterpart of ``fast3r_tpu/utils/checkpoint.py`` (``fast3r_key_map``,
+``llama_decoder_entries``, ``_variant_key_map``,
+``torch_state_dict_to_params`` / ``params_from_fast3r_checkpoint``).  The
+published weights are a torch state dict of the reference module tree
+(``encoder.* decoder.* downstream_head.* downstream_head_local.*``, keys
+optionally prefixed ``net.`` by Lightning).  Each entry of the key map names
+a reference tensor prefix, the JAX package's parameter path and a kind.
+The port's parameter names are those paths joined with dots, and its
+layouts are the reference's own (Linear (out, in), Conv OIHW, ConvTranspose
+(in, out, kh, kw)), so the mapping renames and never transposes.
+
+``load_state_dict_file`` reads ``model.safetensors`` with a reader of its
+own (the format is an 8-byte little-endian header length, a JSON header,
+then raw little-endian tensors), or ``pytorch_model.bin`` / ``model.pt`` /
+``model.pth`` through ``torch.load(weights_only=True)``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, List, Tuple
+
+import torch
+
+Entry = Tuple[str, Tuple, str]  # (reference prefix, JAX path, kind)
+
+_SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16,
+                       "BF16": torch.bfloat16}
+
+
+def _block_entries(prefix: str, path: Tuple) -> List[Entry]:
+    """One ViT block's tensors."""
+    return [(f"{prefix}{t}", path + j, kind) for t, j, kind in (
+        ("norm1", ("norm1",), "ln"), ("attn.qkv", ("attn", "qkv"), "linear"),
+        ("attn.proj", ("attn", "proj"), "linear"), ("norm2", ("norm2",), "ln"),
+        ("mlp.fc1", ("mlp", "fc1"), "linear"),
+        ("mlp.fc2", ("mlp", "fc2"), "linear"))]
+
+
+def _head_entries(tkey: str, jkey: str) -> List[Entry]:
+    """DPT head tensors."""
+    p = f"{tkey}.dpt."
+    out: List[Entry] = [
+        (p + "act_postprocess.0.0", (jkey, "act1", "proj"), "conv"),
+        (p + "act_postprocess.0.1", (jkey, "act1", "up"), "convT"),
+        (p + "act_postprocess.1.0", (jkey, "act2", "proj"), "conv"),
+        (p + "act_postprocess.1.1", (jkey, "act2", "up"), "convT"),
+        (p + "act_postprocess.2.0", (jkey, "act3", "proj"), "conv"),
+        (p + "act_postprocess.3.0", (jkey, "act4", "proj"), "conv"),
+        (p + "act_postprocess.3.1", (jkey, "act4", "down"), "conv"),
+    ]
+    for i in range(4):
+        out.append((p + f"scratch.layer{i + 1}_rn", (jkey, "layer_rn", i),
+                    "conv_nobias"))
+        rp = p + f"scratch.refinenet{i + 1}."
+        jp = (jkey, "refinenet", i)
+        out += [
+            (rp + "resConfUnit1.conv1", jp + ("rcu1", "conv1"), "conv"),
+            (rp + "resConfUnit1.conv2", jp + ("rcu1", "conv2"), "conv"),
+            (rp + "resConfUnit2.conv1", jp + ("rcu2", "conv1"), "conv"),
+            (rp + "resConfUnit2.conv2", jp + ("rcu2", "conv2"), "conv"),
+            (rp + "out_conv", jp + ("out_conv",), "conv"),
+        ]
+    out += [(p + "head.0", (jkey, "head", "conv1"), "conv"),
+            (p + "head.2", (jkey, "head", "conv2"), "conv"),
+            (p + "head.4", (jkey, "head", "conv3"), "conv")]
+    return out
+
+
+def _encoder_entries(depth: int) -> List[Entry]:
+    entries: List[Entry] = [
+        ("encoder.patch_embed.proj", ("encoder", "patch_embed"), "conv"),
+        ("encoder.enc_norm", ("encoder", "norm"), "ln"),
+    ]
+    for i in range(depth):
+        entries += _block_entries(f"encoder.enc_blocks.{i}.",
+                                  ("encoder", "blocks", i))
+    return entries
+
+
+def _head_pair(with_local_head: bool) -> List[Entry]:
+    return (_head_entries("downstream_head", "head_global")
+            + (_head_entries("downstream_head_local", "head_local")
+               if with_local_head else []))
+
+
+def fast3r_key_map(enc_depth: int, dec_depth: int,
+                   with_local_head: bool) -> List[Entry]:
+    """Every entry of a croco-encoder, ViT-decoder Fast3R checkpoint."""
+    entries = _encoder_entries(enc_depth) + [
+        ("decoder.decoder_embed", ("decoder", "decoder_embed"), "linear"),
+        ("decoder.dec_norm", ("decoder", "norm"), "ln"),
+    ]
+    for i in range(dec_depth):
+        entries += _block_entries(f"decoder.dec_blocks.{i}.",
+                                  ("decoder", "blocks", i))
+    return entries + _head_pair(with_local_head)
+
+
+def llama_decoder_entries(n_layers: int) -> List[Entry]:
+    """The llama fusion decoder's tensors; ``tensor`` entries are raw
+    parameters (no .weight suffix), RMSNorm weights take the ``ln`` kind."""
+    entries: List[Entry] = [
+        ("decoder.view0_embed", ("decoder", "view0_embed"), "tensor"),
+        ("decoder.decoder_embed", ("decoder", "decoder_embed"), "linear"),
+        ("decoder.norm", ("decoder", "norm"), "ln"),
+    ]
+    for i in range(n_layers):
+        p, pa = f"decoder.layers.{i}.", ("decoder", "layers", i)
+        entries += [(p + t, pa + j, kind) for t, j, kind in (
+            ("attention_norm", ("attention_norm",), "ln"),
+            ("attention.wq", ("attn", "wq"), "linear"),
+            ("attention.wk", ("attn", "wk"), "linear"),
+            ("attention.wv", ("attn", "wv"), "linear"),
+            ("attention.wo", ("attn", "wo"), "linear"),
+            ("ffn_norm", ("ffn_norm",), "ln"),
+            ("feed_forward.w1", ("ffn", "w1"), "linear"),
+            ("feed_forward.w2", ("ffn", "w2"), "linear"),
+            ("feed_forward.w3", ("ffn", "w3"), "linear"))]
+    return entries
+
+
+def _variant_key_map(cfg) -> List[Entry]:
+    """The entries of a Fast3RConfig: croco encoder x ViT | llama decoder
+    (the DINO encoder is not ported: ``config_from_reference_args``
+    raises before a map is needed)."""
+    if cfg.decoder_type != "llama":
+        return fast3r_key_map(cfg.encoder.depth, cfg.decoder.depth,
+                              cfg.with_local_head)
+    return (_encoder_entries(cfg.encoder.depth)
+            + llama_decoder_entries(cfg.decoder.n_layers)
+            + _head_pair(cfg.with_local_head))
+
+
+def params_from_fast3r_checkpoint(state_dict: Dict[str, torch.Tensor], cfg,
+                                  strip_net_prefix: bool = True
+                                  ) -> Dict[str, torch.Tensor]:
+    """Float32 state dict of ``Fast3RNet(cfg)`` from a reference state dict
+    (tensors or anything ``torch.as_tensor`` takes).  Reference tensors
+    outside the map (the DPT's ``layer_rn`` aliases) are ignored; a missing
+    one raises."""
+    sd = {}
+    for k, v in state_dict.items():
+        if strip_net_prefix and k.startswith("net."):
+            k = k[len("net."):]
+        sd[k] = v
+    out: Dict[str, torch.Tensor] = {}
+    for prefix, path, kind in _variant_key_map(cfg):
+        name = ".".join(map(str, path))
+        keys = ({"": prefix} if kind == "tensor" else
+                {".weight": prefix + ".weight", ".bias": prefix + ".bias"})
+        for suffix, key in keys.items():
+            if key not in sd:
+                if suffix == ".bias":
+                    continue  # conv_nobias, RMSNorm, bias-free linears
+                raise KeyError(f"missing checkpoint tensor {key}")
+            out[name + suffix] = torch.as_tensor(sd[key]).to(torch.float32)
+    return out
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """The tensors of a ``.safetensors`` file (F32, F16 or BF16), read with
+    ``torch.frombuffer`` from one copy of the file."""
+    with open(path, "rb") as f:
+        blob = bytearray(f.read())
+    n = int.from_bytes(blob[:8], "little")
+    header = json.loads(blob[8:8 + n].decode("utf-8"))
+    base = 8 + n
+    out = {}
+    for name, meta in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _SAFETENSORS_DTYPES.get(meta["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: tensor {name} has dtype "
+                             f"{meta['dtype']}, not one of "
+                             f"{sorted(_SAFETENSORS_DTYPES)}")
+        begin, end = meta["data_offsets"]
+        count = (end - begin) // dtype.itemsize
+        t = (torch.frombuffer(blob, dtype=dtype, count=count,
+                              offset=base + begin) if count
+             else torch.empty(0, dtype=dtype))
+        out[name] = t.reshape(meta["shape"])
+    return out
+
+
+def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
+    """The reference state dict under an HF-format directory."""
+    st = os.path.join(path, "model.safetensors")
+    if os.path.exists(st):
+        return read_safetensors(st)
+    for name in ("pytorch_model.bin", "model.pt", "model.pth"):
+        p = os.path.join(path, name)
+        if os.path.exists(p):
+            sd = torch.load(p, map_location="cpu", weights_only=True)
+            return sd.get("state_dict", sd)
+    raise FileNotFoundError(f"no weights file found under {path}")

@@ -705,3 +705,53 @@ def test_llama_train_step_on_cuda_matches_cpu(dev):
     for k in r:
         if k.startswith("watch/grad_norm/"):
             assert abs(m[k].item() - r[k].item()) < 3e-2 * r[k].item(), k
+
+
+def _bf16_step(x: torch.Tensor) -> float:
+    """One bf16 step at x's largest magnitude."""
+    return 2.0 ** (math.floor(math.log2(x.abs().max().item())) - 7)
+
+
+@pytest.mark.parametrize("shape,out_hw", [
+    ((1, 128, 256, 256), (512, 512)),   # the 512x512 view's trunk
+    ((2, 128, 224, 256), (448, 512)),   # 448x512 views
+    ((1, 256, 40, 56), (81, 117)),      # non-2x ratios, a ragged last group
+    ((1, 128, 96, 64), (48, 32)),       # downscale
+])
+def test_resize_kernel_matches_plain(dev, shape, out_hw):
+    """K12 against resize_matmul (the same two bf16 rounding points):
+    within one bf16 step at the output's largest magnitude."""
+    from fast3r_torch.ops import resize as t_resize
+    from fast3r_torch.ops import resize_kernel as t_rk
+
+    x = torch.randn(shape, generator=_gen(12), device=dev).to(torch.bfloat16)
+    before = t_rk.resize_bilinear_kernel.launches
+    out = t_rk.resize_bilinear_kernel(x, *out_hw)
+    assert t_rk.resize_bilinear_kernel.launches == before + 1
+    ref = t_resize.resize_matmul(x, *out_hw)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert (out.float() - ref.float()).abs().max().item() <= _bf16_step(ref)
+
+
+def test_resize_kernel_road_and_gradient(dev):
+    """The dispatcher sends trunk-scale bf16 to K12 and the rest to the
+    matmul form; the autograd backward is the transposed matrices."""
+    from fast3r_torch.ops import resize as t_resize
+    from fast3r_torch.ops import resize_kernel as t_rk
+
+    x = torch.randn((1, 128, 192, 256), generator=_gen(13), device=dev)
+    before = t_rk.resize_bilinear_kernel.launches
+    t_resize.resize_bilinear_align_corners(x.bfloat16(), 384, 512)
+    t_resize.resize_bilinear_align_corners(x, 384, 512)  # fp32: matmul
+    t_resize.resize_bilinear_align_corners(x[:, :, :96].bfloat16(), 192, 512)
+    assert t_rk.resize_bilinear_kernel.launches == before + 1
+    xb = x.bfloat16().requires_grad_()
+    g = torch.randn((1, 128, 384, 512), generator=_gen(14),
+                    device=dev).bfloat16()
+    t_rk.resize_bilinear_kernel(xb, 384, 512).backward(g)
+    xr = x.bfloat16().requires_grad_()
+    t_resize.resize_matmul(xr, 384, 512).backward(g)
+    torch.testing.assert_close(xb.grad.float(), xr.grad.float())
+    with pytest.raises(ValueError, match="bf16"):
+        t_rk.resize_bilinear_kernel(x, 384, 512)

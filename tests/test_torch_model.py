@@ -185,10 +185,13 @@ def test_inference_matches_jax(layout):
 
 
 def test_inference_mixed_shapes_raise():
+    """Views of mixed shapes are served (tests/test_torch_serve.py); a view
+    whose true_shape differs from its stored shape raises."""
     _, _, model = _models("tiny")
     views = [{"img": np.zeros((1, 64, 96, 3), np.float32)},
-             {"img": np.zeros((1, 64, 64, 3), np.float32)}]
-    with pytest.raises(NotImplementedError, match="share"):
+             {"img": np.zeros((1, 64, 64, 3), np.float32),
+              "true_shape": [[64, 96]]}]
+    with pytest.raises(ValueError, match="true_shape"):
         fast3r_torch.inference(views, model, verbose=False)
 
 
