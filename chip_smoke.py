@@ -76,10 +76,27 @@ printing each one's seconds:
      ``load_images`` + ``inference`` on the same frames; pose recovery on
      the card against fp32 on the CPU for the same predictions (a seeded
      scene of three known cameras at 448x512) and minimal samples;
-  15. launch counts: every kernel of a path must have launched on it, the
+  15. the ring kernel (K14's forward, ``csrc/ring_attention.cu``) at the
+     decoder's shape (15,360 tokens, 16 heads, head dim 64, bf16) over n =
+     1, 2, 3, 4 and 8 ranks on the card, and the self-ring (n = 1, 4
+     epochs), each against the plain ring (held one head at a time): o
+     within the attention tolerance, the natural-log lse within 1e-3 (the
+     self-ring's shifted by ln 4); the fp32 variant at n = 4 within 2e-5;
+     its time at every n, and at n = 4 the plain ring's, the attention
+     kernel's (K1) and SDPA's over the whole gathered sequence, and the
+     bound;
+  16. the sequence-sharded request: ``make_seq_sharded_forward`` over 4
+     ranks with the ring kernel serves the flagship (random weights, seed
+     0, bf16) 20 views at 384x512, once cold and twice warm, counts reset
+     just before and read just after (24 ring launches and no decoder
+     attention-kernel launch per request); its outputs within 2% (relative
+     L2) of the single-device forward on the card with the same weights and
+     decoder block road (also timed, warm), and a 2-view 224x224 request
+     over 2 ranks within 5% of fp32 on the CPU;
+  17. launch counts: every kernel of a path must have launched on it, the
      RMS kernels on no path but the llama fused road's, K12 on no path of
-     384x512 views and the trunk kernel on no path of 512x512 or 448x512
-     views.
+     384x512 views, the trunk kernel on no path of 512x512 or 448x512
+     views, the ring kernel on no path but the sequence-sharded one.
 
 Any failure raises (exit code 1).  Without a CUDA device the script exits
 with code 2 before printing any result.  The last line of standard output
@@ -142,6 +159,11 @@ from fast3r_torch.ops.rope2d import (
     rotate_half_lanes,
 )
 from fast3r_torch.ops.trunk_kernel import _plain_head, fused_regression_head_t
+from fast3r_torch.parallel.ring_rdma import _rdma_forward, ring_flash_attention_rdma
+from fast3r_torch.parallel.sequence import (
+    make_seq_sharded_forward,
+    ring_flash_attention,
+)
 from fast3r_torch.train.losses import conf_loss_multiview_v2
 from fast3r_torch.train.step import OptimConfig, init_train_state, train_step
 from fast3r_torch.utils.image import load_images, load_images_raw
@@ -195,6 +217,13 @@ TOL = {
     # rounding of a bf16 tie lands one step away: one bf16 step at the
     # output's largest magnitude
     ("resize", torch.bfloat16): dict(bf16_steps_of_max=1, rtol=0.0),
+    # the ring kernel's o: the attention kernel's tolerances above (fp32:
+    # summation order only, held to 2e-5); its lse: fp32 logsumexp of the
+    # same scores (natural log), within 1e-3
+    ("ring", torch.float32): dict(atol=2e-5, rtol=0.0),
+    ("ring", torch.bfloat16): dict(atol=4e-3, rtol=2 ** -7),
+    ("ring_lse", torch.float32): dict(atol=1e-3, rtol=0.0),
+    ("ring_lse", torch.bfloat16): dict(atol=1e-3, rtol=0.0),
 }
 
 
@@ -877,6 +906,10 @@ KERNELS = {  # name -> (wrapper, route, source, TPU kernel it replaces)
     "rms_matmul_replay": (
         fb.rms_matmul_replay, "cuda", FUSED_CU,
         "fast3r_tpu/nn/fused_block.py:712 (_rms_matmul_replay_kernel)"),
+    "ring_attention": (
+        ring_flash_attention_rdma, "cuda", "fast3r_torch/csrc/ring_attention.cu",
+        "fast3r_tpu/parallel/ring_rdma.py:137 (_ring_fwd_kernel, from "
+        "_rdma_forward :358)"),
 }
 TRAIN_KERNELS = ("layernorm_bwd", "attention_bwd", "packed_qkv_attention_bwd",
                  "ln_matmul_replay")
@@ -910,13 +943,19 @@ PATHS["square"] = tuple(k for k in PATHS["fused"] if k != "trunk") + (
     "resize",)
 PATHS["mixed"] = PATHS["fused"] + ("resize",)
 PATHS["images_to_poses"] = PATHS["square"]
+# phase 16: the encoder's fused road, the heads' trunk kernel, and the
+# decoder on the plain block road with the ring kernel as its attention
+PATHS["seq_sharded"] = ("ring_attention", "packed_qkv_attention", "layernorm",
+                        "trunk", "ln_qkv_rope", "matmul_residual", "ln_mlp")
 # K13 launches on the llama fused roads only, K12 on no path of 384x512
 # views, the trunk kernel on no path of 512x512 or 448x512 views
 NO_LAUNCH = {
     path: ((() if path in ("llama", "llama_train") else K13)
            + (() if path in ("square", "mixed", "images_to_poses")
               else ("resize",))
-           + (("trunk",) if path in ("square", "images_to_poses") else ()))
+           + (("trunk",) if path in ("square", "images_to_poses") else ())
+           + (("attention", "ln_qkv") if path == "seq_sharded"
+              else ("ring_attention",)))
     for path in PATHS}
 OUT_KEYS = ("pts3d_in_other_view", "conf", "pts3d_local", "conf_local")
 # phase 4: |gpu bf16 - cpu fp32| / |cpu fp32| in the L2 norm, per output.
@@ -1438,9 +1477,194 @@ def pose_scene(V: int, H: int, W: int, seed: int):
     return preds, c2w.astype(np.float32)
 
 
+# ---------------------------------------------------------------------------
+# phases 15-16: the ring kernel and the sequence-sharded request
+# ---------------------------------------------------------------------------
+
+RING_N = (1, 2, 3, 4, 8)
+SELF_EPOCHS = 4
+SEQ_RANKS = 4
+SEQ_REL_L2 = 0.02  # seq-sharded vs single-device, both bf16 on the card
+
+
+def _ring_qkv(n: int, dtype, seed: int):
+    """Rank-stacked q, k, v (n, 1, 15360 / n, 16, 64): strided views of one
+    qkv buffer, as the decoder's projection gives them."""
+    qkv = torch.randn((n, 1, M_TOK // n, 3, 16, 64), generator=_gen(seed),
+                      device="cuda").to(dtype)
+    return qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+
+
+def _ring_plain_by_head(q, k, v, scale, epochs=None):
+    """The plain ring one head at a time (at n = 1 the full score matrices
+    of all heads would not fit at once); B = 1."""
+    outs, lses = zip(*(ring_flash_attention(
+        q[:, :, :, h:h + 1], k[:, :, :, h:h + 1], v[:, :, :, h:h + 1], scale,
+        epochs) for h in range(q.shape[3])))
+    return torch.cat(outs, dim=3), torch.cat(lses, dim=1)
+
+
+def _ring_bound(n: int, epochs: int, s_loc: int, dtype) -> dict:
+    """FLOPs of n ranks x E epochs of S_loc x S_loc attention at the bf16
+    peak (fp32: the CUDA-core peak), or the bytes: q, k, v read and o, lse
+    written once, the bootstrap copy, E - 1 hops of K and V per rank and the
+    online-softmax state (acc, m, l in fp32) stored and loaded at each of
+    the E - 1 epoch boundaries, at 3.35 TB/s."""
+    H, D, it = 16, 64, torch.tensor([], dtype=dtype).element_size()
+    tok = n * s_loc * H * D * it  # one (n, S_loc, H, D) tensor
+    nbytes = (4 * tok + n * H * s_loc * 4 + 4 * tok + 4 * (epochs - 1) * tok
+              + 2 * (epochs - 1) * n * s_loc * H * (D + 2) * 4)
+    return bound(4.0 * n * epochs * s_loc * s_loc * H * D, nbytes, dtype)
+
+
+def phase_ring(results: list) -> None:
+    log("== phase 15: the ring kernel (K14's forward) at the decoder's shape "
+        "vs the plain ring")
+    bf = torch.bfloat16
+    for n, epochs in [(n, n) for n in RING_N] + [(1, SELF_EPOCHS)]:
+        self_ring = epochs != n
+        q, k, v = _ring_qkv(n, bf, 15 + n + epochs)
+        o, lse = _rdma_forward(q, k, v, DEC_SCALE, n,
+                               SELF_EPOCHS if self_ring else None)
+        # the self-ring's reference is plain attention, its lse + ln E
+        ref_o, ref_lse = _ring_plain_by_head(q, k, v, DEC_SCALE)
+        torch.cuda.synchronize()
+        r = compare("ring", o, ref_o, bf)
+        shift = math.log(epochs) if self_ring else 0.0
+        r_lse = compare("ring_lse", lse, ref_lse + shift, bf)
+        del ref_o, ref_lse
+        s_loc = M_TOK // n
+        case = (f"n=1 self-ring E={epochs}" if self_ring else f"n={n} ") + \
+            f" {n}x1x{s_loc}x16x64 ({M_TOK} tokens)"
+        args = (q, k, v, DEC_SCALE, n) + ((SELF_EPOCHS,) if self_ring else ())
+        r.update(kernel="ring_attention", case=case, dtype="bfloat16",
+                 lse_max_abs_err=r_lse["max_abs_err"],
+                 lse_shift=shift,
+                 ms=median_ms(lambda: ring_flash_attention_rdma(*args),
+                              10 if n == SEQ_RANKS else 5),
+                 plain_ms=None, library=None, library_ms=None,
+                 **_ring_bound(n, epochs, s_loc, bf))
+        if n == SEQ_RANKS and not self_ring:
+            r["plain_ms"] = median_ms(
+                lambda: ring_flash_attention(q, k, v, DEC_SCALE), 3)
+            # the same function on the gathered sequence: K1 and SDPA
+            qf, kf, vf = (t.reshape(1, M_TOK, 16, 64) for t in (q, k, v))
+            r["k1_ms"] = median_ms(
+                lambda: flash_attention(qf, kf, vf, DEC_SCALE), 10)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (qf, kf, vf))
+            r["library"] = "F.scaled_dot_product_attention (gathered)"
+            r["library_ms"] = median_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, scale=DEC_SCALE), 10)
+            del qf, kf, vf, qt, kt, vt
+        results.append(r)
+        log(json.dumps(r))
+        del q, k, v, o, lse
+        torch.cuda.empty_cache()
+
+    # the fp32 variant at n = SEQ_RANKS, tight
+    q, k, v = _ring_qkv(SEQ_RANKS, torch.float32, 16)
+    o, lse = _rdma_forward(q, k, v, DEC_SCALE, SEQ_RANKS)
+    ref_o, ref_lse = _ring_plain_by_head(q, k, v, DEC_SCALE)
+    torch.cuda.synchronize()
+    r = compare("ring", o, ref_o, torch.float32)
+    r.update(kernel="ring_attention", dtype="float32",
+             case=f"n={SEQ_RANKS} fp32",
+             lse_max_abs_err=compare("ring_lse", lse, ref_lse,
+                                     torch.float32)["max_abs_err"],
+             ms=median_ms(lambda: _rdma_forward(q, k, v, DEC_SCALE,
+                                                SEQ_RANKS), 3),
+             **_ring_bound(SEQ_RANKS, SEQ_RANKS, M_TOK // SEQ_RANKS,
+                           torch.float32))
+    results.append(r)
+    log(json.dumps(r))
+    del q, k, v, o, lse, ref_o, ref_lse
+    torch.cuda.empty_cache()
+
+
+def _seq_imgs(V: int, H: int, W: int, seed: int) -> torch.Tensor:
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand((1, V, H, W, 3), generator=g) * 2 - 1
+
+
+def _rel_l2(out: dict, ref: dict) -> dict:
+    return {k: ((out[k].float().cpu() - ref[k].float().cpu()).norm()
+                / ref[k].float().cpu().norm()).item() for k in OUT_KEYS}
+
+
+def phase_seq_sharded(gpu: str) -> dict:
+    log(f"== phase 16: the sequence-sharded request (flagship, random "
+        f"weights seed 0, bfloat16, {SEQ_RANKS} ranks, ring kernel)")
+    t0 = time.perf_counter()
+    cfg = Fast3RConfig.flagship()
+    cpu_model = Fast3R.from_random(cfg, seed=0, device="cpu")
+    model = cpu_model.to(device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"model built and moved in {time.perf_counter() - t0:.1f} s")
+    V, H, W = 20, 384, 512
+    fwd = make_seq_sharded_forward(cfg, SEQ_RANKS, V, (H, W),
+                                   ring_impl="rdma")
+    imgs = _seq_imgs(V, H, W, 16)
+    ids = sample_random_image_ids(None, 1, V)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    for serve in (1, 2, 3):  # one cold request, two warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fwd(model.params, imgs, ids[0])
+        out = {k: v.float().cpu() for k, v in out.items()}
+        dt = time.perf_counter() - t
+        log(json.dumps({"path": "seq_sharded", "ranks": SEQ_RANKS,
+                        "request_views": V, "image_hw": [H, W],
+                        "serve": serve, "latency_s": dt,
+                        "images_per_s": V / dt, "gpu": gpu,
+                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    counts = _read_counts()
+    log(json.dumps({"path": "seq_sharded", "requests": 3,
+                    "launches_per_request": {k: c / 3 for k, c in
+                                             counts.items()}}))
+    _expect("seq_sharded", counts, ring_attention=3 * cfg.decoder.depth,
+            attention=0)
+    check_preds([{k: v[:, i] for k, v in out.items()} for i in range(V)],
+                [(H, W)] * V)
+
+    # the single-device forward on the card: same weights, same decoder
+    # block road (plain), same image ids
+    plain_dec = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, fused_blocks=False))
+    with torch.inference_mode():
+        for _ in range(2):  # the second one warm, timed as the requests
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ref = fast3r_forward(model.params, plain_dec,
+                                 imgs.cuda().bfloat16(), view_ids=ids)
+            ref = {k: v.float().cpu() for k, v in ref.items()}
+            t_single = time.perf_counter() - t
+    errs = _rel_l2(out, ref)
+    del ref
+
+    # a 2-view 224x224 request over 2 ranks against fp32 on the CPU
+    imgs2, ids2 = _seq_imgs(2, 224, 224, 17), sample_random_image_ids(None, 1, 2)
+    out2 = make_seq_sharded_forward(cfg, 2, 2, (224, 224))(model.params,
+                                                          imgs2, ids2[0])
+    with torch.inference_mode():
+        ref2 = fast3r_forward(cpu_model.params, cfg, imgs2, view_ids=ids2)
+    errs2 = _rel_l2(out2, ref2)
+    log(json.dumps({"single_device_warm_latency_s": t_single,
+                    "seq_vs_single_device_rel_l2": errs,
+                    "tolerance": SEQ_REL_L2,
+                    "seq_2x224_vs_cpu_fp32_rel_l2": errs2,
+                    "tolerance_cpu": E2E_REL_L2}))
+    bad = {k: e for k, e in errs.items() if not e <= SEQ_REL_L2}
+    bad.update({f"2x224 {k}": e for k, e in errs2.items()
+                if not e <= E2E_REL_L2})
+    if bad:
+        raise AssertionError(f"sequence-sharded outputs off: {bad}")
+    return {"seq_sharded": counts}
+
+
 def phase_counts(counts: dict) -> None:
-    log("== phase 15: kernel launches on each path of phases 3, 5, 7, 9, 11, "
-        "12 and 14")
+    log("== phase 17: kernel launches on each path of phases 3, 5, 7, 9, 11, "
+        "12, 14 and 16")
     log(json.dumps(counts))
     missing = [f"{path}: {k}" for path, names in PATHS.items()
                for k in names if counts[path][k] <= 0]
@@ -1457,14 +1681,14 @@ MAIN_CASE = {"attention": "decoder", "layernorm": "eps=1e-05",
              "matmul_residual": "proj", "attention_bwd": "decoder",
              "ln_matmul_replay": "fc1", "rms_qkv3": f"qkv {M_TOK}",
              "rms_matmul": "w1", "rms_matmul_replay": "w1",
-             "resize": "256x256"}
+             "resize": "256x256", "ring_attention": "n=4 "}
 
 
 def kernel_summary(results: list, counts: dict) -> dict:
     """One entry per kernel: launches summed over the paths of phases 3, 5,
-    7, 9, 11, 12 and 14 (and per path); the largest bfloat16 error, and the
-    bfloat16 times and bound at its heaviest main-path shape, from phase
-    2."""
+    7, 9, 11, 12, 14 and 16 (and per path); the largest bfloat16 error, and
+    the bfloat16 times and bound at its heaviest main-path shape, from
+    phase 2 (the ring kernel: phase 15, n = 4)."""
     kernels = []
     for name, (_, route, source, replaces) in KERNELS.items():
         rows = [r for r in results
@@ -1481,8 +1705,9 @@ def kernel_summary(results: list, counts: dict) -> dict:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "library": main["library"],
             "case": main["case"] + " bfloat16"}
-        if "two_kernel_ms" in main:
-            entry["two_kernel_ms"] = main["two_kernel_ms"]
+        for key in ("two_kernel_ms", "k1_ms"):
+            if key in main:
+                entry[key] = main[key]
         kernels.append(entry)
     return {"kernels": kernels}
 
@@ -1536,6 +1761,11 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     done("phase 14")
+    phase_ring(results)
+    done("phase 15")
+    counts.update(phase_seq_sharded(gpu))
+    torch.cuda.empty_cache()
+    done("phase 16")
     phase_counts(counts)
     log(json.dumps(kernel_summary(results, counts)))
     log(gpu_line())

@@ -32,7 +32,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from fast3r_torch.nn.fused_block import fused_vit_block
-from fast3r_torch.ops.attention import dot_product_attention
+from fast3r_torch.ops.attention import AttnImpl, dot_product_attention
 from fast3r_torch.ops.fused_layernorm import fused_layernorm
 from fast3r_torch.ops.rope2d import apply_rope2d_bnhd, expand_rope_tables
 
@@ -165,10 +165,11 @@ def conv_transpose2d(p: nn.ConvTranspose2d, x: torch.Tensor,
 def attention_layer(p: Attention, x: torch.Tensor, num_heads: int,
                     scale: float,
                     rope_cos_sin: Optional[Tuple[torch.Tensor, torch.Tensor]],
-                    attn_impl: str) -> torch.Tensor:
+                    attn_impl: AttnImpl) -> torch.Tensor:
     """Self-attention sublayer on x (B, N, C).  q, k and v stay strided views
     of the qkv projection's (B, N, 3, H, D) output; RoPE, when given,
-    rotates q and k in fp32."""
+    rotates q and k in fp32.  ``attn_impl`` is an implementation's name or
+    a callable ``(q, k, v, scale) -> o`` (``ops.attention``)."""
     B, N, C = x.shape
     qkv = linear(p.qkv, x).reshape(B, N, 3, num_heads, C // num_heads)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -181,7 +182,7 @@ def attention_layer(p: Attention, x: torch.Tensor, num_heads: int,
 
 
 def vit_block(p: Block, x: torch.Tensor, num_heads: int, scale: float,
-              rope_cos_sin=None, attn_impl: str = "pallas",
+              rope_cos_sin=None, attn_impl: AttnImpl = "pallas",
               ln_eps: float = 1e-6, fused: bool = False) -> torch.Tensor:
     """Pre-LN ViT block: the fused block with ``fused=True``, else the plain
     composition of the JAX package."""
@@ -194,16 +195,18 @@ def vit_block(p: Block, x: torch.Tensor, num_heads: int, scale: float,
 
 
 def run_vit_stack(blocks: Sequence[Block], x: torch.Tensor, num_heads: int,
-                  scale: float, rope_cos_sin=None, attn_impl: str = "pallas",
+                  scale: float, rope_cos_sin=None,
+                  attn_impl: AttnImpl = "pallas",
                   ln_eps: float = 1e-6, hooks: Sequence[int] = (),
                   fused: bool = False, remat: bool = False
                   ) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
     """Run the blocks; return (output, {hook: activation}) with hook i the
     output after block i (1-based).  On the fused road with "batched"
     attention and RoPE, the flat (M, C) RoPE lane tables are expanded once
-    for the whole stack and every block gets (cos, sin, ct, st).  ``remat``
-    recomputes each plain block in the backward (the fused block always
-    does)."""
+    for the whole stack and every block gets (cos, sin, ct, st).  A callable
+    ``attn_impl`` (``(q, k, v, scale) -> o``) serves every block's
+    attention.  ``remat`` recomputes each plain block in the backward (the
+    fused block always does)."""
     if (fused and attn_impl == "batched" and rope_cos_sin is not None
             and len(rope_cos_sin) == 2):
         ct, st = expand_rope_tables(rope_cos_sin[0], rope_cos_sin[1],

@@ -7,12 +7,17 @@ Counterpart of ``fast3r_tpu/ops/attention.py``.  Implementations:
     which launches the CUDA kernel on CUDA tensors and takes the plain
     version on the CPU;
   * "naive": the plain version,
-    :func:`fast3r_torch.ops.flash_attention.attention_ref`, on any device.
+    :func:`fast3r_torch.ops.flash_attention.attention_ref`, on any device;
+  * a callable ``(q, k, v, scale) -> o``, called as it is (the
+    sequence-sharded decoder's ring attention, as the JAX package passes
+    it).
 
 Any other name raises.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Union
 
 import torch
 
@@ -21,9 +26,14 @@ from fast3r_torch.ops.flash_attention import attention_ref, flash_attention
 IMPLS = ("batched", "pallas", "naive")
 
 
+AttnImpl = Union[str, Callable[..., torch.Tensor]]
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          scale: float, impl: str) -> torch.Tensor:
+                          scale: float, impl: AttnImpl) -> torch.Tensor:
     """softmax(scale * q k^T) v; q, k, v (B, N, H, D) -> (B, N, H, D)."""
+    if callable(impl):
+        return impl(q, k, v, scale)
     if impl in ("batched", "pallas"):
         return flash_attention(q, k, v, scale)
     if impl == "naive":

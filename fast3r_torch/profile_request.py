@@ -3,7 +3,7 @@ on one GPU.
 
     python -m fast3r_torch.profile_request [--views 20] [--train] \
         [--model flagship|llama] [--roads fused,plain,two_kernel_mlp] \
-        [--out runs/profile]
+        [--seq-ranks N] [--out runs/profile]
 
 For each road it builds the model (``--model``: the flagship, or
 ``llama``, the flagship with the llama_dec decoder of
@@ -17,6 +17,11 @@ and profiles the next one:
   * fused: the default configuration (fused-GEMM blocks, whole-MLP kernel);
   * plain: both stacks with ``fused_blocks=False``;
   * two_kernel_mlp: fused blocks with ``PREFER_FUSED_MLP = False``.
+
+With ``--seq-ranks N`` it profiles the flagship's sequence-sharded request
+instead (``fast3r_torch.parallel.make_seq_sharded_forward`` over N ranks
+with the ring kernel; the encoder on its fused road, the decoder on the
+plain block road), as the road ``seq_sharded``.
 
 It prints one JSON line per road: the request's or step's wall time (host
 clock, profiler on, ending in a synchronise), the sum of kernel time, the
@@ -43,10 +48,12 @@ from fast3r_torch.inference import Fast3R, inference
 from fast3r_torch.models.fast3r import Fast3RConfig
 from fast3r_torch.models.llama_decoder import LlamaDecoderConfig
 from fast3r_torch.nn import fused_block
+from fast3r_torch.parallel.sequence import make_seq_sharded_forward
 from fast3r_torch.train.step import OptimConfig, init_train_state, train_step
 
 # (category, substrings of the kernel name), first match wins
 CATEGORIES = (
+    ("ring attention kernel", ("ring_attention",)),
     ("attention kernel", ("attention_fwd",)),
     ("attention backward kernels", ("attention_bwd",)),
     # the replay is a launch of the same kernel with extra outputs
@@ -99,12 +106,23 @@ def _train_step(model: Fast3R, views: int):
     return lambda: train_step(state, batch, model.cfg, opt, remat=True)
 
 
+def _seq_request(model: Fast3R, views: list, ranks: int):
+    """One sequence-sharded request over ``ranks`` ranks (ring kernel)."""
+    H, W = views[0]["img"].shape[1:3]
+    fwd = make_seq_sharded_forward(model.cfg, ranks, len(views), (H, W))
+    imgs = torch.cat([v["img"] for v in views])[None]
+    return lambda: fwd(model.params, imgs)
+
+
 def profile_road(model: Fast3R, road: str, views: list, out_dir: Path,
-                 train: bool = False) -> dict:
+                 train: bool = False, seq_ranks: int = 0) -> dict:
     m = Fast3R(model.cfg.with_fused_blocks(road != "plain"), model.params)
     fused_block.PREFER_FUSED_MLP = road != "two_kernel_mlp"
     try:
-        work = _train_step(m, len(views)) if train else _request(m, views)
+        if seq_ranks:
+            work = _seq_request(model, views, seq_ranks)
+        else:
+            work = _train_step(m, len(views)) if train else _request(m, views)
         work()  # warm-up of the same size
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -152,6 +170,9 @@ def main() -> None:
                     default="flagship")
     ap.add_argument("--train", action="store_true",
                     help="profile a training step instead of a request")
+    ap.add_argument("--seq-ranks", type=int, default=0,
+                    help="profile the sequence-sharded request over this "
+                         "many ranks instead")
     ap.add_argument("--out", default="runs/profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -167,8 +188,10 @@ def main() -> None:
     g = torch.Generator().manual_seed(args.views)
     views = [{"img": torch.rand((1, 384, 512, 3), generator=g) * 2 - 1,
               "true_shape": [[384, 512]]} for _ in range(args.views)]
-    for road in args.roads.split(","):
-        res = profile_road(model, road, views, Path(args.out), args.train)
+    roads = ["seq_sharded"] if args.seq_ranks else args.roads.split(",")
+    for road in roads:
+        res = profile_road(model, road, views, Path(args.out), args.train,
+                           args.seq_ranks)
         res["gpu"], res["model"] = gpu, args.model
         print(json.dumps(res), flush=True)
 

@@ -755,3 +755,102 @@ def test_resize_kernel_road_and_gradient(dev):
     torch.testing.assert_close(xb.grad.float(), xr.grad.float())
     with pytest.raises(ValueError, match="bf16"):
         t_rk.resize_bilinear_kernel(x, 384, 512)
+
+
+def test_pose_card_matches_cpu_on_a_seeded_scene(dev):
+    """Pose recovery on the card against fp32 on the CPU, on the same
+    predictions (three known cameras at 448x512 with noise and outliers,
+    ``chip_smoke.pose_scene``) and the same minimal samples: within 1e-3."""
+    import numpy as np
+
+    from chip_smoke import pose_scene
+    from fast3r_torch.eval.pose import estimate_camera_poses
+    from fast3r_torch.ops.pnp import draw_samples
+
+    preds, gt = pose_scene(3, 448, 512, seed=14)
+    mask = torch.stack([p["conf"][0].reshape(-1) > 1.0 for p in preds]).cuda()
+    idx = draw_samples(mask, 32, 8, _gen(0))
+    on_gpu, _ = estimate_camera_poses(preds, device="cuda", sample_idx=[idx])
+    on_cpu, _ = estimate_camera_poses(preds, device="cpu",
+                                      sample_idx=[idx.cpu()])
+    assert np.abs(np.stack(on_gpu[0]) - np.stack(on_cpu[0])).max() < 1e-3
+    assert np.abs(np.stack(on_gpu[0]) - gt).max() < 1e-2
+
+
+def _ring_inputs(n, B, S_loc, H, dtype, seed):
+    """Rank-stacked q, k, v (n, B, S_loc, H, 64): strided views of one
+    (n, B, S_loc, 3, H, 64) buffer, as the decoder's qkv projection gives."""
+    qkv = torch.randn((n, B, S_loc, 3, H, 64), generator=_gen(seed),
+                      device="cuda").to(dtype)
+    return qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+
+
+# o: fp32 differs from the plain ring in summation order; bf16 rounds p
+# before p @ v where the plain version rounds the normalised weights (the
+# attention kernel's tolerance).  lse: fp32 scores from the same inputs.
+RING_CUDA_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 1e-3)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,B,S_loc,H", [(1, 1, 128, 2), (2, 2, 100, 2),
+                                         (3, 1, 64, 3), (8, 1, 72, 2)])
+def test_ring_kernel_matches_plain(dev, dtype, n, B, S_loc, H):
+    """K14's forward over n ranks on one card (ragged S_loc, B = 2, strided
+    inputs) against the plain ring: o and the natural-log lse."""
+    from fast3r_torch.parallel import ring_rdma as t_ring
+    from fast3r_torch.parallel.sequence import ring_flash_attention
+
+    q, k, v = _ring_inputs(n, B, S_loc, H, dtype, 20 + n)
+    before = t_ring.ring_flash_attention_rdma.launches
+    o, lse = t_ring._rdma_forward(q, k, v, 0.125, n)
+    assert t_ring.ring_flash_attention_rdma.launches == before + 1
+    ref_o, ref_lse = ring_flash_attention(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    o_tol, lse_tol = RING_CUDA_TOL[dtype]
+    assert o.shape == (n, B, S_loc, H, 64) and o.dtype == dtype
+    assert lse.shape == (n, B * H, S_loc) and lse.dtype == torch.float32
+    assert (o.float() - ref_o.float()).abs().max().item() < o_tol
+    assert (lse - ref_lse).abs().max().item() < lse_tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epochs", [2, 4, 5])
+def test_ring_kernel_self_ring(dev, dtype, epochs):
+    """n = 1 with E epochs over the rank's own slots: o equals plain
+    attention, the lse is the plain lse + ln E."""
+    from fast3r_torch.parallel import ring_rdma as t_ring
+
+    q, k, v = _ring_inputs(1, 1, 200, 2, dtype, 30)
+    o, lse = t_ring._rdma_forward(q, k, v, 0.125, 1, self_ring_epochs=epochs)
+    ref_o, ref_lse = t_flash.attention_lse_ref(q[0], k[0], v[0], 0.125)
+    torch.cuda.synchronize()
+    o_tol, lse_tol = RING_CUDA_TOL[dtype]
+    assert (o[0].float() - ref_o.float()).abs().max().item() < o_tol
+    shifted = ref_lse.reshape(2, 200) + math.log(epochs)
+    assert (lse[0] - shifted).abs().max().item() < lse_tol
+
+
+def test_ring_kernel_rejects_what_it_cannot_take(dev):
+    """Raises, never falls back: head dim, dtype, rank count, the self-ring
+    off n = 1, and CTAs that cannot all be resident at once."""
+    from fast3r_torch.parallel import ring_rdma as t_ring
+
+    q, k, v = _ring_inputs(2, 1, 64, 2, torch.bfloat16, 40)
+    with pytest.raises(ValueError, match="64"):
+        t_ring.ring_flash_attention_rdma(q[..., :32], k[..., :32],
+                                         v[..., :32], 0.125, 2)
+    with pytest.raises(ValueError, match="dtype"):
+        x = q.half()
+        t_ring.ring_flash_attention_rdma(x, x, x, 0.125, 2)
+    with pytest.raises(ValueError, match="ranks"):
+        t_ring.ring_flash_attention_rdma(q, k, v, 0.125, 4)
+    with pytest.raises(ValueError, match="self-ring"):
+        t_ring.ring_flash_attention_rdma(q, k, v, 0.125, 2,
+                                         self_ring_epochs=3)
+    resident = t_ring._plan(torch.bfloat16, 2)[0]
+    assert resident >= 1
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        t_ring._rdma_forward(q, k, v, 0.125, 2, ctas_per_rank=resident + 1)
+    torch.cuda.synchronize()  # the refused launch left the context usable
+    o = t_ring.ring_flash_attention_rdma(q, k, v, 0.125, 2)
+    assert torch.isfinite(o.float()).all()

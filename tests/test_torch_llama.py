@@ -520,6 +520,56 @@ def test_llama_inference_matches_jax(tiny):
         _assert_out_close(p, r)
 
 
+def test_llama_mixed_shape_inference_matches_jax_composition(tiny):
+    """A mixed-shape request (views 32x48, 48x80, 32x48) through the port's
+    ``inference`` against the composition JAX's same-shape path computes:
+    JAX's serving encoder and heads per shape group, and
+    ``llama_decoder_forward`` with ``num_views=None`` and the rotary ids
+    (JAX's draw) repeated by each view's own patch count.  JAX's own
+    mixed-shape inference repeats them S // V times instead, which differs
+    from this (a fault of the JAX package).  fp32, MODEL_TOL (2e-4,
+    summation order only)."""
+    from fast3r_tpu.inference import _make_encoder_fn
+    from fast3r_tpu.models.dpt_head import dpt_head_forward as jhead
+
+    jcfg, params, _, model = tiny
+    shapes = [(32, 48), (48, 80), (32, 48)]
+    rng = np.random.default_rng(4)
+    imgs = [rng.standard_normal((1, h, w, 3)).astype(np.float32)
+            for h, w in shapes]
+    views = [{"img": im, "true_shape": np.int32([[h, w]])}
+             for im, (h, w) in zip(imgs, shapes)]
+    ids = np.asarray(sample_random_image_ids(jax.random.key(0), 1, 3))[0]
+    out = fast3r_torch.inference(views, model, verbose=False, image_ids=ids)
+
+    encode = _make_encoder_fn(jcfg)
+    groups = {hw: [i for i, s in enumerate(shapes) if s == hw]
+              for hw in sorted(set(shapes))}
+    feats = [None] * len(shapes)
+    for idxs in groups.values():
+        f = encode(params, jnp.concatenate([_j(imgs[i]) for i in idxs]))
+        for j, i in enumerate(idxs):
+            feats[i] = f[j:j + 1]
+    counts = [f.shape[1] for f in feats]
+    assert counts == [6, 15, 6]  # S = 27: JAX's S // V would give 9 each
+    rope = np.repeat(ids, counts)[None]
+    dec = jld.llama_decoder_forward(params["decoder"], jcfg.decoder,
+                                    jnp.concatenate(feats, axis=1),
+                                    _j(rope, jnp.int32), num_views=None)
+    offsets = np.cumsum([0] + counts)
+    for (h, w), idxs in groups.items():
+        toks = [jnp.concatenate([dec[k][:, offsets[i]:offsets[i + 1]]
+                                 for i in idxs]) for k in jcfg.decoder.hooks]
+        g = jhead(params["head_global"], jcfg.head, toks, (h, w))
+        loc = jhead(params["head_local"], jcfg.head, toks, (h, w))
+        for j, i in enumerate(idxs):
+            ref = {"pts3d_in_other_view": g["pts3d"][j:j + 1],
+                   "conf": g["conf"][j:j + 1],
+                   "pts3d_local": loc["pts3d"][j:j + 1],
+                   "conf_local": loc["conf"][j:j + 1]}
+            _assert_out_close(out["preds"][i], ref)
+
+
 BATCH_KEYS = ("imgs", "true_shapes", "pts3d", "valid_mask", "camera_pose")
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=100, eta_min=1e-5)
 
