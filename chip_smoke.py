@@ -159,10 +159,20 @@ from fast3r_torch.ops.rope2d import (
     rotate_half_lanes,
 )
 from fast3r_torch.ops.trunk_kernel import _plain_head, fused_regression_head_t
-from fast3r_torch.parallel.ring_rdma import _rdma_forward, ring_flash_attention_rdma
+from fast3r_torch.parallel.ring_rdma import (
+    _bwd_rows,
+    _rdma_forward,
+    _ring_backward,
+    ring_attention_bwd_dkv,
+    ring_attention_bwd_dq,
+    ring_flash_attention_rdma,
+)
 from fast3r_torch.parallel.sequence import (
     make_seq_sharded_forward,
+    make_seq_sharded_train_step,
+    ring_attention_bwd_ref,
     ring_flash_attention,
+    seq_sharded_config,
 )
 from fast3r_torch.train.losses import conf_loss_multiview_v2
 from fast3r_torch.train.step import OptimConfig, init_train_state, train_step
@@ -224,6 +234,10 @@ TOL = {
     ("ring", torch.bfloat16): dict(atol=4e-3, rtol=2 ** -7),
     ("ring_lse", torch.float32): dict(atol=1e-3, rtol=0.0),
     ("ring_lse", torch.bfloat16): dict(atol=1e-3, rtol=0.0),
+    # the backward rings in fp32: summation order only (over up to 15360
+    # keys or queries), on max |plain|; in bf16 they are held to the
+    # attention backward's bound above
+    ("ring_bwd", torch.float32): dict(atol_of_max=1e-4, rtol=0.0),
 }
 
 
@@ -910,6 +924,14 @@ KERNELS = {  # name -> (wrapper, route, source, TPU kernel it replaces)
         ring_flash_attention_rdma, "cuda", "fast3r_torch/csrc/ring_attention.cu",
         "fast3r_tpu/parallel/ring_rdma.py:137 (_ring_fwd_kernel, from "
         "_rdma_forward :358)"),
+    "ring_attention_bwd_dq": (
+        ring_attention_bwd_dq, "cuda", "fast3r_torch/csrc/ring_attention_bwd.cu",
+        "fast3r_tpu/parallel/ring_rdma.py:484 (_ring_bwd_dq_kernel, from "
+        "_ring_backward :736)"),
+    "ring_attention_bwd_dkv": (
+        ring_attention_bwd_dkv, "cuda", "fast3r_torch/csrc/ring_attention_bwd.cu",
+        "fast3r_tpu/parallel/ring_rdma.py:586 (_ring_bwd_dkv_kernel, from "
+        "_ring_backward :776)"),
 }
 TRAIN_KERNELS = ("layernorm_bwd", "attention_bwd", "packed_qkv_attention_bwd",
                  "ln_matmul_replay")
@@ -947,15 +969,24 @@ PATHS["images_to_poses"] = PATHS["square"]
 # decoder on the plain block road with the ring kernel as its attention
 PATHS["seq_sharded"] = ("ring_attention", "packed_qkv_attention", "layernorm",
                         "trunk", "ln_qkv_rope", "matmul_residual", "ln_mlp")
+# phase 18: the same forward kernels, K14's backward rings and the encoder's
+# fused road's training kernels
+RING_BWD = ("ring_attention_bwd_dq", "ring_attention_bwd_dkv")
+PATHS["seq_train"] = PATHS["seq_sharded"] + RING_BWD + (
+    "layernorm_bwd", "packed_qkv_attention_bwd", "ln_matmul_replay")
+SEQ_PATHS = ("seq_sharded", "seq_train")
 # K13 launches on the llama fused roads only, K12 on no path of 384x512
-# views, the trunk kernel on no path of 512x512 or 448x512 views
+# views, the trunk kernel on no path of 512x512 or 448x512 views, K14 on
+# the sequence-sharded paths only (its backward on the training one), the
+# decoder's K1 / K9 on neither
 NO_LAUNCH = {
     path: ((() if path in ("llama", "llama_train") else K13)
            + (() if path in ("square", "mixed", "images_to_poses")
               else ("resize",))
            + (("trunk",) if path in ("square", "images_to_poses") else ())
-           + (("attention", "ln_qkv") if path == "seq_sharded"
-              else ("ring_attention",)))
+           + (("attention", "ln_qkv") if path in SEQ_PATHS
+              else ("ring_attention",))
+           + (("attention_bwd",) if path == "seq_train" else RING_BWD))
     for path in PATHS}
 OUT_KEYS = ("pts3d_in_other_view", "conf", "pts3d_local", "conf_local")
 # phase 4: |gpu bf16 - cpu fp32| / |cpu fp32| in the L2 norm, per output.
@@ -1072,17 +1103,21 @@ def _read_counts() -> dict:
     return {name: fn.launches for name, (fn, *_) in KERNELS.items()}
 
 
-def train_road(road: str, net, cfg, batch, steps: int, gpu: str) -> dict:
-    """``steps`` train_steps from fresh optimizer state, the launch counts
-    set to 0 just before and read just after; every loss and gradient norm
-    finite, no step skipped."""
+def train_road(road: str, net, cfg, batch, steps: int, gpu: str,
+               step=None) -> dict:
+    """``steps`` train_steps (or ``step(state, batch)``s) from fresh
+    optimizer state, the launch counts set to 0 just before and read just
+    after; every loss and gradient norm finite, no step skipped."""
+    if step is None:
+        def step(state, batch):
+            return train_step(state, batch, cfg, TRAIN_OPT, remat=True)
     state = init_train_state(net, TRAIN_OPT)
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     V = batch["imgs"].shape[1]
     for i in range(steps):
         t = time.perf_counter()
-        state, m = train_step(state, batch, cfg, TRAIN_OPT, remat=True)
+        state, m = step(state, batch)
         torch.cuda.synchronize()
         rec = {"path": road, "train_step": i + 1, "views": V,
                "image_hw": list(batch["imgs"].shape[2:4]),
@@ -1139,13 +1174,19 @@ def _loss_and_grads(net, cfg, batch, ids):
                                batch["true_shapes"], view_ids=ids,
                                is_training=True, remat=True)
         loss, _ = conf_loss_multiview_v2(b, preds)
-        names, ps = zip(*net.named_parameters())
-        gs = torch.autograd.grad(loss, ps, allow_unused=True)
+        return loss.item(), _grads_by_group(net, loss)
+
+
+def _grads_by_group(net, loss) -> dict:
+    """Each top-level group's gradient of loss, flattened, fp32 on the
+    CPU."""
+    names, ps = zip(*net.named_parameters())
+    gs = torch.autograd.grad(loss, ps, allow_unused=True)
     groups: dict = {}
     for n, p, g in zip(names, ps, gs):
         g = torch.zeros_like(p) if g is None else g
         groups.setdefault(n.split(".")[0], []).append(g.float().cpu().reshape(-1))
-    return loss.item(), {k: torch.cat(v) for k, v in groups.items()}
+    return {k: torch.cat(v) for k, v in groups.items()}
 
 
 def phase_train_end_to_end(cpu_model, plain_cfg,
@@ -1662,9 +1703,182 @@ def phase_seq_sharded(gpu: str) -> dict:
     return {"seq_sharded": counts}
 
 
+# ---------------------------------------------------------------------------
+# phases 17-18: the backward ring kernels and the sequence-sharded training
+# step
+# ---------------------------------------------------------------------------
+
+def _ring_bwd_bound(n: int, s_loc: int, dtype, kernel: str) -> dict:
+    """The least time of the dq ring, the dk/dv ring or the pair at the
+    decoder's shape.  FLOPs: the five products per (query, key) pair, 10 N^2
+    H D, 2.5x the forward's (K9's bound); the dq ring alone does three of
+    them (6 N^2 H D: it recomputes s and dp), the dk/dv ring four (8).
+    Bytes: each ring's inputs read and outputs written once (q, k, v, do,
+    dq, lse, delta; q, k, v, do, dk, dv, the (lse, delta) pairs; the pair:
+    q, k, v, o, do, lse, dq, dk, dv), its n copies of its payloads (the
+    bootstrap and n - 1 hops, each read and written: K and V; q, do and the
+    pairs) and its fp32 accumulators stored and loaded at the n - 1 epoch
+    boundaries (dq; dk and dv), at 3.35 TB/s."""
+    H, D, it = 16, 64, torch.tensor([], dtype=dtype).element_size()
+    tok = n * s_loc * H * D * it  # one (n, S_loc, H, D) tensor
+    rows = n * s_loc * H
+    acc = n * H * -(-s_loc // 64) * 64 * D * 4  # one fp32 accumulator per item
+    hops_dq = 2 * n * 2 * tok + 2 * (n - 1) * acc
+    hops_dkv = 2 * n * (2 * tok + rows * 8) + 2 * (n - 1) * 2 * acc
+    nbytes = {"dq": 5 * tok + 2 * rows * 4 + hops_dq,
+              "dkv": 6 * tok + rows * 8 + hops_dkv,
+              "pair": 8 * tok + rows * 4 + hops_dq + hops_dkv}[kernel]
+    flops = {"dq": 6, "dkv": 8, "pair": 10}[kernel] * float(n * s_loc) ** 2 * H * D
+    return bound(flops, nbytes, dtype)
+
+
+def _ring_bwd_plain_by_head(q, k, v, o, lse, do, scale):
+    """ring_attention_bwd_ref one head at a time (at n = 1 the full score
+    matrices of all heads would not fit at once); B = 1."""
+    per_head = [ring_attention_bwd_ref(
+        q[:, :, :, h:h + 1], k[:, :, :, h:h + 1], v[:, :, :, h:h + 1],
+        o[:, :, :, h:h + 1], lse[:, h:h + 1], do[:, :, :, h:h + 1], scale)
+        for h in range(q.shape[3])]
+    return tuple(torch.cat([g[i] for g in per_head], dim=3) for i in range(3))
+
+
+def phase_ring_bwd(results: list) -> None:
+    log("== phase 17: the backward ring kernels (K14's backward) at the "
+        "decoder's shape vs their plain version")
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        for n in RING_N:
+            q, k, v = _ring_qkv(n, dtype, 70 + n)
+            do = torch.randn(q.shape, generator=_gen(80 + n),
+                             device="cuda").to(dtype)
+            o, lse = _rdma_forward(q, k, v, TRAIN_SCALE, n)
+            got = _ring_backward(q, k, v, o, lse, do, TRAIN_SCALE, n)
+            ref = _ring_bwd_plain_by_head(q, k, v, o, lse, do, TRAIN_SCALE)
+            torch.cuda.synchronize()
+            kind = "attention_bwd" if dtype == torch.bfloat16 else "ring_bwd"
+            errs = [compare(kind, a, b, dtype) for a, b in zip(got, ref)]
+            del got, ref
+            torch.cuda.empty_cache()
+            delta, meta = _bwd_rows(o, do, lse)
+            main = n == SEQ_RANKS
+            reps = (10 if main else 5) if dtype == torch.bfloat16 else (
+                3 if main else 1)
+            s_loc = M_TOK // n
+            extra = {
+                "pair_ms": median_ms(lambda: _ring_backward(
+                    q, k, v, o, lse, do, TRAIN_SCALE, n), reps),
+                "pair_bound_ms": _ring_bwd_bound(n, s_loc, dtype,
+                                                 "pair")["bound_ms"],
+                "plain_ms": None, "library": None, "library_ms": None}
+            times = {
+                "ring_attention_bwd_dq": median_ms(lambda: ring_attention_bwd_dq(
+                    q, k, v, do, lse, delta, TRAIN_SCALE, n), reps),
+                "ring_attention_bwd_dkv": median_ms(
+                    lambda: ring_attention_bwd_dkv(q, k, v, do, meta,
+                                                   TRAIN_SCALE, n), reps)}
+            if main:
+                extra["plain_ms"] = median_ms(lambda: _ring_bwd_plain_by_head(
+                    q, k, v, o, lse, do, TRAIN_SCALE), 1)
+                extra["plain"] = ("ring_attention_bwd_ref, one head at a "
+                                  "time (both rings)")
+            if main and dtype == torch.bfloat16:
+                # the same function on the gathered sequence: K9 and the
+                # autograd of SDPA
+                qf, kf, vf, dof = (t.reshape(1, M_TOK, 16, 64)
+                                   for t in (q, k, v, do))
+                of, lsef = attention_fwd_lse(qf, kf, vf, TRAIN_SCALE)
+                extra["k9_ms"] = median_ms(lambda: attention_bwd(
+                    qf, kf, vf, of, lsef, dof, TRAIN_SCALE), 10)
+                ql, kl, vl = (t.detach().transpose(1, 2).contiguous()
+                              .requires_grad_() for t in (qf, kf, vf))
+                ol = F.scaled_dot_product_attention(ql, kl, vl,
+                                                    scale=TRAIN_SCALE)
+                extra["library"] = ("autograd of F.scaled_dot_product_attention "
+                                    "(gathered)")
+                extra["library_ms"] = _grad_ms(ol, (ql, kl, vl),
+                                               dof.transpose(1, 2), 10)
+                del qf, kf, vf, dof, of, lsef, ql, kl, vl, ol
+            for kname, e, which in (("ring_attention_bwd_dq", errs[:1], "dq"),
+                                    ("ring_attention_bwd_dkv", errs[1:], "dkv")):
+                r = dict(_merge(e), kernel=kname, dtype=name,
+                         case=f"n={n} {n}x1x{s_loc}x16x64 ({M_TOK} tokens)",
+                         ms=times[kname], **extra,
+                         **_ring_bwd_bound(n, s_loc, dtype, which))
+                results.append(r)
+                log(json.dumps(r))
+            del q, k, v, do, o, lse, delta, meta
+            torch.cuda.empty_cache()
+
+
+def phase_seq_train(gpu: str) -> dict:
+    log(f"== phase 18: the sequence-sharded training step (flagship, random "
+        f"weights seed 0, bf16 params and moments, 20 views at 512x384 over "
+        f"{SEQ_RANKS} ranks, remat, the ring kernels forward and backward)")
+    t0 = time.perf_counter()
+    cfg = Fast3RConfig.flagship()
+    cpu_model = Fast3R.from_random(cfg, seed=0, device="cpu")
+    net = cpu_model.to(device="cuda", dtype=torch.bfloat16).params
+    torch.cuda.synchronize()
+    log(f"model built and moved in {time.perf_counter() - t0:.1f} s")
+    batch = {k: torch.as_tensor(v).cuda() for k, v in
+             make_dummy_batch(1, 20, 384, 512, seed=0).items()
+             if k in BATCH_KEYS}
+    steps = 3
+    counts = train_road("seq_train", net, cfg, batch, steps, gpu,
+                        step=make_seq_sharded_train_step(cfg, TRAIN_OPT,
+                                                         SEQ_RANKS))
+    log(json.dumps({"path": "seq_train", "ranks": SEQ_RANKS, "steps": steps,
+                    "launches_per_step": {k: c / steps for k, c in
+                                          counts.items()}}))
+    d = cfg.decoder.depth
+    _expect("seq_train", counts, ring_attention=steps * 2 * d,
+            ring_attention_bwd_dq=steps * d, ring_attention_bwd_dkv=steps * d,
+            attention=0, attention_bwd=0)
+    del net, batch
+    torch.cuda.empty_cache()
+
+    # end to end: one 2-view 224x224 step over 2 ranks, bf16 on the card,
+    # against fp32 on the CPU (plain ring) and the single-device card step
+    # on the same decoder road (plain blocks, K1 / K9)
+    batch = {k: torch.as_tensor(v) for k, v in
+             make_dummy_batch(1, 2, 224, 224, seed=1).items()
+             if k in BATCH_KEYS}
+    ids = sample_random_image_ids(torch.Generator().manual_seed(0), 1, 2)
+    t = time.perf_counter()
+    ref_loss, ref = _loss_and_grads(cpu_model.params,
+                                    seq_sharded_config(cfg, 2, "plain"),
+                                    batch, ids)
+    t_cpu = time.perf_counter() - t
+    gpu_model = cpu_model.to(device="cuda", dtype=torch.bfloat16)
+    loss, grads = _loss_and_grads(gpu_model.params, seq_sharded_config(cfg, 2),
+                                  batch, ids)
+    plain_dec = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, fused_blocks=False))
+    one_loss, one = _loss_and_grads(gpu_model.params, plain_dec, batch, ids)
+    errs, bad = {}, {}
+    for what, (l_ref, g_ref) in (("vs_cpu_fp32", (ref_loss, ref)),
+                                 ("vs_single_device_card", (one_loss, one))):
+        errs[what] = {"loss": abs(loss - l_ref) / abs(l_ref),
+                      **{f"grad/{k}": ((grads[k] - g_ref[k]).norm()
+                                       / g_ref[k].norm()).item()
+                         for k in g_ref}}
+        bad.update({f"{what} {k}": e for k, e in errs[what].items()
+                    if not e <= E2E_TRAIN_REL})
+    log(json.dumps({"seq_train_2x224_rel_err": errs,
+                    "tolerance": E2E_TRAIN_REL, "loss_cpu_fp32": ref_loss,
+                    "loss_card_seq": loss, "loss_card_single": one_loss,
+                    "cpu_fp32_s": t_cpu}))
+    del gpu_model
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"seq-sharded training error above "
+                             f"{E2E_TRAIN_REL}: {bad}")
+    return {"seq_train": counts}
+
+
 def phase_counts(counts: dict) -> None:
-    log("== phase 17: kernel launches on each path of phases 3, 5, 7, 9, 11, "
-        "12, 14 and 16")
+    log("== phase 19: kernel launches on each path of phases 3, 5, 7, 9, 11, "
+        "12, 14, 16 and 18")
     log(json.dumps(counts))
     missing = [f"{path}: {k}" for path, names in PATHS.items()
                for k in names if counts[path][k] <= 0]
@@ -1681,14 +1895,16 @@ MAIN_CASE = {"attention": "decoder", "layernorm": "eps=1e-05",
              "matmul_residual": "proj", "attention_bwd": "decoder",
              "ln_matmul_replay": "fc1", "rms_qkv3": f"qkv {M_TOK}",
              "rms_matmul": "w1", "rms_matmul_replay": "w1",
-             "resize": "256x256", "ring_attention": "n=4 "}
+             "resize": "256x256", "ring_attention": "n=4 ",
+             "ring_attention_bwd_dq": "n=4 ", "ring_attention_bwd_dkv": "n=4 "}
 
 
 def kernel_summary(results: list, counts: dict) -> dict:
     """One entry per kernel: launches summed over the paths of phases 3, 5,
-    7, 9, 11, 12, 14 and 16 (and per path); the largest bfloat16 error, and
-    the bfloat16 times and bound at its heaviest main-path shape, from
-    phase 2 (the ring kernel: phase 15, n = 4)."""
+    7, 9, 11, 12, 14, 16 and 18 (and per path); the largest bfloat16 error,
+    and the bfloat16 times and bound at its heaviest main-path shape, from
+    phase 2 (the ring kernel: phase 15, n = 4; its backward rings: phase
+    17, n = 4)."""
     kernels = []
     for name, (_, route, source, replaces) in KERNELS.items():
         rows = [r for r in results
@@ -1705,7 +1921,8 @@ def kernel_summary(results: list, counts: dict) -> dict:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "library": main["library"],
             "case": main["case"] + " bfloat16"}
-        for key in ("two_kernel_ms", "k1_ms"):
+        for key in ("two_kernel_ms", "k1_ms", "k9_ms", "pair_ms",
+                    "pair_bound_ms"):
             if key in main:
                 entry[key] = main[key]
         kernels.append(entry)
@@ -1766,7 +1983,12 @@ def main() -> int:
     counts.update(phase_seq_sharded(gpu))
     torch.cuda.empty_cache()
     done("phase 16")
+    phase_ring_bwd(results)
+    done("phase 17")
+    counts.update(phase_seq_train(gpu))
+    done("phase 18")
     phase_counts(counts)
+    done("phase 19")
     log(json.dumps(kernel_summary(results, counts)))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {

@@ -39,11 +39,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_tiles.cuh"
 #include "ptx.cuh"
 
 namespace {
 
 using namespace fast3r_ptx;
+using namespace fast3r_tiles;
 using bf16 = __nv_bfloat16;
 
 constexpr int kD = 64;        // head dim
@@ -51,6 +53,7 @@ constexpr int kB = 64;        // rows of a tile (queries or keys)
 constexpr int kThreads = 128;  // 4 warps of 16 rows
 constexpr int kLd = kD + 8;   // bf16 smem row stride: 144 B, ldmatrix conflict-free
 constexpr int kTile = kB * kLd;
+static_assert(kLd == kTileLd, "attention_tiles.cuh's row stride");
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct BwdArgs {
@@ -62,76 +65,6 @@ struct BwdArgs {
   long long dqsb, dqsn, dqsh, dksb, dksn, dksh, dvsb, dvsn, dvsh;
   float scale, scale_log2;
 };
-
-// this warp's 16 rows of a 64-row tile as 4 k-steps of A fragments
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[4][4], const bf16* t,
-                                             int warp, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    ldmatrix_x4(f[kk], t + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd +
-                           kk * 16 + (lane >> 4) * 8);
-}
-
-// acc (16 x 64) = A (16 x 64 d) . T^T, T a 64-row tile whose rows are the
-// product's columns (the forward's q k^T)
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const uint32_t (&a)[4][4],
-                                        const bf16* t, int lane) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; kk += 2) {
-      uint32_t f[4];
-      ldmatrix_x4(f, t + (j * 8 + (lane & 7)) * kLd + kk * 16 + (lane >> 3) * 8);
-      mma16816(acc[j], a[kk], f[0], f[1]);
-      mma16816(acc[j], a[kk + 1], f[2], f[3]);
-    }
-  }
-}
-
-// acc (16 x 64 d) += P (16 x 64 rows of t, as A fragments) . T, T a 64-row
-// tile read transposed (the forward's p v)
-__device__ __forceinline__ void mma_pt(float (&acc)[8][4], const uint32_t (&p)[4][4],
-                                       const bf16* t, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int n = 0; n < 8; n += 2) {
-      uint32_t f[4];
-      ldmatrix_x4_trans(f, t + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd +
-                               n * 8 + (lane >> 4) * 8);
-      mma16816(acc[n], p[kk], f[0], f[1]);
-      mma16816(acc[n + 1], p[kk], f[2], f[3]);
-    }
-  }
-}
-
-// accumulator tiles (16 x 64) -> A fragments (4 k-steps of 16), bf16
-__device__ __forceinline__ void pack_a(uint32_t (&f)[4][4], const float (&s)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    f[j >> 1][(j & 1) * 2] = pack_bf16(s[j][0], s[j][1]);
-    f[j >> 1][(j & 1) * 2 + 1] = pack_bf16(s[j][2], s[j][3]);
-  }
-}
-
-// rows g and g + 8 of a warp's 16 x 64 accumulator -> bf16 rows through
-// strides, times mul
-__device__ __forceinline__ void store_rows(bf16* base, long long s_row, int r0,
-                                           int n_valid, const float (&acc)[8][4],
-                                           float mul, int c) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int col = n * 8 + 2 * c;
-    if (r0 < n_valid)
-      *reinterpret_cast<uint32_t*>(base + (long long)r0 * s_row + col) =
-          pack_bf16(acc[n][0] * mul, acc[n][1] * mul);
-    if (r0 + 8 < n_valid)
-      *reinterpret_cast<uint32_t*>(base + (long long)(r0 + 8) * s_row + col) =
-          pack_bf16(acc[n][2] * mul, acc[n][3] * mul);
-  }
-}
 
 __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArgs a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];

@@ -6,29 +6,14 @@
 // _ring_fwd_kernel): the sequence-sharded decoder's global attention, where
 // every rank holds S_loc query tokens and the K/V shards rotate.  Here the
 // R ranks' buffers live on one card and run in one launch; the hop protocol
-// is the TPU kernel's and is what carries over to NVLink:
-//   * each rank owns two K and two V slots (2, B*H, S_loc, 64), so the comm
-//     memory is O(S_loc) whatever R is, and its own counters (flags below);
-//   * bootstrap: the rank's CTAs copy its own K/V into its slot 0;
-//   * epoch s reads slot s % 2, which then holds the K/V of rank (r - s) mod
-//     R; at its start each CTA sends its share of hop s + 1 (my slot s % 2
-//     -> the right neighbour's slot (s + 1) % 2), so the next shard is in
-//     flight while the epoch computes;
-//   * hop j >= 2 overwrites a slot the right neighbour used in epoch j - 2:
-//     it waits for that neighbour's capacity token, which the neighbour's
-//     last CTA to finish epoch j - 2 sends (every tile of the slot read and
-//     every send out of it drained: a rank-local barrier through a counter);
-//   * data is copied, fenced, then published with a release add to a
-//     monotone counter; waiters spin on an acquire load of their own
-//     counter.  Counters are per slot and count fills (never toggled bits),
-//     so a late waiter cannot mistake fill f + 1 for fill f.  Scope .gpu:
-//     with the slots peer-mapped (one rank per card) it becomes .sys and the
-//     pointer tables below hold peer pointers.
-// A CTA spins on counters other ranks' CTAs publish, so every CTA of every
-// rank must be resident at once: the grid is R x G persistent CTAs with G
-// from the occupancy calculator, launched cooperatively (the launch fails,
-// and the wrapper raises, when they cannot all be resident), and a wait
-// that outlasts timeout_ns traps instead of hanging.
+// is the TPU kernel's and is what carries over to NVLink.  It lives in
+// ring_protocol.cuh, shared with the backward rings (ring_attention_bwd.cu):
+// each rank owns two K and two V slots (2, B*H, S_loc, 64), so the comm
+// memory is O(S_loc) whatever R is; a bootstrap copy into slot 0; hop j
+// from my slot (j-1)%2 into the right neighbour's slot j%2 while epoch j-1
+// computes; capacity tokens before a slot is reused; per-slot fill
+// counters published with release adds; R x G persistent CTAs launched
+// cooperatively; a wait that outlasts timeout_ns traps instead of hanging.
 //
 // What bounds it on an H100: the attention itself, 4 * S^2 * H * 64 FLOPs
 // over the whole sequence, as in attention_fwd.cu (this kernel reuses its
@@ -49,11 +34,15 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "attention_tiles.cuh"
 #include "ptx.cuh"
+#include "ring_protocol.cuh"
 
 namespace {
 
 using namespace fast3r_ptx;
+using namespace fast3r_ring;
+using fast3r_tiles::load_rows_f32;
 
 constexpr int kD = 64;        // head dim
 constexpr int kBQ = 64;       // query rows per item, 16 per warp
@@ -61,13 +50,8 @@ constexpr int kBK = 64;       // keys per tile
 constexpr int kThreads = 128;
 constexpr int kLd = kD + 8;   // bf16 smem row stride (144 B, ldmatrix conflict-free)
 constexpr int kLdF = kD + 4;  // fp32 smem row stride
-constexpr int kMaxRanks = 16;
+static_assert(kLdF == fast3r_tiles::kTileLdF, "attention_tiles.cuh's fp32 row stride");
 constexpr float kLn2 = 0.6931471805599453f;
-
-// counter words of each rank, one 128-byte line per kind
-constexpr int kArrive = 0;   // [slot]: CTA shares that landed in my slot (bootstrap + hops)
-constexpr int kDone = 32;    // [slot]: my CTAs done with the slot in an epoch
-constexpr int kCap = 64;     // [slot]: capacity tokens from my right neighbour
 
 // per-thread fp32 state words of one item: acc[32] + m0, m1, l0, l1 (bf16
 // tiles, mma fragment order) or acc[32] + m, l (fp32 tiles)
@@ -77,6 +61,7 @@ constexpr int kStateF32 = 34;
 using bf16 = __nv_bfloat16;
 
 struct RingParams {
+  Ring ring;                      // payloads: K and V slots (2, B * H, S, 64)
   const void* q;
   const void* k;
   const void* v;
@@ -84,124 +69,9 @@ struct RingParams {
   void* o;                        // (R, B, S, H, 64) contiguous
   float* lse;                     // (R, B * H, S) fp32, natural log
   float* state;                   // (R, items, words, 128) fp32; null when E == 1
-  void* slot_k[kMaxRanks];        // rank r's K slots (2, B * H, S, 64)
-  void* slot_v[kMaxRanks];
-  unsigned* flags[kMaxRanks];     // rank r's counter words
-  int R, E, B, H, S, G;           // ranks, epochs, batch, heads, S_loc, CTAs per rank
+  int B, H, S;                    // batch, heads, S_loc
   float scale_log2;
-  long long timeout_ns;
 };
-
-// ---------------------------------------------------------------------------
-// the protocol
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __forceinline__ void red_release_add(unsigned* p, unsigned v) {
-  asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
-}
-__device__ __forceinline__ unsigned atom_acq_rel_add(unsigned* p, unsigned v) {
-  unsigned old;
-  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;\n"
-               : "=r"(old)
-               : "l"(p), "r"(v)
-               : "memory");
-  return old;
-}
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// every thread: block until *flag >= target (thread 0 spins, the block
-// follows it through the barrier); trap after timeout_ns
-__device__ void wait_geq(const unsigned* flag, unsigned target, long long timeout_ns) {
-  if (threadIdx.x == 0 && ld_acquire(flag) < target) {
-    const unsigned long long t0 = global_ns();
-    while (ld_acquire(flag) < target) {
-      if ((long long)(global_ns() - t0) > timeout_ns) __trap();
-      __nanosleep(256);
-    }
-  }
-  __syncthreads();
-}
-
-// every thread: this CTA's writes are done; add one to *flag (release)
-__device__ void publish(unsigned* flag) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) red_release_add(flag, 1u);
-}
-
-// this CTA's share [lo, hi) of n items split over G CTAs
-__device__ __forceinline__ void share(long long n, int G, int c, long long& lo,
-                                      long long& hi) {
-  const long long per = (n + G - 1) / G;
-  lo = (long long)c * per;
-  hi = lo + per < n ? lo + per : n;
-}
-
-// bootstrap share: rank r's own K/V, read through their strides, into its
-// slot 0 laid out (B * H, S, 64)
-template <typename T>
-__device__ void bootstrap_share(const RingParams& p, int r, int c) {
-  constexpr int kVec = 16 / (int)sizeof(T);  // elements per 16 bytes
-  constexpr int kChunks = kD / kVec;         // 16-byte chunks per row
-  long long lo, hi;
-  share((long long)p.B * p.H * p.S * kChunks, p.G, c, lo, hi);
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
-  T* dk = static_cast<T*>(p.slot_k[r]);
-  T* dv = static_cast<T*>(p.slot_v[r]);
-  for (long long i = lo + threadIdx.x; i < hi; i += kThreads) {
-    const long long row = i / kChunks;  // (b * H + h) * S + token
-    const int off = (int)(i % kChunks) * kVec;
-    const int tok = (int)(row % p.S);
-    const int bh = (int)(row / p.S);
-    const int b = bh / p.H, h = bh % p.H;
-    const long long ko = r * p.ks[0] + b * p.ks[1] + tok * p.ks[2] + h * p.ks[3] + off;
-    const long long vo = r * p.vs[0] + b * p.vs[1] + tok * p.vs[2] + h * p.vs[3] + off;
-    __stcg(reinterpret_cast<int4*>(dk + row * kD + off),
-           *reinterpret_cast<const int4*>(k + ko));
-    __stcg(reinterpret_cast<int4*>(dv + row * kD + off),
-           *reinterpret_cast<const int4*>(v + vo));
-  }
-}
-
-// hop share: my slot `src` -> the right neighbour's slot `dst`, through L2
-template <typename T>
-__device__ void hop_share(const RingParams& p, int r, int right, int src, int dst, int c) {
-  const long long n = (long long)p.B * p.H * p.S * kD * (long long)sizeof(T) / 16;
-  long long lo, hi;
-  share(n, p.G, c, lo, hi);
-  const int4* sk = static_cast<const int4*>(p.slot_k[r]) + src * n;
-  const int4* sv = static_cast<const int4*>(p.slot_v[r]) + src * n;
-  int4* dk = static_cast<int4*>(p.slot_k[right]) + dst * n;
-  int4* dv = static_cast<int4*>(p.slot_v[right]) + dst * n;
-  long long i = lo + threadIdx.x;
-  for (; i + 3 * kThreads < hi; i += 4 * kThreads) {
-    int4 a[4], b[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      a[u] = __ldcg(sk + i + u * kThreads);
-      b[u] = __ldcg(sv + i + u * kThreads);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      __stcg(dk + i + u * kThreads, a[u]);
-      __stcg(dv + i + u * kThreads, b[u]);
-    }
-  }
-  for (; i < hi; i += kThreads) {
-    __stcg(dk + i, __ldcg(sk + i));
-    __stcg(dv + i, __ldcg(sv + i));
-  }
-}
 
 // ---------------------------------------------------------------------------
 // one item: 64 queries of (batch, head) bh of rank r against the slot's K/V
@@ -371,19 +241,6 @@ __device__ void ring_item(const RingParams& p, unsigned char* smem, int r, int b
   }
 }
 
-// rows [row0, row0 + 64) x 64 fp32 of a strided source -> smem rows of
-// stride kLdF, through L2; rows at or past n_valid zero-filled
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
-                                              long long s_row, int row0, int n_valid) {
-  for (int i = threadIdx.x; i < 64 * (kD / 4); i += kThreads) {
-    const int rr = i / (kD / 4), col = (i % (kD / 4)) * 4;
-    const int n = row0 + rr;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (n < n_valid) val = __ldcg(reinterpret_cast<const float4*>(src + n * s_row + col));
-    *reinterpret_cast<float4*>(dst + rr * kLdF + col) = val;
-  }
-}
-
 // fp32: scalar FMAs, two lanes per query row (attention_fwd.cu's fp32 tiling)
 __device__ void ring_item(const RingParams& p, unsigned char* smem, int r, int bh,
                           int qi, const float* kb, const float* vb, float* st,
@@ -490,76 +347,30 @@ __host__ __device__ constexpr int smem_bytes() {
 template <typename T>
 __global__ void __launch_bounds__(kThreads) ring_attention_fwd_kernel(const RingParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int r = blockIdx.x % p.R, c = blockIdx.x / p.R;
-  const int right = (r + 1) % p.R, left = (r + p.R - 1) % p.R;
+  const Ring& g = p.ring;
+  const int r = blockIdx.x % g.R, c = blockIdx.x / g.R;
   const int nq = (p.S + kBQ - 1) / kBQ, items = p.B * p.H * nq;
-  const long long slot = (long long)p.B * p.H * p.S * kD;
   const long long head = (long long)p.S * kD;
-  unsigned* flags = p.flags[r];
-
-  bootstrap_share<T>(p, r, c);
-  publish(flags + kArrive + 0);
-  for (int s = 0; s < p.E; ++s) {
-    const int t = s & 1;
-    const unsigned fill = (unsigned)(s / 2 + 1);  // slot t's fill that epoch s reads
-    wait_geq(flags + kArrive + t, fill * p.G, p.timeout_ns);
-    if (s + 1 < p.E) {  // hop s + 1: my slot t -> right's slot (s + 1) % 2
-      const int j = s + 1;
-      if (j >= 2) wait_geq(flags + kCap + (j & 1), (unsigned)(j / 2), p.timeout_ns);
-      hop_share<T>(p, r, right, t, j & 1, c);
-      publish(p.flags[right] + kArrive + (j & 1));
-    }
-    const T* ks = static_cast<const T*>(p.slot_k[r]) + t * slot;
-    const T* vs = static_cast<const T*>(p.slot_v[r]) + t * slot;
-    for (int it = c; it < items; it += p.G) {
-      const int bh = it / nq;
-      float* st = p.state == nullptr
-                      ? nullptr
-                      : p.state + ((long long)r * items + it) * state_words<T>() * kThreads;
-      ring_item(p, smem, r, bh, it % nq, ks + bh * head, vs + bh * head, st, s == 0,
-                s == p.E - 1);
-    }
-    if (s + 2 < p.E) {  // hop s + 2 refills slot t: release it when all my CTAs are done
-      __threadfence();
-      __syncthreads();
-      if (threadIdx.x == 0 &&
-          atom_acq_rel_add(flags + kDone + t, 1u) == fill * p.G - 1)
-        red_release_add(p.flags[left] + kCap + t, 1u);
-    }
-  }
-}
-
-template <typename T>
-cudaError_t resident_ctas(int* per_sm, int* sms) {
-  const int smem = smem_bytes<T>();
-  cudaError_t err = cudaFuncSetAttribute(ring_attention_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, ring_attention_fwd_kernel<T>,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  int coop = 0;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-}
-
-template <typename T>
-int launch(RingParams& p, void* stream) {
-  int per_sm = 0, sms = 0;
-  cudaError_t err = resident_ctas<T>(&per_sm, &sms);
-  if (err != cudaSuccess) return err;
-  if ((long long)p.R * p.G > (long long)per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(ring_attention_fwd_kernel<T>),
-                                    dim3(p.R * p.G), dim3(kThreads), args,
-                                    smem_bytes<T>(), static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  run_ring(
+      g, r, c,
+      [&] {
+        copy_rows64_share<T>(slot_ptr<T>(g, 0, r, 0), static_cast<const T*>(p.k), p.ks, r,
+                             p.B, p.H, p.S, g.G, c);
+        copy_rows64_share<T>(slot_ptr<T>(g, 1, r, 0), static_cast<const T*>(p.v), p.vs, r,
+                             p.B, p.H, p.S, g.G, c);
+      },
+      [&](int s, int t) {
+        const T* ks = slot_ptr<T>(g, 0, r, t);
+        const T* vs = slot_ptr<T>(g, 1, r, t);
+        for (int it = c; it < items; it += g.G) {
+          const int bh = it / nq;
+          float* st = p.state == nullptr
+                          ? nullptr
+                          : p.state + ((long long)r * items + it) * state_words<T>() * kThreads;
+          ring_item(p, smem, r, bh, it % nq, ks + bh * head, vs + bh * head, st, s == 0,
+                    s == g.E - 1);
+        }
+      });
 }
 
 }  // namespace
@@ -570,14 +381,12 @@ extern "C" {
 // resident together with every other rank's (0: R ranks cannot be);
 // *state_words: fp32 scratch words per item per thread.
 int fast3r_ring_attention_plan(int dtype, int R, int* ctas, int* state_words_out) {
-  int per_sm = 0, sms = 0;
-  cudaError_t err = dtype == 1 ? resident_ctas<bf16>(&per_sm, &sms)
-                               : dtype == 0 ? resident_ctas<float>(&per_sm, &sms)
-                                            : cudaErrorInvalidValue;
-  if (err != cudaSuccess) return err;
-  *ctas = R >= 1 && R <= kMaxRanks ? per_sm * sms / R : 0;
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   *state_words_out = dtype == 1 ? kStateBf16 * kThreads : kStateF32 * kThreads;
-  return cudaSuccess;
+  return dtype == 1 ? plan_ctas(ring_attention_fwd_kernel<bf16>, kThreads, smem_bytes<bf16>(),
+                                R, ctas)
+                    : plan_ctas(ring_attention_fwd_kernel<float>, kThreads,
+                                smem_bytes<float>(), R, ctas);
 }
 
 // q, k, v: (R, B, S, H, 64) read through their strides (elements; 16-byte
@@ -594,10 +403,15 @@ int fast3r_ring_attention_fwd(int dtype, const void* q, const void* k, const voi
                               const void* slot_v, const void* flags, int R, int E, int B,
                               int H, int S, int G, float scale, long long timeout_ns,
                               void* stream) {
-  if (R < 1 || R > kMaxRanks || E < 1 || G < 1 || B < 1 || H < 1 || S < 1 ||
-      (E > 1 && state == nullptr))
+  if (B < 1 || H < 1 || S < 1 || (E > 1 && state == nullptr) || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   RingParams p{};
+  const long long slot = (long long)B * H * S * kD * (dtype == 1 ? 2 : 4);
+  const long long bytes[2] = {slot, slot};
+  const void* const* tables[2] = {static_cast<const void* const*>(slot_k),
+                                  static_cast<const void* const*>(slot_v)};
+  int err = make_ring(p.ring, 2, tables, bytes, flags, R, E, G, timeout_ns);
+  if (err != cudaSuccess) return err;
   p.q = q;
   p.k = k;
   p.v = v;
@@ -611,22 +425,15 @@ int fast3r_ring_attention_fwd(int dtype, const void* q, const void* k, const voi
   p.o = o;
   p.lse = static_cast<float*>(lse);
   p.state = static_cast<float*>(state);
-  for (int i = 0; i < R; ++i) {
-    p.slot_k[i] = static_cast<void* const*>(slot_k)[i];
-    p.slot_v[i] = static_cast<void* const*>(slot_v)[i];
-    p.flags[i] = static_cast<unsigned* const*>(flags)[i];
-  }
-  p.R = R;
-  p.E = E;
   p.B = B;
   p.H = H;
   p.S = S;
-  p.G = G;
   p.scale_log2 = scale * 1.4426950408889634f;
-  p.timeout_ns = timeout_ns;
-  if (dtype == 1) return launch<bf16>(p, stream);
-  if (dtype == 0) return launch<float>(p, stream);
-  return cudaErrorInvalidValue;
+  if (dtype == 1)
+    return launch_ring(ring_attention_fwd_kernel<bf16>, kThreads, smem_bytes<bf16>(), p,
+                       p.ring, stream);
+  return launch_ring(ring_attention_fwd_kernel<float>, kThreads, smem_bytes<float>(), p,
+                     p.ring, stream);
 }
 
 }  // extern "C"

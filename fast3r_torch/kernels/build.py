@@ -50,6 +50,11 @@ SIGNATURES = {
     "fast3r_ring_attention_plan": [_I, _I, _P, _P],
     "fast3r_ring_attention_fwd": [_I, _P, _P, _P] + [_L] * 12 + [_P] * 6
                                  + [_I] * 6 + [_F, _L, _P],
+    "fast3r_ring_attention_bwd_plan": [_I, _I, _I, _P, _P],
+    "fast3r_ring_attention_bwd_dq": [_I] + [_P] * 4 + [_L] * 16 + [_P] * 7
+                                    + [_I] * 5 + [_F, _L, _P],
+    "fast3r_ring_attention_bwd_dkv": [_I] + [_P] * 4 + [_L] * 16 + [_P, _L]
+                                     + [_P] * 7 + [_I] * 5 + [_F, _L, _P],
 }
 
 

@@ -29,6 +29,7 @@ from fast3r_torch.nn.layers import (
     make_vit_stack,
     run_vit_stack,
 )
+from fast3r_torch.ops.attention import AttnImpl
 from fast3r_torch.ops.sincos import sincos_1d_table_np
 
 MAX_IMAGE_IDX = 1000  # rows of the image-index embedding table
@@ -48,7 +49,9 @@ class DecoderConfig:
     qkv_bias: bool = True
     random_image_idx_embedding: bool = True
     attn_bias_for_inference_enabled: bool = True
-    attn_impl: str = "pallas"
+    # an implementation's name, or a callable (q, k, v, scale) -> o (the
+    # sequence-sharded paths' ring)
+    attn_impl: AttnImpl = "pallas"
     block_ln_eps: float = 1e-5
     final_ln_eps: float = 1e-6
     # the fused-GEMM blocks (nn.fused_block), as in the JAX package

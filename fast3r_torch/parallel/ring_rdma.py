@@ -1,15 +1,19 @@
-"""Ring attention with in-kernel hops over two slots per rank (forward): the
-wrapper of ``csrc/ring_attention.cu``.
+"""Ring attention with in-kernel hops over two slots per rank: the wrappers
+of ``csrc/ring_attention.cu`` (the forward) and ``csrc/ring_attention_bwd.cu``
+(the dq and dk/dv rings of the backward), and the differentiable ring.
 
 Counterpart of ``fast3r_tpu/parallel/ring_rdma.py`` (``ring_flash_attention_rdma``,
-``_rdma_forward``).  The JAX kernel runs one ``pallas_call`` per device of
-a ``shard_map`` ring and moves K/V between chips with remote copies; here
-the ranks are stacked on a leading axis, q, k and v ``(n, B, S_loc, H, D)``
-on one device, and one launch runs all n ranks, each with its own two K/V
-slots, arrival counters and capacity counters.  The source notes give the
+``_rdma_forward``, ``_ring_backward``, ``ring_flash_attention_rdma_diff``).
+The JAX kernels run one ``pallas_call`` per device of a ``shard_map`` ring
+and move their payloads between chips with remote copies; here the ranks
+are stacked on a leading axis, q, k and v ``(n, B, S_loc, H, D)`` on one
+device, and one launch runs all n ranks, each with its own two slots of
+each payload, arrival counters and capacity counters.  The source notes give the
 protocol (bootstrap copy, hop j from my slot (j-1)%2 into the right
 neighbour's slot j%2 while epoch j-1 computes, capacity tokens before a
-slot is reused) and say what bounds the kernel.
+slot is reused; ``csrc/ring_protocol.cuh``, which the three kernels share)
+and say what bounds each kernel.  Every launch gets its own freshly zeroed
+counter words and slots.
 
 Self-ring mode (n = 1, ``self_ring_epochs = E``): E epochs over the rank's
 own slots, every hop copying into itself.  The output equals plain
@@ -17,9 +21,10 @@ attention (the duplicated keys' weights renormalise away) and the lse is
 the plain lse + ln E: the one-card check of the hop protocol that the JAX
 package runs on one chip.
 
-There is no plain fallback here: on anything but CUDA tensors the kernel
-can take, these functions raise.  The plain version of the same function
-is :func:`fast3r_torch.parallel.sequence.ring_flash_attention`.
+There is no plain fallback here: on anything but CUDA tensors the kernels
+can take, these functions raise.  The plain versions of the same functions
+are :func:`fast3r_torch.parallel.sequence.ring_flash_attention` and
+:func:`fast3r_torch.parallel.sequence.ring_attention_bwd_ref`.
 """
 
 from __future__ import annotations
@@ -54,6 +59,40 @@ def _check_input(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
             "(head dim contiguous, other strides multiples of 16 bytes)")
 
 
+def _check_kernel_input(q: torch.Tensor, n: int) -> None:
+    """What every ring kernel takes: rank-stacked CUDA (n, B, S_loc, H, 64)
+    q in float32 or bfloat16, 1 <= n <= MAX_RANKS, S_loc > 0."""
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"ring attention: no kernel for device {q.device} (the plain ring "
+            "is fast3r_torch.parallel.sequence.ring_flash_attention)")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"ring attention: dtype {q.dtype} not supported")
+    if q.dim() != 5 or q.shape[4] != HEAD_DIM:
+        raise ValueError(f"ring attention: q must be (n, B, S_loc, H, "
+                         f"{HEAD_DIM}), got {tuple(q.shape)}")
+    if q.shape[0] != n:
+        raise ValueError(f"ring attention: q stacks {q.shape[0]} ranks, n={n}")
+    if not 1 <= n <= MAX_RANKS:
+        raise ValueError(f"ring attention: n={n} outside 1..{MAX_RANKS}")
+    if q.shape[2] == 0:
+        raise ValueError("ring attention: empty shards")
+
+
+def _ctas(resident: int, items: int, ctas_per_rank: Optional[int], n: int) -> int:
+    G = min(resident, items) if ctas_per_rank is None else ctas_per_rank
+    if G < 1:
+        raise RuntimeError(f"ring attention: {n} ranks cannot all be resident "
+                           "on the card at once")
+    return G
+
+
+def _pointer_table(t: torch.Tensor) -> ctypes.Array:
+    """Host array of the n ranks' device pointers into t (n, ...)."""
+    return (ctypes.c_void_p * t.shape[0])(*(t[r].data_ptr()
+                                            for r in range(t.shape[0])))
+
+
 def _plan(dtype: torch.dtype, n: int) -> Tuple[int, int]:
     """(how many CTAs per rank the card can hold resident together with
     every other rank's, 0 when n ranks cannot all be; fp32 state words per
@@ -74,19 +113,7 @@ def _rdma_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype and lse (n, B * H, S_loc), fp32, natural log (what a backward
     reads).  ``ctas_per_rank`` overrides the resident count the card allows
     (a count that cannot be resident raises).  Counts one launch."""
-    if q.device.type != "cuda":
-        raise ValueError(
-            f"ring attention: no kernel for device {q.device} (the plain ring "
-            "is fast3r_torch.parallel.sequence.ring_flash_attention)")
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"ring attention: dtype {q.dtype} not supported")
-    if q.dim() != 5 or q.shape[4] != HEAD_DIM:
-        raise ValueError(f"ring attention: q must be (n, B, S_loc, H, "
-                         f"{HEAD_DIM}), got {tuple(q.shape)}")
-    if q.shape[0] != n:
-        raise ValueError(f"ring attention: q stacks {q.shape[0]} ranks, n={n}")
-    if not 1 <= n <= MAX_RANKS:
-        raise ValueError(f"ring attention: n={n} outside 1..{MAX_RANKS}")
+    _check_kernel_input(q, n)
     epochs = n
     if self_ring_epochs is not None:
         if n != 1:
@@ -97,14 +124,9 @@ def _rdma_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_input(name, t, q)
     _, B, S, H, _ = q.shape
-    if S == 0:
-        raise ValueError("ring attention: empty shards")
     items = B * H * -(-S // 64)
     resident, words = _plan(q.dtype, n)
-    G = min(resident, items) if ctas_per_rank is None else ctas_per_rank
-    if G < 1:
-        raise RuntimeError(f"ring attention: {n} ranks cannot all be resident "
-                           "on the card at once")
+    G = _ctas(resident, items, ctas_per_rank, n)
     dev = q.device
     o = torch.empty((n, B, S, H, HEAD_DIM), device=dev, dtype=q.dtype)
     lse = torch.empty((n, B * H, S), device=dev, dtype=torch.float32)
@@ -115,10 +137,7 @@ def _rdma_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     state = (torch.empty((n * items * words,), device=dev,
                          dtype=torch.float32) if epochs > 1 else None)
     # per-rank pointer tables (one card today; peer pointers across cards)
-    table = ctypes.c_void_p * n
-    tk = table(*(slots_k[r].data_ptr() for r in range(n)))
-    tv = table(*(slots_v[r].data_ptr() for r in range(n)))
-    tf = table(*(flags[r].data_ptr() for r in range(n)))
+    tk, tv, tf = (_pointer_table(t) for t in (slots_k, slots_v, flags))
     err = build.library().fast3r_ring_attention_fwd(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *q.stride()[:4], *k.stride()[:4], *v.stride()[:4],
@@ -145,3 +164,184 @@ def ring_flash_attention_rdma(q: torch.Tensor, k: torch.Tensor,
 
 
 ring_flash_attention_rdma.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the backward: the dq ring and the dk/dv ring (csrc/ring_attention_bwd.cu)
+# ---------------------------------------------------------------------------
+
+def _plan_bwd(which: int, dtype: torch.dtype, n: int) -> Tuple[int, int]:
+    """:func:`_plan` of the dq ring (``which`` 0) or the dk/dv ring (1)."""
+    ctas, words = ctypes.c_int(0), ctypes.c_int(0)
+    build.check(build.library().fast3r_ring_attention_bwd_plan(
+        which, _DTYPES[dtype], n, ctypes.addressof(ctas),
+        ctypes.addressof(words)), "fast3r_ring_attention_bwd_plan")
+    return ctas.value, words.value
+
+
+def _strides(*ts: torch.Tensor):
+    return [s for t in ts for s in t.stride()[:4]]
+
+
+def _check_bwd_inputs(q, k, v, do, n: int) -> None:
+    _check_kernel_input(q, n)
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        _check_input(name, t, q)
+
+
+def _check_rows(name: str, t: torch.Tensor, shape, q: torch.Tensor) -> None:
+    """A rows' input of the backward rings: contiguous fp32 on q's device."""
+    if (tuple(t.shape) != tuple(shape) or t.dtype != torch.float32
+            or t.device != q.device or not t.is_contiguous()):
+        raise ValueError(f"ring attention: {name} must be contiguous fp32 "
+                         f"{tuple(shape)} on {q.device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def ring_attention_bwd_dq(q, k, v, do, lse, delta, scale: float, n: int,
+                          ctas_per_rank: Optional[int] = None) -> torch.Tensor:
+    """Launch the dq ring: K/V rotate, q, do, lse and delta (n, B * H,
+    S_loc) fp32 stay local.  Returns dq (n, B, S_loc, H, 64) in q's dtype.
+    Anything the kernel cannot take raises.  Counts one launch."""
+    _check_bwd_inputs(q, k, v, do, n)
+    _, B, S, H, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        _check_rows(name, t, (n, B * H, S), q)
+    items = B * H * -(-S // 64)
+    resident, words = _plan_bwd(0, q.dtype, n)
+    G = _ctas(resident, items, ctas_per_rank, n)
+    dev = q.device
+    dq = torch.empty((n, B, S, H, HEAD_DIM), device=dev, dtype=q.dtype)
+    slots_k = torch.empty((n, NSLOTS, B * H, S, HEAD_DIM), device=dev,
+                          dtype=q.dtype)
+    slots_v = torch.empty_like(slots_k)
+    flags = torch.zeros((n, FLAG_WORDS), device=dev, dtype=torch.int32)
+    state = (torch.empty((n * items * words,), device=dev,
+                         dtype=torch.float32) if n > 1 else None)
+    tk, tv, tf = (_pointer_table(t) for t in (slots_k, slots_v, flags))
+    err = build.library().fast3r_ring_attention_bwd_dq(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), *_strides(q, k, v, do), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(),
+        0 if state is None else state.data_ptr(), ctypes.addressof(tk),
+        ctypes.addressof(tv), ctypes.addressof(tf), n, B, H, S, G,
+        float(scale), int(TIMEOUT_S * 1e9), build.stream_handle(dev))
+    build.check(err, "fast3r_ring_attention_bwd_dq")
+    ring_attention_bwd_dq.launches += 1
+    return dq
+
+
+ring_attention_bwd_dq.launches = 0
+
+
+def ring_attention_bwd_dkv(q, k, v, do, meta, scale: float, n: int,
+                           ctas_per_rank: Optional[int] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dk/dv ring: q, do and ``meta`` (n, M) fp32, the rows'
+    (lse, delta) pairs first and M a multiple of 4, rotate; K/V stay at
+    their owner.  Returns dk, dv (n, B, S_loc, H, 64) in q's dtype.
+    Anything the kernel cannot take raises.  Counts one launch."""
+    _check_bwd_inputs(q, k, v, do, n)
+    _, B, S, H, _ = q.shape
+    _check_rows("meta", meta, (n, -(-2 * B * H * S // 4) * 4), q)
+    items = B * H * -(-S // 64)
+    resident, words = _plan_bwd(1, q.dtype, n)
+    G = _ctas(resident, items, ctas_per_rank, n)
+    dev = q.device
+    dk = torch.empty((n, B, S, H, HEAD_DIM), device=dev, dtype=q.dtype)
+    dv = torch.empty_like(dk)
+    slots_q = torch.empty((n, NSLOTS, B * H, S, HEAD_DIM), device=dev,
+                          dtype=q.dtype)
+    slots_do = torch.empty_like(slots_q)
+    slots_meta = torch.empty((n, NSLOTS, meta.shape[1]), device=dev,
+                             dtype=torch.float32)
+    flags = torch.zeros((n, FLAG_WORDS), device=dev, dtype=torch.int32)
+    state = (torch.empty((n * items * words,), device=dev,
+                         dtype=torch.float32) if n > 1 else None)
+    tq, to, tm, tf = (_pointer_table(t)
+                      for t in (slots_q, slots_do, slots_meta, flags))
+    err = build.library().fast3r_ring_attention_bwd_dkv(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), *_strides(q, k, v, do), meta.data_ptr(), meta.shape[1],
+        dk.data_ptr(), dv.data_ptr(),
+        0 if state is None else state.data_ptr(), ctypes.addressof(tq),
+        ctypes.addressof(to), ctypes.addressof(tm), ctypes.addressof(tf),
+        n, B, H, S, G, float(scale), int(TIMEOUT_S * 1e9),
+        build.stream_handle(dev))
+    build.check(err, "fast3r_ring_attention_bwd_dkv")
+    ring_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+ring_attention_bwd_dkv.launches = 0
+
+
+def _bwd_rows(o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rows' inputs of the backward rings: delta = rowsum(do o) (n,
+    B * H, S_loc) in fp32 from the rounded o (a plain torch op: XLA's place
+    in the JAX package), for the dq ring; and the dk/dv ring's payload
+    (n, M) fp32, the rows' (lse, delta) pairs first, M rounded up to a
+    multiple of 4 (whole 16-byte chunks)."""
+    n, B, S, H, _ = o.shape
+    delta = (do.float() * o.float()).sum(-1)  # (n, B, S, H)
+    delta = delta.permute(0, 1, 3, 2).reshape(n, B * H, S).contiguous()
+    rows = B * H * S
+    meta = torch.zeros((n, -(-2 * rows // 4) * 4), device=o.device,
+                       dtype=torch.float32)
+    meta[:, :2 * rows].view(n, rows, 2).copy_(
+        torch.stack((lse.reshape(n, rows), delta.reshape(n, rows)), -1))
+    return delta, meta
+
+
+def _ring_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                   scale: float, n: int, ctas_per_rank: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of the ring over rank-stacked CUDA (n, B, S_loc, H, 64)
+    q, k, v from the forward's o and lse (n, B * H, S_loc) and the output
+    gradient do: the rows' delta and (lse, delta) pairs (:func:`_bwd_rows`),
+    then the dq ring and the dk/dv ring, each launch with its own zeroed
+    counters and slots.  ``ctas_per_rank`` overrides the resident count of
+    both."""
+    _check_kernel_input(q, n)
+    do = do.contiguous()
+    _check_input("o", o, q)
+    _, B, S, H, _ = q.shape
+    _check_rows("lse", lse, (n, B * H, S), q)
+    delta, meta = _bwd_rows(o, do, lse)
+    dq = ring_attention_bwd_dq(q, k, v, do, lse, delta, scale, n,
+                               ctas_per_rank)
+    dk, dv = ring_attention_bwd_dkv(q, k, v, do, meta, scale, n,
+                                    ctas_per_rank)
+    return dq, dk, dv
+
+
+class _RingAttention(torch.autograd.Function):
+    """The ring forward kernel, saving q, k, v, o and lse; its backward the
+    two ring kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, n):
+        o, lse = _rdma_forward(q, k, v, scale, n)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.n = scale, n
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _ring_backward(q, k, v, o, lse, do, ctx.scale, ctx.n)
+        return dq, dk, dv, None, None
+
+
+def ring_flash_attention_rdma_diff(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, scale: float, n: int
+                                   ) -> torch.Tensor:
+    """Differentiable ring attention over n rank-stacked shards: q, k, v
+    (n, B, S_loc, H, 64) CUDA tensors -> o (n, B, S_loc, H, 64); the
+    forward is the ring kernel, the backward the dq and dk/dv ring kernels.
+    The training path of ``make_seq_sharded_train_step(ring_impl="rdma")``.
+    Anything the kernels cannot take raises; there is no fallback to the
+    plain ring."""
+    return _RingAttention.apply(q, k, v, scale, n)

@@ -21,7 +21,10 @@ and profiles the next one:
 With ``--seq-ranks N`` it profiles the flagship's sequence-sharded request
 instead (``fast3r_torch.parallel.make_seq_sharded_forward`` over N ranks
 with the ring kernel; the encoder on its fused road, the decoder on the
-plain block road), as the road ``seq_sharded``.
+plain block road), as the road ``seq_sharded``; with ``--train --seq-ranks
+N`` the sequence-sharded training step
+(``fast3r_torch.parallel.make_seq_sharded_train_step``, remat, the ring
+kernels forward and backward, the same roads and batch as ``--train``).
 
 It prints one JSON line per road: the request's or step's wall time (host
 clock, profiler on, ending in a synchronise), the sum of kernel time, the
@@ -48,11 +51,15 @@ from fast3r_torch.inference import Fast3R, inference
 from fast3r_torch.models.fast3r import Fast3RConfig
 from fast3r_torch.models.llama_decoder import LlamaDecoderConfig
 from fast3r_torch.nn import fused_block
-from fast3r_torch.parallel.sequence import make_seq_sharded_forward
+from fast3r_torch.parallel.sequence import (
+    make_seq_sharded_forward,
+    make_seq_sharded_train_step,
+)
 from fast3r_torch.train.step import OptimConfig, init_train_state, train_step
 
 # (category, substrings of the kernel name), first match wins
 CATEGORIES = (
+    ("ring attention backward kernels", ("ring_bwd_",)),
     ("ring attention kernel", ("ring_attention",)),
     ("attention kernel", ("attention_fwd",)),
     ("attention backward kernels", ("attention_bwd",)),
@@ -94,15 +101,18 @@ def _request(model: Fast3R, views: list):
     return lambda: inference(views, model, verbose=False)
 
 
-def _train_step(model: Fast3R, views: int):
+def _train_step(model: Fast3R, views: int, seq_ranks: int = 0):
     """One training step from a fixed state and batch (the work to
-    profile)."""
+    profile); sequence-sharded over ``seq_ranks`` ranks when not 0."""
     opt = OptimConfig(warmup_steps=2, total_steps=1000)
     state = init_train_state(model.params, opt)
     batch = {k: torch.as_tensor(v).cuda() for k, v in
              make_dummy_batch(1, views, 384, 512, seed=0).items()
              if k in ("imgs", "true_shapes", "pts3d", "valid_mask",
                       "camera_pose")}
+    if seq_ranks:
+        step = make_seq_sharded_train_step(model.cfg, opt, seq_ranks)
+        return lambda: step(state, batch)
     return lambda: train_step(state, batch, model.cfg, opt, remat=True)
 
 
@@ -119,10 +129,12 @@ def profile_road(model: Fast3R, road: str, views: list, out_dir: Path,
     m = Fast3R(model.cfg.with_fused_blocks(road != "plain"), model.params)
     fused_block.PREFER_FUSED_MLP = road != "two_kernel_mlp"
     try:
-        if seq_ranks:
+        if train:
+            work = _train_step(m, len(views), seq_ranks)
+        elif seq_ranks:
             work = _seq_request(model, views, seq_ranks)
         else:
-            work = _train_step(m, len(views)) if train else _request(m, views)
+            work = _request(m, views)
         work()  # warm-up of the same size
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -171,8 +183,9 @@ def main() -> None:
     ap.add_argument("--train", action="store_true",
                     help="profile a training step instead of a request")
     ap.add_argument("--seq-ranks", type=int, default=0,
-                    help="profile the sequence-sharded request over this "
-                         "many ranks instead")
+                    help="profile the sequence-sharded request (with "
+                         "--train: training step) over this many ranks "
+                         "instead")
     ap.add_argument("--out", default="runs/profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():

@@ -57,6 +57,13 @@ def _norm_factor(pts: torch.Tensor, valid: torch.Tensor, norm_mode: str,
                         dim=-1).clamp(min=1e-8)
 
 
+def _perview_norm_factor(pts: torch.Tensor, valid: torch.Tensor,
+                         norm_mode: str) -> torch.Tensor:
+    """Per-(sample, view) factor of (..., H, W, 3) points: the mean valid
+    distance over each view's pixels, shape (...)."""
+    return _norm_factor(pts, valid, norm_mode, pts.dim() - 3)
+
+
 def regr3d_multiview_v4(gts: Tensors, preds: Tensors,
                         cfg: LossConfig = LossConfig()
                         ) -> Tuple[Tensors, Tensors]:
@@ -95,10 +102,10 @@ def regr3d_multiview_v4(gts: Tensors, preds: Tensors,
         pr_local = preds["pts3d_local"].float()
         if not cfg.local_scale_consistent:
             per_view = (slice(None), slice(None)) + (None,) * 3
-            pr_l = pr_local / _norm_factor(pr_local, valid, cfg.norm_mode,
-                                           2)[per_view]
-            gt_l = (gt_local / _norm_factor(gt_local, valid, cfg.norm_mode,
-                                            2)[per_view]
+            pr_l = pr_local / _perview_norm_factor(pr_local, valid,
+                                                   cfg.norm_mode)[per_view]
+            gt_l = (gt_local / _perview_norm_factor(gt_local, valid,
+                                                    cfg.norm_mode)[per_view]
                     if not cfg.gt_scale else gt_local)
         else:
             pr_l = pr_local / nf_pr[bcast]

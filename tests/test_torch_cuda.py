@@ -854,3 +854,141 @@ def test_ring_kernel_rejects_what_it_cannot_take(dev):
     torch.cuda.synchronize()  # the refused launch left the context usable
     o = t_ring.ring_flash_attention_rdma(q, k, v, 0.125, 2)
     assert torch.isfinite(o.float()).all()
+
+
+# --------------------------------------------------------------------------
+# K14's backward: the dq and dk/dv ring kernels (csrc/ring_attention_bwd.cu)
+# and the seq-sharded training step on the card
+# --------------------------------------------------------------------------
+
+# dq, dk, dv against ring_attention_bwd_ref on the same o and lse, relative
+# to max |plain|: fp32 differs in summation order only; bf16 as the
+# attention backward's test (p or ds on the other side of a bf16 step)
+RING_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,B,S_loc,H", [(1, 1, 128, 2), (2, 2, 100, 2),
+                                         (3, 1, 64, 3), (8, 1, 72, 2)])
+def test_ring_bwd_kernels_match_plain(dev, dtype, n, B, S_loc, H):
+    """The dq ring and the dk/dv ring over n ranks on one card (ragged
+    S_loc, B = 2, strided q/k/v) from the forward kernel's o and lse,
+    against the plain version of both rings; one launch each."""
+    from fast3r_torch.parallel import ring_rdma as t_ring
+    from fast3r_torch.parallel.sequence import ring_attention_bwd_ref
+
+    q, k, v = _ring_inputs(n, B, S_loc, H, dtype, 50 + n)
+    do = torch.randn((n, B, S_loc, H, 64), generator=_gen(60 + n),
+                     device=dev).to(dtype)
+    o, lse = t_ring._rdma_forward(q, k, v, 0.125, n)
+    before = (t_ring.ring_attention_bwd_dq.launches,
+              t_ring.ring_attention_bwd_dkv.launches)
+    got = t_ring._ring_backward(q, k, v, o, lse, do, 0.125, n)
+    ref = ring_attention_bwd_ref(q, k, v, o, lse, do, 0.125)
+    torch.cuda.synchronize()
+    assert (t_ring.ring_attention_bwd_dq.launches,
+            t_ring.ring_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    for name, a, b in zip("qkv", got, ref):
+        assert a.shape == (n, B, S_loc, H, 64) and a.dtype == dtype
+        assert _rel_max(a, b) < RING_BWD_TOL[dtype], name
+
+
+def test_ring_bwd_kernels_reject_too_many_ctas(dev):
+    """Each backward ring raises when asked for one CTA per rank more than
+    can be resident; the context stays usable."""
+    from fast3r_torch.parallel import ring_rdma as t_ring
+
+    q, k, v = _ring_inputs(2, 1, 64, 2, torch.bfloat16, 41)
+    do = torch.randn((2, 1, 64, 2, 64), generator=_gen(42),
+                     device=dev).to(torch.bfloat16)
+    o, lse = t_ring._rdma_forward(q, k, v, 0.125, 2)
+    delta, meta = t_ring._bwd_rows(o, do, lse)
+    for which in (0, 1):
+        resident = t_ring._plan_bwd(which, torch.bfloat16, 2)[0]
+        assert resident >= 1
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            if which == 0:
+                t_ring.ring_attention_bwd_dq(q, k, v, do, lse, delta, 0.125, 2,
+                                             ctas_per_rank=resident + 1)
+            else:
+                t_ring.ring_attention_bwd_dkv(q, k, v, do, meta, 0.125, 2,
+                                              ctas_per_rank=resident + 1)
+    torch.cuda.synchronize()
+    got = t_ring._ring_backward(q, k, v, o, lse, do, 0.125, 2)
+    assert all(torch.isfinite(g.float()).all() for g in got)
+
+
+def test_ring_attention_autograd_matches_plain_ring(dev):
+    """ring_flash_attention_rdma_diff under autograd (the forward kernel,
+    then both backward rings) against autograd of the plain ring in fp32 on
+    the same bf16 inputs: relative L2 within 2e-2."""
+    from fast3r_torch.parallel import ring_rdma as t_ring
+    from fast3r_torch.parallel.sequence import ring_flash_attention
+
+    n = 4
+    q, k, v = (t.detach().clone().requires_grad_()
+               for t in _ring_inputs(n, 1, 96, 2, torch.bfloat16, 43))
+    do = torch.randn((n, 1, 96, 2, 64), generator=_gen(44),
+                     device=dev).to(torch.bfloat16)
+    before = (t_ring.ring_flash_attention_rdma.launches,
+              t_ring.ring_attention_bwd_dq.launches,
+              t_ring.ring_attention_bwd_dkv.launches)
+    torch.autograd.backward(
+        t_ring.ring_flash_attention_rdma_diff(q, k, v, 0.125, n), do)
+    torch.cuda.synchronize()
+    assert (t_ring.ring_flash_attention_rdma.launches,
+            t_ring.ring_attention_bwd_dq.launches,
+            t_ring.ring_attention_bwd_dkv.launches) == tuple(
+                b + 1 for b in before)
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    torch.autograd.backward(ring_flash_attention(qf, kf, vf, 0.125)[0],
+                            do.float())
+    for a, b in ((q, qf), (k, kf), (v, vf)):
+        ga, gb = a.grad.float(), b.grad
+        assert ((ga - gb).norm() / gb.norm()).item() < 2e-2
+
+
+def test_seq_sharded_train_step_on_cuda_matches_single_device(dev):
+    """One seq-sharded step over 2 ranks (ring kernels, remat) at the
+    flagship widths and shallow depth, 2 views at 112x128, bf16, against
+    the single-device card train_step on the same decoder road (plain
+    blocks, K1 / K9 attention) with the same ids: the loss within 1e-2
+    relative, each group's gradient norm within 3e-2 (bf16, two attention
+    kernels); ring launches 2 x depth forward (remat), depth per backward
+    ring, and no decoder K1 / K9."""
+    import dataclasses
+
+    import fast3r_torch
+    from fast3r_torch.data.dummy import make_dummy_batch
+    from fast3r_torch.parallel import ring_rdma as t_ring
+    from fast3r_torch.parallel.sequence import make_seq_sharded_train_step
+    from fast3r_torch.train.step import (OptimConfig, init_train_state,
+                                         train_step)
+
+    cfg = _shallow_cfg(1024, 16, fused=True)
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, fused_blocks=False))
+    gpu = fast3r_torch.Fast3R.from_random(cfg, seed=0, device="cuda",
+                                          dtype=torch.bfloat16)
+    batch = make_dummy_batch(1, 2, 112, 128, seed=0)
+    ids = torch.tensor([[0, 17]], dtype=torch.int32)
+    opt = OptimConfig(warmup_steps=2, total_steps=100)
+    _, ref = train_step(init_train_state(gpu.params, opt), batch, cfg, opt,
+                        view_ids=ids)
+    fns = (t_ring.ring_flash_attention_rdma, t_ring.ring_attention_bwd_dq,
+           t_ring.ring_attention_bwd_dkv, t_flash.flash_attention,
+           t_flash.attention_bwd)
+    before = [f.launches for f in fns]
+    step = make_seq_sharded_train_step(cfg, opt, 2)
+    _, m = step(init_train_state(gpu.params, opt), batch, ids)
+    torch.cuda.synchronize()
+    depth = cfg.decoder.depth
+    assert [f.launches - b for f, b in zip(fns, before)] == [
+        2 * depth, depth, depth, 0, 0]
+    assert m["skipped_nonfinite"] == 0
+    assert abs(m["loss"].item() - ref["loss"].item()) < 1e-2 * abs(
+        ref["loss"].item())
+    for k in ref:
+        if k.startswith("watch/grad_norm/"):
+            assert abs(m[k].item() - ref[k].item()) < 3e-2 * ref[k].item(), k
