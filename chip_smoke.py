@@ -7,7 +7,12 @@ Builds the port's hand-written kernels from ``fast3r_torch/csrc`` and
 printing each one's seconds:
 
   1. device: the card's name and power limit, torch / CUDA versions, the
-     kernel build time and what ptxas reports for the fused-GEMM kernels;
+     kernel build time and what ptxas reports for every kernel; for the
+     Hopper kernels (``fused_gemm_kernel<PRO, EPI>``, ``ln_mlp_kernel``)
+     their registers, spills and shared memory, and the counts of HGMMA
+     (wgmma) and UTMALDG (TMA load) instructions in their SASS
+     (``cuobjdump -sass`` on the built library), each of which must be
+     above 0;
   2. kernels: each kernel against its plain PyTorch version on the card at
      the flagship forward's and training step's shapes, in float32 (tight
      tolerance, where the kernel has an fp32 variant) and bfloat16 (the
@@ -21,6 +26,9 @@ printing each one's seconds:
      (held against the plain version one head at a time: its score
      matrices would not fit at once) and from the encoder's packed buffer,
      and the LN -> GEMM replay on the qkv, RoPE and fc1 GELU products.  The
+     whole-MLP kernel's line also carries its two-kernel road's time, its
+     clock64 shares (fc1, fc2 and statistics items, waits) and its time with
+     the h ring past the L2 (120 slots instead of 16).  The
      llama decoder's RMS -> GEMM kernels (K13) at its shapes (M = 15360,
      K = 1024): ``rms_qkv3`` (N = 3072, and 1536 with 4 kv heads),
      ``rms_matmul`` with SiLU (w1) and without (w3) at N = 2816, the RMS
@@ -305,6 +313,80 @@ def compare(kind: str, out: torch.Tensor, ref: torch.Tensor, dtype) -> dict:
 # phase 1
 # ---------------------------------------------------------------------------
 
+def _sass_tool() -> str:
+    """cuobjdump from the CUDA toolkit, or the copy Triton ships."""
+    import shutil
+
+    cands = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "cuobjdump"), shutil.which("cuobjdump")]
+    try:
+        import triton
+
+        cands.append(os.path.join(os.path.dirname(triton.__file__), "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("cuobjdump not found")
+
+
+def _kernel_label(mangled: str) -> str:
+    """fused_gemm_kernel<1, 3> or ln_mlp_kernel from a mangled name."""
+    if "fused_gemm_kernel" in mangled:
+        tail = mangled.split("fused_gemm_kernel", 1)[1]
+        modes = tail.split("EE", 1)[0].replace("ILi", "").split("ELi")
+        return f"fused_gemm_kernel<{', '.join(modes)}>"
+    return "ln_mlp_kernel"
+
+
+HOPPER_KERNELS = ("fused_gemm_kernel", "ln_mlp_kernel")
+
+
+def hopper_kernel_report(blog: str) -> dict:
+    """ptxas's registers, spills and static shared memory of every
+    fused_gemm_kernel and ln_mlp_kernel instantiation, and the counts of
+    HGMMA (wgmma) and UTMALDG (TMA load) instructions in their SASS; raises
+    if any of them has none of either."""
+    report, name = {}, None
+    for line in blog.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for", 1)[1].strip()
+            name = (_kernel_label(fn) if any(k in fn for k in HOPPER_KERNELS)
+                    else None)
+            if name:
+                report[name] = {"ptxas": []}
+        elif name and ("spill" in line or "Used" in line):
+            report[name]["ptxas"].append(line.split("info    :")[-1].strip())
+    sass = subprocess.run([_sass_tool(), "-sass", str(build.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            name = (_kernel_label(fn) if any(k in fn for k in HOPPER_KERNELS)
+                    else None)
+            if name:
+                report.setdefault(name, {"ptxas": []}).update(HGMMA=0,
+                                                              UTMALDG=0)
+        elif name:
+            for op in ("HGMMA", "UTMALDG"):
+                if op in line:
+                    report[name][op] += 1
+    if not report:
+        raise AssertionError("no fused_gemm_kernel / ln_mlp_kernel in the "
+                             "library")
+    dyn = build.library().fast3r_gemm_smem_bytes()
+    for name, r in sorted(report.items()):
+        log(f"hopper kernel {name}: {'; '.join(r['ptxas'])}; dynamic shared "
+            f"memory {dyn} bytes; SASS HGMMA {r.get('HGMMA', 0)}, "
+            f"UTMALDG {r.get('UTMALDG', 0)}")
+        if not r.get("HGMMA") or not r.get("UTMALDG"):
+            raise AssertionError(f"{name}: no HGMMA or no UTMALDG in its SASS")
+    return report
+
+
 def phase_device() -> dict:
     log("== phase 1: device")
     line = gpu_line()
@@ -316,11 +398,11 @@ def phase_device() -> dict:
     t_build = time.perf_counter() - t0
     log(f"cuda kernels built and loaded in {t_build:.2f} s "
         f"({build.library_path().name})")
-    blog = build.library_path().with_suffix(".log")
-    if blog.exists():  # registers / spills of every kernel
-        for entry in blog.read_text().splitlines():
-            if "registers" in entry or "spill" in entry or "Compiling" in entry:
-                log("ptxas: " + entry.strip())
+    blog = build.library_path().with_suffix(".log").read_text()
+    for entry in blog.splitlines():  # registers / spills of every kernel
+        if "registers" in entry or "spill" in entry or "Compiling" in entry:
+            log("ptxas: " + entry.strip())
+    hopper_kernel_report(blog)
     torch.cuda.synchronize()
     return {"gpu": line, "build_s": t_build}
 
@@ -562,6 +644,13 @@ def check_fused_blocks(results: list) -> None:
         hh = fb.ln_matmul(x, gamma, beta, w1, b1, 1e-6, act="gelu")
         return fb.matmul_residual(hh, w2, b2, x)
 
+    # the kernel's clock64 tallies: the fc1 / fc2 / statistics items' shares
+    # of the consumers' item time, and the waits for a free h slot, the next
+    # item (consumers) and an fc1 band (producer) against the same total
+    prof = torch.zeros(6, dtype=torch.int64, device="cuda")
+    fb._ln_mlp(*args, prof=prof)
+    t_fc1, t_fc2, t_slot, t_item, t_dep, t_stats = prof.tolist()
+    busy = t_fc1 + t_fc2 + t_stats
     _record(results, "ln_mlp", "ln_mlp", f"{M_TOK}x{C}, hidden {HID}",
             fb.ln_mlp(*args), fb.ln_mlp_ref(*args),
             lambda: fb.ln_mlp(*args), lambda: fb.ln_mlp_ref(*args),
@@ -569,7 +658,14 @@ def check_fused_blocks(results: list) -> None:
             "F.layer_norm + F.linear + F.gelu + F.linear + add",
             4.0 * M_TOK * C * HID,
             (2 * M_TOK * C + 2 * HID * C + HID + 3 * C) * it,
-            two_kernel_ms=median_ms(two_kernel, 10))
+            two_kernel_ms=median_ms(two_kernel, 10),
+            fc1_share=t_fc1 / busy, fc2_share=t_fc2 / busy,
+            stats_share=t_stats / busy,
+            # h through a 120-slot ring (120 MB, past the 50 MB L2) instead
+            # of the default 16 (16 MB)
+            ring_past_l2_ms=median_ms(lambda: fb._ln_mlp(*args, slots=120), 10),
+            slot_wait_share=t_slot / busy, item_wait_share=t_item / busy,
+            fc1_band_wait_share=t_dep / busy)
     del h, o
 
     # the encoder's attention, read in place from the packed qkv buffer
@@ -731,13 +827,20 @@ def check_replay(results: list) -> None:
     def ln(eps):
         return F.layer_norm(x, (C,), gamma, beta, eps)
 
+    def library_rope():
+        y = F.linear(ln(1e-6), wqkv, bqkv)
+
+        def rope(t):
+            t = t.float()
+            return (t * ct + rotate_half_lanes(t, 32) * st).to(bf)
+        return torch.stack([rope(y[:, :C]), rope(y[:, C:2 * C]), y[:, 2 * C:]])
+
     cases = (
         ("qkv", wqkv, bqkv, None, 1e-5, f"qkv {M_TOK}x{C} -> 3x{C}",
          "F.layer_norm + F.linear",
          lambda: F.linear(ln(1e-5), wqkv, bqkv)),
         ("rope", wqkv, bqkv, (ct, st), 1e-6, f"qkv+rope {M_TOK}x{C} -> 3x{C}",
-         "F.layer_norm + F.linear (RoPE in torch elementwise not included)",
-         lambda: F.linear(ln(1e-6), wqkv, bqkv)),
+         "F.layer_norm + F.linear + torch elementwise RoPE", library_rope),
         ("gelu", w1, b1, None, 1e-6, f"fc1 {M_TOK}x{C} -> {HID} gelu",
          "F.layer_norm + F.linear + F.gelu",
          lambda: F.gelu(F.linear(ln(1e-6), w1, b1))),

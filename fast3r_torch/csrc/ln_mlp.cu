@@ -1,229 +1,286 @@
-// The whole pre-LN MLP sublayer in one kernel:
+// The whole pre-LN MLP sublayer in one launch:
 //   y = x + GELU(LN(x) W1^T + b1) W2^T + b2
 // bf16 in and out, fp32 accumulation, W1 (hidden, C) and W2 (C, hidden) in
 // the nn.Linear layout, C = 1024 (the flagship width).
 //
 // Replaces the TPU kernel fast3r_tpu/nn/fused_block.py _ln_mlp_kernel
-// (through ln_mlp -> _ln_mlp_call).  Like it, the (M, hidden) GELU
-// activation never reaches device memory: h is rounded to bf16 (the TPU
-// kernel's rounding point) and kept in shared memory between the two
-// products, and the residual is added in fp32 and rounded once.
+// (through ln_mlp -> _ln_mlp_call).  That kernel exists to keep the
+// (M, hidden) GELU activation out of device memory (252 MB a layer at
+// M = 15360, 6.3 GB at the 1000-view shape).  Here h is rounded to bf16 (the
+// TPU kernel's rounding point) and passes through a fixed ring of S band
+// slots of 128 x hidden bf16 (1 MB each at hidden 4096; S = 16 by default,
+// so the ring stays in the 50 MB L2), never through an (M, hidden) tensor;
+// the residual is added in fp32 and rounded once.
 //
-// What bounds it on an H100: the TPU kernel keeps both weights resident and
-// holds a (bm, hidden) fp32 pre-activation per row tile; a block here cannot
-// (a (64, 1024) fp32 fc2 accumulator alone is 256 KB, the whole register
-// file).  So the tiling is different:
-//   * one block = 32 rows, 8 warps; the normalised row tile (32 x 1024
-//     bf16, 64 KB) stays in shared memory for the whole kernel;
-//   * the fc2 accumulator lives in registers, 32 rows x 128 columns per warp
-//     (128 fp32 a thread), so the block owns all 1024 output columns;
-//   * the hidden dimension is walked in chunks of 32: fc1 for a chunk
-//     (32 x 32, one m16 x n8 tile per warp over K = 1024, four accumulator
-//     chains) -> bias, exact-erf GELU -> bf16 h in shared memory -> fc2
-//     accumulates h (32 x 32) times the chunk's W2 columns (1024 x 32);
-//   * each chunk's W1 rows (64 KB) and W2 columns (64 KB) arrive by cp.async
-//     into single buffers, each load issued as soon as the previous chunk
-//     has finished reading its buffer, so the W2 load overlaps fc1 and the
-//     next W1 load overlaps fc2 (217 KB of shared memory, one block an SM).
-// Every block reads both weights (16.8 MB) from L2 once: about 8 GB for the
-// flagship's 480 row tiles.  Measured on the H100, though, the work inside a
-// block bounds it before that traffic does: fc1 on a 32-wide hidden chunk
-// is a thin product that reads 1.5 ldmatrix tiles per mma and runs as a
-// dependent chain, and three block barriers a chunk keep the warps in step
-// (a variant that shared each weight slice between two blocks of a cluster,
-// halving the L2 traffic, ran no faster).  Constraints (the wrapper checks
-// them): C == 1024, hidden % 32 == 0; M may be ragged.
+// What bounds it on an H100: 4 M C hidden FLOPs (0.261 ms at M = 15360 and
+// the published 989 TFLOP/s) against ~330 MB even if h went through device
+// memory (0.099 ms), so the tensor cores.  A block cannot hold a 64 x 1024
+// fp32 fc2 accumulator (the whole register file), so the two products are
+// separate tiles of one persistent launch on the fused-GEMM tile
+// (csrc/gemm_tile.cuh: TMA ring, wgmma m64n256k16, a producer and two
+// consumer warpgroups, epilogues by TMA store):
+//   * statistics items: a band's 128 rows' LN mean and rstd, into a scratch
+//     buffer, once per band;
+//   * fc1 tiles: 128 rows x a 256-wide hidden slice over K = C, the LN
+//     prologue (the band's statistics read back) and the bias + GELU
+//     epilogue, bf16 h into the band's ring slot (band b uses slot b % S);
+//   * fc2 tiles: 128 rows x 256 output columns over K = hidden, A = the
+//     band's h slot by TMA, the bias + residual epilogue;
+//   * items are claimed from an atomic counter in dependency order: the
+//     statistics of band 0, then for each band b the statistics of band
+//     b + 1, band b's fc1 tiles and band b - 1's fc2 tiles (a one-band
+//     lookahead each way).  An fc1 tile's consumers wait (acquire load) for
+//     its band's statistics; the producer, before loading an fc2 tile, until
+//     its band's fc1 tiles are counted done; an fc1 tile's consumers, before
+//     storing h, until the slot's previous band (b - S) has had all its fc2
+//     tiles done.  Completion is a release add after the item's writes have
+//     landed (statistics, fc1: the TMA stores waited for) or its reads
+//     (fc2).  Every wait is on an item claimed earlier by a running CTA, and
+//     a CTA finishes an item without waiting on its later claims, so the
+//     walk cannot deadlock at any grid size (S >= 2);
+//   * the claimed item goes from the producer to the consumers through a
+//     two-deep ring of shared-memory slots with mbarriers, so the producer
+//     loads the next item while the consumers run an epilogue.
+// The counters are freshly zeroed per launch (the wrapper), so no waiter
+// can mistake one band's count for another's.  With `prof` given, consumer
+// thread 0 of every CTA adds its clock64 cycles in fc1 items, fc2 items,
+// waits for a free slot, waits for the next item and statistics items into
+// prof[0..3] and prof[5], and the producer its waits for fc1 bands into
+// prof[4].
+// What it did about the mma.sync kernel's limits: the thin 32-wide fc1
+// chunks, three block barriers a chunk and single-buffered weight slices
+// are gone (full-rate wgmma tiles fed by a TMA ring), and each weight slice
+// is read once per tile instead of once per 32-row block.  Measured at the
+// flagship's shape (M = 15360, hidden 4096; chip_smoke.py phase 2 and
+// python -m fast3r_torch.profile_request; NVIDIA H100 80GB HBM3, 700 W):
+// 0.82-0.86 ms a call, 298-313 TFLOP/s, 32% of its bound (the mma.sync
+// kernel: 2.830 ms with its host time); fc1 items 63% of the consumers'
+// item time, fc2 items 35%, statistics items 1.7%, waits for a slot or an
+// item under 1%; as fast with a 120 MB ring past the L2 as with 16 slots,
+// so h's traffic is not its limit; and slower than its own two-kernel road
+// (ln_matmul GELU, then matmul_residual), since both are bound by the
+// products and their epilogues and the walk adds its waits.
+// Constraints (the wrapper checks them): C == 1024, hidden % 32 == 0; M may
+// be ragged.
+// Not yet: an epilogue that overlaps the next tile's products (the GELU of
+// fc1 tiles leaves the tensor cores idle), 2-CTA clusters with TMA
+// multicast of W1 / W2 slices.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemm_tile.cuh"
 #include "ptx.cuh"
 
 namespace {
 
-using namespace fast3r_ptx;
+using namespace fast3r_gemm;
+using fast3r_ptx::gelu_erf;
 
-using bf16 = __nv_bfloat16;
+constexpr int kC = 1024;        // model width
+constexpr int kNf2 = kC / kBN;  // fc2 tiles of a band
 
-constexpr int kC = 1024;       // model width
-constexpr int kBM = 32;        // rows per block
-constexpr int kHC = 32;        // hidden chunk
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWN = kC / 8;    // fc2 output columns per warp
-constexpr int kLdU = kC + 8;   // 2064-byte rows: ldmatrix conflict-free
-constexpr int kLdW2 = kHC + 8; // 80-byte rows
-constexpr int kSmemBytes =
-    (2 * kBM * kLdU + kC * kLdW2 + kBM * kLdW2) * 2;  // U, W1, W2, H
+struct MlpArgs {
+  const bf16* x;       // (M, C)
+  const float* gamma;  // (C,)
+  const float* beta;   // (C,)
+  const float* b1;     // (hidden,)
+  const float* b2;     // (C,)
+  bf16* out;           // (M, C)
+  bf16* ring;          // (slots * 128, hidden) h band slots
+  float* stats;        // (2, nb * 128) the rows' mean, then rstd
+  // 1 + 3 nb zeroed counters: claims, then per band statistics done, fc1
+  // tiles done, fc2 tiles done
+  int* cnt;
+  long long* prof;     // optional clock64 tallies, 6 words
+  int M, hidden, slots;
+  float eps;
+};
+
+enum Kind { kSkip, kStats, kFc1, kFc2 };
+
+struct Item {
+  Kind kind;
+  int band, tile;
+};
+
+// claim order: stats(0), then for g = 0 .. nb the group stats(g + 1),
+// fc1(g, 0 .. nf1 - 1), fc2(g - 1, 0 .. kNf2 - 1) (members past the bands
+// are skipped): a band's statistics one group ahead of its fc1 tiles, its
+// fc2 tiles one group behind
+__device__ __forceinline__ Item decode(int i, int nb, int nf1) {
+  if (i == 0) return {kStats, 0, 0};
+  const int per = 1 + nf1 + kNf2, g = (i - 1) / per, r = (i - 1) % per;
+  if (r == 0) return {g + 1 < nb ? kStats : kSkip, g + 1, 0};
+  if (r <= nf1) return {g < nb ? kFc1 : kSkip, g, r - 1};
+  return {g >= 1 ? kFc2 : kSkip, g - 1, r - 1 - nf1};
+}
+
+// the tensor maps of a launch: x (fc1's A), W1, the ring (fc2's A), W2, and
+// for the epilogues' 64-row boxes the ring (h stores), x (the residual) and
+// the output
+struct Maps {
+  CUtensorMap x, w1, h, w2, h_out, x_res, out;
+};
 
 __global__ void __launch_bounds__(kThreads, 1)
-ln_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-              const float* __restrict__ beta, const bf16* __restrict__ w1,
-              const float* __restrict__ b1, const bf16* __restrict__ w2,
-              const float* __restrict__ b2, bf16* __restrict__ out, int M,
-              int hidden, float eps) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* U = reinterpret_cast<bf16*>(smem_raw);  // LN(x) rows, [32][kLdU]
-  bf16* W1s = U + kBM * kLdU;                   // chunk of W1 rows, [32][kLdU]
-  bf16* W2s = W1s + kBM * kLdU;                 // chunk of W2 cols, [1024][kLdW2]
-  bf16* Hs = W2s + kC * kLdW2;                  // GELU(h) chunk, [32][kLdW2]
+ln_mlp_kernel(const __grid_constant__ Maps mp, const MlpArgs a) {
+  Smem& s = smem();
+  if (threadIdx.x == 0) init_barriers(s);
+  load_norm_params<kLN>(s, a.gamma, a.beta, kC);
+  __syncthreads();
 
-  const int m0 = blockIdx.x * kBM;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, c = lane & 3;
-  const int nchunks = hidden / kHC;
+  const int M = a.M, hidden = a.hidden, S = a.slots;
+  const int nb = (M + kBM - 1) / kBM, nf1 = (hidden + kBN - 1) / kBN;
+  const int claims = 1 + (nb + 1) * (1 + nf1 + kNf2);
+  const int KT1 = kC / kBK, KT2 = (hidden + kBK - 1) / kBK;
+  int* stats_done = a.cnt + 1;
+  int* fc1_done = a.cnt + 1 + nb;
+  int* fc2_done = a.cnt + 1 + 2 * nb;
+  float* mean_g = a.stats;
+  float* rstd_g = a.stats + (long long)nb * kBM;
 
-  auto load_w1 = [&](int h) {  // W1 rows [h*32, h*32 + 32), all of K
-    const bf16* src = w1 + (long long)h * kHC * kC;
-    for (int i = tid; i < kHC * (kC / 8); i += kThreads) {
-      const int r = i / (kC / 8), ch = (i % (kC / 8)) * 8;
-      cp_async16(W1s + r * kLdU + ch, src + (long long)r * kC + ch);
+  if (threadIdx.x < 128) {  // producer warpgroup
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      Ring<kStages> ring;
+      Ring<2> items;
+      long long t_dep = 0;
+      for (;;) {
+        const int i = claim(a.cnt);
+        const Item it = decode(i, nb, nf1);
+        if (i < claims && it.kind == kSkip) continue;
+        mbar_wait(&s.item_empty[items.stage], items.phase ^ 1u);
+        s.item[items.stage] = i < claims ? i : -1;
+        mbar_arrive(&s.item_full[items.stage]);
+        items.advance();
+        if (i >= claims) break;
+        if (it.kind == kFc1) {
+          load_tile(s, ring, &mp.x, &mp.w1, it.band * kBM, it.tile * kBN, KT1);
+        } else if (it.kind == kFc2) {
+          const long long t0 = clock64();
+          spin_geq(fc1_done + it.band, nf1);
+          t_dep += clock64() - t0;
+          fence_proxy_async();  // h written by other CTAs, read by TMA
+          load_tile(s, ring, &mp.h, &mp.w2, (it.band % S) * kBM,
+                    it.tile * kBN, KT2);
+        }
+      }
+      if (a.prof != nullptr)
+        atomicAdd(reinterpret_cast<unsigned long long*>(a.prof + 4),
+                  (unsigned long long)t_dep);
     }
-  };
-  auto load_w2 = [&](int h) {  // W2 columns [h*32, h*32 + 32), all rows
-    const bf16* src = w2 + h * kHC;
-    for (int i = tid; i < kC * (kHC / 8); i += kThreads) {
-      const int r = i / (kHC / 8), ch = (i % (kHC / 8)) * 8;
-      cp_async16(W2s + r * kLdW2 + ch, src + (long long)r * hidden + ch);
-    }
-  };
-
-  load_w1(0);
-  cp_async_commit();
-  load_w2(0);
-  cp_async_commit();
-
-  // LN: 4 rows per warp, each lane holding 32 of a row's 1024 values
-  for (int rr = 0; rr < kBM / 8; ++rr) {
-    const int r = warp * (kBM / 8) + rr;
-    const int row = m0 + r;
-    float xv[32];
+  } else {  // consumer warpgroups
+    regs_inc<kConsumerRegs>();
+    const Consumer th;
+    const bool lead = threadIdx.x == 128;
+    Ring<kStages> ring;
+    Ring<2> items;
+    unsigned res_phase = 0;
+    const int r0 = th.warp * 16 + th.g();  // rows r0, r0 + 8 of the staging
+    long long t_fc1 = 0, t_fc2 = 0, t_slot = 0, t_item = 0, t_stats = 0;
+    float acc[kAcc];
+    for (;;) {
+      long long t0 = clock64();
+      mbar_wait(&s.item_full[items.stage], items.phase);
+      const int i = s.item[items.stage];
+      __syncwarp();
+      if (th.lane == 0) mbar_arrive(&s.item_empty[items.stage]);
+      items.advance();
+      const long long t1 = clock64();
+      t_item += t1 - t0;
+      if (i < 0) break;
+      const Item it = decode(i, nb, nf1);
+      const int m0 = it.band * kBM, n0 = it.tile * kBN;
+      // the row this thread normalises (two lanes a row)
+      const int row = m0 + th.row0() + (th.lane >> 1);
+      if (it.kind == kStats) {  // the band's rows' statistics, published
+        const RowStats st = row_stats<kLN>(a.x, M, kC, a.eps, m0 + th.row0(),
+                                           nullptr, nullptr);
+        if ((th.lane & 1) == 0) {
+          mean_g[row] = st.mu;
+          rstd_g[row] = st.rs;
+        }
+        __threadfence();
+        named_sync(1, kConsumerThreads);
+        if (lead) red_release_add(stats_done + it.band, 1);
+        t_stats += clock64() - t1;
+      } else if (it.kind == kFc1) {
+        if (lead) spin_geq(stats_done + it.band, 1);
+        named_sync(1, kConsumerThreads);
+        RowStats rstat;
+        rstat.mu = __ldcg(mean_g + row);
+        rstat.rs = __ldcg(rstd_g + row);
+        mainloop<kLN>(acc, s, ring, KT1, th, rstat, nullptr, m0, M, kC);
+        if (it.band >= S) {  // the slot's previous band read by its fc2 tiles
+          t0 = clock64();
+          if (lead) spin_geq(fc2_done + it.band - S, kNf2);
+          named_sync(1, kConsumerThreads);
+          t_slot += clock64() - t0;
+        }
+        // h = bf16(GELU(acc + b1)) into the slot (all 128 rows), box by box
+        out_bias(s, th, a.b1, n0, hidden);
+        const int hrow = (it.band % S) * kBM + th.wg * 64;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row < M)
-        v = *reinterpret_cast<const uint4*>(x + (long long)row * kC + j * 256 +
-                                            lane * 8);
-      const uint32_t* u = reinterpret_cast<const uint32_t*>(&v);
+        for (int bx = 0; bx < kBN / 64; ++bx) {
+          char* box = out_begin(s, th);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = unpack_bf16(u[e]);
-        xv[j * 8 + 2 * e] = f.x;
-        xv[j * 8 + 2 * e + 1] = f.y;
+          for (int jj = 0; jj < 8; ++jj) {
+            const int j = 8 * bx + jj, cl = 8 * jj + 2 * th.c();
+            const float2 b = tile_bias(s, th, 8 * j + 2 * th.c());
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              out_put(box, r0 + 8 * h, cl,
+                      pack_bf16(gelu_erf(acc[4 * j + 2 * h] + b.x),
+                                gelu_erf(acc[4 * j + 2 * h + 1] + b.y)));
+          }
+          out_store(th, box, &mp.h_out, n0 + 64 * bx, hrow, hidden);
+        }
+        if (th.leader) {  // written, then visible to the TMA loads of fc2
+          bulk_wait<0>();
+          fence_proxy_async();
+        }
+        named_sync(1, kConsumerThreads);
+        if (lead) red_release_add(fc1_done + it.band, 1);
+        t_fc1 += clock64() - t1;
+      } else {
+        mainloop<kNoNorm>(acc, s, ring, KT2, th, RowStats(), nullptr, m0, M,
+                          hidden);
+        named_sync(1, kConsumerThreads);  // the slot's tiles all landed
+        if (lead) red_release_add(fc2_done + it.band, 1);
+        // out = x + (acc + b2), rounded once; x's boxes through the staging
+        const int rw = m0 + th.wg * 64;
+        out_bias(s, th, a.b2, n0, kC);
+#pragma unroll
+        for (int bx = 0; bx < kBN / 64; ++bx) {
+          char* box = out_begin(s, th);
+          out_load(s, th, box, &mp.x_res, n0 + 64 * bx, rw, res_phase);
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int j = 8 * bx + jj, cl = 8 * jj + 2 * th.c();
+            const float2 b = tile_bias(s, th, 8 * j + 2 * th.c());
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float2 x = out_get(box, r0 + 8 * h, cl);
+              out_put(box, r0 + 8 * h, cl,
+                      pack_bf16(x.x + (acc[4 * j + 2 * h] + b.x),
+                                x.y + (acc[4 * j + 2 * h + 1] + b.y)));
+            }
+          }
+          out_store(th, box, &mp.out, n0 + 64 * bx, rw, kC);
+        }
+        t_fc2 += clock64() - t1;
       }
     }
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s += xv[i];
-    const float mean = warp_sum(s) / kC;
-    float ss = 0.f;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) ss += (xv[i] - mean) * (xv[i] - mean);
-    const float rstd = rsqrtf(warp_sum(ss) / kC + eps);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = j * 256 + lane * 8;
-      uint4 v;
-      uint32_t* u = reinterpret_cast<uint32_t*>(&v);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        u[e] = pack_bf16(
-            (xv[j * 8 + 2 * e] - mean) * rstd * gamma[k + 2 * e] + beta[k + 2 * e],
-            (xv[j * 8 + 2 * e + 1] - mean) * rstd * gamma[k + 2 * e + 1] +
-                beta[k + 2 * e + 1]);
-      *reinterpret_cast<uint4*>(U + r * kLdU + k) = v;
-    }
-  }
-
-  float acc[2][kWN / 8][4];  // fc2: rows 0-31 x this warp's 128 columns
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nj = 0; nj < kWN / 8; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nj][e] = 0.f;
-
-  const int fm = warp & 1, fn = warp >> 1;  // this warp's fc1 tile: m16, n8
-  for (int h = 0; h < nchunks; ++h) {
-    cp_async_wait<1>();  // W1 chunk h has landed (W2 chunk h may not)
-    __syncthreads();
-
-    // fc1: z = U[fm*16 .. +16] . W1s[fn*8 .. +8]^T over K, four chains
-    float z[4][4] = {};
-#pragma unroll 2
-    for (int k0 = 0; k0 < kC; k0 += 64) {
-      uint32_t bf0[4], bf1[4], a0[4], a1[4], a2[4], a3[4];
-      ldmatrix_x4(bf0, W1s + (fn * 8 + (lane & 7)) * kLdU + k0 + (lane >> 3) * 8);
-      ldmatrix_x4(bf1, W1s + (fn * 8 + (lane & 7)) * kLdU + k0 + 32 +
-                           (lane >> 3) * 8);
-      const bf16* ua = U + (fm * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdU +
-                       k0 + (lane >> 4) * 8;
-      ldmatrix_x4(a0, ua);
-      ldmatrix_x4(a1, ua + 16);
-      ldmatrix_x4(a2, ua + 32);
-      ldmatrix_x4(a3, ua + 48);
-      mma16816(z[0], a0, bf0[0], bf0[1]);
-      mma16816(z[1], a1, bf0[2], bf0[3]);
-      mma16816(z[2], a2, bf1[0], bf1[1]);
-      mma16816(z[3], a3, bf1[2], bf1[3]);
-    }
-    {
-      const int col = fn * 8 + 2 * c;
-      const float bb0 = b1[h * kHC + col], bb1 = b1[h * kHC + col + 1];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        *reinterpret_cast<uint32_t*>(Hs + (fm * 16 + g + 8 * hh) * kLdW2 + col) =
-            pack_bf16(gelu_erf(z[0][2 * hh] + z[1][2 * hh] + z[2][2 * hh] +
-                               z[3][2 * hh] + bb0),
-                      gelu_erf(z[0][2 * hh + 1] + z[1][2 * hh + 1] +
-                               z[2][2 * hh + 1] + z[3][2 * hh + 1] + bb1));
-    }
-    __syncthreads();  // H complete; W1s free
-    if (h + 1 < nchunks) load_w1(h + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // W2 chunk h has landed
-    __syncthreads();
-
-    // fc2: acc += H (32 x 32) . W2s[warp*128 .. +128]^T
-    uint32_t af[2][2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk)
-        ldmatrix_x4(af[mt][kk], Hs + (mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                         kLdW2 + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int nj = 0; nj < kWN / 8; ++nj) {
-      uint32_t bf[4];
-      ldmatrix_x4(bf, W2s + (warp * kWN + nj * 8 + (lane & 7)) * kLdW2 +
-                          (lane >> 3) * 8);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        mma16816(acc[mt][nj], af[mt][0], bf[0], bf[1]);
-        mma16816(acc[mt][nj], af[mt][1], bf[2], bf[3]);
-      }
-    }
-    __syncthreads();  // W2s and H free
-    if (h + 1 < nchunks) load_w2(h + 1);
-    cp_async_commit();
-  }
-
-  // epilogue: out = x + acc + b2, rounded once
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = m0 + mt * 16 + g + hh * 8;
-      if (row >= M) continue;
-#pragma unroll
-      for (int nj = 0; nj < kWN / 8; ++nj) {
-        const int col = warp * kWN + nj * 8 + 2 * c;
-        const long long off = (long long)row * kC + col;
-        const float2 r = unpack_bf16(*reinterpret_cast<const uint32_t*>(x + off));
-        *reinterpret_cast<uint32_t*>(out + off) =
-            pack_bf16(r.x + (acc[mt][nj][2 * hh] + b2[col]),
-                      r.y + (acc[mt][nj][2 * hh + 1] + b2[col + 1]));
-      }
+    if (th.leader) bulk_wait<0>();  // the last stores written
+    if (lead && a.prof != nullptr) {
+      unsigned long long* p = reinterpret_cast<unsigned long long*>(a.prof);
+      atomicAdd(p + 0, (unsigned long long)t_fc1);
+      atomicAdd(p + 1, (unsigned long long)t_fc2);
+      atomicAdd(p + 2, (unsigned long long)t_slot);
+      atomicAdd(p + 3, (unsigned long long)t_item);
+      atomicAdd(p + 5, (unsigned long long)t_stats);
     }
   }
 }
@@ -232,21 +289,58 @@ ln_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
 
 extern "C" {
 
-// x, w1, w2, out bf16; gamma, beta, b1, b2 fp32.  C is fixed at 1024;
-// hidden % 32 == 0.  Returns cudaGetLastError() after the launch.
+// x, w1, w2, out bf16; gamma, beta, b1, b2 fp32; ring bf16 (slots * 128,
+// hidden); stats fp32 (2, 128 ceil(M / 128)) scratch; cnt 1 + 3 ceil(M / 128)
+// zeroed int32; prof null or 6 zeroed int64.  C is fixed at 1024; hidden % 32 == 0; slots >= 2 unless M <= 128;
+// ctas >= 1 persistent CTAs.  Returns cudaGetLastError() after the launch.
 int fast3r_ln_mlp(const void* x, const void* gamma, const void* beta,
                   const void* w1, const void* b1, const void* w2,
-                  const void* b2, void* out, int M, int hidden, float eps,
+                  const void* b2, void* out, void* ring, void* stats,
+                  void* cnt, void* prof,
+                  int M, int hidden, int slots, int ctas, float eps,
                   void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      ln_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((M + kBM - 1) / kBM);
-  ln_mlp_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const bf16*>(w1),
-      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const float*>(b2), static_cast<bf16*>(out), M, hidden, eps);
+  const int nb = (M + kBM - 1) / kBM;
+  if (M <= 0 || hidden <= 0 || hidden % 32 || ctas < 1 || slots < 1 ||
+      (slots < 2 && nb > 1))
+    return cudaErrorInvalidValue;
+  static bool configured = false;
+  cudaError_t err;
+  if (!configured) {
+    err = cudaFuncSetAttribute(ln_mlp_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  Maps mp;
+  const long long ring_rows = (long long)slots * kBM;
+  if ((err = make_tmap(&mp.x, x, M, kC, kC, kBM)) != cudaSuccess ||
+      (err = make_tmap(&mp.w1, w1, hidden, kC, kC, kBN)) != cudaSuccess ||
+      (err = make_tmap(&mp.h, ring, ring_rows, hidden, hidden, kBM)) !=
+          cudaSuccess ||
+      (err = make_tmap(&mp.w2, w2, kC, hidden, hidden, kBN)) != cudaSuccess ||
+      (err = make_tmap(&mp.h_out, ring, ring_rows, hidden, hidden, 64)) !=
+          cudaSuccess ||
+      (err = make_tmap(&mp.x_res, x, M, kC, kC, 64)) != cudaSuccess ||
+      (err = make_tmap(&mp.out, out, M, kC, kC, 64)) != cudaSuccess)
+    return err;
+  MlpArgs a;
+  a.x = static_cast<const bf16*>(x);
+  a.gamma = static_cast<const float*>(gamma);
+  a.beta = static_cast<const float*>(beta);
+  a.b1 = static_cast<const float*>(b1);
+  a.b2 = static_cast<const float*>(b2);
+  a.out = static_cast<bf16*>(out);
+  a.ring = static_cast<bf16*>(ring);
+  a.stats = static_cast<float*>(stats);
+  a.cnt = static_cast<int*>(cnt);
+  a.prof = static_cast<long long*>(prof);
+  a.M = M;
+  a.hidden = hidden;
+  a.slots = slots;
+  a.eps = eps;
+  ln_mlp_kernel<<<ctas, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      mp, a);
   return cudaGetLastError();
 }
 

@@ -45,7 +45,8 @@ SIGNATURES = {
     "fast3r_trunk_head_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _P],
     "fast3r_fused_gemm": [_I, _I] + [_P] * 13 + [_I, _I, _I, _F, _P],
-    "fast3r_ln_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    "fast3r_ln_mlp": [_P] * 12 + [_I, _I, _I, _I, _F, _P],
+    "fast3r_gemm_smem_bytes": [],
     "fast3r_resize_bilinear": [_P] * 8 + [_L, _I, _I, _I, _I, _P],
     "fast3r_ring_attention_plan": [_I, _I, _P, _P],
     "fast3r_ring_attention_fwd": [_I, _P, _P, _P] + [_L] * 12 + [_P] * 6

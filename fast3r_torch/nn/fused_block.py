@@ -69,8 +69,13 @@ from fast3r_torch.ops.rope2d import apply_rope2d_bnhd, rotate_half_lanes
 PREFER_FUSED_MLP = True
 
 ROPE_HEAD_DIM = 64  # the RoPE epilogue's rotate-half groups are 32 lanes
-LN_MAX_K = 1024     # the norm prologues hold a row's statistics in registers
-MLP_WIDTH = 1024    # ln_mlp's fc2 accumulator layout: 8 warps x 128 columns
+# the norm prologues hold a row's K values in registers for its statistics
+# (a warp's lane holds K / 32) and gamma / beta in shared memory
+LN_MAX_K = 1024
+# ln_mlp's fc2 tiles cover the output width in 4 tiles of 256 columns, and
+# its fc1 tiles take the LN prologue over K = the width
+MLP_WIDTH = 1024
+MLP_RING_SLOTS = 16  # ln_mlp's h ring: 16 band slots of 128 x hidden bf16
 # fused_gemm.cu's modes; with the RMS prologue "bias" is the bias-free product
 _PROLOGUE = {None: 0, "ln": 1, "rms": 2}
 _EPILOGUE = {"bias": 0, "gelu": 1, "qkv": 2, "rope": 3, "residual": 4,
@@ -457,7 +462,13 @@ def matmul_residual(x, w, bias, residual):
     return _matmul_residual(x, w, bias, residual)
 
 
-def _ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float):
+def _ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float, ctas=None,
+            slots=MLP_RING_SLOTS, prof=None):
+    """The whole-MLP kernel: ``ctas`` persistent CTAs (default: one per SM)
+    and a ring of ``slots`` band slots of h (128 x hidden bf16 each, at most
+    one per row band); ``prof``, a zeroed (6,) int64 CUDA tensor, receives
+    the kernel's clock64 tallies (fc1 items, fc2 items, waits for a free
+    slot, for the next item, for fc1 bands, statistics items)."""
     if x.device.type == "cpu":
         return ln_mlp_ref(x, gamma, beta, w1, b1, w2, b2, eps)
     _check_device("ln_mlp", x)
@@ -478,11 +489,27 @@ def _ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float):
     out = torch.empty_like(x)
     if M == 0:
         return out
+    bands = -(-M // 128)
+    slots = min(slots, bands)
+    if slots < 2 and bands > 1:
+        raise ValueError(f"ln_mlp: the h ring needs 2 slots or more, got "
+                         f"{slots}")
+    if ctas is None:
+        ctas = torch.cuda.get_device_properties(dev).multi_processor_count
+    ring = torch.empty((slots * 128, hidden), device=dev, dtype=x.dtype)
+    stats = torch.empty((2, bands * 128), device=dev, dtype=torch.float32)
+    counters = torch.zeros((1 + 3 * bands,), device=dev, dtype=torch.int32)
+    if prof is not None and (prof.shape != (6,) or prof.dtype != torch.int64
+                             or prof.device != dev):
+        raise ValueError("ln_mlp: prof must be a (6,) int64 tensor on "
+                         f"{dev}")
     g, b, bb1, bb2 = vecs
     err = build.library().fast3r_ln_mlp(
         x.data_ptr(), g.data_ptr(), b.data_ptr(), w1.data_ptr(),
-        bb1.data_ptr(), w2.data_ptr(), bb2.data_ptr(), out.data_ptr(), M,
-        hidden, float(eps), build.stream_handle(dev))
+        bb1.data_ptr(), w2.data_ptr(), bb2.data_ptr(), out.data_ptr(),
+        ring.data_ptr(), stats.data_ptr(), counters.data_ptr(),
+        0 if prof is None else prof.data_ptr(), M, hidden, slots, int(ctas),
+        float(eps), build.stream_handle(dev))
     build.check(err, "fast3r_ln_mlp")
     ln_mlp.launches += 1
     return out

@@ -294,6 +294,88 @@ def test_ln_mlp_kernel_matches_plain(dev, M, hidden):
     _assert_bf16_close(out, ref, atol=2e-2)
 
 
+def test_ln_mlp_kernel_at_the_flagship_shape(dev):
+    """The whole-MLP kernel at the flagship's 20-view shape (M = 15360,
+    hidden 4096: 120 row bands through the 16-slot h ring)."""
+    from fast3r_torch.nn import fused_block as t_fb
+
+    g = _gen(17)
+    M, C, hidden = 15360, 1024, 4096
+    x = _bf((M, C), g, 2.0, 0.5)
+    gamma, beta = _bf((C,), g, 0.1, 1.0), _bf((C,), g, 0.1)
+    w1, b1 = _linear(hidden, C, g)
+    w2, b2 = _linear(C, hidden, g)
+    args = (x, gamma, beta, w1, b1, w2, b2, 1e-6)
+    out = t_fb.ln_mlp(*args)
+    ref = t_fb.ln_mlp_ref(*args)
+    torch.cuda.synchronize()
+    _assert_bf16_close(out, ref, atol=2e-2)
+
+
+@pytest.mark.parametrize("ctas,slots,M,hidden", [
+    (1, 16, 1000, 1024), (3, 16, 1000, 1024), (1, 2, 1000, 1024),
+    (3, 2, 1000, 1024), (3, 3, 2000, 4096), (132, 2, 1000, 96)])
+def test_ln_mlp_kernel_walk(dev, ctas, slots, M, hidden):
+    """The whole-MLP kernel's persistent walk with few CTAs (1 and 3 hold
+    every claim, wait and slot reuse in one or a few CTAs) and with more row
+    bands than h ring slots (M = 1000: 8 bands through 2 or 3 slots), ragged
+    rows and a hidden width off the 256-column tile (96)."""
+    from fast3r_torch.nn import fused_block as t_fb
+
+    g = _gen(18)
+    C = 1024
+    x = _bf((M, C), g, 2.0, 0.5)
+    gamma, beta = _bf((C,), g, 0.1, 1.0), _bf((C,), g, 0.1)
+    w1, b1 = _linear(hidden, C, g)
+    w2, b2 = _linear(C, hidden, g)
+    args = (x, gamma, beta, w1, b1, w2, b2, 1e-6)
+    out = t_fb._ln_mlp(*args, ctas=ctas, slots=slots)
+    ref = t_fb.ln_mlp_ref(*args)
+    torch.cuda.synchronize()
+    _assert_bf16_close(out, ref, atol=2e-2)
+
+
+@pytest.mark.parametrize("kind", ["ln_qkv", "ln_qkv_rope", "replay_qkv",
+                                  "replay_rope", "replay_gelu"])
+def test_fused_gemm_kernels_at_the_flagship_shape(dev, kind):
+    """The LN products at the flagship's shape (M = 15360, C = 1024, 16
+    heads; fc1 hidden 4096), bf16, at the tolerances of the small cases:
+    the product and z one bf16 step + 2e-2, u one step + 1e-2, mean and
+    rstd 1e-5 relative."""
+    from fast3r_torch.nn import fused_block as t_fb
+    from fast3r_torch.ops.rope2d import expand_rope_tables, rope2d_cos_sin
+
+    g = _gen(19)
+    M, C = 15360, 1024
+    x = _bf((M, C), g, 2.0, 0.5)
+    gamma, beta = _bf((C,), g, 0.1, 1.0), _bf((C,), g, 0.1)
+    w, b = _linear(4 * C if kind == "replay_gelu" else 3 * C, C, g)
+    yy, xx = torch.meshgrid(torch.arange(24), torch.arange(32), indexing="ij")
+    pos = torch.stack([yy, xx], -1).reshape(1, -1, 2).repeat(20, 1, 1).cuda()
+    ct, st = expand_rope_tables(*rope2d_cos_sin(pos, 64), C, torch.bfloat16)
+    if kind == "ln_qkv":
+        out = torch.stack(t_fb.ln_qkv(x, gamma, beta, w, b, 1e-5))
+        ref = torch.stack(t_fb.ln_qkv_ref(x, gamma, beta, w, b, 1e-5))
+    elif kind == "ln_qkv_rope":
+        args = (x, gamma, beta, w, b, ct, st, 16, 1e-6)
+        out = t_fb.ln_qkv_rope(*args)
+        ref = t_fb.ln_qkv_rope_ref(*args)
+    else:
+        mode = kind.split("_")[1]
+        tables = (ct, st) if mode == "rope" else None
+        got = t_fb._replay(mode, x, gamma, beta, w, b, 1e-6, tables, 16)
+        exp = t_fb._replay_ref(mode, x, gamma, beta, w, b, 1e-6, tables, 16)
+        torch.cuda.synchronize()
+        _assert_bf16_close(got[1], exp[1], atol=1e-2)
+        for a, r in zip(got[2:4], exp[2:4]):
+            assert ((a - r).abs() <= 1e-5 * r.abs() + 1e-6).all()
+        if mode == "gelu":
+            _assert_bf16_close(got[4], exp[4], atol=2e-2)
+        out, ref = got[0], exp[0].contiguous()
+    torch.cuda.synchronize()
+    _assert_bf16_close(out, ref, atol=2e-2)
+
+
 @pytest.mark.parametrize("B,N", [(2, 768), (3, 196)])
 def test_packed_qkv_attention_kernel_matches_plain(dev, B, N):
     from fast3r_torch.ops import batched_attention as t_ba
