@@ -8,8 +8,11 @@ printing each one's seconds:
 
   1. device: the card's name and power limit, torch / CUDA versions, the
      kernel build time and what ptxas reports for every kernel; for the
-     Hopper kernels (``fused_gemm_kernel<PRO, EPI>``, ``ln_mlp_kernel``)
-     their registers, spills and shared memory, and the counts of HGMMA
+     Hopper kernels (``fused_gemm_kernel<PRO, EPI>``, ``ln_mlp_kernel``,
+     the attention backward's ``attention_bwd_dq_kernel`` and
+     ``attention_bwd_dkv_kernel`` and the bf16 backward rings
+     ``ring_bwd_dq_kernel<bf16>`` and ``ring_bwd_dkv_kernel<bf16>``) their
+     registers, spills and dynamic shared memory, and the counts of HGMMA
      (wgmma) and UTMALDG (TMA load) instructions in their SASS
      (``cuobjdump -sass`` on the built library), each of which must be
      above 0;
@@ -21,11 +24,15 @@ printing each one's seconds:
      version and of the PyTorch library calls that compute the same
      function (named in each line), and the kernel's bound: the larger of
      its FLOPs over the card's 989 TFLOP/s bf16 peak and its bytes (inputs
-     read once, outputs written once) over 3.35 TB/s.  The training kernels:
-     the LayerNorm backward, the attention backward on the decoder shape
-     (held against the plain version one head at a time: its score
-     matrices would not fit at once) and from the encoder's packed buffer,
-     and the LN -> GEMM replay on the qkv, RoPE and fc1 GELU products.  The
+     read once, outputs written once) over 3.35 TB/s.  The attention
+     forward's encoder line (20 views x 768 tokens) is also the plain
+     road's batched attention.  The training kernels: the LayerNorm
+     backward, the attention backward on the decoder shape (held against
+     the plain version one head at a time: its score matrices would not
+     fit at once) and from the encoder's packed buffer, each line with its
+     dq and dk/dv kernels' device times (profiler) and their TFLOP/s over
+     the products each runs (3 and 4), and the LN -> GEMM replay on the
+     qkv, RoPE and fc1 GELU products.  The
      whole-MLP kernel's line also carries its two-kernel road's time, its
      clock64 shares (fc1, fc2 and statistics items, waits) and its time with
      the h ring past the L2 (120 slots instead of 16).  The
@@ -101,10 +108,24 @@ printing each one's seconds:
      L2) of the single-device forward on the card with the same weights and
      decoder block road (also timed, warm), and a 2-view 224x224 request
      over 2 ranks within 5% of fp32 on the CPU;
-  17. launch counts: every kernel of a path must have launched on it, the
+  17. the backward ring kernels (K14's backward: the dq and dk/dv rings,
+     ``csrc/ring_attention_bwd.cu``) at the decoder's shape over n = 1, 2,
+     3, 4 and 8 ranks, in bf16 and fp32, against ``ring_attention_bwd_ref``
+     (held one head at a time), each ring's time and TFLOP/s over the
+     products it runs (dq 3, dk/dv 4) and the pair's; at n = 4 the plain
+     version's time, K9's and the autograd of SDPA on the gathered
+     sequence, and the bounds;
+  18. the sequence-sharded training step: three
+     ``make_seq_sharded_train_step`` steps of 20 views over 4 ranks (ring
+     kernels, remat), counts reset just before and read just after (K14
+     forward 48, each backward ring 24, decoder K1 / K9 0 per step), each
+     step's time and the peak memory; and one 2-view 224x224 step's loss
+     and gradients within 5% of fp32 on the CPU and of the single-device
+     card step;
+  19. launch counts: every kernel of a path must have launched on it, the
      RMS kernels on no path but the llama fused road's, K12 on no path of
      384x512 views, the trunk kernel on no path of 512x512 or 448x512
-     views, the ring kernel on no path but the sequence-sharded one.
+     views, the ring kernels on no path but the sequence-sharded ones.
 
 Any failure raises (exit code 1).  Without a CUDA device the script exits
 with code 2 before printing any result.  The last line of standard output
@@ -332,29 +353,39 @@ def _sass_tool() -> str:
     raise RuntimeError("cuobjdump not found")
 
 
-def _kernel_label(mangled: str) -> str:
-    """fused_gemm_kernel<1, 3> or ln_mlp_kernel from a mangled name."""
+def _kernel_label(mangled: str):
+    """fused_gemm_kernel<1, 3>, ln_mlp_kernel, attention_bwd_dq_kernel,
+    ring_bwd_dkv_kernel<bf16>, ... from a mangled name; None for a kernel
+    that is not on wgmma and TMA (the fp32 rings, the others)."""
     if "fused_gemm_kernel" in mangled:
         tail = mangled.split("fused_gemm_kernel", 1)[1]
         modes = tail.split("EE", 1)[0].replace("ILi", "").split("ELi")
         return f"fused_gemm_kernel<{', '.join(modes)}>"
-    return "ln_mlp_kernel"
+    for name in BWD_KERNELS:
+        if name in mangled:
+            if name.startswith("ring_"):
+                return f"{name}<bf16>" if "bfloat16" in mangled else None
+            return name
+    return "ln_mlp_kernel" if "ln_mlp_kernel" in mangled else None
 
 
-HOPPER_KERNELS = ("fused_gemm_kernel", "ln_mlp_kernel")
+# the attention backward's kernels on attention_bwd_tile.cuh (K9; K14's
+# backward in bf16)
+BWD_KERNELS = ("attention_bwd_dq_kernel", "attention_bwd_dkv_kernel",
+               "ring_bwd_dq_kernel", "ring_bwd_dkv_kernel")
 
 
 def hopper_kernel_report(blog: str) -> dict:
-    """ptxas's registers, spills and static shared memory of every
-    fused_gemm_kernel and ln_mlp_kernel instantiation, and the counts of
-    HGMMA (wgmma) and UTMALDG (TMA load) instructions in their SASS; raises
-    if any of them has none of either."""
+    """ptxas's registers and spills of every fused_gemm_kernel and
+    ln_mlp_kernel instantiation, K9's two kernels and the bf16 backward
+    rings, their dynamic shared memory, and the counts of HGMMA (wgmma) and
+    UTMALDG (TMA load) instructions in their SASS; raises if any of them
+    has none of either, or if one of the backward kernels is missing."""
     report, name = {}, None
     for line in blog.splitlines():
         if "Function properties for" in line:
-            fn = line.split("Function properties for", 1)[1].strip()
-            name = (_kernel_label(fn) if any(k in fn for k in HOPPER_KERNELS)
-                    else None)
+            name = _kernel_label(
+                line.split("Function properties for", 1)[1].strip())
             if name:
                 report[name] = {"ptxas": []}
         elif name and ("spill" in line or "Used" in line):
@@ -364,9 +395,7 @@ def hopper_kernel_report(blog: str) -> dict:
     name = None
     for line in sass.splitlines():
         if "Function :" in line:
-            fn = line.split("Function :", 1)[1].strip()
-            name = (_kernel_label(fn) if any(k in fn for k in HOPPER_KERNELS)
-                    else None)
+            name = _kernel_label(line.split("Function :", 1)[1].strip())
             if name:
                 report.setdefault(name, {"ptxas": []}).update(HGMMA=0,
                                                               UTMALDG=0)
@@ -374,13 +403,19 @@ def hopper_kernel_report(blog: str) -> dict:
             for op in ("HGMMA", "UTMALDG"):
                 if op in line:
                     report[name][op] += 1
-    if not report:
-        raise AssertionError("no fused_gemm_kernel / ln_mlp_kernel in the "
-                             "library")
-    dyn = build.library().fast3r_gemm_smem_bytes()
+    bwd = [n if n.startswith("attention") else f"{n}<bf16>"
+           for n in BWD_KERNELS]
+    missing = [n for n in bwd if n not in report]
+    if not report or missing:
+        raise AssertionError(f"Hopper kernels missing from the library: "
+                             f"{missing or 'all'}")
+    lib = build.library()
+    gemm_smem, bwd_smem = (lib.fast3r_gemm_smem_bytes(),
+                           lib.fast3r_attention_bwd_smem_bytes())
     for name, r in sorted(report.items()):
+        r["smem"] = bwd_smem if name in bwd else gemm_smem
         log(f"hopper kernel {name}: {'; '.join(r['ptxas'])}; dynamic shared "
-            f"memory {dyn} bytes; SASS HGMMA {r.get('HGMMA', 0)}, "
+            f"memory {r['smem']} bytes; SASS HGMMA {r.get('HGMMA', 0)}, "
             f"UTMALDG {r.get('UTMALDG', 0)}")
         if not r.get("HGMMA") or not r.get("UTMALDG"):
             raise AssertionError(f"{name}: no HGMMA or no UTMALDG in its SASS")
@@ -430,6 +465,10 @@ def check_attention(results: list) -> None:
             r = compare("attention", out, ref, dtype)
             del ref
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            if name == "encoder":  # also the plain road's batched attention
+                r["tpu_kernel"] = ("fast3r_tpu/ops/batched_attention.py:443 "
+                                   "_packed_bnhd -> _packed_kernel :340; :199 "
+                                   "_run_kernel -> _batched_kernel :105")
             r.update(kernel="attention", case=f"{name} {B}x{N}x{H}x{D}",
                      dtype=str(dtype).split(".")[-1],
                      ms=median_ms(lambda: flash_attention(q, k, v, scale), 10),
@@ -736,6 +775,41 @@ def _attn_bwd_bound(B, N, H, D):
                  8 * B * N * H * D * 2 + 2 * B * H * N * 4)
 
 
+def _device_ms(fn, names: dict, reps: int = 5) -> dict:
+    """Mean device time a call of each kernel whose name contains
+    names[key], over reps calls of fn under the profiler: {key: ms}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for evt in prof.key_averages():
+        us = (getattr(evt, "self_device_time_total", 0)
+              or getattr(evt, "self_cuda_time_total", 0))
+        for key, sub in names.items():
+            if sub in evt.key:
+                out[key] += us / reps / 1e3
+    return out
+
+
+def _pass_rates(B, N, H, D, ms: dict) -> dict:
+    """The dq pass's and the dk/dv pass's device times and TFLOP/s over the
+    products each runs: dq 3 (6 B H N^2 D FLOPs), dk/dv 4 (8)."""
+    flops = {"dq": 6.0 * B * H * N * N * D, "dkv": 8.0 * B * H * N * N * D}
+    return {**{f"{k}_ms": v for k, v in ms.items()},
+            **{f"{k}_tflops": flops[k] / (v * 1e-3) / 1e12
+               for k, v in ms.items()}}
+
+
+ATTN_BWD_PASSES = {"dq": "attention_bwd_dq_kernel",
+                   "dkv": "attention_bwd_dkv_kernel"}
+
+
 def _merge(errs: list) -> dict:
     return {"max_abs_err": max(e["max_abs_err"] for e in errs),
             "max_rel_err": max(e["max_rel_err"] for e in errs),
@@ -777,6 +851,9 @@ def check_attention_bwd(results: list) -> None:
              plain="attention_bwd_ref, one head at a time",
              library="autograd of F.scaled_dot_product_attention",
              library_ms=_grad_ms(ol, (ql, kl, vl), do.transpose(1, 2), 10),
+             **_pass_rates(B, N, H, D, _device_ms(
+                 lambda: attention_bwd(q, k, v, o, lse, do, TRAIN_SCALE),
+                 ATTN_BWD_PASSES)),
              **_attn_bwd_bound(B, N, H, D))
     results.append(r)
     log(json.dumps(r))
@@ -806,6 +883,10 @@ def check_attention_bwd(results: list) -> None:
              library="autograd of F.scaled_dot_product_attention",
              library_ms=_grad_ms(ol, (ql, kl, vl),
                                  do.view(B, N, H, D).transpose(1, 2), 10),
+             **_pass_rates(B, N, H, D, _device_ms(
+                 lambda: packed_qkv_attention_bwd(qkv3, o, lse, do, H,
+                                                  TRAIN_SCALE),
+                 ATTN_BWD_PASSES)),
              **_attn_bwd_bound(B, N, H, D))
     results.append(r)
     log(json.dumps(r))
@@ -1901,11 +1982,14 @@ def phase_ring_bwd(results: list) -> None:
                 extra["library_ms"] = _grad_ms(ol, (ql, kl, vl),
                                                dof.transpose(1, 2), 10)
                 del qf, kf, vf, dof, of, lsef, ql, kl, vl, ol
+            flops = {"dq": 6.0, "dkv": 8.0}  # the products each ring runs
             for kname, e, which in (("ring_attention_bwd_dq", errs[:1], "dq"),
                                     ("ring_attention_bwd_dkv", errs[1:], "dkv")):
                 r = dict(_merge(e), kernel=kname, dtype=name,
                          case=f"n={n} {n}x1x{s_loc}x16x64 ({M_TOK} tokens)",
-                         ms=times[kname], **extra,
+                         ms=times[kname],
+                         tflops=flops[which] * float(M_TOK) ** 2 * 16 * 64
+                         / (times[kname] * 1e-3) / 1e12, **extra,
                          **_ring_bwd_bound(n, s_loc, dtype, which))
                 results.append(r)
                 log(json.dumps(r))

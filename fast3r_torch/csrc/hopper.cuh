@@ -1,17 +1,18 @@
 // Hopper (sm_90a) machinery of the port's GEMM kernels (csrc/fused_gemm.cu,
 // csrc/ln_mlp.cu, through csrc/gemm_tile.cuh), in the style of ptx.cuh:
-//   * TMA tensor maps: 2-D or 3-D, bf16, 128-byte swizzle, boxes of rows x
+//   * TMA tensor maps: 2-D to 5-D, bf16, 128-byte swizzle, boxes of rows x
 //     64 columns (one 128-byte swizzle span per row), encoded on the host with
 //     cuTensorMapEncodeTiled, which cudaGetDriverEntryPoint hands over, so
 //     the library links no -lcuda; kernels take them as
 //     const __grid_constant__ CUtensorMap parameters;
-//   * cp.async.bulk.tensor tile loads onto mbarriers (expect-tx), a full /
-//     empty ring of shared-memory stages with phase bits, and tile stores
-//     from shared memory through bulk groups;
+//   * cp.async.bulk.tensor tile loads onto mbarriers (expect-tx), 1-D bulk
+//     copies onto them, a full / empty ring of shared-memory stages with
+//     phase bits, and tile stores from shared memory through bulk groups;
 //   * wgmma.mma_async m64nNk16, bf16 in, fp32 accumulators, B from shared
 //     memory, A from shared memory (SS) or registers (RS); the shared-memory
-//     matrix descriptor of a K-major 128-byte-swizzled tile; fence, commit
-//     and wait;
+//     matrix descriptor of a 128-byte-swizzled tile, read K-major or, for a
+//     B operand whose N runs along the 128-byte rows, MN-major; fence,
+//     commit and wait;
 //   * setmaxnreg for the producer and consumer warpgroups, named barriers;
 //   * the release / acquire counters and the atomic claim of a persistent
 //     tile walk.
@@ -52,18 +53,19 @@ static EncodeTiled encode_tiled() {
   return fn;
 }
 
-// the map of a bf16 tensor of `rank` (2 or 3) dimensions, innermost first:
+// the map of a bf16 tensor of `rank` (2 to 5) dimensions, innermost first:
 // dims[0] contiguous, dims[i] apart by strides[i - 1] elements; loaded or
-// stored in boxes of 64 (128 bytes, the swizzle span) x box[1] (x 1).  Box
-// elements past the tensor's edges load as zeros and are not stored.  TMA
-// needs a 16-byte aligned base and strides.
+// stored in boxes of 64 (128 bytes, the swizzle span) x box[1] (x 1 ...).
+// Box elements past the tensor's edges load as zeros and are not stored.
+// TMA needs a 16-byte aligned base and strides.
 static cudaError_t make_tmap(CUtensorMap* map, const void* base, int rank,
                              const long long* dims, const long long* strides,
                              int box_rows) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
-  cuuint64_t d[3], st[2];
-  cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1}, es[3] = {1, 1, 1};
+  if (rank < 2 || rank > 5) return cudaErrorInvalidValue;
+  cuuint64_t d[5], st[4];
+  cuuint32_t box[5] = {64, (cuuint32_t)box_rows, 1, 1, 1}, es[5] = {1, 1, 1, 1, 1};
   if (reinterpret_cast<uintptr_t>(base) & 15) return cudaErrorMisalignedAddress;
   for (int i = 0; i < rank; ++i) d[i] = (cuuint64_t)dims[i];
   for (int i = 0; i + 1 < rank; ++i) {
@@ -164,6 +166,29 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// box (col, row, c2, c3) of a 4-D map -> dst, completing on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int row, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
+      "r"(row), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global src to dst (both 16-byte aligned),
+// completing on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // src (1024-byte aligned, swizzled) -> box (col, row) of a 2-D map, or
 // (col, row, plane) of a 3-D one; completes through this thread's bulk groups
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src,
@@ -237,6 +262,11 @@ __device__ __forceinline__ void regs_inc() {
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
+// arrive at barrier `id` without waiting; it completes when `count` threads
+// have arrived at or synced on it
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
 
 // ---------------------------------------------------------------------------
 // device: wgmma
@@ -246,6 +276,11 @@ __device__ __forceinline__ void named_sync(int id, int count) {
 // with the 128-byte swizzle, 1024-byte aligned: 8-row groups 1024 bytes
 // apart (SBO), LBO unused (1), layout 1 (128B swizzle).  The k16 step j of
 // the 64-wide slice starts 32 j bytes in: descriptor + 2 j.
+// The same bits describe the tile MN-major, as a B operand whose N = 64
+// columns are the 128-byte rows' elements and whose K runs down the rows
+// (wgmma with trans-b 1): 8-row groups of K 1024 bytes apart (SBO), one
+// 64-wide swizzle atom of N (LBO unused).  The k16 step j then starts 16 j
+// rows down: descriptor + 128 j.
 __device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
   return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | (1ull << 16) |
          (64ull << 32) | (1ull << 62);
@@ -369,6 +404,73 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
         "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(scale_d));
+}
+
+// 64 x 64 variants of the above (d: 32 fp32 a thread, the same layout with
+// j < 8).  SS: A and B K-major from their descriptors.  RS: A from
+// registers; _tb: B MN-major (trans-b 1), d accumulated (scale-d 1).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 // ---------------------------------------------------------------------------

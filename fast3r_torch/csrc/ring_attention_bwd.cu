@@ -9,306 +9,260 @@
 // into the right neighbour's slot j%2 while epoch j-1 computes, capacity
 // tokens, per-slot fill counters, R x G persistent CTAs launched
 // cooperatively, a trap after the timeout):
-//   * dq ring: items are (batch * head, 64-query block); K and V rotate (the
-//     forward's payload); q, do and the rows' lse and delta stay local.  Epoch
-//     s adds ds k over the K/V of rank (r - s) mod R;
-//   * dk / dv ring: items are (batch * head, 64-key block); q, do and the
-//     rows' (lse, delta) rotate, packed as two fp32 words per row in a third
-//     payload (B * H, S, 2); K and V stay local, so dk and dv finish at the
+//   * dq ring: items are (batch * head, 128-query block); K and V rotate
+//     (the forward's payload); q, do and the rows' lse and delta stay local.
+//     Epoch s adds ds k over the K/V of rank (r - s) mod R;
+//   * dk / dv ring: items are (batch * head, 128-key block); q, do and the
+//     rows' lse and delta rotate, the last two as a third payload, fp32
+//     (lse rows | delta rows), each (B * H, Sp) with Sp = S rounded up to
+//     whole 64-row tiles; K and V stay local, so dk and dv finish at the
 //     shard's owner with no final permute.  Epoch s adds ds^T q and p^T do
 //     over the q / do of rank (r - s) mod R.  A CTA copies its share of all
 //     three payloads of a hop before it publishes, so a slot's counter
 //     reaching fill * G means all three landed.
-// The accumulators (dq, or dk and dv: fp32, 16 x 64 per warp in the mma
-// fragment order) go through fp32 scratch between epochs, as the TPU
-// kernels' HBM state does: with two slots the epoch order is outermost and
-// a CTA walks many items per epoch.  dq, dk and dv are written at the last
-// epoch.
+// The accumulators (dq, or dk and dv, fp32) go through fp32 scratch between
+// epochs, as the TPU kernels' HBM state does: with two slots the epoch order
+// is outermost and a CTA walks many items per epoch, more than its shared
+// memory holds at n = 4.  dq, dk and dv are written at the last epoch.
 //
-// Layouts: lse is the forward kernel's (R, B * H, S) fp32, natural log,
-// unpadded; the dq ring reads it and delta (R, B * H, S) fp32 one row per
-// thread.  The dk / dv ring's (lse, delta) payload is (R, meta_words) fp32,
-// its first B * H * S * 2 words the rows' pairs (meta_words a multiple of 4
-// so a slot is whole 16-byte chunks), read with 8-byte ld.cg.
+// bf16 (the training path): the tile bodies of attention_bwd.cu, from
+// attention_bwd_tile.cuh (wgmma products, a producer warp feeding two
+// consumer warpgroups through TMA, 128-row items).  The cooperative launch
+// still fits with 128-row items (one 288-thread CTA per SM, 131 KB of
+// shared memory; the occupancy API sizes G), so the items are the kernel's
+// 128-row CTAs and not 64-row ones.  Each launch reads through rank-4
+// tensor maps:
+//   * the rank's own rows (q and do, or k and v) through their (rank,
+//     batch, token, head) strides, rank and batch merged into one dimension
+//     (64, S, H, R * B), which the wrapper arranges (a copy where the
+//     strides do not merge);
+//   * every rank's slots of the rotating pair: each payload is one
+//     allocation of R x 2 slots (B * H, S, 64) on this card, so one map
+//     (64, S, B * H, 2 R) covers them;
+//   * the dk/dv ring's (lse, delta) rows by 1-D bulk copies from the slot.
+// Hops fill the slots with generic stores published by a release add; the
+// producer issues fence.proxy.async after the acquire (each epoch's start),
+// so its TMA reads see the hop's bytes.  A slot is released to its next
+// hop only after every consumer has waited for every tile read from it.
+// Rounding points: attention_bwd_tile.cuh's (those of
+// ring_attention_bwd_ref).  Ragged S is masked.
 //
-// What bounds it on an H100: the five products per (query, key) tile, 2.5x
-// the forward's FLOPs, on the tensor cores, as in attention_bwd.cu, whose
-// tile math this kernel runs (attention_tiles.cuh: 64-row items, 4 warps of
-// 16 rows, 64-wide tiles double-buffered with cp.async, mma.sync m16n8k16
-// bf16 products; the dk / dv ring works on the transposed scores).  The
-// protocol adds the hops (2 bf16 payloads per hop for dq; 2 bf16 and the
-// fp32 pairs for dk / dv) and the state traffic.  Rounding points: scores
-// recomputed in fp32 from the forward's lse, p = exp2(s c - lse log2 e), ds
-// = p (dp - delta) with delta = rowsum(do o) in fp32 from the rounded o
-// (computed by the caller); p and ds rounded to bf16 before their products;
-// fp32 accumulation; dq and dk scaled in fp32 and rounded once.  The scale
-// stays in fp32 (the TPU kernels round q * scale * log2 e to bf16 first).
-// Ragged S is masked.  The fp32 variants are scalar versions of the same
-// tiling (two lanes per row), for tight checks.
-// Not yet: wgmma, TMA, keeping the accumulators in shared memory, one rank
-// per card.
+// What bounds it on an H100: the five products per (query, key) pair, 2.5x
+// the forward's FLOPs, on the tensor cores (the two rings run seven: dq 3,
+// dk/dv 4), plus the protocol's hops (2 bf16 payloads per hop for dq; 2
+// bf16 and the fp32 rows for dk/dv) and the state traffic.
+// The fp32 variants are scalar versions of the same tiling (two lanes per
+// row, 64-row items), for tight checks.
+// Not yet: keeping the accumulators in shared memory, one rank per card.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_bwd_tile.cuh"
 #include "attention_tiles.cuh"
 #include "ptx.cuh"
 #include "ring_protocol.cuh"
 
 namespace {
 
-using namespace fast3r_ptx;
+namespace ab = fast3r_attn_bwd;
 using namespace fast3r_ring;
-using namespace fast3r_tiles;
+using fast3r_tiles::kTileLdF;
+using fast3r_tiles::load_rows_f32;
+using bf16 = __nv_bfloat16;
 
-constexpr int kD = 64;         // head dim
-constexpr int kB = 64;         // rows of an item or tile (queries or keys)
-constexpr int kThreads = 128;  // 4 warps of 16 rows
-constexpr int kLd = kTileLd;
+constexpr int kD = 64;           // head dim
+constexpr int kB = 64;           // fp32: rows of an item or tile
+constexpr int kThreadsF = 128;   // fp32: 4 warps of 16 rows
 constexpr int kLdF = kTileLdF;
-constexpr int kTile = kB * kLd;
 constexpr float kLog2e = 1.4426950408889634f;
-// fp32 state words per thread of one item
+// fp32 state words per accumulating thread of one item
 constexpr int kStateDq = 32;   // the dq accumulator
 constexpr int kStateDkv = 64;  // the dk and dv accumulators
 
+// per element type: threads of a CTA, rows of an item, threads holding
+// accumulators (the state's stride)
+template <typename T>
+struct Cfg {
+  static constexpr int kThreads = kThreadsF, kRows = kB, kAccThreads = kThreadsF;
+};
+template <>
+struct Cfg<bf16> {
+  static constexpr int kThreads = ab::kThreads, kRows = ab::kRows,
+                       kAccThreads = ab::kConsumers;
+};
+
 struct BwdParams {
-  Ring ring;  // dq: K, V slots; dk / dv: q, do slots (2, B * H, S, 64), (lse, delta)
+  CUtensorMap own_a, own_b;    // bf16: own q, do (dq) or k, v (dk/dv): (64, S, H, R * B)
+  CUtensorMap slot_a, slot_b;  // bf16: the rotating pair's slots: (64, S, B * H, 2 R)
+  Ring ring;  // dq: K, V slots; dk / dv: q, do slots (2, B * H, S, 64), (lse | delta)
   const void *q, *k, *v, *dout;
   long long qs[4], ks[4], vs[4], os[4];  // rank, batch, token, head strides (elements)
   const float* lse;    // dq: (R, B * H, S), natural log
   const float* delta;  // dq: (R, B * H, S)
-  const float* meta;   // dk / dv: (R, meta_words), the rows' (lse, delta)
+  const float* meta;   // dk / dv: (R, meta_words), lse rows | delta rows, (B * H, Sp) each
   long long meta_words;
+  int Sp;         // dk / dv: S rounded up to whole 64-row tiles
   void* out0;     // dq, or dk: (R, B, S, H, 64) contiguous
   void* out1;     // dv
-  float* state;   // (R, items, words, 128) fp32; null when E == 1
+  float* state;   // (R, items, words, acc threads) fp32; null when E == 1
   int B, H, S;
   float scale, scale_log2;
 };
 
-__device__ __forceinline__ void zero(float (&a)[8][4]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) a[n][e] = 0.f;
+// ---------------------------------------------------------------------------
+// bf16 rings: the tiles of attention_bwd_tile.cuh
+// ---------------------------------------------------------------------------
+
+// item it of rank r's bf16 walk: (batch * head, block of 128 rows)
+struct Item {
+  int bh, b, h, row0;
+  __device__ __forceinline__ Item(const BwdParams& p, int it, int nblk)
+      : bh(it / nblk), b(bh / p.H), h(bh % p.H), row0((it % nblk) * ab::kRows) {}
+};
+
+// a consumer thread's two rows r0, r0 + 8 of an accumulator -> the
+// contiguous (R, B, S, H, 64) output of rank r, times mul
+__device__ __forceinline__ void store_out(const BwdParams& p, void* out, int r, const Item& x,
+                                          int r0, const float (&d)[32], float mul,
+                                          const ab::Consumer& t) {
+  bf16* base = static_cast<bf16*>(out) + ((long long)r * p.B + x.b) * p.S * p.H * kD + x.h * kD;
+  ab::store_rows(base, (long long)p.H * kD, r0, p.S, d, mul, t.c());
 }
-// a warp's 16 x 64 accumulator <-> state words [w0, w0 + 32) of its item
-__device__ __forceinline__ void load_acc(float (&a)[8][4], const float* st, int w0) {
+
+__device__ __forceinline__ void dq_ring_bf16(const BwdParams& p) {
+  ab::Smem& sm = ab::smem();
+  if (threadIdx.x == 0) ab::init_barriers(sm);
+  __syncthreads();
+  const Ring& g = p.ring;
+  const int r = blockIdx.x % g.R, c = blockIdx.x / g.R;
+  const int nblk = (p.S + ab::kRows - 1) / ab::kRows, items = p.B * p.H * nblk;
+  const int n = (p.S + ab::kTile - 1) / ab::kTile;
+  const bool producer = threadIdx.x >= ab::kConsumers;
+  const ab::Consumer t;
+  ab::OwnRing own;
+  ab::StageRing ring;
+  if (!producer) ab::turns_open(t);
+  run_ring(
+      g, r, c,
+      [&] {
+        copy_rows64_share<bf16>(slot_ptr<bf16>(g, 0, r, 0), static_cast<const bf16*>(p.k),
+                                p.ks, r, p.B, p.H, p.S, g.G, c);
+        copy_rows64_share<bf16>(slot_ptr<bf16>(g, 1, r, 0), static_cast<const bf16*>(p.v),
+                                p.vs, r, p.B, p.H, p.S, g.G, c);
+      },
+      [&](int s, int slot) {
+        if (producer) {
+          if (threadIdx.x != ab::kConsumers) return;
+          fast3r_hopper::fence_proxy_async();  // the hop's stores, then TMA reads
+          for (int it = c; it < items; it += g.G) {
+            const Item x(p, it, nblk);
+            ab::load_own(sm, own, &p.own_a, &p.own_b, x.row0, x.h, r * p.B + x.b);
+            ab::load_tiles(sm, ring, &p.slot_a, &p.slot_b, x.bh, 2 * r + slot, n, nullptr,
+                           nullptr);
+          }
+          return;
+        }
+        for (int it = c; it < items; it += g.G) {
+          const Item x(p, it, nblk);
+          const int r0 = x.row0 + t.row();
+          const long long lrow = ((long long)r * p.B * p.H + x.bh) * p.S;
+          float l[2], dl[2];  // the thread's rows' lse (log2 domain) and delta
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) a[n][e] = st[(w0 + n * 4 + e) * kThreads + threadIdx.x];
+          for (int i = 0; i < 2; ++i) {
+            const int row = r0 + 8 * i;
+            l[i] = row < p.S ? p.lse[lrow + row] * kLog2e : 0.f;
+            dl[i] = row < p.S ? p.delta[lrow + row] : 0.f;
+          }
+          float* st = p.state == nullptr ? nullptr
+                                         : p.state + ((long long)r * items + it) * kStateDq *
+                                                         ab::kConsumers;
+          float dq[32];
+          if (s == 0)
+            ab::zero(dq);
+          else
+            ab::load_state(dq, st, 0);
+          ab::dq_item(dq, sm, own, ring, t, n, p.S, p.scale_log2, l, dl);
+          if (s == g.E - 1)
+            store_out(p, p.out0, r, x, r0, dq, p.scale, t);
+          else
+            ab::save_state(dq, st, 0);
+        }
+      });
+  if (!producer) ab::turns_close(t);
 }
-__device__ __forceinline__ void save_acc(const float (&a)[8][4], float* st, int w0) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) st[(w0 + n * 4 + e) * kThreads + threadIdx.x] = a[n][e];
+
+__device__ __forceinline__ void dkv_ring_bf16(const BwdParams& p) {
+  ab::Smem& sm = ab::smem();
+  if (threadIdx.x == 0) ab::init_barriers(sm);
+  __syncthreads();
+  const Ring& g = p.ring;
+  const int r = blockIdx.x % g.R, c = blockIdx.x / g.R;
+  const int nblk = (p.S + ab::kRows - 1) / ab::kRows, items = p.B * p.H * nblk;
+  const int n = (p.S + ab::kTile - 1) / ab::kTile;
+  const bool producer = threadIdx.x >= ab::kConsumers;
+  const ab::Consumer t;
+  ab::OwnRing own;
+  ab::StageRing ring;
+  if (!producer) ab::turns_open(t);
+  run_ring(
+      g, r, c,
+      [&] {
+        copy_rows64_share<bf16>(slot_ptr<bf16>(g, 0, r, 0), static_cast<const bf16*>(p.q),
+                                p.qs, r, p.B, p.H, p.S, g.G, c);
+        copy_rows64_share<bf16>(slot_ptr<bf16>(g, 1, r, 0), static_cast<const bf16*>(p.dout),
+                                p.os, r, p.B, p.H, p.S, g.G, c);
+        copy_flat_share(slot_ptr<float>(g, 2, r, 0), p.meta + r * p.meta_words, g.bytes[2],
+                        g.G, c);
+      },
+      [&](int s, int slot) {
+        if (producer) {
+          if (threadIdx.x != ab::kConsumers) return;
+          fast3r_hopper::fence_proxy_async();  // the hop's stores, then TMA reads
+          const float* ms = slot_ptr<float>(g, 2, r, slot);
+          const long long dlt = (long long)p.B * p.H * p.Sp;  // the delta rows
+          for (int it = c; it < items; it += g.G) {
+            const Item x(p, it, nblk);
+            const float* lrow = ms + (long long)x.bh * p.Sp;
+            ab::load_own(sm, own, &p.own_a, &p.own_b, x.row0, x.h, r * p.B + x.b);
+            ab::load_tiles(sm, ring, &p.slot_a, &p.slot_b, x.bh, 2 * r + slot, n, lrow,
+                           lrow + dlt);
+          }
+          return;
+        }
+        for (int it = c; it < items; it += g.G) {
+          const Item x(p, it, nblk);
+          float* st = p.state == nullptr ? nullptr
+                                         : p.state + ((long long)r * items + it) * kStateDkv *
+                                                         ab::kConsumers;
+          float dk[32], dv[32];
+          if (s == 0) {
+            ab::zero(dk);
+            ab::zero(dv);
+          } else {
+            ab::load_state(dk, st, 0);
+            ab::load_state(dv, st, 32);
+          }
+          ab::dkv_item(dk, dv, sm, own, ring, t, n, p.S, p.scale_log2);
+          if (s == g.E - 1) {
+            const int r0 = x.row0 + t.row();
+            store_out(p, p.out0, r, x, r0, dk, p.scale, t);
+            store_out(p, p.out1, r, x, r0, dv, 1.f, t);
+          } else {
+            ab::save_state(dk, st, 0);
+            ab::save_state(dv, st, 32);
+          }
+        }
+      });
+  if (!producer) ab::turns_close(t);
 }
 
 // ---------------------------------------------------------------------------
-// bf16 items
-// ---------------------------------------------------------------------------
-
-// 64 queries of (batch, head) bh of rank r against the slot's K / V (kb, vb:
-// that head's (S, 64) rows); dq carried in st
-__device__ void dq_item(const BwdParams& p, unsigned char* smem, int r, int bh, int qi,
-                        const bf16* kb, const bf16* vb, float* st, bool first, bool last) {
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Os = Qs + kTile;  // dO
-  bf16* Ks = Os + kTile;  // two buffers each
-  bf16* Vs = Ks + 2 * kTile;
-  const int S = p.S, b = bh / p.H, h = bh % p.H, q0 = qi * kB;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, c = lane & 3;
-  const bf16* qb = static_cast<const bf16*>(p.q) + r * p.qs[0] + b * p.qs[1] + h * p.qs[3];
-  const bf16* ob = static_cast<const bf16*>(p.dout) + r * p.os[0] + b * p.os[1] + h * p.os[3];
-
-  cp_async_rows64<kLd>(Qs, qb, p.qs[2], q0, S);
-  cp_async_rows64<kLd>(Os, ob, p.os[2], q0, S);
-  cp_async_rows64<kLd>(Ks, kb, kD, 0, S);
-  cp_async_rows64<kLd>(Vs, vb, kD, 0, S);
-  cp_async_commit();
-
-  // lse (log2 domain) and delta of this thread's rows g and g + 8
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const long long lrow = ((long long)r * p.B * p.H + bh) * S;
-  const float l0 = r0 < S ? p.lse[lrow + r0] * kLog2e : 0.f;
-  const float l1 = r1 < S ? p.lse[lrow + r1] * kLog2e : 0.f;
-  const float d0 = r0 < S ? p.delta[lrow + r0] : 0.f;
-  const float d1 = r1 < S ? p.delta[lrow + r1] : 0.f;
-
-  uint32_t qf[4][4], of[4][4];
-  float acc[8][4];
-  if (first)
-    zero(acc);
-  else
-    load_acc(acc, st, 0);
-
-  const int ntiles = (S + kB - 1) / kB;
-  for (int t = 0; t < ntiles; ++t) {
-    const int sb = t & 1;
-    if (t + 1 < ntiles) {
-      cp_async_rows64<kLd>(Ks + (sb ^ 1) * kTile, kb, kD, (t + 1) * kB, S);
-      cp_async_rows64<kLd>(Vs + (sb ^ 1) * kTile, vb, kD, (t + 1) * kB, S);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (t == 0) {
-      load_a_frags(qf, Qs, warp, lane);
-      load_a_frags(of, Os, warp, lane);
-    }
-    const bf16* Kt = Ks + sb * kTile;
-    const bf16* Vt = Vs + sb * kTile;
-
-    float s[8][4], dp[8][4];
-    mma_abt(s, qf, Kt, lane);   // q k^T
-    mma_abt(dp, of, Vt, lane);  // do v^T
-    const int kbase = t * kB + 2 * c;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool ok = kbase + j * 8 + e < S;
-        const float p0 = ok ? exp2f(s[j][e] * p.scale_log2 - l0) : 0.f;
-        const float p1 = ok ? exp2f(s[j][e + 2] * p.scale_log2 - l1) : 0.f;
-        s[j][e] = p0 * (dp[j][e] - d0);  // ds, in place
-        s[j][e + 2] = p1 * (dp[j][e + 2] - d1);
-      }
-    }
-    uint32_t dsf[4][4];
-    pack_a(dsf, s);
-    mma_pt(acc, dsf, Kt, lane);  // ds k
-    __syncthreads();  // every warp is done with this buffer before refill
-  }
-  if (last) {
-    bf16* dq = static_cast<bf16*>(p.out0) + ((long long)r * p.B + b) * S * p.H * kD + h * kD;
-    store_rows(dq, (long long)p.H * kD, r0, S, acc, p.scale, c);
-  } else {
-    save_acc(acc, st, 0);
-  }
-}
-
-// 64 keys of (batch, head) bh of rank r (its own K / V, through strides)
-// against the slot's q / do (qb, ob: that head's (S, 64) rows) and (lse,
-// delta) pairs (mb: its (S, 2) words); dk and dv carried in st
-__device__ void dkv_item(const BwdParams& p, unsigned char* smem, int r, int bh, int ki,
-                         const bf16* qb, const bf16* ob, const float* mb, float* st,
-                         bool first, bool last) {
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + kTile;
-  bf16* Qs = Vs + kTile;      // two buffers each
-  bf16* Os = Qs + 2 * kTile;  // dO
-  float* Ls = reinterpret_cast<float*>(Os + 2 * kTile);  // [2][kB] lse, log2 domain
-  float* Ds = Ls + 2 * kB;                                // [2][kB] delta
-  const int S = p.S, b = bh / p.H, h = bh % p.H, k0 = ki * kB;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, c = lane & 3;
-  const bf16* kb = static_cast<const bf16*>(p.k) + r * p.ks[0] + b * p.ks[1] + h * p.ks[3];
-  const bf16* vb = static_cast<const bf16*>(p.v) + r * p.vs[0] + b * p.vs[1] + h * p.vs[3];
-
-  // a 64-query tile's (lse, delta) pairs, from the slot through L2 (the
-  // buffer's previous reader finished behind a __syncthreads)
-  auto load_meta = [&](int buf, int q0) {
-    if (threadIdx.x < kB) {
-      const int n = q0 + threadIdx.x;
-      float2 m = make_float2(0.f, 0.f);
-      if (n < S) m = __ldcg(reinterpret_cast<const float2*>(mb) + n);
-      Ls[buf * kB + threadIdx.x] = m.x * kLog2e;
-      Ds[buf * kB + threadIdx.x] = m.y;
-    }
-  };
-
-  cp_async_rows64<kLd>(Ks, kb, p.ks[2], k0, S);
-  cp_async_rows64<kLd>(Vs, vb, p.vs[2], k0, S);
-  cp_async_rows64<kLd>(Qs, qb, kD, 0, S);
-  cp_async_rows64<kLd>(Os, ob, kD, 0, S);
-  cp_async_commit();
-  load_meta(0, 0);
-
-  uint32_t kf[4][4], vf[4][4];
-  float dk[8][4], dv[8][4];
-  if (first) {
-    zero(dk);
-    zero(dv);
-  } else {
-    load_acc(dk, st, 0);
-    load_acc(dv, st, 32);
-  }
-
-  const int ntiles = (S + kB - 1) / kB;
-  for (int t = 0; t < ntiles; ++t) {
-    const int sb = t & 1;
-    if (t + 1 < ntiles) {
-      cp_async_rows64<kLd>(Qs + (sb ^ 1) * kTile, qb, kD, (t + 1) * kB, S);
-      cp_async_rows64<kLd>(Os + (sb ^ 1) * kTile, ob, kD, (t + 1) * kB, S);
-      cp_async_commit();
-      load_meta(sb ^ 1, (t + 1) * kB);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (t == 0) {
-      load_a_frags(kf, Ks, warp, lane);
-      load_a_frags(vf, Vs, warp, lane);
-    }
-    const bf16* Qt = Qs + sb * kTile;
-    const bf16* Ot = Os + sb * kTile;
-    const float* Lt = Ls + sb * kB;
-    const float* Dt = Ds + sb * kB;
-
-    // transposed scores: rows = this warp's 16 keys, columns = 64 queries
-    float s[8][4], dp[8][4];
-    mma_abt(s, kf, Qt, lane);  // k q^T
-    const int qbase = t * kB + 2 * c;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool ok = qbase + j * 8 + e < S;
-        const float l = Lt[j * 8 + 2 * c + e];
-        s[j][e] = ok ? exp2f(s[j][e] * p.scale_log2 - l) : 0.f;  // p^T
-        s[j][e + 2] = ok ? exp2f(s[j][e + 2] * p.scale_log2 - l) : 0.f;
-      }
-    }
-    uint32_t pf[4][4];
-    pack_a(pf, s);
-    mma_pt(dv, pf, Ot, lane);   // dv += p^T do
-    mma_abt(dp, vf, Ot, lane);  // v do^T
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool ok = qbase + j * 8 + e < S;
-        const float d = Dt[j * 8 + 2 * c + e];
-        s[j][e] = ok ? s[j][e] * (dp[j][e] - d) : 0.f;  // ds^T
-        s[j][e + 2] = ok ? s[j][e + 2] * (dp[j][e + 2] - d) : 0.f;
-      }
-    }
-    pack_a(pf, s);
-    mma_pt(dk, pf, Qt, lane);  // dk += ds^T q
-    __syncthreads();
-  }
-  if (last) {
-    const long long base = ((long long)r * p.B + b) * S * p.H * kD + h * kD;
-    const int r0 = k0 + warp * 16 + g;
-    store_rows(static_cast<bf16*>(p.out0) + base, (long long)p.H * kD, r0, S, dk, p.scale, c);
-    store_rows(static_cast<bf16*>(p.out1) + base, (long long)p.H * kD, r0, S, dv, 1.f, c);
-  } else {
-    save_acc(dk, st, 0);
-    save_acc(dv, st, 32);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// fp32 items: scalar FMAs, two lanes per row, each with half of the tile's
-// columns and half of the head dim
+// fp32 items (the variants for tight checks): 64 rows, 128 threads, scalar
+// FMAs, two lanes per row, each with half of the tile's columns and half of
+// the head dim
 // ---------------------------------------------------------------------------
 
 __device__ void dq_item(const BwdParams& p, unsigned char* smem, int r, int bh, int qi,
@@ -335,7 +289,7 @@ __device__ void dq_item(const BwdParams& p, unsigned char* smem, int r, int bh, 
 
   float acc[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = first ? 0.f : st[i * kThreads + tid];
+  for (int i = 0; i < 32; ++i) acc[i] = first ? 0.f : st[i * kThreadsF + tid];
 
   const float* qrow = Qs + row * kLdF;
   const float* orow = Os + row * kLdF;
@@ -367,7 +321,7 @@ __device__ void dq_item(const BwdParams& p, unsigned char* smem, int r, int bh, 
   }
   if (!last) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) st[i * kThreads + tid] = acc[i];
+    for (int i = 0; i < 32; ++i) st[i * kThreadsF + tid] = acc[i];
   } else if (n < S) {
     float* dst = static_cast<float*>(p.out0) + (((long long)r * p.B + b) * S + n) * p.H * kD +
                  h * kD + c0;
@@ -378,8 +332,8 @@ __device__ void dq_item(const BwdParams& p, unsigned char* smem, int r, int bh, 
 }
 
 __device__ void dkv_item(const BwdParams& p, unsigned char* smem, int r, int bh, int ki,
-                         const float* qb, const float* ob, const float* mb, float* st,
-                         bool first, bool last) {
+                         const float* qb, const float* ob, const float* lb, const float* db,
+                         float* st, bool first, bool last) {
   float* Ks = reinterpret_cast<float*>(smem);
   float* Vs = Ks + kB * kLdF;
   float* Qs = Vs + kB * kLdF;
@@ -400,8 +354,8 @@ __device__ void dkv_item(const BwdParams& p, unsigned char* smem, int r, int bh,
   float dk[32], dv[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
-    dk[i] = first ? 0.f : st[i * kThreads + tid];
-    dv[i] = first ? 0.f : st[(32 + i) * kThreads + tid];
+    dk[i] = first ? 0.f : st[i * kThreadsF + tid];
+    dv[i] = first ? 0.f : st[(32 + i) * kThreadsF + tid];
   }
 
   const float* krow = Ks + row * kLdF;
@@ -410,11 +364,10 @@ __device__ void dkv_item(const BwdParams& p, unsigned char* smem, int r, int bh,
     __syncthreads();
     load_rows_f32(Qs, qb, kD, q0, S);
     load_rows_f32(Os, ob, kD, q0, S);
-    if (tid < kB) {
-      float2 m = make_float2(0.f, 0.f);
-      if (q0 + tid < S) m = __ldcg(reinterpret_cast<const float2*>(mb) + q0 + tid);
-      Ls[tid] = m.x * kLog2e;
-      Ds[tid] = m.y;
+    if (tid < kB) {  // the slot's (lse, delta) rows, through L2
+      const bool ok = q0 + tid < S;
+      Ls[tid] = ok ? __ldcg(lb + q0 + tid) * kLog2e : 0.f;
+      Ds[tid] = ok ? __ldcg(db + q0 + tid) : 0.f;
     }
     __syncthreads();
     for (int i = 0; i < 32; ++i) {
@@ -449,8 +402,8 @@ __device__ void dkv_item(const BwdParams& p, unsigned char* smem, int r, int bh,
   if (!last) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      st[i * kThreads + tid] = dk[i];
-      st[(32 + i) * kThreads + tid] = dv[i];
+      st[i * kThreadsF + tid] = dk[i];
+      st[(32 + i) * kThreadsF + tid] = dv[i];
     }
   } else if (n < S) {
     const long long o = (((long long)r * p.B + b) * S + n) * p.H * kD + h * kD + c0;
@@ -472,15 +425,16 @@ __device__ void dkv_item(const BwdParams& p, unsigned char* smem, int r, int bh,
 
 template <typename T>
 __host__ __device__ constexpr int dq_smem() {
-  return sizeof(T) == 2 ? 6 * kTile * 2 : 5 * kB * kLdF * 4;
+  return sizeof(T) == 2 ? ab::kSmemBytes : 5 * kB * kLdF * 4;
 }
 template <typename T>
 __host__ __device__ constexpr int dkv_smem() {
-  return sizeof(T) == 2 ? 6 * kTile * 2 + 4 * kB * 4 : 6 * kB * kLdF * 4 + 2 * kB * 4;
+  return sizeof(T) == 2 ? ab::kSmemBytes : 6 * kB * kLdF * 4 + 2 * kB * 4;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) ring_bwd_dq_kernel(const BwdParams p) {
+// the fp32 rings: 64-row items of the scalar bodies above
+__device__ __forceinline__ void dq_ring_f32(const BwdParams& p) {
+  using T = float;
   extern __shared__ __align__(128) unsigned char smem[];
   const Ring& g = p.ring;
   const int r = blockIdx.x % g.R, c = blockIdx.x / g.R;
@@ -501,27 +455,28 @@ __global__ void __launch_bounds__(kThreads) ring_bwd_dq_kernel(const BwdParams p
           const int bh = it / nq;
           float* st = p.state == nullptr
                           ? nullptr
-                          : p.state + ((long long)r * items + it) * kStateDq * kThreads;
+                          : p.state + ((long long)r * items + it) * kStateDq * kThreadsF;
           dq_item(p, smem, r, bh, it % nq, ks + bh * head, vs + bh * head, st, s == 0,
                   s == g.E - 1);
         }
       });
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) ring_bwd_dkv_kernel(const BwdParams p) {
+__device__ __forceinline__ void dkv_ring_f32(const BwdParams& p) {
+  using T = float;
   extern __shared__ __align__(128) unsigned char smem[];
   const Ring& g = p.ring;
   const int r = blockIdx.x % g.R, c = blockIdx.x / g.R;
   const int nk = (p.S + kB - 1) / kB, items = p.B * p.H * nk;
   const long long head = (long long)p.S * kD;
+  const long long dlt = (long long)p.B * p.H * p.Sp;  // the delta rows
   run_ring(
       g, r, c,
       [&] {
         copy_rows64_share<T>(slot_ptr<T>(g, 0, r, 0), static_cast<const T*>(p.q), p.qs, r,
                              p.B, p.H, p.S, g.G, c);
-        copy_rows64_share<T>(slot_ptr<T>(g, 1, r, 0), static_cast<const T*>(p.dout), p.os, r,
-                             p.B, p.H, p.S, g.G, c);
+        copy_rows64_share<T>(slot_ptr<T>(g, 1, r, 0), static_cast<const T*>(p.dout), p.os,
+                             r, p.B, p.H, p.S, g.G, c);
         copy_flat_share(slot_ptr<float>(g, 2, r, 0), p.meta + r * p.meta_words, g.bytes[2],
                         g.G, c);
       },
@@ -533,11 +488,59 @@ __global__ void __launch_bounds__(kThreads) ring_bwd_dkv_kernel(const BwdParams 
           const int bh = it / nk;
           float* st = p.state == nullptr
                           ? nullptr
-                          : p.state + ((long long)r * items + it) * kStateDkv * kThreads;
-          dkv_item(p, smem, r, bh, it % nk, qs + bh * head, os + bh * head,
-                   ms + (long long)bh * p.S * 2, st, s == 0, s == g.E - 1);
+                          : p.state + ((long long)r * items + it) * kStateDkv * kThreadsF;
+          const float* lb = ms + (long long)bh * p.Sp;
+          dkv_item(p, smem, r, bh, it % nk, qs + bh * head, os + bh * head, lb, lb + dlt,
+                   st, s == 0, s == g.E - 1);
         }
       });
+}
+
+template <typename T>
+__global__ void __launch_bounds__(Cfg<T>::kThreads, 1)
+    ring_bwd_dq_kernel(const __grid_constant__ BwdParams p) {
+  if constexpr (sizeof(T) == 2)
+    dq_ring_bf16(p);
+  else
+    dq_ring_f32(p);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(Cfg<T>::kThreads, 1)
+    ring_bwd_dkv_kernel(const __grid_constant__ BwdParams p) {
+  if constexpr (sizeof(T) == 2)
+    dkv_ring_bf16(p);
+  else
+    dkv_ring_f32(p);
+}
+
+// the rank-4 map (64, S, H, R * B) of rank-stacked rows (R, B, S, H, 64)
+// through their (rank, batch, token, head) strides st, rank and batch merged
+// (R == 1, B == 1, or st[0] == B st[1]; anything else is refused)
+cudaError_t own_map(CUtensorMap* m, const void* base, const long long (&st)[4], int R,
+                    int B, int S, int H) {
+  long long sb;
+  if (R == 1 || st[0] == (long long)B * st[1])
+    sb = st[1];
+  else if (B == 1)
+    sb = st[0];
+  else
+    return cudaErrorInvalidValue;
+  const long long dims[4] = {kD, S, H, (long long)R * B};
+  const long long strides[3] = {st[2], st[3], sb};
+  return fast3r_hopper::make_tmap(m, base, 4, dims, strides, ab::kTile);
+}
+
+// the rank-4 map (64, S, B * H, 2 R) of a payload's slots: one allocation
+// of R x 2 slots (B * H, S, 64), which the pointer table must describe
+cudaError_t slot_map(CUtensorMap* m, const void* table, int R, int BH, int S) {
+  const char* const* t = static_cast<const char* const*>(table);
+  const long long slot = (long long)BH * S * kD;  // elements
+  for (int i = 1; i < R; ++i)
+    if (t[i] != t[0] + i * 2 * slot * 2) return cudaErrorInvalidValue;
+  const long long dims[4] = {kD, S, BH, 2LL * R};
+  const long long strides[3] = {kD, (long long)S * kD, slot};
+  return fast3r_hopper::make_tmap(m, t[0], 4, dims, strides, ab::kTile);
 }
 
 // the common arguments of both entry points
@@ -557,6 +560,7 @@ int fill_params(BwdParams& p, int dtype, const void* q, const void* k, const voi
   p.B = B;
   p.H = H;
   p.S = S;
+  p.Sp = (S + kB - 1) / kB * kB;
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
   return cudaSuccess;
@@ -569,27 +573,33 @@ extern "C" {
 // which: 0 = the dq ring, 1 = the dk / dv ring; dtype: 0 = float32, 1 =
 // bfloat16.  *ctas: CTAs per rank that can be resident together with every
 // other rank's (0: R ranks cannot be); *state_words: fp32 scratch words per
-// item.
+// item; *item_rows: the rows of an item (128 bf16, 64 fp32).
 int fast3r_ring_attention_bwd_plan(int which, int dtype, int R, int* ctas,
-                                   int* state_words_out) {
+                                   int* state_words_out, int* item_rows) {
   if ((which != 0 && which != 1) || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
-  *state_words_out = (which == 0 ? kStateDq : kStateDkv) * kThreads;
+  const int words = which == 0 ? kStateDq : kStateDkv;
+  *state_words_out = words * (dtype == 1 ? Cfg<bf16>::kAccThreads : Cfg<float>::kAccThreads);
+  *item_rows = dtype == 1 ? Cfg<bf16>::kRows : Cfg<float>::kRows;
   if (which == 0)
-    return dtype == 1 ? plan_ctas(ring_bwd_dq_kernel<bf16>, kThreads, dq_smem<bf16>(), R, ctas)
-                      : plan_ctas(ring_bwd_dq_kernel<float>, kThreads, dq_smem<float>(), R,
+    return dtype == 1 ? plan_ctas(ring_bwd_dq_kernel<bf16>, Cfg<bf16>::kThreads,
+                                  dq_smem<bf16>(), R, ctas)
+                      : plan_ctas(ring_bwd_dq_kernel<float>, kThreadsF, dq_smem<float>(), R,
                                   ctas);
-  return dtype == 1 ? plan_ctas(ring_bwd_dkv_kernel<bf16>, kThreads, dkv_smem<bf16>(), R, ctas)
-                    : plan_ctas(ring_bwd_dkv_kernel<float>, kThreads, dkv_smem<float>(), R,
+  return dtype == 1 ? plan_ctas(ring_bwd_dkv_kernel<bf16>, Cfg<bf16>::kThreads,
+                                dkv_smem<bf16>(), R, ctas)
+                    : plan_ctas(ring_bwd_dkv_kernel<float>, kThreadsF, dkv_smem<float>(), R,
                                 ctas);
 }
 
 // The dq ring.  q, k, v, dout: (R, B, S, H, 64) read through their (rank,
-// batch, token, head) strides (elements; 16-byte rows, which the wrapper
-// checks); lse, delta (R, B * H, S) fp32; dq (R, B, S, H, 64) contiguous;
-// state: R * items * state_words fp32 (null when R == 1); slot_k / slot_v /
-// flags: host arrays of R device pointers, each rank's (2, B * H, S, 64)
-// slots and its 96 zeroed counter words.  G CTAs per rank.  Returns
-// cudaGetLastError() after the launch (or the launch's own error).
+// batch, token, head) strides (elements; 16-byte rows, and for bf16 the
+// rank and batch strides merging, which the wrapper checks); lse, delta
+// (R, B * H, S) fp32; dq (R, B, S, H, 64) contiguous; state: R * items *
+// state_words fp32 (null when R == 1); slot_k / slot_v / flags: host arrays
+// of R device pointers, each rank's (2, B * H, S, 64) slots (bf16: one
+// allocation, rank r's 2 r slots in) and its 96 zeroed counter words.  G
+// CTAs per rank.  Returns cudaGetLastError() after the launch (or the
+// launch's own error).
 int fast3r_ring_attention_bwd_dq(
     int dtype, const void* q, const void* k, const void* v, const void* dout, long long qs0,
     long long qs1, long long qs2, long long qs3, long long ks0, long long ks1, long long ks2,
@@ -613,16 +623,25 @@ int fast3r_ring_attention_bwd_dq(
   p.delta = static_cast<const float*>(delta);
   p.out0 = dq;
   p.state = static_cast<float*>(state);
-  if (dtype == 1)
-    return launch_ring(ring_bwd_dq_kernel<bf16>, kThreads, dq_smem<bf16>(), p, p.ring, stream);
-  return launch_ring(ring_bwd_dq_kernel<float>, kThreads, dq_smem<float>(), p, p.ring, stream);
+  if (dtype == 1) {
+    if ((err = own_map(&p.own_a, q, p.qs, R, B, S, H)) != cudaSuccess ||
+        (err = own_map(&p.own_b, dout, p.os, R, B, S, H)) != cudaSuccess ||
+        (err = slot_map(&p.slot_a, slot_k, R, B * H, S)) != cudaSuccess ||
+        (err = slot_map(&p.slot_b, slot_v, R, B * H, S)) != cudaSuccess)
+      return err;
+    return launch_ring(ring_bwd_dq_kernel<bf16>, Cfg<bf16>::kThreads, dq_smem<bf16>(), p,
+                       p.ring, stream);
+  }
+  return launch_ring(ring_bwd_dq_kernel<float>, kThreadsF, dq_smem<float>(), p, p.ring,
+                     stream);
 }
 
-// The dk / dv ring.  q, k, v, dout as above; meta (R, meta_words) fp32 with
-// the rows' (lse, delta) pairs at [(b * H + h) * S + n] * 2 and meta_words
-// a multiple of 4; dk, dv (R, B, S, H, 64) contiguous; state as above;
-// slot_q / slot_do: each rank's (2, B * H, S, 64) slots, slot_meta its
-// (2, meta_words) fp32 slots; flags its 96 zeroed counter words.
+// The dk / dv ring.  q, k, v, dout as above; meta (R, meta_words) fp32, the
+// rows' lse (B * H, Sp) then their delta (B * H, Sp), Sp = S rounded up to
+// a multiple of 64, so meta_words = 2 B H Sp; dk, dv (R, B, S, H, 64)
+// contiguous; state as above; slot_q / slot_do: each rank's (2, B * H, S,
+// 64) slots, slot_meta its (2, meta_words) fp32 slots; flags its 96 zeroed
+// counter words.
 int fast3r_ring_attention_bwd_dkv(
     int dtype, const void* q, const void* k, const void* v, const void* dout, long long qs0,
     long long qs1, long long qs2, long long qs3, long long ks0, long long ks1, long long ks2,
@@ -636,7 +655,7 @@ int fast3r_ring_attention_bwd_dkv(
                               vs0, vs1, vs2, vs3, os0, os1, os2, os3};
   int err = fill_params(p, dtype, q, k, v, dout, st16, B, H, S, scale);
   if (err != cudaSuccess) return err;
-  if ((R > 1 && state == nullptr) || meta_words % 4 || meta_words < 2LL * B * H * S)
+  if ((R > 1 && state == nullptr) || meta_words != 2LL * B * H * p.Sp)
     return cudaErrorInvalidValue;
   const long long slot = (long long)B * H * S * kD * (dtype == 1 ? 2 : 4);
   const long long bytes[3] = {slot, slot, meta_words * 4};
@@ -650,10 +669,16 @@ int fast3r_ring_attention_bwd_dkv(
   p.out0 = dk;
   p.out1 = dv;
   p.state = static_cast<float*>(state);
-  if (dtype == 1)
-    return launch_ring(ring_bwd_dkv_kernel<bf16>, kThreads, dkv_smem<bf16>(), p, p.ring,
-                       stream);
-  return launch_ring(ring_bwd_dkv_kernel<float>, kThreads, dkv_smem<float>(), p, p.ring,
+  if (dtype == 1) {
+    if ((err = own_map(&p.own_a, k, p.ks, R, B, S, H)) != cudaSuccess ||
+        (err = own_map(&p.own_b, v, p.vs, R, B, S, H)) != cudaSuccess ||
+        (err = slot_map(&p.slot_a, slot_q, R, B * H, S)) != cudaSuccess ||
+        (err = slot_map(&p.slot_b, slot_do, R, B * H, S)) != cudaSuccess)
+      return err;
+    return launch_ring(ring_bwd_dkv_kernel<bf16>, Cfg<bf16>::kThreads, dkv_smem<bf16>(), p,
+                       p.ring, stream);
+  }
+  return launch_ring(ring_bwd_dkv_kernel<float>, kThreadsF, dkv_smem<float>(), p, p.ring,
                      stream);
 }
 

@@ -47,11 +47,12 @@ SIGNATURES = {
     "fast3r_fused_gemm": [_I, _I] + [_P] * 13 + [_I, _I, _I, _F, _P],
     "fast3r_ln_mlp": [_P] * 12 + [_I, _I, _I, _I, _F, _P],
     "fast3r_gemm_smem_bytes": [],
+    "fast3r_attention_bwd_smem_bytes": [],
     "fast3r_resize_bilinear": [_P] * 8 + [_L, _I, _I, _I, _I, _P],
     "fast3r_ring_attention_plan": [_I, _I, _P, _P],
     "fast3r_ring_attention_fwd": [_I, _P, _P, _P] + [_L] * 12 + [_P] * 6
                                  + [_I] * 6 + [_F, _L, _P],
-    "fast3r_ring_attention_bwd_plan": [_I, _I, _I, _P, _P],
+    "fast3r_ring_attention_bwd_plan": [_I, _I, _I, _P, _P, _P],
     "fast3r_ring_attention_bwd_dq": [_I] + [_P] * 4 + [_L] * 16 + [_P] * 7
                                     + [_I] * 5 + [_F, _L, _P],
     "fast3r_ring_attention_bwd_dkv": [_I] + [_P] * 4 + [_L] * 16 + [_P, _L]

@@ -77,12 +77,41 @@ def _check(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
     if t.dim() != 4 or t.shape[0] != like.shape[0] or t.shape[2:] != like.shape[2:]:
         raise ValueError(f"attention: {name} has shape {tuple(t.shape)}, "
                          f"q has {tuple(like.shape)}")
-    vec = 16 // t.element_size()
-    if (t.stride(3) != 1 or t.data_ptr() % 16
-            or any(s % vec for s in t.stride()[:3])):
+    if tma_dims(t) is None:
         raise ValueError(
             f"attention: {name} strides {t.stride()} are not 16-byte rows "
             "(head dim contiguous, other strides multiples of 16 bytes)")
+
+
+def tma_dims(t: torch.Tensor):
+    """The rank-4 tensor-map view through which the backward kernels read a
+    (B, N, H, D) tensor, or a rank-stacked (n, B, S, H, D) one with its rank
+    and batch merged into one dimension: ``(dims, strides)`` innermost
+    first, in elements, dims (D, N, H, B') and strides (1, token, head,
+    batch), built from the tensor's own strides as the C entry points build
+    their maps.  None where TMA cannot take the layout: D not contiguous, a
+    stride not a multiple of 16 bytes, a base not 16-byte aligned, or rank
+    and batch strides that do not merge (they merge when n == 1, B == 1 or
+    the rank stride is B times the batch stride)."""
+    if t.dim() == 5:
+        n, B = t.shape[:2]
+        s_rank, s_batch = t.stride()[:2]
+        if n == 1 or s_rank == B * s_batch:
+            sb = s_batch
+        elif B == 1:
+            sb = s_rank
+        else:
+            return None
+        batch, (N, H, D), (sn, sh) = n * B, t.shape[2:], t.stride()[2:4]
+    elif t.dim() == 4:
+        (batch, N, H, D), (sb, sn, sh) = t.shape, t.stride()[:3]
+    else:
+        return None
+    vec = 16 // t.element_size()
+    if (t.stride(-1) != 1 or t.data_ptr() % 16
+            or any(s % vec for s in (sn, sh, sb))):
+        return None
+    return (D, N, H, batch), (1, sn, sh, sb)
 
 
 def _lse_buffer(B: int, H: int, Nq: int, device) -> torch.Tensor:
@@ -136,15 +165,16 @@ def attention_fwd_lse(q, k, v, scale: float):
 
 def launch_attention_bwd(q, k, v, o, lse, do, scale: float, dq, dk, dv):
     """Launch the backward kernels (dq, then dk / dv) on CUDA bf16 tensors:
-    q, k, v and do (B, N, H, 64) read and dq, dk, dv written through their
-    strides (views of one packed buffer are fine); lse from
-    :func:`attention_fwd_lse`.  delta = rowsum(do o) is computed here, in
-    fp32, into lse's padded layout.  Counts nothing."""
+    q, k, v and do (B, N, H, 64) read through rank-4 tensor maps of their
+    strides (:func:`tma_dims`; views of one packed buffer are fine) and dq,
+    dk, dv written through theirs; lse from :func:`attention_fwd_lse`.
+    delta = rowsum(do o) is computed here, in fp32, into lse's padded
+    layout.  A do that TMA cannot read is copied first; anything else
+    that :func:`_check` refuses raises.  Counts nothing."""
     if q.dtype != torch.bfloat16:
         raise ValueError(f"attention backward: the kernel takes bfloat16, "
                          f"got {q.dtype}")
-    if do.stride(3) != 1 or any(s % 8 for s in do.stride()[:3]) \
-            or do.data_ptr() % 16:
+    if do.dim() == 4 and tma_dims(do) is None:
         do = do.contiguous()
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do), ("dq", dq),
                     ("dk", dk), ("dv", dv)):

@@ -35,6 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from fast3r_torch.kernels import build
+from fast3r_torch.ops.flash_attention import tma_dims
 
 HEAD_DIM = 64
 NSLOTS = 2
@@ -170,23 +171,31 @@ ring_flash_attention_rdma.launches = 0
 # the backward: the dq ring and the dk/dv ring (csrc/ring_attention_bwd.cu)
 # ---------------------------------------------------------------------------
 
-def _plan_bwd(which: int, dtype: torch.dtype, n: int) -> Tuple[int, int]:
-    """:func:`_plan` of the dq ring (``which`` 0) or the dk/dv ring (1)."""
-    ctas, words = ctypes.c_int(0), ctypes.c_int(0)
+def _plan_bwd(which: int, dtype: torch.dtype, n: int) -> Tuple[int, int, int]:
+    """:func:`_plan` of the dq ring (``which`` 0) or the dk/dv ring (1),
+    and the rows of one of its items (128 in bf16, 64 in fp32)."""
+    ctas, words, rows = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     build.check(build.library().fast3r_ring_attention_bwd_plan(
         which, _DTYPES[dtype], n, ctypes.addressof(ctas),
-        ctypes.addressof(words)), "fast3r_ring_attention_bwd_plan")
-    return ctas.value, words.value
+        ctypes.addressof(words), ctypes.addressof(rows)),
+        "fast3r_ring_attention_bwd_plan")
+    return ctas.value, words.value, rows.value
 
 
 def _strides(*ts: torch.Tensor):
     return [s for t in ts for s in t.stride()[:4]]
 
 
-def _check_bwd_inputs(q, k, v, do, n: int) -> None:
+def _check_bwd_inputs(q, k, v, do, n: int):
+    """q, k, v, do checked; in bf16, each one whose rank and batch strides
+    do not merge into one tensor-map dimension (:func:`tma_dims`) copied."""
     _check_kernel_input(q, n)
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
         _check_input(name, t, q)
+    if q.dtype == torch.bfloat16:
+        return [t if tma_dims(t) is not None else t.contiguous()
+                for t in (q, k, v, do)]
+    return q, k, v, do
 
 
 def _check_rows(name: str, t: torch.Tensor, shape, q: torch.Tensor) -> None:
@@ -203,12 +212,12 @@ def ring_attention_bwd_dq(q, k, v, do, lse, delta, scale: float, n: int,
     """Launch the dq ring: K/V rotate, q, do, lse and delta (n, B * H,
     S_loc) fp32 stay local.  Returns dq (n, B, S_loc, H, 64) in q's dtype.
     Anything the kernel cannot take raises.  Counts one launch."""
-    _check_bwd_inputs(q, k, v, do, n)
+    q, k, v, do = _check_bwd_inputs(q, k, v, do, n)
     _, B, S, H, _ = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
         _check_rows(name, t, (n, B * H, S), q)
-    items = B * H * -(-S // 64)
-    resident, words = _plan_bwd(0, q.dtype, n)
+    resident, words, rows = _plan_bwd(0, q.dtype, n)
+    items = B * H * -(-S // rows)
     G = _ctas(resident, items, ctas_per_rank, n)
     dev = q.device
     dq = torch.empty((n, B, S, H, HEAD_DIM), device=dev, dtype=q.dtype)
@@ -237,15 +246,16 @@ ring_attention_bwd_dq.launches = 0
 def ring_attention_bwd_dkv(q, k, v, do, meta, scale: float, n: int,
                            ctas_per_rank: Optional[int] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dk/dv ring: q, do and ``meta`` (n, M) fp32, the rows'
-    (lse, delta) pairs first and M a multiple of 4, rotate; K/V stay at
-    their owner.  Returns dk, dv (n, B, S_loc, H, 64) in q's dtype.
-    Anything the kernel cannot take raises.  Counts one launch."""
-    _check_bwd_inputs(q, k, v, do, n)
+    """Launch the dk/dv ring: q, do and ``meta`` (n, M) fp32, the rows' lse
+    then their delta, each (B * H, S_pad) with S_pad = S_loc rounded up to a
+    multiple of 64 (:func:`_bwd_rows`), rotate; K/V stay at their owner.
+    Returns dk, dv (n, B, S_loc, H, 64) in q's dtype.  Anything the kernel
+    cannot take raises.  Counts one launch."""
+    q, k, v, do = _check_bwd_inputs(q, k, v, do, n)
     _, B, S, H, _ = q.shape
-    _check_rows("meta", meta, (n, -(-2 * B * H * S // 4) * 4), q)
-    items = B * H * -(-S // 64)
-    resident, words = _plan_bwd(1, q.dtype, n)
+    _check_rows("meta", meta, (n, 2 * B * H * -(-S // 64) * 64), q)
+    resident, words, rows = _plan_bwd(1, q.dtype, n)
+    items = B * H * -(-S // rows)
     G = _ctas(resident, items, ctas_per_rank, n)
     dev = q.device
     dk = torch.empty((n, B, S, H, HEAD_DIM), device=dev, dtype=q.dtype)
@@ -281,17 +291,18 @@ def _bwd_rows(o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor
     """The rows' inputs of the backward rings: delta = rowsum(do o) (n,
     B * H, S_loc) in fp32 from the rounded o (a plain torch op: XLA's place
     in the JAX package), for the dq ring; and the dk/dv ring's payload
-    (n, M) fp32, the rows' (lse, delta) pairs first, M rounded up to a
-    multiple of 4 (whole 16-byte chunks)."""
+    (n, 2 * B * H * S_pad) fp32: the rows' lse (B * H, S_pad), then their
+    delta, each row zero-padded to S_pad = S_loc rounded up to a multiple
+    of 64, so every 64-query tile's words are one aligned bulk copy."""
     n, B, S, H, _ = o.shape
     delta = (do.float() * o.float()).sum(-1)  # (n, B, S, H)
     delta = delta.permute(0, 1, 3, 2).reshape(n, B * H, S).contiguous()
-    rows = B * H * S
-    meta = torch.zeros((n, -(-2 * rows // 4) * 4), device=o.device,
+    s_pad = -(-S // 64) * 64
+    meta = torch.zeros((n, 2, B * H, s_pad), device=o.device,
                        dtype=torch.float32)
-    meta[:, :2 * rows].view(n, rows, 2).copy_(
-        torch.stack((lse.reshape(n, rows), delta.reshape(n, rows)), -1))
-    return delta, meta
+    meta[:, 0, :, :S] = lse.reshape(n, B * H, S)
+    meta[:, 1, :, :S] = delta
+    return delta, meta.view(n, 2 * B * H * s_pad)
 
 
 def _ring_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -300,7 +311,7 @@ def _ring_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of the ring over rank-stacked CUDA (n, B, S_loc, H, 64)
     q, k, v from the forward's o and lse (n, B * H, S_loc) and the output
-    gradient do: the rows' delta and (lse, delta) pairs (:func:`_bwd_rows`),
+    gradient do: the rows' delta and (lse, delta) rows (:func:`_bwd_rows`),
     then the dq ring and the dk/dv ring, each launch with its own zeroed
     counters and slots.  ``ctas_per_rank`` overrides the resident count of
     both."""

@@ -424,10 +424,14 @@ def _rel_max(out, ref):
 
 
 @pytest.mark.parametrize("B,N,H", [(2, 768, 4), (1, 196, 2), (1, 392, 2),
-                                   (3, 64, 1), (1, 1000, 2)])
+                                   (3, 64, 1), (1, 1000, 2),
+                                   # the 128-row CTAs' and 64-row tiles' edges
+                                   (1, 127, 2), (1, 129, 2), (1, 200, 2),
+                                   (2, 50, 2), (3, 129, 2), (1, 3000, 16)])
 def test_attention_bwd_kernel_matches_plain(dev, B, N, H):
-    """Strided q/k/v views of (B, N, 3, H, 64), ragged N included: the
-    forward's lse against the plain logsumexp (fp32, 1e-3 absolute on
+    """Strided q/k/v views of (B, N, 3, H, 64), ragged N included (one and
+    two tiles past a 128-row CTA, N < 64, B = 3 through the rank-4 maps):
+    the forward's lse against the plain logsumexp (fp32, 1e-3 absolute on
     values ~5), and dq, dk, dv against the plain backward on the same o and
     lse within 2e-2 of max |plain|."""
     g = _gen(8)
@@ -951,11 +955,17 @@ RING_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,B,S_loc,H", [(1, 1, 128, 2), (2, 2, 100, 2),
-                                         (3, 1, 64, 3), (8, 1, 72, 2)])
+                                         (3, 1, 64, 3), (8, 1, 72, 2),
+                                         # the 128-row items' and 64-row
+                                         # tiles' edges
+                                         (2, 1, 127, 2), (2, 1, 129, 2),
+                                         (3, 1, 200, 2), (4, 1, 50, 2),
+                                         (2, 3, 129, 2), (4, 1, 750, 16)])
 def test_ring_bwd_kernels_match_plain(dev, dtype, n, B, S_loc, H):
     """The dq ring and the dk/dv ring over n ranks on one card (ragged
-    S_loc, B = 2, strided q/k/v) from the forward kernel's o and lse,
-    against the plain version of both rings; one launch each."""
+    S_loc and S_loc < 64, B = 2 and 3, strided q/k/v, 16 heads over 3000
+    tokens) from the forward kernel's o and lse, against the plain version
+    of both rings; one launch each."""
     from fast3r_torch.parallel import ring_rdma as t_ring
     from fast3r_torch.parallel.sequence import ring_attention_bwd_ref
 
@@ -974,6 +984,40 @@ def test_ring_bwd_kernels_match_plain(dev, dtype, n, B, S_loc, H):
     for name, a, b in zip("qkv", got, ref):
         assert a.shape == (n, B, S_loc, H, 64) and a.dtype == dtype
         assert _rel_max(a, b) < RING_BWD_TOL[dtype], name
+
+
+def test_backward_kernels_are_deterministic(dev):
+    """Two passes, no float atomics: K9 (decoder views and the packed
+    buffer's) and the ring pair give bitwise-equal gradients on two runs of
+    the same inputs."""
+    from fast3r_torch.ops import batched_attention as t_ba
+    from fast3r_torch.parallel import ring_rdma as t_ring
+
+    g = _gen(11)
+    qkv = torch.randn((2, 700, 3, 4, 64), generator=g, device=dev).to(
+        torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn((2, 700, 4, 64), generator=g, device=dev).to(
+        torch.bfloat16)
+    o, lse = t_flash.attention_fwd_lse(q, k, v, 0.125)
+    runs = [t_flash.attention_bwd(q, k, v, o, lse, do, 0.125)
+            for _ in range(2)]
+    qkv3 = _bf((3, 2, 300, 256), g)
+    qp, kp, vp = (qkv3[i].view(2, 300, 4, 64) for i in range(3))
+    dop = _bf((2, 300, 256), g)
+    op, lsep = t_flash.attention_fwd_lse(qp, kp, vp, 0.125)
+    packed = [t_ba.packed_qkv_attention_bwd(qkv3, op, lsep, dop, 4, 0.125)
+              for _ in range(2)]
+    qr, kr, vr = _ring_inputs(4, 1, 300, 2, torch.bfloat16, 45)
+    dor = torch.randn(qr.shape, generator=_gen(46), device=dev).to(
+        torch.bfloat16)
+    orr, lser = t_ring._rdma_forward(qr, kr, vr, 0.125, 4)
+    rings = [t_ring._ring_backward(qr, kr, vr, orr, lser, dor, 0.125, 4)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    for first, second in (runs, packed, rings):
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
 
 
 def test_ring_bwd_kernels_reject_too_many_ctas(dev):
