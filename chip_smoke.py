@@ -9,13 +9,14 @@ printing each one's seconds:
   1. device: the card's name and power limit, torch / CUDA versions, the
      kernel build time and what ptxas reports for every kernel; for the
      Hopper kernels (``fused_gemm_kernel<PRO, EPI>``, ``ln_mlp_kernel``,
-     the attention backward's ``attention_bwd_dq_kernel`` and
-     ``attention_bwd_dkv_kernel`` and the bf16 backward rings
-     ``ring_bwd_dq_kernel<bf16>`` and ``ring_bwd_dkv_kernel<bf16>``) their
-     registers, spills and dynamic shared memory, and the counts of HGMMA
-     (wgmma) and UTMALDG (TMA load) instructions in their SASS
-     (``cuobjdump -sass`` on the built library), each of which must be
-     above 0;
+     the attention forward's ``attention_fwd_kernel`` and the bf16 ring
+     ``ring_attention_fwd_kernel``, the attention backward's
+     ``attention_bwd_dq_kernel`` and ``attention_bwd_dkv_kernel`` and the
+     bf16 backward rings ``ring_bwd_dq_kernel<bf16>`` and
+     ``ring_bwd_dkv_kernel<bf16>``) their registers, spills and dynamic
+     shared memory, and the counts of HGMMA (wgmma) and UTMALDG (TMA load)
+     instructions in their SASS (``cuobjdump -sass`` on the built library),
+     each of which must be above 0;
   2. kernels: each kernel against its plain PyTorch version on the card at
      the flagship forward's and training step's shapes, in float32 (tight
      tolerance, where the kernel has an fp32 variant) and bfloat16 (the
@@ -26,7 +27,13 @@ printing each one's seconds:
      its FLOPs over the card's 989 TFLOP/s bf16 peak and its bytes (inputs
      read once, outputs written once) over 3.35 TB/s.  The attention
      forward's encoder line (20 views x 768 tokens) is also the plain
-     road's batched attention.  The training kernels: the LayerNorm
+     road's batched attention.  Each bf16 attention-forward line (K1 on
+     the decoder and encoder shapes, K2 from the packed buffer) also
+     carries the kernel's device time (profiler) and TFLOP/s over its two
+     products, SDPA's device time, the exp floor (one exponential a
+     (query, key) pair over 132 SMs x 16 a clock at the card's maximum SM
+     clock) and its time with one CTA per 128-query item in place of the
+     persistent walk.  The training kernels: the LayerNorm
      backward, the attention backward on the decoder shape (held against
      the plain version one head at a time: its score matrices would not
      fit at once) and from the encoder's packed buffer, each line with its
@@ -49,7 +56,9 @@ printing each one's seconds:
        * plain (the plain block road, fused_blocks=False): 20 views, twice;
        * two-kernel MLP (fused blocks with PREFER_FUSED_MLP = False): 8
          views, once;
-     outputs must be finite, of the right shapes, with conf >= 1;
+     outputs must be finite, of the right shapes, with conf >= 1, and no
+     kernel input copied for want of a layout its tensor map reads
+     (``tma_view.copies`` 0 on every path);
   4. end to end: the same weights in float32 on the CPU (the plain
      versions) and in bfloat16 on the card, on the fused and on the plain
      road, answer one 2-view 224x224 request; every output must agree
@@ -97,8 +106,9 @@ printing each one's seconds:
      epochs), each against the plain ring (held one head at a time): o
      within the attention tolerance, the natural-log lse within 1e-3 (the
      self-ring's shifted by ln 4); the fp32 variant at n = 4 within 2e-5;
-     its time at every n, and at n = 4 the plain ring's, the attention
-     kernel's (K1) and SDPA's over the whole gathered sequence, and the
+     its time, device time, TFLOP/s and exp floor at every n beside K1's
+     device time on the gathered sequence, and at n = 4 the plain ring's,
+     K1's and SDPA's times over the whole gathered sequence, and the
      bound;
   16. the sequence-sharded request: ``make_seq_sharded_forward`` over 4
      ranks with the ring kernel serves the flagship (random weights, seed
@@ -125,7 +135,8 @@ printing each one's seconds:
   19. launch counts: every kernel of a path must have launched on it, the
      RMS kernels on no path but the llama fused road's, K12 on no path of
      384x512 views, the trunk kernel on no path of 512x512 or 448x512
-     views, the ring kernels on no path but the sequence-sharded ones.
+     views, the ring kernels on no path but the sequence-sharded ones; no
+     layout copy on a serving path.
 
 Any failure raises (exit code 1).  Without a CUDA device the script exits
 with code 2 before printing any result.  The last line of standard output
@@ -172,6 +183,8 @@ from fast3r_torch.ops.flash_attention import (
     attention_fwd_lse,
     attention_ref,
     flash_attention,
+    launch_attention,
+    tma_view,
 )
 from fast3r_torch.ops.fused_layernorm import (
     fused_layernorm,
@@ -354,33 +367,38 @@ def _sass_tool() -> str:
 
 
 def _kernel_label(mangled: str):
-    """fused_gemm_kernel<1, 3>, ln_mlp_kernel, attention_bwd_dq_kernel,
-    ring_bwd_dkv_kernel<bf16>, ... from a mangled name; None for a kernel
-    that is not on wgmma and TMA (the fp32 rings, the others)."""
+    """fused_gemm_kernel<1, 3>, ln_mlp_kernel, attention_fwd_kernel,
+    ring_bwd_dkv_kernel<bf16>, ... from a mangled name (matched with its
+    length prefix, so attention_fwd_kernel is not ring_attention_fwd_kernel);
+    None for a kernel that is not on wgmma and TMA (the fp32 variants, the
+    others)."""
     if "fused_gemm_kernel" in mangled:
         tail = mangled.split("fused_gemm_kernel", 1)[1]
         modes = tail.split("EE", 1)[0].replace("ILi", "").split("ELi")
         return f"fused_gemm_kernel<{', '.join(modes)}>"
-    for name in BWD_KERNELS:
-        if name in mangled:
-            if name.startswith("ring_"):
-                return f"{name}<bf16>" if "bfloat16" in mangled else None
-            return name
+    for label in ATTN_KERNELS:
+        name = label.split("<")[0]
+        if f"{len(name)}{name}" in mangled and (
+                "<" not in label or "bfloat16" in mangled):
+            return label
     return "ln_mlp_kernel" if "ln_mlp_kernel" in mangled else None
 
 
-# the attention backward's kernels on attention_bwd_tile.cuh (K9; K14's
-# backward in bf16)
-BWD_KERNELS = ("attention_bwd_dq_kernel", "attention_bwd_dkv_kernel",
-               "ring_bwd_dq_kernel", "ring_bwd_dkv_kernel")
+# the attention kernels on the wgmma tiles: the forward's
+# (attention_fwd_tile.cuh: K1, and K14's forward in bf16) and the
+# backward's (attention_bwd_tile.cuh: K9, and K14's backward in bf16)
+ATTN_KERNELS = {"attention_fwd_kernel": "fwd", "ring_attention_fwd_kernel": "ring_fwd",
+                "attention_bwd_dq_kernel": "bwd", "attention_bwd_dkv_kernel": "bwd",
+                "ring_bwd_dq_kernel<bf16>": "bwd", "ring_bwd_dkv_kernel<bf16>": "bwd"}
 
 
 def hopper_kernel_report(blog: str) -> dict:
     """ptxas's registers and spills of every fused_gemm_kernel and
-    ln_mlp_kernel instantiation, K9's two kernels and the bf16 backward
-    rings, their dynamic shared memory, and the counts of HGMMA (wgmma) and
-    UTMALDG (TMA load) instructions in their SASS; raises if any of them
-    has none of either, or if one of the backward kernels is missing."""
+    ln_mlp_kernel instantiation and of the attention kernels on the wgmma
+    tiles (forward: K1, the bf16 ring; backward: K9's two, the bf16 rings),
+    their dynamic shared memory, and the counts of HGMMA (wgmma) and UTMALDG
+    (TMA load) instructions in their SASS; raises if any of them has none of
+    either, or if one of the attention kernels is missing."""
     report, name = {}, None
     for line in blog.splitlines():
         if "Function properties for" in line:
@@ -403,17 +421,17 @@ def hopper_kernel_report(blog: str) -> dict:
             for op in ("HGMMA", "UTMALDG"):
                 if op in line:
                     report[name][op] += 1
-    bwd = [n if n.startswith("attention") else f"{n}<bf16>"
-           for n in BWD_KERNELS]
-    missing = [n for n in bwd if n not in report]
+    missing = [n for n in ATTN_KERNELS if n not in report]
     if not report or missing:
         raise AssertionError(f"Hopper kernels missing from the library: "
                              f"{missing or 'all'}")
     lib = build.library()
-    gemm_smem, bwd_smem = (lib.fast3r_gemm_smem_bytes(),
-                           lib.fast3r_attention_bwd_smem_bytes())
+    smem = {"fwd": lib.fast3r_attention_fwd_smem_bytes(),
+            "ring_fwd": lib.fast3r_ring_attention_fwd_smem_bytes(),
+            "bwd": lib.fast3r_attention_bwd_smem_bytes(),
+            "gemm": lib.fast3r_gemm_smem_bytes()}
     for name, r in sorted(report.items()):
-        r["smem"] = bwd_smem if name in bwd else gemm_smem
+        r["smem"] = smem[ATTN_KERNELS.get(name, "gemm")]
         log(f"hopper kernel {name}: {'; '.join(r['ptxas'])}; dynamic shared "
             f"memory {r['smem']} bytes; SASS HGMMA {r.get('HGMMA', 0)}, "
             f"UTMALDG {r.get('UTMALDG', 0)}")
@@ -450,6 +468,68 @@ def _gen(seed: int) -> torch.Generator:
     return torch.Generator(device="cuda").manual_seed(seed)
 
 
+EXP_PER_CLOCK = 16  # MUFU ex2 results a clock per SM (CUDA C++ guide, cc 9.0)
+
+
+def _max_sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def _all_kernels_ms(fn, reps: int = 5) -> float:
+    """Mean device time of one fn() call: every CUDA kernel it runs, summed,
+    over reps calls under the profiler (a library call's own kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum((getattr(e, "self_device_time_total", 0)
+                or getattr(e, "self_cuda_time_total", 0))
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / reps / 1e3
+
+
+def _batched_ms(fn, calls: int = 10) -> float:
+    """CUDA-event time of ``calls`` back-to-back fn() calls over their
+    count: the device time, with the wrappers' host time hidden behind the
+    earlier launches."""
+    return median_ms(lambda: [fn() for _ in range(calls)], 3) / calls
+
+
+def fwd_rates(pairs: float, D: int, fn, kernel: str, library=None) -> dict:
+    """An attention forward's device time, its TFLOP/s over its two products
+    (4 D FLOPs a (query, key) pair) and its exp floor: one exponential a
+    pair over the SMs' MUFU rate (EXP_PER_CLOCK a clock per SM) at the
+    card's maximum SM clock; with ``library``, that call's device time too.
+    The device time is the profiler's (the kernel named ``kernel``; the
+    library call's kernels, all of them) unless it is below nine tenths of
+    the time of back-to-back calls (``batched_ms``), which a profile that
+    lost kernel records gives; then it is that time (``device_ms_from``)."""
+    batched = _batched_ms(fn)
+    dev, source = _device_ms(fn, {"k": kernel})["k"], "profiler"
+    if dev < 0.9 * batched:
+        dev, source = batched, "events"
+    props = torch.cuda.get_device_properties(0)
+    r = {"device_ms": dev, "device_ms_from": source, "batched_ms": batched,
+         "tflops": 4.0 * D * pairs / (dev * 1e-3) / 1e12,
+         "exp_floor_ms": pairs / (props.multi_processor_count * EXP_PER_CLOCK
+                                  * _max_sm_clock_hz()) * 1e3}
+    if library is not None:
+        lib_batched = _batched_ms(library)
+        lib = _all_kernels_ms(library)
+        r["library_device_ms"] = lib if lib >= 0.9 * lib_batched else lib_batched
+        r["library_batched_ms"] = lib_batched
+    return r
+
+
 def check_attention(results: list) -> None:
     shapes = [("encoder", (20, 768, 16, 64), 0.125),
               ("decoder", (1, 15360, 16, 64), DEC_SCALE)]
@@ -478,6 +558,14 @@ def check_attention(results: list) -> None:
                          qt, kt, vt, scale=scale), 10),
                      **bound(4.0 * B * H * N * N * D,
                              4 * B * N * H * D * qkv.element_size(), dtype))
+            if dtype == torch.bfloat16:  # the kernel on attention_fwd_tile.cuh
+                r.update(fwd_rates(
+                    float(B * H) * N * N, D,
+                    lambda: flash_attention(q, k, v, scale), "attention_fwd_kernel",
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale)))
+                # the persistent walk against one CTA per 128-query item
+                r["ms_one_cta_per_item"] = median_ms(lambda: launch_attention(
+                    q, k, v, scale, ctas=B * H * -(-N // 128)), 10)
             results.append(r)
             log(json.dumps(r))
             del qkv, q, k, v, out, qt, kt, vt
@@ -712,15 +800,20 @@ def check_fused_blocks(results: list) -> None:
     qkv3 = torch.randn((3, B, N, C), generator=g, device="cuda").to(bf)
     q, k, v = (qkv3[i].view(B, N, H, D) for i in range(3))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=0.125)  # noqa: E731
     _record(results, "packed_qkv_attention", "attention",
             f"(3, {B}, {N}, {C}), {H} heads",
             packed_qkv_attention(qkv3, H, 0.125),
             attention_ref(q, k, v, 0.125).reshape(B, N, C),
             lambda: packed_qkv_attention(qkv3, H, 0.125),
-            lambda: attention_ref(q, k, v, 0.125),
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=0.125),
+            lambda: attention_ref(q, k, v, 0.125), sdpa,
             "F.scaled_dot_product_attention", 4.0 * B * H * N * N * D,
-            4 * B * N * C * it)
+            4 * B * N * C * it,
+            **fwd_rates(float(B * H) * N * N, D,
+                        lambda: packed_qkv_attention(qkv3, H, 0.125),
+                        "attention_fwd_kernel", sdpa),
+            ms_one_cta_per_item=median_ms(lambda: launch_attention(
+                q, k, v, 0.125, ctas=B * H * -(-N // 128)), 10))
 
 
 TRAIN_SCALE = 0.125  # head_dim ** -0.5: training has no entropy bias
@@ -1172,6 +1265,10 @@ NO_LAUNCH = {
               else ("ring_attention",))
            + (("attention_bwd",) if path == "seq_train" else RING_BWD))
     for path in PATHS}
+# the serving paths, on which every kernel input maps in place (no layout
+# copy); the training paths' counts are reported
+SERVE_PATHS = ("fused", "plain", "two_kernel_mlp", "llama", "llama_plain",
+               "square", "mixed", "images_to_poses", "seq_sharded")
 OUT_KEYS = ("pts3d_in_other_view", "conf", "pts3d_local", "conf_local")
 # phase 4: |gpu bf16 - cpu fp32| / |cpu fp32| in the L2 norm, per output.
 # bf16 keeps 8 bits of mantissa; through 48 blocks and two heads the
@@ -1241,6 +1338,11 @@ def phase_requests(gpu: str):
                                               ((8, 1),), gpu)
     finally:
         fb.PREFER_FUSED_MLP = True
+    copies = {path: c["layout_copies"] for path, c in counts.items()}
+    log(json.dumps({"layout_copies": copies}))
+    if any(copies.values()):
+        raise AssertionError(f"inputs copied for the kernels' tensor maps on "
+                             f"the serving paths: {copies}")
     return cpu_model, model, plain, counts
 
 
@@ -1280,11 +1382,15 @@ def _reset_counts() -> None:
     torch.cuda.synchronize()
     for fn, *_ in KERNELS.values():
         fn.launches = 0
+    tma_view.copies = 0
 
 
 def _read_counts() -> dict:
+    """Each kernel's launches, and the copies made of inputs that the
+    kernels' tensor maps could not read in place (``layout_copies``)."""
     torch.cuda.synchronize()
-    return {name: fn.launches for name, (fn, *_) in KERNELS.items()}
+    return {**{name: fn.launches for name, (fn, *_) in KERNELS.items()},
+            "layout_copies": tma_view.copies}
 
 
 def train_road(road: str, net, cfg, batch, steps: int, gpu: str,
@@ -1768,19 +1874,35 @@ def phase_ring(results: list) -> None:
                  ms=median_ms(lambda: ring_flash_attention_rdma(*args),
                               10 if n == SEQ_RANKS else 5),
                  plain_ms=None, library=None, library_ms=None,
-                 **_ring_bound(n, epochs, s_loc, bf))
+                 **_ring_bound(n, epochs, s_loc, bf),
+                 **fwd_rates(float(n * epochs) * s_loc * s_loc * 16, 64,
+                             lambda: ring_flash_attention_rdma(*args),
+                             "ring_attention_fwd_kernel"))
+        # the same function on the gathered sequence: K1 (and, at n = 4,
+        # SDPA), the ring's time over K1's
+        qf, kf, vf = (t.reshape(1, M_TOK, 16, 64) for t in (q, k, v))
+        k1 = fwd_rates(float(M_TOK) * M_TOK * 16, 64,
+                       lambda: flash_attention(qf, kf, vf, DEC_SCALE),
+                       "attention_fwd_kernel")
+        r["k1_device_ms"] = k1["device_ms"] * (epochs if self_ring else 1)
+        r["device_over_k1"] = r["device_ms"] / r["k1_device_ms"]
         if n == SEQ_RANKS and not self_ring:
             r["plain_ms"] = median_ms(
                 lambda: ring_flash_attention(q, k, v, DEC_SCALE), 3)
-            # the same function on the gathered sequence: K1 and SDPA
-            qf, kf, vf = (t.reshape(1, M_TOK, 16, 64) for t in (q, k, v))
             r["k1_ms"] = median_ms(
                 lambda: flash_attention(qf, kf, vf, DEC_SCALE), 10)
+            r["ms_over_k1"] = r["ms"] / r["k1_ms"]
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (qf, kf, vf))
             r["library"] = "F.scaled_dot_product_attention (gathered)"
             r["library_ms"] = median_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, scale=DEC_SCALE), 10)
-            del qf, kf, vf, qt, kt, vt
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, scale=DEC_SCALE)
+            lib_batched = _batched_ms(sdpa)
+            lib = _all_kernels_ms(sdpa)
+            r["library_device_ms"] = lib if lib >= 0.9 * lib_batched else lib_batched
+            del qt, kt, vt
+        del qf, kf, vf
         results.append(r)
         log(json.dumps(r))
         del q, k, v, o, lse
@@ -2075,6 +2197,9 @@ def phase_counts(counts: dict) -> None:
              for k in names if counts[path][k] != 0]
     if stray:
         raise AssertionError(f"kernels launched off their path: {stray}")
+    copied = [path for path in SERVE_PATHS if counts[path]["layout_copies"]]
+    if copied:
+        raise AssertionError(f"layout copies on the serving paths: {copied}")
 
 
 # the heaviest main-path shape of each kernel, for the summary line
@@ -2109,7 +2234,9 @@ def kernel_summary(results: list, counts: dict) -> dict:
             "library_ms": main["library_ms"], "library": main["library"],
             "case": main["case"] + " bfloat16"}
         for key in ("two_kernel_ms", "k1_ms", "k9_ms", "pair_ms",
-                    "pair_bound_ms"):
+                    "pair_bound_ms", "device_ms", "tflops", "exp_floor_ms",
+                    "library_device_ms", "ms_one_cta_per_item",
+                    "k1_device_ms", "device_over_k1", "ms_over_k1"):
             if key in main:
                 entry[key] = main[key]
         kernels.append(entry)

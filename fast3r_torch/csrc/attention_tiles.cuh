@@ -1,7 +1,7 @@
-// The fp32 ring kernels' 64-row tile loader (csrc/ring_attention.cu and the
-// fp32 variants of csrc/ring_attention_bwd.cu): rows of a strided source
-// into shared memory of row stride kTileLdF.  The bf16 backward tiles are
-// attention_bwd_tile.cuh's.
+// The fp32 ring kernels' 64-row tile loader (the fp32 variants of
+// csrc/ring_attention.cu and csrc/ring_attention_bwd.cu): rows of a strided
+// source into shared memory of row stride kTileLdF.  The bf16 tiles are
+// attention_fwd_tile.cuh's and attention_bwd_tile.cuh's.
 #pragma once
 
 #include <stdint.h>

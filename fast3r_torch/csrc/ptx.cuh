@@ -1,7 +1,6 @@
-// Device helpers shared by the port's kernels: cp.async copies (and the
-// attention kernels' 64-row tile loader), ldmatrix loads and the m16n8k16
-// bf16 tensor-core product (mma.sync), bf16 packing, a warp sum, the
-// exact-erf GELU and SiLU.
+// Device helpers shared by the port's kernels: ldmatrix loads and the
+// m16n8k16 bf16 tensor-core product (mma.sync, the trunk kernel's), bf16
+// packing, a warp sum, the exact-erf GELU and SiLU.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -13,50 +12,9 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte async copy global -> shared; valid == false zero-fills the
-// destination (src must still be a valid address)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid = true) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// rows [row0, row0 + 64) x 64 bf16 of a strided (row stride s_row) source
-// -> a padded shared tile of row stride kLdT, by 128 threads, async; rows
-// at or past n_valid are zero-filled
-template <int kLdT>
-__device__ __forceinline__ void cp_async_rows64(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                long long s_row, int row0,
-                                                int n_valid) {
-  for (int c = threadIdx.x; c < 64 * 8; c += 128) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    const int n = row0 + r;
-    const bool ok = n < n_valid;
-    cp_async16(dst + r * kLdT + col, ok ? src + (long long)n * s_row + col : src,
-               ok);
-  }
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
 }

@@ -9,240 +9,213 @@
 // is the TPU kernel's and is what carries over to NVLink.  It lives in
 // ring_protocol.cuh, shared with the backward rings (ring_attention_bwd.cu):
 // each rank owns two K and two V slots (2, B*H, S_loc, 64), so the comm
-// memory is O(S_loc) whatever R is; a bootstrap copy into slot 0; hop j
-// from my slot (j-1)%2 into the right neighbour's slot j%2 while epoch j-1
-// computes; capacity tokens before a slot is reused; per-slot fill
-// counters published with release adds; R x G persistent CTAs launched
-// cooperatively; a wait that outlasts timeout_ns traps instead of hanging.
+// memory is O(S_loc) whatever R is; a bootstrap copy into slot 0 (fp32;
+// bf16 reads epoch 0 in place); hop j from my slot (j-1)%2 into the right
+// neighbour's slot j%2 while epoch j-1 computes; capacity tokens before a
+// slot is reused; per-slot fill counters published with release adds; R x
+// G persistent CTAs launched cooperatively; a wait that outlasts
+// timeout_ns traps instead of hanging.
 //
 // What bounds it on an H100: the attention itself, 4 * S^2 * H * 64 FLOPs
-// over the whole sequence, as in attention_fwd.cu (this kernel reuses its
-// tiles: 64 queries of one (batch, head) per item, 4 warps, K/V in 64-key
-// tiles double-buffered with cp.async, mma.sync m16n8k16 bf16 products,
-// exp2 online softmax in registers, the row sum over the unrounded fp32 p).
-// The protocol adds R * 2 * B*H*S_loc*64 elements copied per hop, and the
-// online-softmax state (acc, m, l in fp32) of every (head, q-block) item
-// goes through fp32 scratch between epochs, as the TPU kernel's HBM state
-// does: a CTA walks many items per epoch, since with two slots the epoch
-// order is outermost.  o is normalised and the natural-log lse written in
-// the last epoch.  The fp32 variant is a scalar version of the same tiling,
-// for tight checks.
-// Not yet: wgmma, TMA, keeping the state in shared memory, one rank per card.
+// and S^2 * H exponentials over the whole sequence, as in attention_fwd.cu.
+// The protocol adds R * 2 * B*H*S_loc*64 elements copied per hop (R - 1
+// hops, and in fp32 the bootstrap), and the
+// online-softmax state (O, m, l in fp32, 36 KB an item) of every (head,
+// q-block) item goes through fp32 scratch between epochs, as the TPU
+// kernel's HBM state does: a CTA walks many items per epoch, since with two
+// slots the epoch order is outermost.  o is normalised and the natural-log
+// lse written in the last epoch.
+//
+// bf16 (the served and trained type): K1's tiles, attention_fwd_tile.cuh
+// (items of 128 queries, wgmma m64n128 scores and RS P V, two consumer
+// warpgroups taking turns), in a 384-thread CTA whose third warpgroup runs
+// the protocol, so the consumers see a flat stream of (item, tile) and
+// never wait on a counter.  It has no bootstrap (ring_protocol.cuh, the
+// forward's schedule): epoch 0 reads the rank's own K and V where they lie
+// and hop 1 sends them from there, so the first tiles load at once.
+//   * warp 8, lane 0: loads each item's 128 queries and its K/V tiles
+//     through rank-4 maps of q, k and v's own strides (rank and batch
+//     merged) in epoch 0, and from slot s % 2 (one map over every rank's
+//     slots) in epoch s >= 1, after waiting for the slot's fill (acquire)
+//     and issuing fence.proxy.async;
+//   * warps 9-11: every hop of the CTA's share (run_hops) and the capacity
+//     tokens, sent once the consumers have waited for every tile of the
+//     slot (an mbarrier per slot);
+//   * the consumers: K1's item loop from a fresh state each epoch; the
+//     earlier epochs' state (O, m, l) comes into shared memory by cp.async
+//     while the item's tiles run and is merged at the item's end, then
+//     saved, or, in the last epoch, o goes through K1's staging box and TMA
+//     stores with the lse rows.
+// The third warpgroup costs no registers: a CTA of 288 threads already gets
+// the registers of 384 (168 a thread).  One CTA fits an SM (218 KB of
+// shared memory: the tile's 181 and the state copy's 36); the occupancy
+// API sizes G.
+// The fp32 variant (for tight checks) is a scalar version of a 64-query
+// tiling run by every thread through run_ring.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "attention_fwd_tile.cuh"
 #include "attention_tiles.cuh"
-#include "ptx.cuh"
 #include "ring_protocol.cuh"
 
 namespace {
 
-using namespace fast3r_ptx;
+namespace af = fast3r_attn_fwd;
+namespace ab = fast3r_attn_bwd;
 using namespace fast3r_ring;
 using fast3r_tiles::load_rows_f32;
+using bf16 = __nv_bfloat16;
 
 constexpr int kD = 64;        // head dim
-constexpr int kBQ = 64;       // query rows per item, 16 per warp
-constexpr int kBK = 64;       // keys per tile
-constexpr int kThreads = 128;
-constexpr int kLd = kD + 8;   // bf16 smem row stride (144 B, ldmatrix conflict-free)
+constexpr int kBQ = 64;       // fp32: query rows per item, 16 per warp
+constexpr int kBK = 64;       // fp32: keys per tile
+constexpr int kThreads = 128; // fp32
 constexpr int kLdF = kD + 4;  // fp32 smem row stride
 static_assert(kLdF == fast3r_tiles::kTileLdF, "attention_tiles.cuh's fp32 row stride");
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kStateF32 = 34;  // per-thread fp32 state words of an fp32 item: acc 32, m, l
 
-// per-thread fp32 state words of one item: acc[32] + m0, m1, l0, l1 (bf16
-// tiles, mma fragment order) or acc[32] + m, l (fp32 tiles)
-constexpr int kStateBf16 = 36;
-constexpr int kStateF32 = 34;
-
-using bf16 = __nv_bfloat16;
+// bf16: the consumers, the load warp and the three hop warps
+constexpr int kRingThreads = af::kThreads;
+constexpr int kHopBar = 12;  // named barrier of the hop warps (8-11: the tile's)
 
 struct RingParams {
-  Ring ring;                      // payloads: K and V slots (2, B * H, S, 64)
+  CUtensorMap mq, mk0, mv0;  // bf16: own q, k, v rows, (64, S, H, R * B), 128-row boxes
+  CUtensorMap mk, mv;        // bf16: every rank's K / V slots, (64, S, B * H, 2 R)
+  CUtensorMap mo;          // bf16: o as (64, S, H, R * B), 64-row boxes
+  Ring ring;               // payloads: K and V slots (2, B * H, S, 64)
   const void* q;
   const void* k;
   const void* v;
   long long qs[4], ks[4], vs[4];  // rank, batch, token, head strides (elements)
   void* o;                        // (R, B, S, H, 64) contiguous
   float* lse;                     // (R, B * H, S) fp32, natural log
-  float* state;                   // (R, items, words, 128) fp32; null when E == 1
+  float* state;                   // (R, items, words, threads) fp32; null when E == 1
   int B, H, S;                    // batch, heads, S_loc
   float scale_log2;
 };
 
 // ---------------------------------------------------------------------------
-// one item: 64 queries of (batch, head) bh of rank r against the slot's K/V
-// (kb, vb: that head's (S, 64) rows), the online-softmax state carried in st
+// bf16: attention_fwd_tile.cuh's items in a warp-specialised CTA
 // ---------------------------------------------------------------------------
 
-__device__ void ring_item(const RingParams& p, unsigned char* smem, int r, int bh,
-                          int qi, const bf16* kb, const bf16* vb, float* st,
-                          bool first, bool last) {
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + kBQ * kLd;      // two buffers
-  bf16* Vs = Ks + 2 * kBK * kLd;  // two buffers
-  const int S = p.S, b = bh / p.H, h = bh % p.H, q0 = qi * kBQ;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, c = lane & 3;  // mma fragment row / column pair
-  const bf16* qb = static_cast<const bf16*>(p.q) + r * p.qs[0] + b * p.qs[1] + h * p.qs[3];
-
-  cp_async_rows64<kLd>(Qs, qb, p.qs[2], q0, S);
-  cp_async_rows64<kLd>(Ks, kb, kD, 0, S);
-  cp_async_rows64<kLd>(Vs, vb, kD, 0, S);
-  cp_async_commit();
-
-  float acc[8][4];  // O: 16 rows x 64 d as 8 n-tiles of 8
-  float m0, m1, l0, l1;  // rows g and g + 8: running max (log2 domain), partial sum
-  if (first) {
+// shared memory past the tile's: each consumer thread's copy of the state
+// words of its item (the same layout as the scratch's)
+constexpr int kSmemBytes = af::kSmemBytes + af::kStateWords * af::kConsumers * 4;
+__device__ __forceinline__ float* state_copy(af::Smem& sm) {
+  return reinterpret_cast<float*>(reinterpret_cast<char*>(&sm) + sizeof(af::Smem));
+}
+// this thread's state words of an item, scratch -> its copy, by cp.async
+// (the thread's own earlier stores, so no other ordering is needed)
+__device__ __forceinline__ void fetch_state(float* held, const float* st) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-    m0 = m1 = -CUDART_INF_F;
-    l0 = l1 = 0.f;
-  } else {
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] = st[(n * 4 + e) * kThreads + tid];
-    m0 = st[32 * kThreads + tid];
-    m1 = st[33 * kThreads + tid];
-    l0 = st[34 * kThreads + tid];
-    l1 = st[35 * kThreads + tid];
+  for (int i = 0; i < af::kStateWords; ++i) {
+    const int w = i * af::kConsumers + threadIdx.x;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     fast3r_hopper::smem_u32(held + w)),
+                 "l"(st + w)
+                 : "memory");
   }
-
-  uint32_t qf[4][4];  // this warp's 16 query rows as A fragments, 4 k-steps
-  const int ntiles = (S + kBK - 1) / kBK;
-  for (int t = 0; t < ntiles; ++t) {
-    const int sb = t & 1;
-    if (t + 1 < ntiles) {  // prefetch the next tile into the other buffer
-      cp_async_rows64<kLd>(Ks + (sb ^ 1) * kBK * kLd, kb, kD, (t + 1) * kBK, S);
-      cp_async_rows64<kLd>(Vs + (sb ^ 1) * kBK * kLd, vb, kD, (t + 1) * kBK, S);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (t == 0) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd +
-                                kk * 16 + (lane >> 4) * 8);
-    }
-    const bf16* Kt = Ks + sb * kBK * kLd;
-    const bf16* Vt = Vs + sb * kBK * kLd;
-
-    float s[8][4];  // S = Q K^T: 16 rows x 64 keys as 8 n-tiles of 8
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 4; kk += 2) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, Kt + (j * 8 + (lane & 7)) * kLd + kk * 16 + (lane >> 3) * 8);
-        mma16816(s[j], qf[kk], kf[0], kf[1]);
-        mma16816(s[j], qf[kk + 1], kf[2], kf[3]);
-      }
-    }
-
-    const int kbase = t * kBK + 2 * c;  // ragged tail: keys past S masked
-    float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool ok = kbase + j * 8 + e < S;
-        s[j][e] = ok ? s[j][e] * p.scale_log2 : -CUDART_INF_F;
-        s[j][e + 2] = ok ? s[j][e + 2] * p.scale_log2 : -CUDART_INF_F;
-        mx0 = fmaxf(mx0, s[j][e]);
-        mx1 = fmaxf(mx1, s[j][e + 2]);
-      }
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);  // finite
-    const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-
-    uint32_t pf[4][4];  // P as A fragments of the p v product, 4 k-steps
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float p0 = exp2f(s[j][0] - mn0), p1 = exp2f(s[j][1] - mn0);
-      const float p2 = exp2f(s[j][2] - mn1), p3 = exp2f(s[j][3] - mn1);
-      rs0 += p0 + p1;
-      rs1 += p2 + p3;
-      pf[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
-      pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-    l0 = l0 * a0 + rs0;
-    l1 = l1 * a1 + rs1;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      acc[n][0] *= a0;
-      acc[n][1] *= a0;
-      acc[n][2] *= a1;
-      acc[n][3] *= a1;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int n = 0; n < 8; n += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd +
-                                  n * 8 + (lane >> 4) * 8);
-        mma16816(acc[n], pf[kk], vf[0], vf[1]);
-        mma16816(acc[n + 1], pf[kk], vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before refill
-  }
-
-  if (!last) {
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[(n * 4 + e) * kThreads + tid] = acc[n][e];
-    st[32 * kThreads + tid] = m0;
-    st[33 * kThreads + tid] = m1;
-    st[34 * kThreads + tid] = l0;
-    st[35 * kThreads + tid] = l1;
-    return;
-  }
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  if (c == 0) {
-    float* lrow = p.lse + ((long long)r * p.B * p.H + bh) * S;
-    if (r0 < S) lrow[r0] = (m0 + log2f(l0)) * kLn2;
-    if (r1 < S) lrow[r1] = (m1 + log2f(l1)) * kLn2;
-  }
-  bf16* ob = static_cast<bf16*>(p.o) + ((long long)r * p.B + b) * S * p.H * kD + h * kD;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int col = n * 8 + 2 * c;
-    if (r0 < S)
-      *reinterpret_cast<uint32_t*>(ob + (long long)r0 * p.H * kD + col) =
-          pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
-    if (r1 < S)
-      *reinterpret_cast<uint32_t*>(ob + (long long)r1 * p.H * kD + col) =
-          pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
-  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// fp32: scalar FMAs, two lanes per query row (attention_fwd.cu's fp32 tiling)
-__device__ void ring_item(const RingParams& p, unsigned char* smem, int r, int bh,
+// grid: R x G CTAs, rank r = blockIdx.x % R, its c-th CTA c = blockIdx.x / R;
+// CTA c owns items c, c + G, ... of its rank (batch * head, 128-query
+// block) in every epoch
+__global__ void __launch_bounds__(kRingThreads, 1)
+    ring_attention_fwd_kernel(const __grid_constant__ RingParams p) {
+  af::Smem& sm = af::smem();
+  if (threadIdx.x == 0) af::init_barriers(sm);
+  __syncthreads();
+  const Ring& g = p.ring;
+  const int r = blockIdx.x % g.R, c = blockIdx.x / g.R;
+  const int nblk = (p.S + af::kRows - 1) / af::kRows, items = p.B * p.H * nblk;
+  const int n = (p.S + af::kKeys - 1) / af::kKeys;
+  af::OwnRing own;
+  af::StageRing ring;
+  if (threadIdx.x >= af::kConsumers) {
+    fast3r_hopper::regs_dec<af::kProducerRegs>();
+    const int tid = threadIdx.x - af::kConsumers;
+    if (tid >= 32) {  // warps 9-11: the hops and the capacity tokens
+      run_hops(
+          g, r, c, tid - 32, 96, kHopBar,
+          [&](int right, int i, int nth) {  // hop 1: my own K and V
+            copy_rows64_share<bf16>(slot_ptr<bf16>(g, 0, right, 1),
+                                    static_cast<const bf16*>(p.k), p.ks, r, p.B, p.H, p.S,
+                                    g.G, c, i, nth);
+            copy_rows64_share<bf16>(slot_ptr<bf16>(g, 1, right, 1),
+                                    static_cast<const bf16*>(p.v), p.vs, r, p.B, p.H, p.S,
+                                    g.G, c, i, nth);
+          },
+          [&](int s) { fast3r_hopper::mbar_wait(&sm.done[s & 1], (unsigned)(s - 1) >> 1 & 1u); });
+    } else if (tid == 0) {  // warp 8, lane 0: the loads
+      for (int s = 0; s < g.E; ++s) {
+        if (s > 0) {
+          epoch_acquire(g, r, s);
+          fast3r_hopper::fence_proxy_async();  // the hops' stores, then TMA reads
+        }
+        for (int it = c; it < items; it += g.G) {
+          const int bh = it / nblk, b = bh / p.H, h = bh % p.H, q0 = (it % nblk) * af::kRows;
+          if (s == 0)  // my own K and V, where they lie
+            af::load_item(sm, own, ring, &p.mq, q0, h, r * p.B + b, &p.mk0, &p.mv0, h,
+                          r * p.B + b, n);
+          else
+            af::load_item(sm, own, ring, &p.mq, q0, h, r * p.B + b, &p.mk, &p.mv, bh,
+                          2 * r + (s & 1), n);
+        }
+      }
+    }
+    return;
+  }
+  fast3r_hopper::regs_inc<af::kConsumerRegs>();
+  const af::Consumer t;
+  float* held = state_copy(sm);
+  ab::turns_open(t);
+  for (int s = 0; s < g.E; ++s) {
+    for (int it = c; it < items; it += g.G) {
+      const int bh = it / nblk, b = bh / p.H, h = bh % p.H;
+      float* st = p.state == nullptr
+                      ? nullptr
+                      : p.state + ((long long)r * items + it) * af::kStateWords * af::kConsumers;
+      if (s > 0) fetch_state(held, st);  // lands while the item's tiles run
+      af::State x;
+      x.zero();
+      af::fwd_item(x, sm, own, ring, t, n, p.S, p.scale_log2);
+      if (s > 0) {
+        cp_async_wait_all();
+        x.merge(held, p.scale_log2);
+      }
+      if (s == g.E - 1)
+        af::store_item(x, sm, t, &p.mo, (it % nblk) * af::kRows, h, r * p.B + b,
+                       p.lse + ((long long)r * p.B * p.H + bh) * p.S, p.S, p.scale_log2);
+      else
+        x.save(st);
+    }
+    if (s >= 1 && s + 2 < g.E) {  // every tile of slot s % 2 waited for: its next hop may come
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) fast3r_hopper::mbar_arrive(&sm.done[s & 1]);
+    }
+  }
+  ab::turns_close(t);
+  af::drain_stores();
+}
+
+// ---------------------------------------------------------------------------
+// fp32: one item, 64 queries of (batch, head) bh of rank r against the
+// slot's K/V (kb, vb: that head's (S, 64) rows), the online-softmax state
+// carried in st
+// ---------------------------------------------------------------------------
+
+// scalar FMAs, two lanes per query row (attention_fwd.cu's fp32 tiling)
+__device__ void ring_item_f32(const RingParams& p, unsigned char* smem, int r, int bh,
                           int qi, const float* kb, const float* vb, float* st,
                           bool first, bool last) {
   float* Qs = reinterpret_cast<float*>(smem);
@@ -333,19 +306,7 @@ __device__ void ring_item(const RingParams& p, unsigned char* smem, int r, int b
   __syncthreads();  // Qs / Ks / Vs / Ps free for the next item
 }
 
-template <typename T>
-__host__ __device__ constexpr int state_words() {
-  return sizeof(T) == 2 ? kStateBf16 : kStateF32;
-}
-template <typename T>
-__host__ __device__ constexpr int smem_bytes() {
-  return sizeof(T) == 2 ? (kBQ + 4 * kBK) * kLd * 2 : 4 * 64 * kLdF * 4;
-}
-
-// grid: R x G CTAs, rank r = blockIdx.x % R, its c-th CTA c = blockIdx.x / R;
-// CTA c owns items c, c + G, ... of its rank in every epoch
-template <typename T>
-__global__ void __launch_bounds__(kThreads) ring_attention_fwd_kernel(const RingParams p) {
+__global__ void __launch_bounds__(kThreads) ring_attention_fwd_f32_kernel(const RingParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Ring& g = p.ring;
   const int r = blockIdx.x % g.R, c = blockIdx.x / g.R;
@@ -354,47 +315,55 @@ __global__ void __launch_bounds__(kThreads) ring_attention_fwd_kernel(const Ring
   run_ring(
       g, r, c,
       [&] {
-        copy_rows64_share<T>(slot_ptr<T>(g, 0, r, 0), static_cast<const T*>(p.k), p.ks, r,
-                             p.B, p.H, p.S, g.G, c);
-        copy_rows64_share<T>(slot_ptr<T>(g, 1, r, 0), static_cast<const T*>(p.v), p.vs, r,
-                             p.B, p.H, p.S, g.G, c);
+        copy_rows64_share<float>(slot_ptr<float>(g, 0, r, 0), static_cast<const float*>(p.k),
+                                 p.ks, r, p.B, p.H, p.S, g.G, c, threadIdx.x, blockDim.x);
+        copy_rows64_share<float>(slot_ptr<float>(g, 1, r, 0), static_cast<const float*>(p.v),
+                                 p.vs, r, p.B, p.H, p.S, g.G, c, threadIdx.x, blockDim.x);
       },
       [&](int s, int t) {
-        const T* ks = slot_ptr<T>(g, 0, r, t);
-        const T* vs = slot_ptr<T>(g, 1, r, t);
+        const float* ks = slot_ptr<float>(g, 0, r, t);
+        const float* vs = slot_ptr<float>(g, 1, r, t);
         for (int it = c; it < items; it += g.G) {
           const int bh = it / nq;
           float* st = p.state == nullptr
                           ? nullptr
-                          : p.state + ((long long)r * items + it) * state_words<T>() * kThreads;
-          ring_item(p, smem, r, bh, it % nq, ks + bh * head, vs + bh * head, st, s == 0,
-                    s == g.E - 1);
+                          : p.state + ((long long)r * items + it) * kStateF32 * kThreads;
+          ring_item_f32(p, smem, r, bh, it % nq, ks + bh * head, vs + bh * head, st, s == 0,
+                        s == g.E - 1);
         }
       });
 }
+
+constexpr int kSmemF32 = 4 * 64 * kLdF * 4;
 
 }  // namespace
 
 extern "C" {
 
+// Dynamic shared memory of the bf16 ring: the tile's and the state copy.
+int fast3r_ring_attention_fwd_smem_bytes() { return kSmemBytes; }
+
 // dtype: 0 = float32, 1 = bfloat16.  *ctas: how many CTAs per rank can be
 // resident together with every other rank's (0: R ranks cannot be);
-// *state_words: fp32 scratch words per item per thread.
-int fast3r_ring_attention_plan(int dtype, int R, int* ctas, int* state_words_out) {
+// *state_words: fp32 scratch words per item; *item_rows: the queries of an
+// item (bf16 128, fp32 64).
+int fast3r_ring_attention_plan(int dtype, int R, int* ctas, int* state_words_out,
+                               int* item_rows) {
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
-  *state_words_out = dtype == 1 ? kStateBf16 * kThreads : kStateF32 * kThreads;
-  return dtype == 1 ? plan_ctas(ring_attention_fwd_kernel<bf16>, kThreads, smem_bytes<bf16>(),
-                                R, ctas)
-                    : plan_ctas(ring_attention_fwd_kernel<float>, kThreads,
-                                smem_bytes<float>(), R, ctas);
+  *state_words_out = dtype == 1 ? af::kStateWords * af::kConsumers : kStateF32 * kThreads;
+  *item_rows = dtype == 1 ? af::kRows : kBQ;
+  return dtype == 1 ? plan_ctas(ring_attention_fwd_kernel, kRingThreads, kSmemBytes, R, ctas)
+                    : plan_ctas(ring_attention_fwd_f32_kernel, kThreads, kSmemF32, R, ctas);
 }
 
 // q, k, v: (R, B, S, H, 64) read through their strides (elements; 16-byte
-// rows, which the wrapper checks); o (R, B, S, H, 64) contiguous; lse
-// (R, B * H, S) fp32; state: R * items * state_words fp32 (null when E ==
-// 1); slot_k / slot_v / flags: host arrays of R device pointers, each rank's
-// (2, B * H, S, 64) slots and its 96 zeroed counter words.  G CTAs per rank.
-// Returns cudaGetLastError() after the launch (or the launch's own error).
+// rows, and for bf16 q's rank and batch strides merging, which the wrapper
+// checks); o (R, B, S, H, 64) contiguous; lse (R, B * H, S) fp32; state: R *
+// items * state_words fp32 (null when E == 1); slot_k / slot_v / flags: host
+// arrays of R device pointers, each rank's (2, B * H, S, 64) slots (bf16:
+// one allocation, rank r's 2 r slots in) and its 96 zeroed counter words.
+// G CTAs per rank.  Returns cudaGetLastError() after the launch (or the
+// launch's own error).
 int fast3r_ring_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                               long long qs0, long long qs1, long long qs2, long long qs3,
                               long long ks0, long long ks1, long long ks2, long long ks3,
@@ -429,11 +398,19 @@ int fast3r_ring_attention_fwd(int dtype, const void* q, const void* k, const voi
   p.H = H;
   p.S = S;
   p.scale_log2 = scale * 1.4426950408889634f;
-  if (dtype == 1)
-    return launch_ring(ring_attention_fwd_kernel<bf16>, kThreads, smem_bytes<bf16>(), p,
-                       p.ring, stream);
-  return launch_ring(ring_attention_fwd_kernel<float>, kThreads, smem_bytes<float>(), p,
-                     p.ring, stream);
+  if (dtype == 1) {
+    const long long os[4] = {(long long)B * S * H * kD, (long long)S * H * kD, (long long)H * kD,
+                             kD};
+    if ((err = own_map(&p.mq, q, p.qs, R, B, S, H, af::kRows)) != cudaSuccess ||
+        (err = own_map(&p.mk0, k, p.ks, R, B, S, H, af::kKeys)) != cudaSuccess ||
+        (err = own_map(&p.mv0, v, p.vs, R, B, S, H, af::kKeys)) != cudaSuccess ||
+        (err = slot_map(&p.mk, slot_k, R, B * H, S, af::kKeys)) != cudaSuccess ||
+        (err = slot_map(&p.mv, slot_v, R, B * H, S, af::kKeys)) != cudaSuccess ||
+        (err = own_map(&p.mo, o, os, R, B, S, H, 64)) != cudaSuccess)
+      return err;
+    return launch_ring(ring_attention_fwd_kernel, kRingThreads, kSmemBytes, p, p.ring, stream);
+  }
+  return launch_ring(ring_attention_fwd_f32_kernel, kThreads, kSmemF32, p, p.ring, stream);
 }
 
 }  // extern "C"

@@ -149,9 +149,9 @@ __device__ __forceinline__ void dq_ring_bf16(const BwdParams& p) {
       g, r, c,
       [&] {
         copy_rows64_share<bf16>(slot_ptr<bf16>(g, 0, r, 0), static_cast<const bf16*>(p.k),
-                                p.ks, r, p.B, p.H, p.S, g.G, c);
+                                p.ks, r, p.B, p.H, p.S, g.G, c, threadIdx.x, blockDim.x);
         copy_rows64_share<bf16>(slot_ptr<bf16>(g, 1, r, 0), static_cast<const bf16*>(p.v),
-                                p.vs, r, p.B, p.H, p.S, g.G, c);
+                                p.vs, r, p.B, p.H, p.S, g.G, c, threadIdx.x, blockDim.x);
       },
       [&](int s, int slot) {
         if (producer) {
@@ -211,9 +211,9 @@ __device__ __forceinline__ void dkv_ring_bf16(const BwdParams& p) {
       g, r, c,
       [&] {
         copy_rows64_share<bf16>(slot_ptr<bf16>(g, 0, r, 0), static_cast<const bf16*>(p.q),
-                                p.qs, r, p.B, p.H, p.S, g.G, c);
+                                p.qs, r, p.B, p.H, p.S, g.G, c, threadIdx.x, blockDim.x);
         copy_rows64_share<bf16>(slot_ptr<bf16>(g, 1, r, 0), static_cast<const bf16*>(p.dout),
-                                p.os, r, p.B, p.H, p.S, g.G, c);
+                                p.os, r, p.B, p.H, p.S, g.G, c, threadIdx.x, blockDim.x);
         copy_flat_share(slot_ptr<float>(g, 2, r, 0), p.meta + r * p.meta_words, g.bytes[2],
                         g.G, c);
       },
@@ -444,9 +444,9 @@ __device__ __forceinline__ void dq_ring_f32(const BwdParams& p) {
       g, r, c,
       [&] {
         copy_rows64_share<T>(slot_ptr<T>(g, 0, r, 0), static_cast<const T*>(p.k), p.ks, r,
-                             p.B, p.H, p.S, g.G, c);
+                             p.B, p.H, p.S, g.G, c, threadIdx.x, blockDim.x);
         copy_rows64_share<T>(slot_ptr<T>(g, 1, r, 0), static_cast<const T*>(p.v), p.vs, r,
-                             p.B, p.H, p.S, g.G, c);
+                             p.B, p.H, p.S, g.G, c, threadIdx.x, blockDim.x);
       },
       [&](int s, int t) {
         const T* ks = slot_ptr<T>(g, 0, r, t);
@@ -474,9 +474,9 @@ __device__ __forceinline__ void dkv_ring_f32(const BwdParams& p) {
       g, r, c,
       [&] {
         copy_rows64_share<T>(slot_ptr<T>(g, 0, r, 0), static_cast<const T*>(p.q), p.qs, r,
-                             p.B, p.H, p.S, g.G, c);
+                             p.B, p.H, p.S, g.G, c, threadIdx.x, blockDim.x);
         copy_rows64_share<T>(slot_ptr<T>(g, 1, r, 0), static_cast<const T*>(p.dout), p.os,
-                             r, p.B, p.H, p.S, g.G, c);
+                             r, p.B, p.H, p.S, g.G, c, threadIdx.x, blockDim.x);
         copy_flat_share(slot_ptr<float>(g, 2, r, 0), p.meta + r * p.meta_words, g.bytes[2],
                         g.G, c);
       },
@@ -512,35 +512,6 @@ __global__ void __launch_bounds__(Cfg<T>::kThreads, 1)
     dkv_ring_bf16(p);
   else
     dkv_ring_f32(p);
-}
-
-// the rank-4 map (64, S, H, R * B) of rank-stacked rows (R, B, S, H, 64)
-// through their (rank, batch, token, head) strides st, rank and batch merged
-// (R == 1, B == 1, or st[0] == B st[1]; anything else is refused)
-cudaError_t own_map(CUtensorMap* m, const void* base, const long long (&st)[4], int R,
-                    int B, int S, int H) {
-  long long sb;
-  if (R == 1 || st[0] == (long long)B * st[1])
-    sb = st[1];
-  else if (B == 1)
-    sb = st[0];
-  else
-    return cudaErrorInvalidValue;
-  const long long dims[4] = {kD, S, H, (long long)R * B};
-  const long long strides[3] = {st[2], st[3], sb};
-  return fast3r_hopper::make_tmap(m, base, 4, dims, strides, ab::kTile);
-}
-
-// the rank-4 map (64, S, B * H, 2 R) of a payload's slots: one allocation
-// of R x 2 slots (B * H, S, 64), which the pointer table must describe
-cudaError_t slot_map(CUtensorMap* m, const void* table, int R, int BH, int S) {
-  const char* const* t = static_cast<const char* const*>(table);
-  const long long slot = (long long)BH * S * kD;  // elements
-  for (int i = 1; i < R; ++i)
-    if (t[i] != t[0] + i * 2 * slot * 2) return cudaErrorInvalidValue;
-  const long long dims[4] = {kD, S, BH, 2LL * R};
-  const long long strides[3] = {kD, (long long)S * kD, slot};
-  return fast3r_hopper::make_tmap(m, t[0], 4, dims, strides, ab::kTile);
 }
 
 // the common arguments of both entry points
@@ -624,10 +595,10 @@ int fast3r_ring_attention_bwd_dq(
   p.out0 = dq;
   p.state = static_cast<float*>(state);
   if (dtype == 1) {
-    if ((err = own_map(&p.own_a, q, p.qs, R, B, S, H)) != cudaSuccess ||
-        (err = own_map(&p.own_b, dout, p.os, R, B, S, H)) != cudaSuccess ||
-        (err = slot_map(&p.slot_a, slot_k, R, B * H, S)) != cudaSuccess ||
-        (err = slot_map(&p.slot_b, slot_v, R, B * H, S)) != cudaSuccess)
+    if ((err = own_map(&p.own_a, q, p.qs, R, B, S, H, ab::kTile)) != cudaSuccess ||
+        (err = own_map(&p.own_b, dout, p.os, R, B, S, H, ab::kTile)) != cudaSuccess ||
+        (err = slot_map(&p.slot_a, slot_k, R, B * H, S, ab::kTile)) != cudaSuccess ||
+        (err = slot_map(&p.slot_b, slot_v, R, B * H, S, ab::kTile)) != cudaSuccess)
       return err;
     return launch_ring(ring_bwd_dq_kernel<bf16>, Cfg<bf16>::kThreads, dq_smem<bf16>(), p,
                        p.ring, stream);
@@ -670,10 +641,10 @@ int fast3r_ring_attention_bwd_dkv(
   p.out1 = dv;
   p.state = static_cast<float*>(state);
   if (dtype == 1) {
-    if ((err = own_map(&p.own_a, k, p.ks, R, B, S, H)) != cudaSuccess ||
-        (err = own_map(&p.own_b, v, p.vs, R, B, S, H)) != cudaSuccess ||
-        (err = slot_map(&p.slot_a, slot_q, R, B * H, S)) != cudaSuccess ||
-        (err = slot_map(&p.slot_b, slot_do, R, B * H, S)) != cudaSuccess)
+    if ((err = own_map(&p.own_a, k, p.ks, R, B, S, H, ab::kTile)) != cudaSuccess ||
+        (err = own_map(&p.own_b, v, p.vs, R, B, S, H, ab::kTile)) != cudaSuccess ||
+        (err = slot_map(&p.slot_a, slot_q, R, B * H, S, ab::kTile)) != cudaSuccess ||
+        (err = slot_map(&p.slot_b, slot_do, R, B * H, S, ab::kTile)) != cudaSuccess)
       return err;
     return launch_ring(ring_bwd_dkv_kernel<bf16>, Cfg<bf16>::kThreads, dkv_smem<bf16>(), p,
                        p.ring, stream);

@@ -37,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace fast3r_ring {
 
 constexpr int kMaxRanks = 16;    // the pointer tables
@@ -75,22 +77,30 @@ static __device__ __forceinline__ unsigned atom_acq_rel_add(unsigned* p, unsigne
                : "memory");
   return old;
 }
+// named barrier `id` (1..15) over `count` threads
+static __device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
 static __device__ __forceinline__ unsigned long long global_ns() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
   return t;
 }
 
-// every thread: block until *flag >= target (thread 0 spins, the block
-// follows it through the barrier); trap after timeout_ns
-static __device__ void wait_geq(const unsigned* flag, unsigned target, long long timeout_ns) {
-  if (threadIdx.x == 0 && ld_acquire(flag) < target) {
-    const unsigned long long t0 = global_ns();
-    while (ld_acquire(flag) < target) {
-      if ((long long)(global_ns() - t0) > timeout_ns) __trap();
-      __nanosleep(256);
-    }
+// one thread: until *flag >= target (acquire); trap after timeout_ns
+static __device__ void spin_until(const unsigned* flag, unsigned target, long long timeout_ns) {
+  if (ld_acquire(flag) >= target) return;
+  const unsigned long long t0 = global_ns();
+  while (ld_acquire(flag) < target) {
+    if ((long long)(global_ns() - t0) > timeout_ns) __trap();
+    __nanosleep(256);
   }
+}
+
+// every thread: block until *flag >= target (thread 0 spins, the block
+// follows it through the barrier)
+static __device__ void wait_geq(const unsigned* flag, unsigned target, long long timeout_ns) {
+  if (threadIdx.x == 0) spin_until(flag, target, timeout_ns);
   __syncthreads();
 }
 
@@ -111,15 +121,15 @@ static __device__ __forceinline__ void share(long long n, int G, int c, long lon
 
 // bootstrap share of a rows-of-64 payload: rank r's (B, S, H, 64) tensor,
 // read through its (rank, batch, token, head) strides st (elements, 16-byte
-// rows), into dst laid out (B * H, S, 64)
+// rows), into dst laid out (B * H, S, 64), by threads tid = 0 .. nth - 1
 template <typename T>
 __device__ void copy_rows64_share(T* dst, const T* src, const long long (&st)[4], int r,
-                                  int B, int H, int S, int G, int c) {
+                                  int B, int H, int S, int G, int c, int tid, int nth) {
   constexpr int kVec = 16 / (int)sizeof(T);  // elements per 16 bytes
   constexpr int kChunks = 64 / kVec;         // 16-byte chunks per row
   long long lo, hi;
   share((long long)B * H * S * kChunks, G, c, lo, hi);
-  for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+  for (long long i = lo + tid; i < hi; i += nth) {
     const long long row = i / kChunks;  // (b * H + h) * S + token
     const int off = (int)(i % kChunks) * kVec;
     const int tok = (int)(row % S);
@@ -142,16 +152,17 @@ static __device__ void copy_flat_share(void* dst, const void* src, long long byt
 }
 
 // hop share: every payload of my slot `src` -> the right neighbour's slot
-// `dst`, through L2
-static __device__ void hop_share(const Ring& g, int r, int right, int src, int dst, int c) {
+// `dst`, through L2, by threads tid = 0 .. nth - 1
+static __device__ void hop_share(const Ring& g, int r, int right, int src, int dst, int c,
+                                 int tid, int nth) {
   for (int pi = 0; pi < g.npay; ++pi) {
     const long long n = g.bytes[pi] / 16;
     long long lo, hi;
     share(n, g.G, c, lo, hi);
     const int4* s = reinterpret_cast<const int4*>(g.slots[pi][r]) + src * n;
     int4* d = reinterpret_cast<int4*>(g.slots[pi][right]) + dst * n;
-    long long i = lo + threadIdx.x;
-    const int step = blockDim.x;
+    long long i = lo + tid;
+    const int step = nth;
     for (; i + 7 * step < hi; i += 8 * step) {
       int4 a[8];
 #pragma unroll
@@ -185,7 +196,7 @@ __device__ void run_ring(const Ring& g, int r, int c, Bootstrap&& bootstrap, Epo
     if (s + 1 < g.E) {  // hop s + 1: my slot t -> right's slot (s + 1) % 2
       const int j = s + 1;
       if (j >= 2) wait_geq(flags + kCap + (j & 1), (unsigned)(j / 2), g.timeout_ns);
-      hop_share(g, r, right, t, j & 1, c);
+      hop_share(g, r, right, t, j & 1, c, threadIdx.x, blockDim.x);
       publish(g.flags[right] + kArrive + (j & 1));
     }
     epoch(s, t);
@@ -193,6 +204,56 @@ __device__ void run_ring(const Ring& g, int r, int c, Bootstrap&& bootstrap, Epo
       __threadfence();
       __syncthreads();
       if (threadIdx.x == 0 && atom_acq_rel_add(flags + kDone + t, 1u) == fill * g.G - 1)
+        red_release_add(g.flags[left] + kCap + t, 1u);
+    }
+  }
+}
+
+// The bf16 forward's schedule (csrc/ring_attention.cu): run_ring's, split
+// over a warp-specialised CTA's roles, and with no bootstrap.  Epoch 0
+// reads the rank's own K and V where they lie and hop 1 sends them to the
+// right neighbour's slot 1 from there, so nothing is copied before the
+// first tile and slot 0 is first filled by hop 2.  Epoch s >= 1 then reads
+// slot s % 2 at its fill (s + 1) / 2; hop j >= 3 overwrites a slot the
+// right neighbour read in epoch j - 2 and waits for its (j - 1) / 2-th
+// token of that slot (hop 2 fills a slot nothing has read yet).
+//   * the thread that issues the TMA loads calls epoch_acquire(s) before
+//     it loads epoch s >= 1's tiles from slot s % 2 (then fence.proxy.async);
+//   * run_hops, on nth threads of their own (tid 0 .. nth - 1, named
+//     barrier bar), moves every hop (hop 1: first_hop(right, tid, nth),
+//     the rank's own payloads into right's slot 1) and sends the capacity
+//     tokens; consumed(s) returns once the CTA's consumers have waited for
+//     every tile they read from slot s % 2 in epoch s;
+// so the consumers never wait on the protocol, only on their tiles.
+static __device__ __forceinline__ unsigned fwd_fill(int s) { return (unsigned)(s + 1) / 2; }
+
+static __device__ void epoch_acquire(const Ring& g, int r, int s) {
+  spin_until(g.flags[r] + kArrive + (s & 1), fwd_fill(s) * g.G, g.timeout_ns);
+}
+
+template <class FirstHop, class Consumed>
+__device__ void run_hops(const Ring& g, int r, int c, int tid, int nth, int bar,
+                         FirstHop&& first_hop, Consumed&& consumed) {
+  const int right = (r + 1) % g.R, left = (r + g.R - 1) % g.R;
+  unsigned* flags = g.flags[r];
+  for (int s = 0; s + 1 < g.E; ++s) {
+    const int t = s & 1, j = s + 1;  // hop j: my slot t (hop 1: my own) -> right's slot j % 2
+    if (tid == 0) {
+      if (s >= 1) spin_until(flags + kArrive + t, fwd_fill(s) * g.G, g.timeout_ns);
+      if (j >= 3) spin_until(flags + kCap + (j & 1), (unsigned)(j - 1) / 2, g.timeout_ns);
+    }
+    bar_sync(bar, nth);
+    if (j == 1)
+      first_hop(right, tid, nth);
+    else
+      hop_share(g, r, right, t, j & 1, c, tid, nth);
+    __threadfence();
+    bar_sync(bar, nth);
+    if (tid == 0) red_release_add(g.flags[right] + kArrive + (j & 1), 1u);
+    if (s >= 1 && s + 2 < g.E && tid == 0) {  // hop s + 2 refills slot t
+      consumed(s);
+      __threadfence();
+      if (atom_acq_rel_add(flags + kDone + t, 1u) == fwd_fill(s) * g.G - 1)
         red_release_add(g.flags[left] + kCap + t, 1u);
     }
   }
@@ -223,23 +284,73 @@ static inline int make_ring(Ring& g, int npay, const void* const* tables[],
   return cudaSuccess;
 }
 
+// The bf16 rings read through rank-4 TMA maps (head dim 64), in boxes of
+// `rows` rows:
+//   * own_map: rank-stacked rows (R, B, S, H, 64) through their (rank,
+//     batch, token, head) strides st, as (64, S, H, R * B), rank and batch
+//     merged (R == 1, B == 1, or st[0] == B st[1]; anything else is
+//     refused, and the wrapper copies such a tensor first);
+//   * slot_map: a payload's slots, one allocation of R x 2 slots (B * H, S,
+//     64), which the pointer table must describe, as (64, S, B * H, 2 R).
+static inline cudaError_t own_map(CUtensorMap* m, const void* base, const long long (&st)[4],
+                                  int R, int B, int S, int H, int rows) {
+  long long sb;
+  if (R == 1 || st[0] == (long long)B * st[1])
+    sb = st[1];
+  else if (B == 1)
+    sb = st[0];
+  else
+    return cudaErrorInvalidValue;
+  const long long dims[4] = {64, S, H, (long long)R * B};
+  const long long strides[3] = {st[2], st[3], sb};
+  return fast3r_hopper::make_tmap(m, base, 4, dims, strides, rows);
+}
+static inline cudaError_t slot_map(CUtensorMap* m, const void* table, int R, int BH, int S,
+                                   int rows) {
+  const char* const* t = static_cast<const char* const*>(table);
+  const long long slot = (long long)BH * S * 64;  // elements
+  for (int i = 1; i < R; ++i)
+    if (t[i] != t[0] + i * 2 * slot * 2) return cudaErrorInvalidValue;
+  const long long dims[4] = {64, S, BH, 2LL * R};
+  const long long strides[3] = {64, (long long)S * 64, slot};
+  return fast3r_hopper::make_tmap(m, t[0], 4, dims, strides, rows);
+}
+
 // how many CTAs of `kernel` (threads, dynamic smem bytes) each SM holds, and
-// the SM count; cudaErrorNotSupported without cooperative launch
+// the SM count; cudaErrorNotSupported without cooperative launch.  Asked of
+// the CUDA runtime once per kernel, launch shape and device (a launch's
+// host time otherwise pays for the attribute and the occupancy query every
+// call).
 template <typename K>
 cudaError_t resident_ctas(K kernel, int threads, int smem, int* per_sm, int* sms) {
-  cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  struct Known {
+    const void* kernel;
+    int dev, threads, smem, per_sm, sms;
+  };
+  static Known known[16];
+  static int n_known = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  for (int i = 0; i < n_known; ++i)
+    if (known[i].kernel == fn && known[i].dev == dev && known[i].threads == threads &&
+        known[i].smem == smem) {
+      *per_sm = known[i].per_sm;
+      *sms = known[i].sms;
+      return cudaSuccess;
+    }
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads, smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0;
-  err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   int coop = 0;
   err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
-  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && n_known < 16) known[n_known++] = {fn, dev, threads, smem, *per_sm, *sms};
+  return err;
 }
 
 // CTAs per rank that can be resident with every other rank's (0: R ranks

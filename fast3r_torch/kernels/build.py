@@ -40,7 +40,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "fast3r_attention_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I,
                              _L, _L, _L, _L, _L, _L, _L, _L, _L, _F,
-                             _P, _I, _P],
+                             _P, _I, _I, _P],
     "fast3r_attention_bwd": [_P] * 9 + [_I] * 5 + [_L] * 21 + [_F, _P],
     "fast3r_trunk_head_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _P],
@@ -48,8 +48,10 @@ SIGNATURES = {
     "fast3r_ln_mlp": [_P] * 12 + [_I, _I, _I, _I, _F, _P],
     "fast3r_gemm_smem_bytes": [],
     "fast3r_attention_bwd_smem_bytes": [],
+    "fast3r_attention_fwd_smem_bytes": [],
+    "fast3r_ring_attention_fwd_smem_bytes": [],
     "fast3r_resize_bilinear": [_P] * 8 + [_L, _I, _I, _I, _I, _P],
-    "fast3r_ring_attention_plan": [_I, _I, _P, _P],
+    "fast3r_ring_attention_plan": [_I, _I, _P, _P, _P],
     "fast3r_ring_attention_fwd": [_I, _P, _P, _P] + [_L] * 12 + [_P] * 6
                                  + [_I] * 6 + [_F, _L, _P],
     "fast3r_ring_attention_bwd_plan": [_I, _I, _I, _P, _P, _P],

@@ -84,7 +84,7 @@ def _check(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
 
 
 def tma_dims(t: torch.Tensor):
-    """The rank-4 tensor-map view through which the backward kernels read a
+    """The rank-4 tensor-map view through which the bf16 kernels read a
     (B, N, H, D) tensor, or a rank-stacked (n, B, S, H, D) one with its rank
     and batch merged into one dimension: ``(dims, strides)`` innermost
     first, in elements, dims (D, N, H, B') and strides (1, token, head,
@@ -114,6 +114,21 @@ def tma_dims(t: torch.Tensor):
     return (D, N, H, batch), (1, sn, sh, sb)
 
 
+def tma_view(t: torch.Tensor) -> torch.Tensor:
+    """t itself where the kernels' tensor maps read it in place
+    (:func:`tma_dims`), else one contiguous copy of it, counted on
+    ``tma_view.copies`` (the serving paths make none: the decoder's views,
+    the encoder's packed slices and the ring's rank-stacked shards all
+    map)."""
+    if tma_dims(t) is not None:
+        return t
+    tma_view.copies += 1
+    return t.clone(memory_format=torch.contiguous_format)  # a new, aligned base
+
+
+tma_view.copies = 0
+
+
 def _lse_buffer(B: int, H: int, Nq: int, device) -> torch.Tensor:
     """(B, H, Nq) fp32 view of a buffer whose rows are padded to whole
     64-query tiles, the layout the backward kernel reads."""
@@ -123,12 +138,16 @@ def _lse_buffer(B: int, H: int, Nq: int, device) -> torch.Tensor:
 
 
 def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     scale: float, lse: torch.Tensor = None) -> torch.Tensor:
+                     scale: float, lse: torch.Tensor = None,
+                     ctas: int = 0) -> torch.Tensor:
     """Launch the forward kernel on CUDA q, k, v (B, N, H, 64) read through
-    their strides; (B, Nq, H, 64) contiguous out, and the rows' lse written
-    into ``lse`` (a :func:`_lse_buffer`) when given.  Checks what the kernel
-    takes and raises on anything else; counts nothing (each caller keeps its
-    count)."""
+    their strides (bf16: tensor maps, :func:`tma_view`); (B, Nq, H, 64)
+    contiguous out, and the rows' lse written into ``lse`` (a
+    :func:`_lse_buffer`) when given.  ``ctas`` (bf16): the CTAs of the
+    kernel's persistent walk over (batch * head, 128-query block) items, 0
+    for one per SM (the item count gives one CTA per item).  Checks what
+    the kernel takes and raises on anything else; counts nothing (each
+    caller keeps its count)."""
     if q.device.type != "cuda":
         raise ValueError(f"attention: no kernel for device {q.device}")
     if q.dtype not in _DTYPES:
@@ -136,6 +155,8 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dim() != 4 or q.shape[3] != HEAD_DIM:
         raise ValueError(f"attention: q must be (B, N, H, {HEAD_DIM}), "
                          f"got {tuple(q.shape)}")
+    if q.dtype == torch.bfloat16:
+        q, k, v = (tma_view(t) if t.dim() == 4 else t for t in (q, k, v))
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(name, t, q)
     if k.shape[1] != v.shape[1] or k.shape[1] == 0:
@@ -149,7 +170,8 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o.data_ptr(), B, H, Nq, Nk, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], float(scale),
         0 if lse is None else lse.data_ptr(),
-        0 if lse is None else lse.stride(1), build.stream_handle(q.device))
+        0 if lse is None else lse.stride(1), int(ctas),
+        build.stream_handle(q.device))
     build.check(err, "fast3r_attention_fwd")
     return o
 
@@ -169,13 +191,13 @@ def launch_attention_bwd(q, k, v, o, lse, do, scale: float, dq, dk, dv):
     strides (:func:`tma_dims`; views of one packed buffer are fine) and dq,
     dk, dv written through theirs; lse from :func:`attention_fwd_lse`.
     delta = rowsum(do o) is computed here, in fp32, into lse's padded
-    layout.  A do that TMA cannot read is copied first; anything else
-    that :func:`_check` refuses raises.  Counts nothing."""
+    layout.  A do that TMA cannot read is copied first (:func:`tma_view`);
+    anything else that :func:`_check` refuses raises.  Counts nothing."""
     if q.dtype != torch.bfloat16:
         raise ValueError(f"attention backward: the kernel takes bfloat16, "
                          f"got {q.dtype}")
-    if do.dim() == 4 and tma_dims(do) is None:
-        do = do.contiguous()
+    if do.dim() == 4:
+        do = tma_view(do)
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do), ("dq", dq),
                     ("dk", dk), ("dv", dv)):
         _check(name, t, q if name in ("q", "do", "dq") else k)

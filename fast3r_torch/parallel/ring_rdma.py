@@ -9,9 +9,10 @@ and move their payloads between chips with remote copies; here the ranks
 are stacked on a leading axis, q, k and v ``(n, B, S_loc, H, D)`` on one
 device, and one launch runs all n ranks, each with its own two slots of
 each payload, arrival counters and capacity counters.  The source notes give the
-protocol (bootstrap copy, hop j from my slot (j-1)%2 into the right
-neighbour's slot j%2 while epoch j-1 computes, capacity tokens before a
-slot is reused; ``csrc/ring_protocol.cuh``, which the three kernels share)
+protocol (a bootstrap copy, which the bf16 forward skips by reading epoch
+0 in place; hop j from my slot (j-1)%2 into the right neighbour's slot j%2
+while epoch j-1 computes; capacity tokens before a slot is reused;
+``csrc/ring_protocol.cuh``, which the three kernels share)
 and say what bounds each kernel.  Every launch gets its own freshly zeroed
 counter words and slots.
 
@@ -30,17 +31,18 @@ are :func:`fast3r_torch.parallel.sequence.ring_flash_attention` and
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from fast3r_torch.kernels import build
-from fast3r_torch.ops.flash_attention import tma_dims
+from fast3r_torch.ops.flash_attention import tma_view
 
 HEAD_DIM = 64
 NSLOTS = 2
 MAX_RANKS = 16     # the kernel's pointer tables
-FLAG_WORDS = 96    # counter words per rank (csrc/ring_attention.cu)
+FLAG_WORDS = 96    # counter words per rank (csrc/ring_protocol.cuh)
 TIMEOUT_S = 20.0   # a wait longer than this traps (a protocol fault), never hangs
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -90,19 +92,22 @@ def _ctas(resident: int, items: int, ctas_per_rank: Optional[int], n: int) -> in
 
 def _pointer_table(t: torch.Tensor) -> ctypes.Array:
     """Host array of the n ranks' device pointers into t (n, ...)."""
-    return (ctypes.c_void_p * t.shape[0])(*(t[r].data_ptr()
+    base, step = t.data_ptr(), t.stride(0) * t.element_size()
+    return (ctypes.c_void_p * t.shape[0])(*(base + r * step
                                             for r in range(t.shape[0])))
 
 
-def _plan(dtype: torch.dtype, n: int) -> Tuple[int, int]:
+@functools.lru_cache(maxsize=None)
+def _plan(dtype: torch.dtype, n: int, device: int = 0) -> Tuple[int, int, int]:
     """(how many CTAs per rank the card can hold resident together with
     every other rank's, 0 when n ranks cannot all be; fp32 state words per
-    item)."""
-    ctas, words = ctypes.c_int(0), ctypes.c_int(0)
+    item; the queries of an item: 128 in bf16, 64 in fp32), asked of the
+    current card once per (dtype, n, device)."""
+    ctas, words, rows = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     build.check(build.library().fast3r_ring_attention_plan(
-        _DTYPES[dtype], n, ctypes.addressof(ctas), ctypes.addressof(words)),
-        "fast3r_ring_attention_plan")
-    return ctas.value, words.value
+        _DTYPES[dtype], n, ctypes.addressof(ctas), ctypes.addressof(words),
+        ctypes.addressof(rows)), "fast3r_ring_attention_plan")
+    return ctas.value, words.value, rows.value
 
 
 def _rdma_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -110,10 +115,12 @@ def _rdma_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   ctas_per_rank: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the ring kernel on rank-stacked CUDA q, k, v (n, B, S_loc, H,
-    64), read through their strides.  Returns o (n, B, S_loc, H, 64) in q's
-    dtype and lse (n, B * H, S_loc), fp32, natural log (what a backward
-    reads).  ``ctas_per_rank`` overrides the resident count the card allows
-    (a count that cannot be resident raises).  Counts one launch."""
+    64), read through their strides (bf16: through tensor maps as well,
+    each copied first where its rank and batch strides do not merge,
+    :func:`tma_view`).  Returns o (n, B, S_loc, H, 64) in q's dtype and
+    lse (n, B * H, S_loc), fp32, natural log (what a backward reads).
+    ``ctas_per_rank`` overrides the resident count the card allows (a count
+    that cannot be resident raises).  Counts one launch."""
     _check_kernel_input(q, n)
     epochs = n
     if self_ring_epochs is not None:
@@ -124,9 +131,11 @@ def _rdma_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         epochs = self_ring_epochs
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_input(name, t, q)
+    if q.dtype == torch.bfloat16:
+        q, k, v = (tma_view(t) for t in (q, k, v))
     _, B, S, H, _ = q.shape
-    items = B * H * -(-S // 64)
-    resident, words = _plan(q.dtype, n)
+    resident, words, rows = _plan(q.dtype, n, q.device.index)
+    items = B * H * -(-S // rows)
     G = _ctas(resident, items, ctas_per_rank, n)
     dev = q.device
     o = torch.empty((n, B, S, H, HEAD_DIM), device=dev, dtype=q.dtype)
@@ -188,13 +197,12 @@ def _strides(*ts: torch.Tensor):
 
 def _check_bwd_inputs(q, k, v, do, n: int):
     """q, k, v, do checked; in bf16, each one whose rank and batch strides
-    do not merge into one tensor-map dimension (:func:`tma_dims`) copied."""
+    do not merge into one tensor-map dimension copied (:func:`tma_view`)."""
     _check_kernel_input(q, n)
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
         _check_input(name, t, q)
     if q.dtype == torch.bfloat16:
-        return [t if tma_dims(t) is not None else t.contiguous()
-                for t in (q, k, v, do)]
+        return [tma_view(t) for t in (q, k, v, do)]
     return q, k, v, do
 
 

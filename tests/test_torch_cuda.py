@@ -52,16 +52,104 @@ def test_attention_kernel_matches_plain(dev, dtype, atol, B, N, H):
     assert (out.float() - ref.float()).abs().max().item() < atol
 
 
-def test_attention_kernel_cross_lengths(dev):
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 1e-2)])
+def test_attention_kernel_cross_lengths(dev, dtype, atol):
     """Nq != Nk, contiguous inputs, the decoder's inference scale."""
     g = _gen(1)
-    q = torch.randn((1, 130, 2, 64), generator=g, device=dev)
-    k = torch.randn((1, 300, 2, 64), generator=g, device=dev)
-    v = torch.randn((1, 300, 2, 64), generator=g, device=dev)
+    q = torch.randn((1, 130, 2, 64), generator=g, device=dev).to(dtype)
+    k = torch.randn((1, 300, 2, 64), generator=g, device=dev).to(dtype)
+    v = torch.randn((1, 300, 2, 64), generator=g, device=dev).to(dtype)
     scale = 0.125 * math.sqrt(math.log(137) / math.log(20))
     out = t_flash.flash_attention(q, k, v, scale)
     ref = t_flash.attention_ref(q, k, v, scale)
-    assert (out - ref).abs().max().item() < 1e-4
+    assert out.dtype == dtype
+    assert (out.float() - ref.float()).abs().max().item() < atol
+
+
+# bf16 forward: o as test_attention_kernel_matches_plain (p rounded before
+# p @ v, the plain version rounds the normalised weights); lse: fp32 scores
+# of the same inputs, summed in another order
+FWD_BF16_TOL = (1e-2, 1e-3)
+
+
+def _fwd_lse_close(q, k, v, scale):
+    o, lse = t_flash.attention_fwd_lse(q, k, v, scale)
+    ref_o, ref_lse = t_flash.attention_lse_ref(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert o.shape == q.shape[:3] + (64,) and o.dtype == q.dtype
+    assert lse.shape == ref_lse.shape and lse.dtype == torch.float32
+    assert (o.float() - ref_o.float()).abs().max().item() < FWD_BF16_TOL[0]
+    assert (lse - ref_lse).abs().max().item() < FWD_BF16_TOL[1]
+
+
+@pytest.mark.parametrize("Nq,Nk", [(127, 127), (128, 128), (129, 129),
+                                   (255, 255), (257, 257), (1000, 1000),
+                                   # at most one 128-key tile: the only
+                                   # tile is the masked last one
+                                   (300, 50), (64, 1), (200, 127), (129, 128)])
+def test_attention_kernel_lse_at_tile_edges(dev, Nq, Nk):
+    """bf16 o and lse around the 128-query items' and 128-key tiles' edges
+    (strided q/k/v views of (2, N, 3, 2, 64) buffers) against
+    attention_lse_ref."""
+    g = _gen(12)
+    qb, kvb = (torch.randn((2, n, 3, 2, 64), generator=g, device=dev).to(
+        torch.bfloat16) for n in (Nq, Nk))
+    _fwd_lse_close(qb[:, :, 0], kvb[:, :, 1], kvb[:, :, 2], 0.125)
+
+
+@pytest.mark.parametrize("B,N", [(2, 768), (3, 196)])
+def test_attention_kernel_on_the_packed_buffer(dev, B, N):
+    """o and lse from (B, N, 16, 64) views of one slice each of the
+    encoder's packed (3, B, N, 1024) buffer, read in place (no copy)."""
+    qkv3 = torch.randn((3, B, N, 1024), generator=_gen(14), device=dev).to(
+        torch.bfloat16)
+    before = t_flash.tma_view.copies
+    _fwd_lse_close(*(qkv3[i].view(B, N, 16, 64) for i in range(3)), 0.125)
+    assert t_flash.tma_view.copies == before
+
+
+def test_attention_kernel_copies_a_layout_tma_refuses(dev):
+    """bf16 q / k / v whose head stride is 66 elements (not 16-byte rows):
+    each goes through one counted contiguous copy, and o still matches."""
+    g = _gen(15)
+    q, k, v = (torch.randn((1, 200, 2, 66), generator=g, device=dev).to(
+        torch.bfloat16)[..., :64] for _ in range(3))
+    assert t_flash.tma_dims(q) is None
+    before = t_flash.tma_view.copies
+    out = t_flash.flash_attention(q, k, v, 0.125)
+    assert t_flash.tma_view.copies == before + 3
+    ref = t_flash.attention_ref(q, k, v, 0.125)
+    assert (out.float() - ref.float()).abs().max().item() < FWD_BF16_TOL[0]
+
+
+@pytest.mark.parametrize("ctas", [1, 3, 7])
+def test_attention_kernel_walk(dev, ctas):
+    """The persistent walk over (batch * head, 128-query block) items with
+    few CTAs (each takes many items, its stage and own-slot rings wrapping
+    across them) gives what the default grid gives, bit for bit."""
+    qkv = torch.randn((2, 700, 3, 3, 64), generator=_gen(16), device=dev).to(
+        torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert torch.equal(t_flash.launch_attention(q, k, v, 0.125, ctas=ctas),
+                       t_flash.launch_attention(q, k, v, 0.125))
+
+
+def test_forward_kernels_are_deterministic(dev):
+    """No atomics in either forward: K1's o and lse and the ring's o and lse
+    are bitwise equal on two runs of the same inputs."""
+    from fast3r_torch.parallel import ring_rdma as t_ring
+
+    qkv = torch.randn((2, 700, 3, 4, 64), generator=_gen(17), device=dev).to(
+        torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    runs = [t_flash.attention_fwd_lse(q, k, v, 0.125) for _ in range(2)]
+    qr, kr, vr = _ring_inputs(4, 1, 300, 2, torch.bfloat16, 47)
+    rings = [t_ring._rdma_forward(qr, kr, vr, 0.125, 4) for _ in range(2)]
+    torch.cuda.synchronize()
+    for first, second in (runs, rings):
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
 
 
 def test_attention_kernel_rejects_what_it_cannot_take(dev):
@@ -879,7 +967,11 @@ RING_CUDA_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 1e-3)}
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,B,S_loc,H", [(1, 1, 128, 2), (2, 2, 100, 2),
-                                         (3, 1, 64, 3), (8, 1, 72, 2)])
+                                         (3, 1, 64, 3), (8, 1, 72, 2),
+                                         # the 128-query items' and
+                                         # 128-key tiles' edges
+                                         (2, 1, 129, 2), (4, 2, 129, 2),
+                                         (4, 1, 750, 16)])
 def test_ring_kernel_matches_plain(dev, dtype, n, B, S_loc, H):
     """K14's forward over n ranks on one card (ragged S_loc, B = 2, strided
     inputs) against the plain ring: o and the natural-log lse."""
@@ -900,20 +992,57 @@ def test_ring_kernel_matches_plain(dev, dtype, n, B, S_loc, H):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("epochs", [2, 4, 5])
-def test_ring_kernel_self_ring(dev, dtype, epochs):
+@pytest.mark.parametrize("epochs,S", [(2, 200), (4, 200), (5, 200), (4, 129),
+                                      (3, 100)])
+def test_ring_kernel_self_ring(dev, dtype, epochs, S):
     """n = 1 with E epochs over the rank's own slots: o equals plain
     attention, the lse is the plain lse + ln E."""
     from fast3r_torch.parallel import ring_rdma as t_ring
 
-    q, k, v = _ring_inputs(1, 1, 200, 2, dtype, 30)
+    q, k, v = _ring_inputs(1, 1, S, 2, dtype, 30)
     o, lse = t_ring._rdma_forward(q, k, v, 0.125, 1, self_ring_epochs=epochs)
     ref_o, ref_lse = t_flash.attention_lse_ref(q[0], k[0], v[0], 0.125)
     torch.cuda.synchronize()
     o_tol, lse_tol = RING_CUDA_TOL[dtype]
     assert (o[0].float() - ref_o.float()).abs().max().item() < o_tol
-    shifted = ref_lse.reshape(2, 200) + math.log(epochs)
+    shifted = ref_lse.reshape(2, S) + math.log(epochs)
     assert (lse[0] - shifted).abs().max().item() < lse_tol
+
+
+@pytest.mark.parametrize("n,ctas", [(4, 1), (3, 2), (1, 1)])
+def test_ring_kernel_walk(dev, n, ctas):
+    """Few CTAs a rank (each walks many items every epoch, its state
+    through the scratch between epochs): bitwise what the resident count
+    gives."""
+    from fast3r_torch.parallel import ring_rdma as t_ring
+
+    q, k, v = _ring_inputs(n, 2, 300, 3, torch.bfloat16, 48)
+    got = t_ring._rdma_forward(q, k, v, 0.125, n, ctas_per_rank=ctas)
+    ref = t_ring._rdma_forward(q, k, v, 0.125, n)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def test_ring_kernel_copies_ranks_and_batches_that_do_not_merge(dev):
+    """bf16 shards whose rank stride is below the batch stride ((B, n, ...)
+    transposed): q, k and v each go through one counted copy (their maps
+    merge rank and batch), and the ring still matches the plain one."""
+    from fast3r_torch.parallel import ring_rdma as t_ring
+    from fast3r_torch.parallel.sequence import ring_flash_attention
+
+    qkv = torch.randn((2, 3, 100, 3, 2, 64), generator=_gen(49),
+                      device=dev).to(torch.bfloat16).transpose(0, 1)
+    q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+    assert t_flash.tma_dims(q) is None
+    before = t_flash.tma_view.copies
+    o, lse = t_ring._rdma_forward(q, k, v, 0.125, 3)
+    assert t_flash.tma_view.copies == before + 3
+    ref_o, ref_lse = ring_flash_attention(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    o_tol, lse_tol = RING_CUDA_TOL[torch.bfloat16]
+    assert (o.float() - ref_o.float()).abs().max().item() < o_tol
+    assert (lse - ref_lse).abs().max().item() < lse_tol
 
 
 def test_ring_kernel_rejects_what_it_cannot_take(dev):

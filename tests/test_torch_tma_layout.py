@@ -1,4 +1,4 @@
-"""The backward kernels' tensor-map layout helper on the CPU.
+"""The attention kernels' tensor-map layout helpers on the CPU.
 
 ``fast3r_torch.ops.flash_attention.tma_dims`` gives the rank-4 view,
 (64, token, head, batch) innermost first with the strides in elements,
@@ -7,13 +7,15 @@ and the backward rings read their inputs by TMA; the C entry points build
 their maps from the same strides.  Each case checks, with element ids in
 place of values, that ``as_strided`` with those dims and strides reaches
 exactly the elements of q / k / v in the layouts the port hands the
-kernels, and that a layout TMA cannot take is refused.
+kernels, and that a layout TMA cannot take is refused.  ``tma_view``
+hands the bf16 kernels (forward and backward, the rings') a tensor as it
+is where ``tma_dims`` takes it, and one counted contiguous copy where not.
 """
 
 import pytest
 import torch
 
-from fast3r_torch.ops.flash_attention import tma_dims
+from fast3r_torch.ops.flash_attention import tma_dims, tma_view
 
 
 def _ids(shape):
@@ -95,3 +97,45 @@ def test_refused_layouts():
                           dtype=torch.bfloat16).transpose(0, 1)
     assert tma_dims(swapped) is None
     assert tma_dims(torch.zeros((10, 4, 64), dtype=torch.bfloat16)) is None
+
+
+def _mappable(name):
+    if name == "decoder view":
+        return torch.zeros((2, 50, 3, 4, 64), dtype=torch.bfloat16)[:, :, 1]
+    if name == "packed slice":
+        return torch.zeros((3, 2, 96, 256), dtype=torch.bfloat16)[2].view(2, 96, 4, 64)
+    return torch.zeros((4, 1, 96, 3, 2, 64), dtype=torch.bfloat16)[:, :, :, 0]
+
+
+@pytest.mark.parametrize("name", ["decoder view", "packed slice", "ring shards"])
+def test_tma_view_keeps_a_layout_that_maps(name):
+    """The serving paths' layouts go to the kernels as they are, uncounted."""
+    t = _mappable(name)
+    before = tma_view.copies
+    assert tma_view(t) is t
+    assert tma_view.copies == before
+
+
+def _refused(name):
+    if name == "head dim strided":
+        return torch.randn((2, 10, 64, 4)).to(torch.bfloat16).transpose(2, 3)
+    if name == "padded rows":
+        return torch.randn((2, 10, 4, 68)).to(torch.bfloat16)[..., :64]
+    if name == "base off 16 bytes":
+        flat = torch.randn(2 * 10 * 4 * 64 + 4).to(torch.bfloat16)
+        return flat[4:].view(2, 10, 4, 64)
+    return torch.randn((3, 2, 16, 2, 64)).to(torch.bfloat16).transpose(0, 1)
+
+
+@pytest.mark.parametrize("name", ["head dim strided", "padded rows",
+                                  "base off 16 bytes", "ranks and batches"])
+def test_tma_view_copies_a_refused_layout_once(name):
+    """A layout the maps cannot take becomes one contiguous copy with the
+    same values, which they can, and the copy is counted."""
+    t = _refused(name)
+    assert tma_dims(t) is None
+    before = tma_view.copies
+    c = tma_view(t)
+    assert tma_view.copies == before + 1
+    assert c is not t and c.is_contiguous() and torch.equal(c, t)
+    assert tma_dims(c) is not None
