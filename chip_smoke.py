@@ -16,7 +16,13 @@ printing each one's seconds:
      ``ring_bwd_dkv_kernel<bf16>``) their registers, spills and dynamic
      shared memory, and the counts of HGMMA (wgmma) and UTMALDG (TMA load)
      instructions in their SASS (``cuobjdump -sass`` on the built library),
-     each of which must be above 0;
+     each of which must be above 0; for the resize (K12,
+     ``resize_bilinear_kernel``, bulk and 2-byte-copy roads) and the
+     LayerNorm forward (K7, ``ln_fwd_kernel<dtype, chunks, threads a row>``
+     and ``ln_fwd_scalar_kernel``) their registers, spills and shared
+     memory and the counts of bulk copies (UBLKCP, above 0 on the bulk
+     road), barriers (BAR, none on the warp-per-row roads) and 16-byte
+     stores in their SASS;
   2. kernels: each kernel against its plain PyTorch version on the card at
      the flagship forward's and training step's shapes, in float32 (tight
      tolerance, where the kernel has an fp32 variant) and bfloat16 (the
@@ -33,7 +39,13 @@ printing each one's seconds:
      products, SDPA's device time, the exp floor (one exponential a
      (query, key) pair over 132 SMs x 16 a clock at the card's maximum SM
      clock) and its time with one CTA per 128-query item in place of the
-     persistent walk.  The training kernels: the LayerNorm
+     persistent walk.  The LayerNorm forward's and the resize's lines
+     (the resize on the head's chunk of the 20-view 512x512 request and of
+     the mixed request's 448x512 group, and on one view of each) also carry
+     the kernel's and the library call's device times (profiler), host
+     times a call (host clock over 1000 calls, 100 for the request shapes,
+     without a synchronise) and the bound's share of the device time.
+     The training kernels: the LayerNorm
      backward, the attention backward on the decoder shape (held against
      the plain version one head at a time: its score matrices would not
      fit at once) and from the encoder's packed buffer, each line with its
@@ -392,7 +404,7 @@ ATTN_KERNELS = {"attention_fwd_kernel": "fwd", "ring_attention_fwd_kernel": "rin
                 "ring_bwd_dq_kernel<bf16>": "bwd", "ring_bwd_dkv_kernel<bf16>": "bwd"}
 
 
-def hopper_kernel_report(blog: str) -> dict:
+def hopper_kernel_report(blog: str, sass: str) -> dict:
     """ptxas's registers and spills of every fused_gemm_kernel and
     ln_mlp_kernel instantiation and of the attention kernels on the wgmma
     tiles (forward: K1, the bf16 ring; backward: K9's two, the bf16 rings),
@@ -408,8 +420,6 @@ def hopper_kernel_report(blog: str) -> dict:
                 report[name] = {"ptxas": []}
         elif name and ("spill" in line or "Used" in line):
             report[name]["ptxas"].append(line.split("info    :")[-1].strip())
-    sass = subprocess.run([_sass_tool(), "-sass", str(build.library_path())],
-                          capture_output=True, text=True, check=True).stdout
     name = None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -440,6 +450,73 @@ def hopper_kernel_report(blog: str) -> dict:
     return report
 
 
+def _simple_label(mangled: str):
+    """resize_bilinear_kernel<bulk> / <2-byte copies>, ln_fwd_kernel<bf16,
+    4, 32> (dtype, chunks a thread, threads a row), ln_fwd_scalar_kernel<f32>
+    from a mangled name; None for the other kernels."""
+    if "resize_bilinear_kernel" in mangled:
+        bulk = "ILb1E" in mangled
+        return f"resize_bilinear_kernel<{'bulk' if bulk else '2-byte copies'}>"
+    for name in ("ln_fwd_kernel", "ln_fwd_scalar_kernel"):
+        if f"{len(name)}{name}" in mangled:
+            tail = mangled.split(name, 1)[1].split("EEv", 1)[0]
+            args = ["bf16" if "bfloat16" in tail else "f32"]
+            args += [a.split("E")[0] for a in tail.split("Li")[1:]]
+            return f"{name}<{', '.join(args)}>"
+    return None
+
+
+def simple_kernel_report(blog: str, sass: str) -> dict:
+    """ptxas's registers, spills and static shared memory of the resize
+    (K12) and LayerNorm forward (K7) kernels, with counts from their SASS:
+    bulk copies (UBLKCP) and barrier instructions (BAR) and 16-byte global
+    stores (STG.E.128); plus the resize's dynamic shared memory at the
+    512x512 head's plan.  Raises if a kernel is missing, if the bulk resize
+    has no bulk copy, or if a warp-per-row LayerNorm road has a barrier."""
+    from fast3r_torch.ops.resize_kernel import band_plan
+
+    report, name = {}, None
+    for line in blog.splitlines():
+        if "Function properties for" in line:
+            name = _simple_label(line.split("Function properties for", 1)[1].strip())
+            if name:
+                report[name] = {"ptxas": []}
+        elif name and ("spill" in line or "Used" in line):
+            report[name]["ptxas"].append(line.split("info    :")[-1].strip())
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = _simple_label(line.split("Function :", 1)[1].strip())
+            if name:
+                report.setdefault(name, {"ptxas": []}).update(
+                    UBLKCP=0, BAR=0, STG128=0)
+        elif name:
+            report[name]["UBLKCP"] += "BLKCP" in line
+            report[name]["BAR"] += " BAR." in line
+            report[name]["STG128"] += "STG.E.128" in line
+    want = ["resize_bilinear_kernel<bulk>", "resize_bilinear_kernel<2-byte copies>",
+            "ln_fwd_kernel<bf16, 4, 32>", "ln_fwd_kernel<f32, 8, 32>",
+            "ln_fwd_kernel<f32, 8, 512>", "ln_fwd_scalar_kernel<bf16>"]
+    missing = [n for n in want if n not in report]
+    if missing:
+        raise AssertionError(f"kernels missing from the library: {missing}")
+    plan = band_plan(256, 256, 512, 512)
+    for name, r in sorted(report.items()):
+        extra = (f"; dynamic shared memory {plan.smem_bytes} bytes at the "
+                 f"512x512 head's plan" if name.startswith("resize") else "")
+        log(f"hopper kernel {name}: {'; '.join(r['ptxas'])}{extra}; SASS "
+            f"UBLKCP {r.get('UBLKCP', 0)}, BAR {r.get('BAR', 0)}, "
+            f"STG.E.128 {r.get('STG128', 0)}")
+    if not report["resize_bilinear_kernel<bulk>"].get("UBLKCP"):
+        raise AssertionError("resize_bilinear_kernel<bulk>: no bulk copy in "
+                             "its SASS")
+    barred = [n for n, r in report.items()
+              if n.endswith(", 32>") and r.get("BAR")]
+    if barred:
+        raise AssertionError(f"barriers on the warp-per-row road: {barred}")
+    return report
+
+
 def phase_device() -> dict:
     log("== phase 1: device")
     line = gpu_line()
@@ -455,7 +532,10 @@ def phase_device() -> dict:
     for entry in blog.splitlines():  # registers / spills of every kernel
         if "registers" in entry or "spill" in entry or "Compiling" in entry:
             log("ptxas: " + entry.strip())
-    hopper_kernel_report(blog)
+    sass = subprocess.run([_sass_tool(), "-sass", str(build.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    hopper_kernel_report(blog, sass)
+    simple_kernel_report(blog, sass)
     torch.cuda.synchronize()
     return {"gpu": line, "build_s": t_build}
 
@@ -572,7 +652,39 @@ def check_attention(results: list) -> None:
             torch.cuda.empty_cache()
 
 
+def _host_ms(fn, calls: int) -> float:
+    """Host time a call: the host clock over ``calls`` calls made without a
+    synchronise, over their count."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / calls * 1e3
+
+
+def _launch_times(fn, kernel: str, library, calls: int) -> dict:
+    """A kernel's device time (the profiler's, of the kernels whose name
+    holds ``kernel``; back-to-back CUDA events where the profile has none),
+    its host time a call (``_host_ms``), and the same two of the library
+    call (all its kernels)."""
+    dev, source = _device_ms(fn, {"k": kernel})["k"], "profiler"
+    if dev <= 0:
+        dev, source = _batched_ms(fn), "events"
+    lib = _all_kernels_ms(library)
+    return {"device_ms": dev, "device_ms_from": source,
+            "batched_ms": _batched_ms(fn), "host_ms": _host_ms(fn, calls),
+            "library_device_ms": lib if lib > 0 else _batched_ms(library),
+            "library_batched_ms": _batched_ms(library),
+            "library_host_ms": _host_ms(library, calls)}
+
+
 def check_layernorm(results: list) -> None:
+    """K7's forward (csrc/layernorm.cu) at the blocks' shape (15360, 1024),
+    fp32 and bf16: single-launch, device and host times beside
+    ``F.layer_norm``'s, the bound and the device time's share of it."""
     M = M_TOK
     for dtype in (torch.float32, torch.bfloat16):
         for eps in (1e-6, 1e-5):
@@ -592,7 +704,11 @@ def check_layernorm(results: list) -> None:
                      library_ms=median_ms(lambda: F.layer_norm(
                          x, (C,), w, b, eps), 20),
                      **bound(8.0 * M * C, 2 * M * C * x.element_size(),
-                             torch.float32))
+                             torch.float32),
+                     **_launch_times(lambda: fused_layernorm(x, w, b, eps),
+                                     "ln_fwd", lambda: F.layer_norm(
+                                         x, (C,), w, b, eps), 1000))
+            r["bound_share"] = r["bound_ms"] / r["device_ms"]
             results.append(r)
             log(json.dumps(r))
 
@@ -644,10 +760,15 @@ def check_trunk(results: list) -> None:
 
 
 def check_resize(results: list) -> None:
-    """K12 at the regression trunk's shapes on the unfused road: one view's
-    conv1 output at 512x512 and at 448x512 (bf16, 128 channels)."""
+    """K12 at the regression trunk's shapes on the unfused road (bf16, 128
+    channels): the head's whole chunk of the 20-view 512x512 request and of
+    the mixed request's 448x512 group, as the main path launches it, and one
+    view of each; single-launch, device and host times beside
+    ``F.interpolate``'s, the bound and the device time's share of it."""
     bf = torch.bfloat16
-    for shape, (H, W) in (((1, 128, 256, 256), (512, 512)),
+    for shape, (H, W) in (((20, 128, 256, 256), (512, 512)),
+                          ((6, 128, 224, 256), (448, 512)),
+                          ((1, 128, 256, 256), (512, 512)),
                           ((1, 128, 224, 256), (448, 512))):
         x = torch.randn(shape, generator=_gen(9), device="cuda").to(bf)
         out = resize_bilinear_kernel(x, H, W)
@@ -655,19 +776,30 @@ def check_resize(results: list) -> None:
         torch.cuda.synchronize()
         b, c, h, w = shape
         r = compare("resize", out, ref, bf)
+        del ref
+
+        def library():
+            return F.interpolate(x, size=(H, W), mode="bilinear",
+                                 align_corners=True)
+
         r.update(kernel="resize", case=f"{b}x{c}x{h}x{w} -> {H}x{W}",
                  dtype="bfloat16",
-                 ms=median_ms(lambda: resize_bilinear_kernel(x, H, W), 50),
-                 plain_ms=median_ms(lambda: resize_matmul(x, H, W), 20),
+                 ms=median_ms(lambda: resize_bilinear_kernel(x, H, W), 20),
+                 plain_ms=median_ms(lambda: resize_matmul(x, H, W), 5),
                  library="F.interpolate(bilinear, align_corners=True)",
-                 library_ms=median_ms(lambda: F.interpolate(
-                     x, size=(H, W), mode="bilinear", align_corners=True), 50),
+                 library_ms=median_ms(library, 20),
                  # a 3-flop lerp per H-pass value (b c H w) and per output,
                  # in fp32 on the CUDA cores
                  **bound(3.0 * b * c * H * (w + W),
-                         (x.numel() + out.numel()) * 2, torch.float32))
+                         (x.numel() + out.numel()) * 2, torch.float32),
+                 **_launch_times(lambda: resize_bilinear_kernel(x, H, W),
+                                 "resize_bilinear", library,
+                                 100 if b > 1 else 1000))
+        r["bound_share"] = r["bound_ms"] / r["device_ms"]
         results.append(r)
         log(json.dumps(r))
+        del x, out
+        torch.cuda.empty_cache()
 
 
 def _linear(n_out, n_in, g):
@@ -1160,7 +1292,7 @@ KERNELS = {  # name -> (wrapper, route, source, TPU kernel it replaces)
     "packed_qkv_attention": (
         packed_qkv_attention, "cuda", "fast3r_torch/csrc/attention_fwd.cu",
         "fast3r_tpu/ops/batched_attention.py:497 (_fusedqkv_kernel)"),
-    "layernorm": (fused_layernorm, "triton", "fast3r_torch/ops/fused_layernorm.py",
+    "layernorm": (fused_layernorm, "cuda", "fast3r_torch/csrc/layernorm.cu",
                   "fast3r_tpu/ops/fused_layernorm.py:46 (_fwd_kernel)"),
     "trunk": (fused_regression_head_t, "cuda", "fast3r_torch/csrc/trunk.cu",
               "fast3r_tpu/ops/trunk_kernel.py:165 (_trunk_kern)"),
@@ -2207,7 +2339,7 @@ MAIN_CASE = {"attention": "decoder", "layernorm": "eps=1e-05",
              "matmul_residual": "proj", "attention_bwd": "decoder",
              "ln_matmul_replay": "fc1", "rms_qkv3": f"qkv {M_TOK}",
              "rms_matmul": "w1", "rms_matmul_replay": "w1",
-             "resize": "256x256", "ring_attention": "n=4 ",
+             "resize": "20x128x256x256", "ring_attention": "n=4 ",
              "ring_attention_bwd_dq": "n=4 ", "ring_attention_bwd_dkv": "n=4 "}
 
 
@@ -2236,6 +2368,7 @@ def kernel_summary(results: list, counts: dict) -> dict:
         for key in ("two_kernel_ms", "k1_ms", "k9_ms", "pair_ms",
                     "pair_bound_ms", "device_ms", "tflops", "exp_floor_ms",
                     "library_device_ms", "ms_one_cta_per_item",
+                    "host_ms", "library_host_ms", "bound_share",
                     "k1_device_ms", "device_over_k1", "ms_over_k1"):
             if key in main:
                 entry[key] = main[key]

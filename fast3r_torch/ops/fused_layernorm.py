@@ -1,5 +1,5 @@
-"""LayerNorm forward and backward: the hand-written Triton kernels and their
-plain versions.
+"""LayerNorm forward and backward: the hand-written kernels and their plain
+versions.
 
 Replaces ``fast3r_tpu/ops/fused_layernorm.py`` (``_run_fwd`` ->
 ``_fwd_kernel``; ``_run_bwd`` -> ``_bwd_kernel``).  What bounds both on the
@@ -8,15 +8,18 @@ at (15360, 1024)) and the backward reads x and dy and writes dx, 3 * M * C
 bytes, for a few FLOPs per element, far below the card's FLOP-per-byte
 balance.  So each keeps whole rows in registers: one read of each input,
 two-pass fp32 statistics (mean, then the mean of squared deviations, as the
-TPU kernels do), fp32 math, one write in the input dtype.  The backward
-recomputes mean and rstd from x (nothing saved but x) and emits, per
-program, fp32 partial sums of dscale and dbias over the rows it walked; a
-second small sum over the programs finishes them (no float atomics, so the
-result is deterministic).  Nothing to gain from Hopper-specific
-instructions here; the kernels are Triton.
+TPU kernels do), fp32 math, one write in the input dtype.
+
+The forward is CUDA C++ (``csrc/layernorm.cu``: a warp per row; its source
+note says why), launched through the kernel library's plain C entry point,
+which costs the host less than Triton's launcher.  The backward is Triton: it recomputes
+mean and rstd from x (nothing saved but x) and emits, per program, fp32
+partial sums of dscale and dbias over the rows it walked; a second small
+sum over the programs finishes them (no float atomics, so the result is
+deterministic).
 
 :func:`fused_layernorm` is differentiable.  Triton is imported only inside
-the launching functions: the CPU build of the port has no Triton.
+the launching function: the CPU build of the port has no Triton.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from __future__ import annotations
 import functools
 
 import torch
+
+from fast3r_torch.kernels import build
 
 BWD_PROGRAMS = 1024  # programs of the backward; each walks rows / programs rows
 
@@ -59,27 +64,9 @@ def layernorm_bwd_ref(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=1)
-def _kernels():
+def _bwd_kernel():
     import triton
     import triton.language as tl
-
-    @triton.jit
-    def ln_fwd_kernel(x_ptr, w_ptr, b_ptr, y_ptr, n_cols, eps,
-                      BLOCK: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        cols = tl.arange(0, BLOCK)
-        mask = cols < n_cols
-        x = tl.load(x_ptr + row * n_cols + cols, mask=mask,
-                    other=0.0).to(tl.float32)
-        mean = tl.sum(x, axis=0) / n_cols
-        xc = tl.where(mask, x - mean, 0.0)
-        var = tl.sum(xc * xc, axis=0) / n_cols
-        rstd = 1.0 / tl.sqrt(var + eps)
-        w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
-        b = tl.load(b_ptr + cols, mask=mask, other=0.0).to(tl.float32)
-        y = xc * rstd * w + b
-        tl.store(y_ptr + row * n_cols + cols,
-                 y.to(y_ptr.dtype.element_ty), mask=mask)
 
     @triton.jit
     def ln_bwd_kernel(x_ptr, w_ptr, dy_ptr, dx_ptr, dw_ptr, db_ptr, n_rows,
@@ -110,38 +97,48 @@ def _kernels():
         tl.store(dw_ptr + pid * n_cols + cols, dw_acc, mask=mask)
         tl.store(db_ptr + pid * n_cols + cols, db_acc, mask=mask)
 
-    return ln_fwd_kernel, ln_bwd_kernel, triton.next_power_of_2
+    return ln_bwd_kernel, triton.next_power_of_2
+
+
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check_kernel_args(name: str, x: torch.Tensor, params) -> int:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    if x.dtype not in _DTYPES:
         raise ValueError(f"{name}: dtype {x.dtype} not supported")
     C = x.shape[-1]
     if not x.is_contiguous() or not 0 < C <= 16384:
         raise ValueError(f"{name}: needs a contiguous (..., C <= 16384) "
                          f"input, got {tuple(x.shape)} strides {x.stride()}")
     for pname, p in params:
-        if p.shape != (C,) or p.device != x.device or not p.is_contiguous():
+        if (p.shape != (C,) or p.device != x.device or not p.is_contiguous()
+                or p.dtype not in _DTYPES):
             raise ValueError(f"{name}: {pname} must be a contiguous ({C},) "
-                             f"tensor on {x.device}")
+                             f"float32 or bfloat16 tensor on {x.device}")
     return C
 
 
 def _forward(x, weight, bias, eps):
-    """The forward kernel or, on the CPU, the plain version (counts nothing)."""
-    if x.device.type == "cpu":
-        return layernorm_ref(x, weight, bias, eps)
+    """The forward kernel or, on the CPU, the plain version (counts
+    nothing).  The kernel runs on the current stream of x's device; the C
+    entry point makes that device current for the launch (a device context
+    here would cost the host more than the launch)."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return layernorm_ref(x, weight, bias, eps)
+        raise ValueError(f"layernorm: no kernel for device {x.device}")
     C = _check_kernel_args("layernorm", x, (("weight", weight), ("bias", bias)))
-    fwd, _, next_pow2 = _kernels()
-    y = torch.empty_like(x)
     rows = x.numel() // C
-    if rows:
-        block = next_pow2(C)
-        with torch.cuda.device(x.device):
-            fwd[(rows,)](x, weight, bias, y, C, float(eps), BLOCK=block,
-                         num_warps=max(1, min(16, block // 256)))
+    if rows >= 2 ** 31:
+        raise ValueError(f"layernorm: {rows} rows, more than the kernel takes")
+    y = torch.empty_like(x)
+    bf, dev = torch.bfloat16, x.device.index
+    build.check(build.library().fast3r_layernorm_fwd(
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(), rows,
+        C, x.dtype == bf, weight.dtype == bf, bias.dtype == bf, eps, dev,
+        torch._C._cuda_getCurrentRawStream(dev)), "fast3r_layernorm_fwd")
     return y
 
 
@@ -157,7 +154,7 @@ def layernorm_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
     if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous():
         raise ValueError("layernorm backward: dy must be contiguous, of x's "
                          "shape and dtype")
-    _, bwd, next_pow2 = _kernels()
+    bwd, next_pow2 = _bwd_kernel()
     rows = x.numel() // C
     progs = max(1, min(rows, BWD_PROGRAMS))
     dx = torch.empty_like(x)
@@ -192,16 +189,17 @@ def fused_layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """LayerNorm over the last axis of x (..., C) with weight/bias (C,);
     differentiable (:func:`layernorm_bwd`).
 
-    CPU tensors take the plain versions.  CUDA tensors launch the Triton
-    kernels, which take a contiguous float32 or bfloat16 x with C <= 16384;
-    anything else raises.
+    CPU tensors take the plain versions.  CUDA tensors launch the kernels
+    (the forward CUDA C++, the backward Triton), which take a contiguous
+    float32 or bfloat16 x with C <= 16384 and float32 or bfloat16 weight
+    and bias; anything else raises.
     """
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
                                     or bias.requires_grad):
         y = _LayerNorm.apply(x, weight, bias, eps)
     else:
         y = _forward(x, weight, bias, eps)
-    if x.device.type != "cpu" and x.numel():
+    if x.is_cuda and x.numel():
         fused_layernorm.launches += 1
     return y
 

@@ -3,16 +3,17 @@ on one GPU.
 
     python -m fast3r_torch.profile_request [--views 20] [--train] \
         [--model flagship|llama] [--roads fused,plain,two_kernel_mlp] \
-        [--seq-ranks N] [--out runs/profile]
+        [--seq-ranks N] [--hw 384 512] [--out runs/profile]
 
 For each road it builds the model (``--model``: the flagship, or
 ``llama``, the flagship with the llama_dec decoder of
 ``configs/experiment/llama_dec.yaml``) with random weights (seed 0) in
-bfloat16 at 512x384 and serves one request of ``--views`` views as a warm-up,
-then one more under ``torch.profiler`` (CPU and CUDA activities).  With
-``--train`` it instead takes one ``train_step`` (remat, bf16 params and
-moments, a ``make_dummy_batch`` batch of ``--views`` views) as the warm-up
-and profiles the next one:
+bfloat16 and serves one request of ``--views`` views of ``--hw`` (height,
+width: 384x512 by default; 512x512 takes the DPT head's unfused road with
+the resize kernel) as a warm-up, then one more under ``torch.profiler`` (CPU
+and CUDA activities).  With ``--train`` it instead takes one ``train_step``
+(remat, bf16 params and moments, a ``make_dummy_batch`` batch of
+``--views`` views of ``--hw``) as the warm-up and profiles the next one:
 
   * fused: the default configuration (fused-GEMM blocks, whole-MLP kernel);
   * plain: both stacks with ``fused_blocks=False``;
@@ -69,6 +70,7 @@ CATEGORIES = (
     ("LayerNorm kernel", ("ln_fwd_kernel",)),
     ("LayerNorm backward kernel", ("ln_bwd_kernel",)),
     ("trunk kernel", ("conv3x3_mma", "conv3x3_f32")),
+    ("resize kernel", ("resize_bilinear",)),
     ("library convs", ("conv", "fprop", "dgrad", "wgrad", "implicit",
                        "winograd")),
     ("library GEMMs", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
@@ -101,13 +103,14 @@ def _request(model: Fast3R, views: list):
     return lambda: inference(views, model, verbose=False)
 
 
-def _train_step(model: Fast3R, views: int, seq_ranks: int = 0):
-    """One training step from a fixed state and batch (the work to
-    profile); sequence-sharded over ``seq_ranks`` ranks when not 0."""
+def _train_step(model: Fast3R, views: int, hw, seq_ranks: int = 0):
+    """One training step from a fixed state and batch of ``views`` views of
+    ``hw`` (the work to profile); sequence-sharded over ``seq_ranks`` ranks
+    when not 0."""
     opt = OptimConfig(warmup_steps=2, total_steps=1000)
     state = init_train_state(model.params, opt)
     batch = {k: torch.as_tensor(v).cuda() for k, v in
-             make_dummy_batch(1, views, 384, 512, seed=0).items()
+             make_dummy_batch(1, views, *hw, seed=0).items()
              if k in ("imgs", "true_shapes", "pts3d", "valid_mask",
                       "camera_pose")}
     if seq_ranks:
@@ -127,10 +130,11 @@ def _seq_request(model: Fast3R, views: list, ranks: int):
 def profile_road(model: Fast3R, road: str, views: list, out_dir: Path,
                  train: bool = False, seq_ranks: int = 0) -> dict:
     m = Fast3R(model.cfg.with_fused_blocks(road != "plain"), model.params)
+    hw = tuple(views[0]["img"].shape[1:3])
     fused_block.PREFER_FUSED_MLP = road != "two_kernel_mlp"
     try:
         if train:
-            work = _train_step(m, len(views), seq_ranks)
+            work = _train_step(m, len(views), hw, seq_ranks)
         elif seq_ranks:
             work = _seq_request(model, views, seq_ranks)
         else:
@@ -163,7 +167,8 @@ def profile_road(model: Fast3R, road: str, views: list, out_dir: Path,
         by_name[label] = (n + evt.count, t_ms + ms)
     out_dir.mkdir(parents=True, exist_ok=True)
     what = "train" if train else "request"
-    prof.export_chrome_trace(str(out_dir / f"trace_{what}_{road}_{len(views)}.json"))
+    prof.export_chrome_trace(str(
+        out_dir / f"trace_{what}_{road}_{len(views)}_{hw[0]}x{hw[1]}.json"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     return {"road": road, "work": what, "views": len(views),
             "wall_ms": wall * 1e3,
@@ -186,6 +191,8 @@ def main() -> None:
                     help="profile the sequence-sharded request (with "
                          "--train: training step) over this many ranks "
                          "instead")
+    ap.add_argument("--hw", type=int, nargs=2, default=(384, 512),
+                    metavar=("H", "W"), help="the views' height and width")
     ap.add_argument("--out", default="runs/profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -199,13 +206,14 @@ def main() -> None:
         cfg = dataclasses.replace(cfg, decoder=LlamaDecoderConfig())
     model = Fast3R.from_random(cfg, seed=0, dtype=torch.bfloat16)
     g = torch.Generator().manual_seed(args.views)
-    views = [{"img": torch.rand((1, 384, 512, 3), generator=g) * 2 - 1,
-              "true_shape": [[384, 512]]} for _ in range(args.views)]
+    H, W = args.hw
+    views = [{"img": torch.rand((1, H, W, 3), generator=g) * 2 - 1,
+              "true_shape": [[H, W]]} for _ in range(args.views)]
     roads = ["seq_sharded"] if args.seq_ranks else args.roads.split(",")
     for road in roads:
         res = profile_road(model, road, views, Path(args.out), args.train,
                            args.seq_ranks)
-        res["gpu"], res["model"] = gpu, args.model
+        res["gpu"], res["model"], res["hw"] = gpu, args.model, [H, W]
         print(json.dumps(res), flush=True)
 
 

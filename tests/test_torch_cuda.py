@@ -167,7 +167,10 @@ def test_attention_kernel_rejects_what_it_cannot_take(dev):
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 6e-2)])
-@pytest.mark.parametrize("shape", [(300, 1024), (2, 5, 64), (7, 96)])
+@pytest.mark.parametrize("shape", [(300, 1024), (2, 5, 64), (7, 96),
+                                   (15360, 1024),  # the blocks' shape
+                                   (4, 16384),     # a CTA a row
+                                   (9, 100)])      # bf16: the scalar road
 def test_layernorm_kernel_matches_plain(dev, dtype, atol, shape):
     """bf16: one output rounding (2^-8 relative) on values up to ~8."""
     g = _gen(2)
@@ -187,6 +190,47 @@ def test_layernorm_kernel_rejects_strided_input(dev):
     with pytest.raises(ValueError, match="contiguous"):
         t_ln.fused_layernorm(x, torch.ones(8, device=dev),
                              torch.zeros(8, device=dev), 1e-6)
+
+
+@pytest.mark.parametrize("pdtype", [torch.float32, torch.bfloat16])
+def test_layernorm_kernel_unaligned_and_mixed_params(dev, pdtype):
+    """An x that starts 2 bytes past a 16-byte boundary takes the scalar
+    road; bf16 x with fp32 (or bf16) weight and bias: one output rounding
+    from fp32 values that differ in summation order."""
+    g = _gen(21)
+    buf = (torch.randn(1 + 33 * 512, generator=g, device=dev) * 3 + 1).to(
+        torch.bfloat16)
+    w = torch.randn(512, generator=g, device=dev).to(pdtype)
+    b = torch.randn(512, generator=g, device=dev).to(pdtype)
+    for x in (buf[1:].view(33, 512), buf[:-1].view(33, 512)):
+        out = t_ln.fused_layernorm(x, w, b, 1e-6)
+        ref = t_ln.layernorm_ref(x, w, b, 1e-6)
+        assert (out.float() - ref.float()).abs().max().item() < 6e-2
+
+
+def test_layernorm_kernel_is_deterministic(dev):
+    """No atomics: two launches give the same bits, on each road."""
+    g = _gen(22)
+    for shape in ((15360, 1024), (4, 16384), (9, 100)):
+        x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        w = torch.randn(shape[-1], generator=g, device=dev).to(torch.bfloat16)
+        b = torch.randn(shape[-1], generator=g, device=dev).to(torch.bfloat16)
+        assert torch.equal(t_ln.fused_layernorm(x, w, b, 1e-6),
+                           t_ln.fused_layernorm(x, w, b, 1e-6))
+
+
+def test_layernorm_kernel_rejects_what_it_cannot_take(dev):
+    x = torch.zeros((8, 64), device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        t_ln.fused_layernorm(x.half(), torch.ones(64, device=dev),
+                             torch.zeros(64, device=dev), 1e-6)
+    with pytest.raises(ValueError, match="weight"):
+        t_ln.fused_layernorm(x, torch.ones(64, device=dev).half(),
+                             torch.zeros(64, device=dev), 1e-6)
+    with pytest.raises(ValueError, match="16384"):
+        t_ln.fused_layernorm(torch.zeros((2, 16400), device=dev),
+                             torch.ones(16400, device=dev),
+                             torch.zeros(16400, device=dev), 1e-6)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -891,6 +935,10 @@ def _bf16_step(x: torch.Tensor) -> float:
     ((2, 128, 224, 256), (448, 512)),   # 448x512 views
     ((1, 256, 40, 56), (81, 117)),      # non-2x ratios, a ragged last group
     ((1, 128, 96, 64), (48, 32)),       # downscale
+    ((20, 128, 256, 256), (512, 512)),  # the 20-view 512x512 request's head
+    ((6, 128, 224, 256), (448, 512)),   # the mixed request's 448x512 group
+    ((1, 128, 45, 37), (90, 74)),       # 74-byte rows: 2-byte copies
+    ((1, 128, 256, 248), (512, 496)),   # 512x496 views
 ])
 def test_resize_kernel_matches_plain(dev, shape, out_hw):
     """K12 against resize_matmul (the same two bf16 rounding points):
@@ -906,6 +954,32 @@ def test_resize_kernel_matches_plain(dev, shape, out_hw):
     torch.cuda.synchronize()
     assert out.shape == ref.shape and out.dtype == torch.bfloat16
     assert (out.float() - ref.float()).abs().max().item() <= _bf16_step(ref)
+
+
+def test_resize_kernel_walk_and_alignment(dev):
+    """Few persistent CTAs (each walking many items through its ring of
+    stages) give the default grid's bits; an input 2 bytes past a 16-byte
+    boundary takes the 2-byte copies and the same bits again; two launches
+    agree bit for bit; the kernel asks for the plan's shared memory."""
+    from fast3r_torch.kernels import build
+    from fast3r_torch.ops import resize_kernel as t_rk
+
+    g = _gen(23)
+    buf = torch.randn(1 + 128 * 64 * 96, generator=g, device=dev).to(
+        torch.bfloat16)
+    x = buf[:-1].view(1, 128, 64, 96)
+    ref = t_rk._launch(x, 150, 200)
+    for ctas in (1, 3, 7):
+        assert torch.equal(t_rk._launch(x, 150, 200, ctas=ctas), ref)
+    assert torch.equal(t_rk._launch(x, 150, 200), ref)
+    moved = buf[1:].view(1, 128, 64, 96)
+    moved_ref = t_rk._launch(moved.clone(), 150, 200)
+    assert not t_rk.band_plan(64, 96, 150, 200, False).bulk
+    assert torch.equal(t_rk._launch(moved, 150, 200), moved_ref)
+    for shape in ((256, 256, 512, 512), (224, 256, 448, 512), (45, 37, 90, 74)):
+        p = t_rk.band_plan(*shape)
+        assert build.library().fast3r_resize_smem_bytes(
+            p.rows, p.cols, p.stage_rows, p.pitch, p.stages) == p.smem_bytes
 
 
 def test_resize_kernel_road_and_gradient(dev):

@@ -62,6 +62,29 @@ def test_layernorm_matches_jax_kernel(shape, eps):
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
 
 
+def test_layernorm_bf16_matches_jax_kernel():
+    """bf16 in and out at (24, 1024): the port's plain version against the
+    Pallas LN kernel in interpret mode.  Both take fp32 statistics and round
+    the output once, from fp32 values that differ in summation order: one
+    bf16 step (2^-8 relative, ties 2^-7) on outputs of magnitude ~10."""
+    from fast3r_tpu.ops.fused_layernorm import fused_layernorm
+
+    rng = np.random.default_rng(1)
+    x = (rng.standard_normal((24, 1024)) * 5 + 2).astype(np.float32)
+    scale = rng.standard_normal(1024).astype(np.float32)
+    bias = rng.standard_normal(1024).astype(np.float32)
+    bf = jnp.bfloat16
+    ref = fused_layernorm(jnp.asarray(x, bf), jnp.asarray(scale, bf),
+                          jnp.asarray(bias, bf), 1e-6)
+    assert ref.dtype == bf
+    out = t_ln.fused_layernorm(_t(x).bfloat16(), _t(scale).bfloat16(),
+                               _t(bias).bfloat16(), 1e-6)
+    assert out.dtype == torch.bfloat16 and out.shape == (24, 1024)
+    ref = np.asarray(ref.astype(jnp.float32))
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=2 ** -7,
+                               atol=1e-6)
+
+
 def test_layernorm_bf16_keeps_dtype():
     x = torch.randn(8, 128).to(torch.bfloat16)
     out = t_ln.fused_layernorm(x, torch.ones(128), torch.zeros(128), 1e-6)
