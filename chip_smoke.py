@@ -273,6 +273,7 @@ TOL = {
     # the fp32 dweight / dbias sums over 15360 rows in another order.
     ("attention_bwd", torch.bfloat16): dict(atol_of_max=2e-2, rtol=2 ** -7),
     ("layernorm_bwd", torch.bfloat16): dict(atol=1e-2, rtol=2 ** -7),
+    ("layernorm_bwd", torch.float32): dict(atol=1e-4, rtol=1e-5),
     ("layernorm_bwd_w", torch.bfloat16): dict(atol_of_max=1e-4, rtol=0.0),
     ("replay_u", torch.bfloat16): dict(atol=1e-2, rtol=2 ** -7),
     ("replay_stats", torch.bfloat16): dict(atol=1e-6, rtol=1e-5),
@@ -384,6 +385,8 @@ def _kernel_label(mangled: str):
     length prefix, so attention_fwd_kernel is not ring_attention_fwd_kernel);
     None for a kernel that is not on wgmma and TMA (the fp32 variants, the
     others)."""
+    if "17trunk_conv_kernel" in mangled:  # conv1 <1>, conv2 <2>
+        return f"trunk_conv_kernel<{1 if 'ILi1E' in mangled else 2}>"
     if "fused_gemm_kernel" in mangled:
         tail = mangled.split("fused_gemm_kernel", 1)[1]
         modes = tail.split("EE", 1)[0].replace("ILi", "").split("ELi")
@@ -404,10 +407,16 @@ ATTN_KERNELS = {"attention_fwd_kernel": "fwd", "ring_attention_fwd_kernel": "rin
                 "ring_bwd_dq_kernel<bf16>": "bwd", "ring_bwd_dkv_kernel<bf16>": "bwd"}
 
 
+# K8's two launches (csrc/trunk.cu): conv1, and conv2 with the resize and
+# conv3
+TRUNK_KERNELS = {"trunk_conv_kernel<1>": "trunk1", "trunk_conv_kernel<2>": "trunk2"}
+
+
 def hopper_kernel_report(blog: str, sass: str) -> dict:
     """ptxas's registers and spills of every fused_gemm_kernel and
-    ln_mlp_kernel instantiation and of the attention kernels on the wgmma
-    tiles (forward: K1, the bf16 ring; backward: K9's two, the bf16 rings),
+    ln_mlp_kernel instantiation, of the attention kernels on the wgmma
+    tiles (forward: K1, the bf16 ring; backward: K9's two, the bf16 rings)
+    and of the trunk's (K8: conv1, conv2),
     their dynamic shared memory, and the counts of HGMMA (wgmma) and UTMALDG
     (TMA load) instructions in their SASS; raises if any of them has none of
     either, or if one of the attention kernels is missing."""
@@ -431,7 +440,7 @@ def hopper_kernel_report(blog: str, sass: str) -> dict:
             for op in ("HGMMA", "UTMALDG"):
                 if op in line:
                     report[name][op] += 1
-    missing = [n for n in ATTN_KERNELS if n not in report]
+    missing = [n for n in (*ATTN_KERNELS, *TRUNK_KERNELS) if n not in report]
     if not report or missing:
         raise AssertionError(f"Hopper kernels missing from the library: "
                              f"{missing or 'all'}")
@@ -439,9 +448,11 @@ def hopper_kernel_report(blog: str, sass: str) -> dict:
     smem = {"fwd": lib.fast3r_attention_fwd_smem_bytes(),
             "ring_fwd": lib.fast3r_ring_attention_fwd_smem_bytes(),
             "bwd": lib.fast3r_attention_bwd_smem_bytes(),
-            "gemm": lib.fast3r_gemm_smem_bytes()}
+            "gemm": lib.fast3r_gemm_smem_bytes(),
+            "trunk1": lib.fast3r_trunk_smem_bytes(1),
+            "trunk2": lib.fast3r_trunk_smem_bytes(2)}
     for name, r in sorted(report.items()):
-        r["smem"] = smem[ATTN_KERNELS.get(name, "gemm")]
+        r["smem"] = smem[ATTN_KERNELS.get(name, TRUNK_KERNELS.get(name, "gemm"))]
         log(f"hopper kernel {name}: {'; '.join(r['ptxas'])}; dynamic shared "
             f"memory {r['smem']} bytes; SASS HGMMA {r.get('HGMMA', 0)}, "
             f"UTMALDG {r.get('UTMALDG', 0)}")
@@ -452,12 +463,17 @@ def hopper_kernel_report(blog: str, sass: str) -> dict:
 
 def _simple_label(mangled: str):
     """resize_bilinear_kernel<bulk> / <2-byte copies>, ln_fwd_kernel<bf16,
-    4, 32> (dtype, chunks a thread, threads a row), ln_fwd_scalar_kernel<f32>
-    from a mangled name; None for the other kernels."""
+    4, 32> (dtype, chunks a thread, threads a row), ln_fwd_scalar_kernel<f32>,
+    ln_bwd_kernel<bf16, 4> (dtype, chunks a lane), ln_bwd_cta_kernel<f32,
+    8>, ln_bwd_scalar_kernel<bf16>, ln_bwd_sum_kernel from a mangled name;
+    None for the other kernels."""
     if "resize_bilinear_kernel" in mangled:
         bulk = "ILb1E" in mangled
         return f"resize_bilinear_kernel<{'bulk' if bulk else '2-byte copies'}>"
-    for name in ("ln_fwd_kernel", "ln_fwd_scalar_kernel"):
+    if "17ln_bwd_sum_kernel" in mangled:
+        return "ln_bwd_sum_kernel"
+    for name in ("ln_fwd_kernel", "ln_fwd_scalar_kernel", "ln_bwd_kernel",
+                 "ln_bwd_cta_kernel", "ln_bwd_scalar_kernel"):
         if f"{len(name)}{name}" in mangled:
             tail = mangled.split(name, 1)[1].split("EEv", 1)[0]
             args = ["bf16" if "bfloat16" in tail else "f32"]
@@ -468,7 +484,8 @@ def _simple_label(mangled: str):
 
 def simple_kernel_report(blog: str, sass: str) -> dict:
     """ptxas's registers, spills and static shared memory of the resize
-    (K12) and LayerNorm forward (K7) kernels, with counts from their SASS:
+    (K12) and LayerNorm (K7, forward and backward) kernels, with counts from
+    their SASS:
     bulk copies (UBLKCP) and barrier instructions (BAR) and 16-byte global
     stores (STG.E.128); plus the resize's dynamic shared memory at the
     512x512 head's plan.  Raises if a kernel is missing, if the bulk resize
@@ -496,7 +513,10 @@ def simple_kernel_report(blog: str, sass: str) -> dict:
             report[name]["STG128"] += "STG.E.128" in line
     want = ["resize_bilinear_kernel<bulk>", "resize_bilinear_kernel<2-byte copies>",
             "ln_fwd_kernel<bf16, 4, 32>", "ln_fwd_kernel<f32, 8, 32>",
-            "ln_fwd_kernel<f32, 8, 512>", "ln_fwd_scalar_kernel<bf16>"]
+            "ln_fwd_kernel<f32, 8, 512>", "ln_fwd_scalar_kernel<bf16>",
+            "ln_bwd_kernel<bf16, 4>", "ln_bwd_kernel<f32, 8>",
+            "ln_bwd_cta_kernel<f32, 8>", "ln_bwd_scalar_kernel<bf16>",
+            "ln_bwd_sum_kernel"]
     missing = [n for n in want if n not in report]
     if missing:
         raise AssertionError(f"kernels missing from the library: {missing}")
@@ -713,22 +733,41 @@ def check_layernorm(results: list) -> None:
             log(json.dumps(r))
 
 
+TRUNK_CASES = (  # (n, hh, wc, cin, H, W)
+    (4, 192, 256, 256, 384, 512),    # the earlier row's case
+    (20, 192, 256, 256, 384, 512),   # the 20-view request's chunk, twice a request
+    (6, 256, 192, 256, 512, 384))    # the mixed request's portrait group
+
+
+def _trunk_inputs(n, hh, wc, cin, dtype):
+    g = _gen(3)
+
+    def uni(shape, fan_in):
+        bound_ = 1.0 / math.sqrt(fan_in)
+        return ((torch.rand(shape, generator=g, device="cuda") * 2 - 1)
+                * bound_).to(dtype)
+
+    x = torch.randn((n, hh, wc, cin), generator=g, device="cuda").to(dtype)
+    c1 = 128
+    return x, (uni((c1, cin, 3, 3), 9 * cin), uni((c1,), 9 * cin),
+               uni((c1, c1, 3, 3), 9 * c1), uni((c1,), 9 * c1),
+               uni((4, c1, 1, 1), c1), uni((4,), c1))
+
+
 def check_trunk(results: list) -> None:
-    n, hh, wc, cin, c1, H, W = 4, 192, 256, 256, 128, 384, 512
-    for dtype in (torch.float32, torch.bfloat16):
-        g = _gen(3)
-
-        def uni(shape, fan_in):
-            bound = 1.0 / math.sqrt(fan_in)
-            return ((torch.rand(shape, generator=g, device="cuda") * 2 - 1)
-                    * bound).to(dtype)
-
-        x = torch.randn((n, hh, wc, cin), generator=g, device="cuda").to(dtype)
-        w1, b1 = uni((c1, cin, 3, 3), 9 * cin), uni((c1,), 9 * cin)
-        w2, b2 = uni((c1, c1, 3, 3), 9 * c1), uni((c1,), 9 * c1)
-        w3, b3 = uni((4, c1, 1, 1), c1), uni((4,), c1)
+    """K8 (csrc/trunk.cu) against its plain version: fp32 and bf16 at n = 4,
+    and in bf16 at the request's shapes, with device, single-launch and host
+    times, TFLOP/s, the bound's share, and the port's unfused road at the
+    same shape as a yardstick, its parts timed apart (cuDNN conv1, K12,
+    cuDNN conv2 + ReLU + conv3; ``F.interpolate`` beside K12)."""
+    for (n, hh, wc, cin, H, W), dtype in (
+            [(TRUNK_CASES[0], torch.float32)]
+            + [(c, torch.bfloat16) for c in TRUNK_CASES]):
+        c1 = 128
+        x, (w1, b1, w2, b2, w3, b3) = _trunk_inputs(n, hh, wc, cin, dtype)
         args = (w1, b1, w2, b2, w3, b3, H, W)
         xc = x.permute(0, 3, 1, 2)
+        xn = xc.contiguous()  # the unfused road's NCHW input
 
         def plain():
             return _plain_head(xc, *args).reshape(n, 4, H * W)
@@ -741,22 +780,53 @@ def check_trunk(results: list) -> None:
             return F.conv2d(y, w3, b3).reshape(n, 4, H * W)
 
         out = fused_regression_head_t(x, *args)
+        again = fused_regression_head_t(x, *args)
         ref = plain()
         torch.cuda.synchronize()
         r = compare("trunk", out, ref, dtype)
+        if not torch.equal(out, again):
+            raise AssertionError("trunk: two runs gave different bits")
+        del ref, again
+        flops = 2.0 * (n * hh * wc * c1 * cin * 9
+                       + n * H * W * (c1 * c1 * 9 + c1 * 4))
         r.update(kernel="trunk", case=f"{n}x{hh}x{wc}x{cin} -> {H}x{W}",
                  dtype=str(dtype).split(".")[-1],
                  ms=median_ms(lambda: fused_regression_head_t(x, *args), 5),
-                 plain_ms=median_ms(plain, 5),
+                 plain_ms=median_ms(plain, 3),
                  library="F.conv2d + F.interpolate(bilinear, align_corners) + "
                          "F.conv2d + F.relu + F.conv2d",
                  library_ms=median_ms(library, 5),
-                 **bound(2.0 * (n * hh * wc * c1 * cin * 9
-                                + n * H * W * (c1 * c1 * 9 + c1 * 4)),
-                         (x.numel() + n * 4 * H * W) * x.element_size(),
+                 **bound(flops, (x.numel() + n * 4 * H * W) * x.element_size(),
                          dtype))
+        if dtype == torch.bfloat16:
+            r.update(_launch_times(
+                lambda: fused_regression_head_t(x, *args), "trunk_conv",
+                library, 20))
+            r["tflops"] = flops / (r["device_ms"] * 1e-3) / 1e12
+            r["bound_share"] = r["bound_ms"] / r["device_ms"]
+        if dtype == torch.bfloat16 and n > 4:
+            y1 = F.conv2d(xn, w1, b1, padding=1)
+            yr = resize_bilinear_kernel(y1, H, W)
+            parts = {
+                "conv1": lambda: F.conv2d(xn, w1, b1, padding=1),
+                "resize": lambda: resize_bilinear_kernel(y1, H, W),
+                "conv2_relu_conv3": lambda: F.conv2d(
+                    F.relu(F.conv2d(yr, w2, b2, padding=1)), w3, b3),
+                "interpolate": lambda: F.interpolate(
+                    y1, size=(H, W), mode="bilinear", align_corners=True)}
+            for k, fn in parts.items():
+                r[f"unfused_{k}_device_ms"] = _all_kernels_ms(fn)
+            r["unfused_device_ms"] = sum(r[f"unfused_{k}_device_ms"] for k in
+                                         ("conv1", "resize", "conv2_relu_conv3"))
+            if r["device_ms"] >= r["unfused_device_ms"]:
+                log(f"trunk {r['case']}: the kernel's {r['device_ms']:.3f} ms "
+                    f"is not below the unfused road's "
+                    f"{r['unfused_device_ms']:.3f} ms")
+            del y1, yr
         results.append(r)
         log(json.dumps(r))
+        del x, xc, xn, out
+        torch.cuda.empty_cache()
 
 
 def check_resize(results: list) -> None:
@@ -966,31 +1036,51 @@ def _grad_ms(out, inputs, cot, reps: int) -> float:
 
 
 def check_layernorm_bwd(results: list) -> None:
-    """The LayerNorm backward at the block shape (15360, 1024), bf16."""
-    g = _gen(5)
-    bf, eps = torch.bfloat16, 1e-6
-    x = (torch.randn((M_TOK, C), generator=g, device="cuda") * 3 + 1).to(bf)
-    w = (1 + 0.1 * torch.randn((C,), generator=g, device="cuda")).to(bf)
-    b = (0.1 * torch.randn((C,), generator=g, device="cuda")).to(bf)
-    dy = torch.randn((M_TOK, C), generator=g, device="cuda").to(bf)
-    dx, dw, db = layernorm_bwd(x, w, dy, eps)
-    rdx, rdw, rdb = layernorm_bwd_ref(x, w, dy, eps)
-    torch.cuda.synchronize()
-    r = compare("layernorm_bwd", dx, rdx, bf)
-    rw = [compare("layernorm_bwd_w", u, v, bf) for u, v in ((dw, rdw),
-                                                          (db, rdb))]
-    xl, wl, bl = (t.detach().clone().requires_grad_() for t in (x, w, b))
-    y = F.layer_norm(xl, (C,), wl, bl, eps)
-    r.update(kernel="layernorm_bwd", case=f"{M_TOK}x{C}", dtype="bfloat16",
-             max_abs_err_dweight_dbias=max(q["max_abs_err"] for q in rw),
-             ms=median_ms(lambda: layernorm_bwd(x, w, dy, eps), 20),
-             plain_ms=median_ms(lambda: layernorm_bwd_ref(x, w, dy, eps), 5),
-             library="autograd of F.layer_norm (dx, dweight, dbias)",
-             library_ms=_grad_ms(y, (xl, wl, bl), dy, 20),
-             **bound(16.0 * M_TOK * C, 3 * M_TOK * C * 2 + 3 * C * 2 + 2 * C * 4,
-                     torch.float32))
-    results.append(r)
-    log(json.dumps(r))
+    """K7's backward (csrc/layernorm.cu) at the block shape (15360, 1024),
+    bf16 and fp32: single-launch, device (both launches, partials
+    included) and host times beside autograd of ``F.layer_norm``'s, the
+    bound and the device time's share of it; two runs must give the same
+    bits."""
+    for dtype in (torch.bfloat16, torch.float32):
+        g = _gen(5)
+        eps = 1e-6
+        x = (torch.randn((M_TOK, C), generator=g, device="cuda") * 3 + 1).to(dtype)
+        w = (1 + 0.1 * torch.randn((C,), generator=g, device="cuda")).to(dtype)
+        b = (0.1 * torch.randn((C,), generator=g, device="cuda")).to(dtype)
+        dy = torch.randn((M_TOK, C), generator=g, device="cuda").to(dtype)
+        dx, dw, db = layernorm_bwd(x, w, dy, eps)
+        again = layernorm_bwd(x, w, dy, eps)
+        rdx, rdw, rdb = layernorm_bwd_ref(x, w, dy, eps)
+        torch.cuda.synchronize()
+        if not all(torch.equal(u, v) for u, v in zip((dx, dw, db), again)):
+            raise AssertionError("layernorm_bwd: two runs gave different bits")
+        r = compare("layernorm_bwd", dx, rdx, dtype)
+        rw = [compare("layernorm_bwd_w", u, v, torch.bfloat16)
+              for u, v in ((dw, rdw), (db, rdb))]
+        xl, wl, bl = (t.detach().clone().requires_grad_() for t in (x, w, b))
+        y = F.layer_norm(xl, (C,), wl, bl, eps)
+
+        def library():
+            return torch.autograd.grad(y, (xl, wl, bl), dy, retain_graph=True)
+
+        r.update(kernel="layernorm_bwd", case=f"{M_TOK}x{C}",
+                 dtype=str(dtype).split(".")[-1],
+                 max_abs_err_dweight_dbias=max(q["max_abs_err"] for q in rw),
+                 ms=median_ms(lambda: layernorm_bwd(x, w, dy, eps), 20),
+                 plain_ms=median_ms(lambda: layernorm_bwd_ref(x, w, dy, eps), 5),
+                 library="autograd of F.layer_norm (dx, dweight, dbias)",
+                 library_ms=_grad_ms(y, (xl, wl, bl), dy, 20),
+                 **bound(16.0 * M_TOK * C,
+                         3 * M_TOK * C * x.element_size()
+                         + C * w.element_size() + 2 * C * 4, torch.float32),
+                 # 200 calls (400 launches) stay inside the launch queue
+                 **_launch_times(lambda: layernorm_bwd(x, w, dy, eps), "ln_bwd",
+                                 library, 200))
+        r["bound_share"] = r["bound_ms"] / r["device_ms"]
+        results.append(r)
+        log(json.dumps(r))
+        del x, dy, dx, again, rdx, xl, y
+        torch.cuda.empty_cache()
 
 
 def _attn_bwd_bound(B, N, H, D):
@@ -1308,8 +1398,7 @@ KERNELS = {  # name -> (wrapper, route, source, TPU kernel it replaces)
                         "fast3r_tpu/nn/fused_block.py:310 (_matmul_res_kernel)"),
     "ln_mlp": (fb.ln_mlp, "cuda", "fast3r_torch/csrc/ln_mlp.cu",
                "fast3r_tpu/nn/fused_block.py:318 (_ln_mlp_kernel)"),
-    "layernorm_bwd": (layernorm_bwd, "triton",
-                      "fast3r_torch/ops/fused_layernorm.py",
+    "layernorm_bwd": (layernorm_bwd, "cuda", "fast3r_torch/csrc/layernorm.cu",
                       "fast3r_tpu/ops/fused_layernorm.py:56 (_bwd_kernel)"),
     "attention_bwd": (
         attention_bwd, "cuda", "fast3r_torch/csrc/attention_bwd.cu",
@@ -2336,6 +2425,7 @@ def phase_counts(counts: dict) -> None:
 
 # the heaviest main-path shape of each kernel, for the summary line
 MAIN_CASE = {"attention": "decoder", "layernorm": "eps=1e-05",
+             "trunk": "20x192x256x256",
              "matmul_residual": "proj", "attention_bwd": "decoder",
              "ln_matmul_replay": "fc1", "rms_qkv3": f"qkv {M_TOK}",
              "rms_matmul": "w1", "rms_matmul_replay": "w1",

@@ -2,8 +2,8 @@
 
 The module layout and function names mirror ``fast3r_tpu``; ``fast3r_tpu``
 stays the reference each module is tested against.  Every op takes its plain
-PyTorch version on CPU tensors and its hand-written kernel on CUDA tensors
-(``fast3r_torch/csrc`` for CUDA C++, ``ops/fused_layernorm.py`` for Triton).
+PyTorch version on CPU tensors and its hand-written CUDA C++ kernel
+(``fast3r_torch/csrc``) on CUDA tensors.
 This package imports neither ``jax`` nor ``fast3r_tpu``.
 """
 

@@ -57,19 +57,24 @@ static EncodeTiled encode_tiled() {
 
 // the map of a bf16 tensor of `rank` (2 to 5) dimensions, innermost first:
 // dims[0] contiguous, dims[i] apart by strides[i - 1] elements; loaded or
-// stored in boxes of 64 (128 bytes, the swizzle span) x box[1] (x 1 ...).
-// Box elements past the tensor's edges load as zeros and are not stored.
-// TMA needs a 16-byte aligned base and strides.
-static cudaError_t make_tmap(CUtensorMap* map, const void* base, int rank,
-                             const long long* dims, const long long* strides,
-                             int box_rows) {
+// stored in boxes of box[0] = 64 (128 bytes, the swizzle span) x box[1] x
+// ... elements, which land in shared memory as rows of 128 bytes, outer
+// coordinates major.  Box elements past the tensor's edges (on either side:
+// a box may start at a negative coordinate) load as zeros and are not
+// stored.  TMA needs a 16-byte aligned base and strides.
+static cudaError_t make_tmap_box(CUtensorMap* map, const void* base, int rank,
+                                 const long long* dims,
+                                 const long long* strides, const int* box_dims) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   if (rank < 2 || rank > 5) return cudaErrorInvalidValue;
   cuuint64_t d[5], st[4];
-  cuuint32_t box[5] = {64, (cuuint32_t)box_rows, 1, 1, 1}, es[5] = {1, 1, 1, 1, 1};
+  cuuint32_t box[5] = {1, 1, 1, 1, 1}, es[5] = {1, 1, 1, 1, 1};
   if (reinterpret_cast<uintptr_t>(base) & 15) return cudaErrorMisalignedAddress;
-  for (int i = 0; i < rank; ++i) d[i] = (cuuint64_t)dims[i];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = (cuuint64_t)dims[i];
+    box[i] = (cuuint32_t)box_dims[i];
+  }
   for (int i = 0; i + 1 < rank; ++i) {
     if ((strides[i] * 2) % 16) return cudaErrorMisalignedAddress;
     st[i] = (cuuint64_t)strides[i] * 2;
@@ -81,6 +86,13 @@ static cudaError_t make_tmap(CUtensorMap* map, const void* base, int rank,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+// boxes of 64 x box_rows (x 1 ...)
+static cudaError_t make_tmap(CUtensorMap* map, const void* base, int rank,
+                             const long long* dims, const long long* strides,
+                             int box_rows) {
+  const int box[5] = {64, box_rows, 1, 1, 1};
+  return make_tmap_box(map, base, rank, dims, strides, box);
 }
 // a row-major (rows, cols) matrix of row stride ld elements
 static cudaError_t make_tmap(CUtensorMap* map, const void* base, long long rows,
@@ -292,6 +304,13 @@ __device__ __forceinline__ void named_arrive(int id, int count) {
 // (wgmma with trans-b 1): 8-row groups of K 1024 bytes apart (SBO), one
 // 64-wide swizzle atom of N (LBO unused).  The k16 step j then starts 16 j
 // rows down: descriptor + 128 j.
+// A K-major tile may also start at any 128-byte row of a 1024-byte aligned
+// buffer (a shifted window of it, csrc/trunk.cu): the card applies the
+// 128-byte swizzle to the address bits (each 16-byte chunk XOR bits 7-9 of
+// its row's address), so the window reads the buffer's own phase of each
+// row with the matrix base offset (bits 49-51) left 0.  Measured on the
+// H100: the start row's phase in the base offset, as the PTX ISA's formula
+// gives it, read the wrong elements.
 __device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
   return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | (1ull << 16) |
          (64ull << 32) | (1ull << 62);

@@ -42,8 +42,8 @@ SIGNATURES = {
                              _L, _L, _L, _L, _L, _L, _L, _L, _L, _F,
                              _P, _I, _I, _P],
     "fast3r_attention_bwd": [_P] * 9 + [_I] * 5 + [_L] * 21 + [_F, _P],
-    "fast3r_trunk_head_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I, _P],
+    "fast3r_trunk_head_fwd": [_I] + [_P] * 11 + [_I] * 7 + [_P],
+    "fast3r_trunk_smem_bytes": [_I],
     "fast3r_fused_gemm": [_I, _I] + [_P] * 13 + [_I, _I, _I, _F, _P],
     "fast3r_ln_mlp": [_P] * 12 + [_I, _I, _I, _I, _F, _P],
     "fast3r_gemm_smem_bytes": [],
@@ -53,6 +53,7 @@ SIGNATURES = {
     "fast3r_resize_bilinear": [_P] * 8 + [_I] * 12 + [_P],
     "fast3r_resize_smem_bytes": [_I] * 5,
     "fast3r_layernorm_fwd": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
+    "fast3r_layernorm_bwd": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
     "fast3r_ring_attention_plan": [_I, _I, _P, _P, _P],
     "fast3r_ring_attention_fwd": [_I, _P, _P, _P] + [_L] * 12 + [_P] * 6
                                  + [_I] * 6 + [_F, _L, _P],
@@ -149,3 +150,12 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=16)
+def sm_count(device) -> int:
+    """The SM count of CUDA device ``device`` (an index or a name), asked
+    once; the persistent grids' plans size themselves by it."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -12,8 +12,8 @@ Block math is the pre-LN ViT block: x + attn(LN(x)), then x + MLP(LN(x)),
 exact-erf GELU.  With ``fused=True`` (the models' default, ``fused_blocks``)
 a block is :func:`fast3r_torch.nn.fused_block.fused_vit_block`, whose
 products are the hand-written fused-GEMM kernels.  The plain composition
-(``fused=False``) runs LayerNorm through ``ops.fused_layernorm`` (the Triton
-kernel on CUDA), attention through ``ops.attention`` (the CUDA kernel for
+(``fused=False``) runs LayerNorm through ``ops.fused_layernorm`` (the CUDA
+kernels of ``csrc/layernorm.cu``), attention through ``ops.attention`` (the CUDA kernel for
 the "batched" and "pallas" implementations) and its products as cuBLAS
 matmuls, as the JAX package leaves them to XLA in that configuration.
 Training: every block is differentiable; with ``remat`` the plain road's
@@ -129,7 +129,7 @@ def linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 
 def layernorm(p: nn.LayerNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
-    """LayerNorm with fp32 statistics (the Triton kernel on CUDA)."""
+    """LayerNorm with fp32 statistics (the CUDA kernel on CUDA tensors)."""
     return fused_layernorm(x, p.weight, p.bias, eps)
 
 

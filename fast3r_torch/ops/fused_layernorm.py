@@ -10,27 +10,75 @@ balance.  So each keeps whole rows in registers: one read of each input,
 two-pass fp32 statistics (mean, then the mean of squared deviations, as the
 TPU kernels do), fp32 math, one write in the input dtype.
 
-The forward is CUDA C++ (``csrc/layernorm.cu``: a warp per row; its source
-note says why), launched through the kernel library's plain C entry point,
-which costs the host less than Triton's launcher.  The backward is Triton: it recomputes
-mean and rstd from x (nothing saved but x) and emits, per program, fp32
-partial sums of dscale and dbias over the rows it walked; a second small
-sum over the programs finishes them (no float atomics, so the result is
-deterministic).
+Both are CUDA C++ (``csrc/layernorm.cu``: a warp per row; its source note
+says why), launched through the kernel library's plain C entry points,
+which cost the host less than Triton's launcher.  The backward recomputes
+mean and rstd from x (nothing saved but x) and writes fp32 partial rows of
+dscale and dbias, one per CTA (or per warp on the scalar road), which a
+second small launch of the same call sums in a fixed order (no float
+atomics, so the result is deterministic).  :func:`bwd_plan` is its road
+and grid, mirrored here for the tests.
 
-:func:`fused_layernorm` is differentiable.  Triton is imported only inside
-the launching function: the CPU build of the port has no Triton.
+:func:`fused_layernorm` is differentiable.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
 
 from fast3r_torch.kernels import build
 
-BWD_PROGRAMS = 1024  # programs of the backward; each walks rows / programs rows
+# the backward's CTAs (csrc/layernorm.cu): 8 warps on the warp and scalar
+# roads, 512 threads on the CTA road
+BWD_WARPS = 8
+BWD_CTA_THREADS = 512
+BWD_SCALAR_CTAS = 16  # the scalar road's grid at most: 128 partial rows
+ROADS = {"warp": 0, "cta": 1, "scalar": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The backward's road and grid for ``rows`` rows: on the warp and
+    scalar roads warp i of the ``ctas * BWD_WARPS`` takes rows i, i +
+    warps, ...; on the CTA road CTA b takes rows b, b + ctas, ...
+    ``partials`` is the number of partial rows of dweight (and of dbias)
+    the launch writes."""
+    road: str
+    ctas: int
+    rows: int
+
+    @property
+    def partials(self) -> int:
+        return self.ctas * (BWD_WARPS if self.road == "scalar" else 1)
+
+    def groups(self) -> int:
+        """Row groups (warps or CTAs) of the walk."""
+        return self.ctas * (1 if self.road == "cta" else BWD_WARPS)
+
+    def rows_of(self, group: int) -> range:
+        return range(group, self.rows, self.groups())
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(rows: int, C: int, itemsize: int, aligned: bool,
+             sms: int) -> BwdPlan:
+    """The forward's three roads: a warp a row for 16-byte rows of at most
+    4 KB (as many CTAs as fit on the card at once: 2 an SM, 1 for 4 KB
+    rows, whose registers take the SM), a CTA a row for wider 16-byte rows
+    (one an SM), and the scalar road (16 CTAs at most) for the rest."""
+    nbytes = C * itemsize
+    vec = aligned and nbytes % 16 == 0
+    if vec and nbytes <= 4096:
+        per_sm = 2 if nbytes <= 2048 else 1
+        return BwdPlan("warp", max(1, min(-(-rows // BWD_WARPS), per_sm * sms)),
+                       rows)
+    if vec and nbytes <= 16 * 8 * BWD_CTA_THREADS:
+        return BwdPlan("cta", max(1, min(rows, sms)), rows)
+    return BwdPlan("scalar", max(1, min(-(-rows // BWD_WARPS),
+                                        BWD_SCALAR_CTAS)), rows)
 
 
 def layernorm_ref(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -61,43 +109,6 @@ def layernorm_bwd_ref(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
           - xhat * (g * xhat).mean(-1, keepdim=True)) * rstd
     return (dx.to(x.dtype).reshape(x.shape), (dyf * xhat).sum(0),
             dyf.sum(0))
-
-
-@functools.lru_cache(maxsize=1)
-def _bwd_kernel():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def ln_bwd_kernel(x_ptr, w_ptr, dy_ptr, dx_ptr, dw_ptr, db_ptr, n_rows,
-                      n_cols, eps, BLOCK: tl.constexpr):
-        pid = tl.program_id(0)
-        nprog = tl.num_programs(0)
-        cols = tl.arange(0, BLOCK)
-        mask = cols < n_cols
-        w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
-        dw_acc = tl.zeros([BLOCK], dtype=tl.float32)
-        db_acc = tl.zeros([BLOCK], dtype=tl.float32)
-        for row in range(pid, n_rows, nprog):
-            off = row.to(tl.int64) * n_cols + cols
-            x = tl.load(x_ptr + off, mask=mask, other=0.0).to(tl.float32)
-            dy = tl.load(dy_ptr + off, mask=mask, other=0.0).to(tl.float32)
-            mean = tl.sum(x, axis=0) / n_cols
-            xc = tl.where(mask, x - mean, 0.0)
-            var = tl.sum(xc * xc, axis=0) / n_cols
-            rstd = 1.0 / tl.sqrt(var + eps)
-            xhat = xc * rstd
-            g = dy * w
-            m1 = tl.sum(g, axis=0) / n_cols
-            m2 = tl.sum(g * xhat, axis=0) / n_cols
-            dx = (g - m1 - xhat * m2) * rstd
-            tl.store(dx_ptr + off, dx.to(dx_ptr.dtype.element_ty), mask=mask)
-            dw_acc += dy * xhat
-            db_acc += dy
-        tl.store(dw_ptr + pid * n_cols + cols, dw_acc, mask=mask)
-        tl.store(db_ptr + pid * n_cols + cols, db_acc, mask=mask)
-
-    return ln_bwd_kernel, triton.next_power_of_2
 
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -146,28 +157,37 @@ def layernorm_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
                   eps: float):
     """(dx, dweight, dbias) of LayerNorm over the last axis; dweight and
     dbias in fp32.  CPU tensors take :func:`layernorm_bwd_ref`; CUDA tensors
-    launch the Triton backward, which takes contiguous float32 or bfloat16
-    x and dy of the same shape with C <= 16384; anything else raises."""
+    launch the backward kernels, which take contiguous float32 or bfloat16
+    x and dy of the same shape with C <= 16384 and a float32 or bfloat16
+    weight; anything else raises."""
     if x.device.type == "cpu":
         return layernorm_bwd_ref(x, weight, dy, eps)
     C = _check_kernel_args("layernorm backward", x, (("weight", weight),))
     if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous():
         raise ValueError("layernorm backward: dy must be contiguous, of x's "
                          "shape and dtype")
-    bwd, next_pow2 = _bwd_kernel()
     rows = x.numel() // C
-    progs = max(1, min(rows, BWD_PROGRAMS))
+    if rows >= 2 ** 31:
+        raise ValueError(f"layernorm backward: {rows} rows, more than the "
+                         f"kernel takes")
     dx = torch.empty_like(x)
-    part = torch.zeros((2, progs, C), device=x.device, dtype=torch.float32)
-    if rows:
-        block = next_pow2(C)
-        with torch.cuda.device(x.device):
-            bwd[(progs,)](x, weight, dy, dx, part[0], part[1], rows, C,
-                          float(eps), BLOCK=block,
-                          num_warps=max(1, min(16, block // 256)))
-        layernorm_bwd.launches += 1
-    dw, db = part.sum(1)
-    return dx, dw, db
+    if rows == 0:
+        dwdb = torch.zeros((2, C), device=x.device, dtype=torch.float32)
+        return dx, dwdb[0], dwdb[1]
+    dev = x.device.index
+    aligned = (x.data_ptr() | dy.data_ptr() | dx.data_ptr()
+               | weight.data_ptr()) % 16 == 0
+    plan = bwd_plan(rows, C, x.element_size(), aligned, build.sm_count(dev))
+    buf = torch.empty(2 * (plan.partials + 1) * C, device=x.device,
+                      dtype=torch.float32)
+    bf = torch.bfloat16
+    build.check(build.library().fast3r_layernorm_bwd(
+        x.data_ptr(), weight.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        buf.data_ptr() + 8 * C, buf.data_ptr(), rows, C, x.dtype == bf,
+        weight.dtype == bf, ROADS[plan.road], plan.ctas, eps, dev,
+        torch._C._cuda_getCurrentRawStream(dev)), "fast3r_layernorm_bwd")
+    layernorm_bwd.launches += 1
+    return dx, buf[:C], buf[C:2 * C]
 
 
 class _LayerNorm(torch.autograd.Function):
@@ -190,7 +210,7 @@ def fused_layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     differentiable (:func:`layernorm_bwd`).
 
     CPU tensors take the plain versions.  CUDA tensors launch the kernels
-    (the forward CUDA C++, the backward Triton), which take a contiguous
+    (CUDA C++, ``csrc/layernorm.cu``), which take a contiguous
     float32 or bfloat16 x with C <= 16384 and float32 or bfloat16 weight
     and bias; anything else raises.
     """

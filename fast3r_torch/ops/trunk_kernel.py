@@ -1,5 +1,5 @@
 """DPT regression-head trunk: the hand-written CUDA kernel chain
-(``csrc/trunk.cu``, kernel 3 of the port) and its plain version.
+(``csrc/trunk.cu``, K8) and its plain version.
 
 Counterpart of ``fast3r_tpu/ops/trunk_kernel.py``
 (``fused_regression_head_t`` -> ``_trunk_call`` -> ``_trunk_kern``):
@@ -9,12 +9,19 @@ bilinear resize to (out_h, out_w) -> conv2 3x3 (128 -> 128, + b2) -> ReLU ->
 The source note in ``trunk.cu`` says what bounds it on the H100 and how it
 is laid out.  Weights come in the port's torch layouts (OIHW).
 
+In bfloat16 the chain is two launches of one wgmma kernel over tiles of
+4 x 64 output pixels (:func:`trunk_plan` is its walk, mirrored here for
+the tests); conv2 builds each tile's resized input in shared memory from
+the window of conv1's output that the tile reads, with the tap tables of
+``ops/resize._interp_taps`` (:func:`tap_tables`).
+
 Differentiable: the forward is the kernel, the backward recomputes through
 :func:`_plain_head` and differentiates that, as ``_head_t_bwd`` does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -27,6 +34,98 @@ from fast3r_torch.ops.resize import _interp_taps, resize_matmul
 TRUNK_CHANNELS = 128
 OUT_CHANNELS = 4
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the bf16 kernel's tile and conv2's window of coarse rows and columns
+# (csrc/trunk.cu, hop::)
+TILE_ROWS, TILE_COLS = 4, 64
+WIN_ROWS, WIN_COLS = 6, 40
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvWalk:
+    """One launch's walk: tiles of TILE_ROWS x TILE_COLS output pixels,
+    ``ty`` row bands x ``tx`` column bands an image, image-major; CTA b of
+    ``grid`` takes tiles b, b + grid, ..."""
+    n: int
+    h: int
+    w: int
+    grid: int
+
+    @property
+    def ty(self) -> int:
+        return -(-self.h // TILE_ROWS)
+
+    @property
+    def tx(self) -> int:
+        return -(-self.w // TILE_COLS)
+
+    @property
+    def tiles(self) -> int:
+        return self.n * self.ty * self.tx
+
+    def origin(self, t: int):
+        """(image, y0, x0) of tile t, as ``hop::tile_of``."""
+        per = self.ty * self.tx
+        r = t % per
+        return t // per, (r // self.tx) * TILE_ROWS, (r % self.tx) * TILE_COLS
+
+    def tiles_of(self, cta: int):
+        return range(cta, self.tiles, self.grid)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrunkPlan:
+    conv1: ConvWalk
+    conv2: ConvWalk
+    windowed: bool  # every conv2 tile's window fits WIN_ROWS x WIN_COLS
+
+
+def coarse_windows(hh: int, wc: int, out_h: int, out_w: int):
+    """Per conv2 row band and column band: the first coarse row and the row
+    count, the first coarse column and the column count that the band's
+    halo (its rows / columns, one more on each side, clipped to the grid)
+    reads through the taps, as ``hop::window_of`` and the tap check of
+    ``build_halos`` in ``csrc/trunk.cu`` compute them."""
+    lo_y, hi_y, _ = _interp_taps(out_h, hh)
+    lo_x, hi_x, _ = _interp_taps(out_w, wc)
+    y0 = np.arange(0, out_h, TILE_ROWS)
+    x0 = np.arange(0, out_w, TILE_COLS)
+    r0 = lo_y[np.maximum(y0 - 1, 0)]
+    nr = hi_y[np.minimum(y0 + TILE_ROWS, out_h - 1)] - r0 + 1
+    c0 = lo_x[np.maximum(x0 - 1, 0)]
+    nc = hi_x[np.minimum(x0 + TILE_COLS, out_w - 1)] - c0 + 1
+    return r0, nr, c0, nc
+
+
+@functools.lru_cache(maxsize=64)
+def trunk_plan(n: int, hh: int, wc: int, out_h: int, out_w: int,
+               sms: int) -> TrunkPlan:
+    """The bf16 chain's two walks (a persistent grid of at most one CTA an
+    SM) and whether conv2 builds its halos from a window of coarse rows and
+    columns in shared memory (a row pass, then a column pass)."""
+    def walk(h, w):
+        t = n * -(-h // TILE_ROWS) * -(-w // TILE_COLS)
+        return ConvWalk(n, h, w, min(t, sms))
+
+    _, nr, _, nc = coarse_windows(hh, wc, out_h, out_w)
+    return TrunkPlan(walk(hh, wc), walk(out_h, out_w),
+                     bool(nr.max() <= WIN_ROWS and nc.max() <= WIN_COLS))
+
+
+def tap_tables(out_h: int, out_w: int, hh: int, wc: int):
+    """conv2's tap tables on the host: int32 (lo_y, hi_y, lo_x, hi_x) and
+    fp32 (frac_y, frac_x), concatenated, from ``_interp_taps``."""
+    lo_y, hi_y, f_y = _interp_taps(out_h, hh)
+    lo_x, hi_x, f_x = _interp_taps(out_w, wc)
+    return (np.concatenate([lo_y, hi_y, lo_x, hi_x]).astype(np.int32),
+            np.concatenate([f_y, f_x]).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=64)
+def _device_tables(out_h, out_w, hh, wc, device: str):
+    ti, tf = tap_tables(out_h, out_w, hh, wc)
+    return (torch.from_numpy(ti).to(device), torch.from_numpy(tf).to(device))
+
 
 # fast3r_tpu's trunk road (trunk_kernel.py:54-74): its Pallas kernel's VMEM
 # plan, for a 2-byte dtype.  Read by reference_trunk_road only.
@@ -166,8 +265,8 @@ def fused_regression_head_t(x: torch.Tensor, w1, b1, w2, b2, w3, b3,
 
     CPU tensors take :func:`_plain_head`.  CUDA tensors launch the kernel
     chain, which takes float32 x with Cin % 8 == 0 or bfloat16 x with
-    Cin % 16 == 0, 128 trunk channels and 4 output channels; anything else
-    raises.  Differentiable (the backward through :func:`_plain_head`).
+    Cin % 16 == 0 (any n, grid and output size), 128 trunk channels and 4
+    output channels; anything else raises.  Differentiable (the backward through :func:`_plain_head`).
     """
     if x.device.type == "cpu":
         return _plain_head_t(x, w1, b1, w2, b2, w3, b3, out_h, out_w)
@@ -191,8 +290,8 @@ def _launch(x, w1, b1, w2, b2, w3, b3, out_h: int, out_w: int):
     def cast(t, shape, dtype=torch.float32):
         return t.detach().to(dtype).reshape(shape).contiguous()
 
-    # the 3x3 kernels in the layout each kernel stages: fp32 (tap, Cin, Cout)
-    # for the scalar kernel, bf16 (tap, Cout, Cin) for the tensor-core one
+    # the 3x3 kernels in the layout each kernel reads: fp32 (tap, Cin, Cout)
+    # for the scalar kernel, bf16 (tap, Cout, Cin) for the wgmma one
     if x.dtype == torch.float32:
         w1k = cast(w1.permute(2, 3, 1, 0), (9, cin, TRUNK_CHANNELS))
         w2k = cast(w2.permute(2, 3, 1, 0), (9, TRUNK_CHANNELS, TRUNK_CHANNELS))
@@ -203,18 +302,28 @@ def _launch(x, w1, b1, w2, b2, w3, b3, out_h: int, out_w: int):
     w3k = cast(w3.reshape(OUT_CHANNELS, TRUNK_CHANNELS).t(),
                (TRUNK_CHANNELS, OUT_CHANNELS))
     b1k, b2k, b3k = (cast(b, (-1,)) for b in (b1, b2, b3))
+    # conv1's output: fp32 for the scalar kernel, bf16 (the TPU kernel's
+    # rounding point) for the wgmma one
     y1 = torch.empty((n, hh, wc, TRUNK_CHANNELS), device=x.device,
-                     dtype=torch.float32)
+                     dtype=x.dtype)
     out = torch.empty((n, OUT_CHANNELS, out_h * out_w), device=x.device,
                       dtype=x.dtype)
     if n == 0:
         return out
+    windowed, tap_i, tap_f = 0, None, None
+    if x.dtype == torch.bfloat16:
+        dev = str(x.device)
+        windowed = int(trunk_plan(n, hh, wc, out_h, out_w,
+                                  build.sm_count(dev)).windowed)
+        tap_i, tap_f = _device_tables(out_h, out_w, hh, wc, dev)
     lib = build.library()
     err = lib.fast3r_trunk_head_fwd(
         _DTYPES[x.dtype], x.data_ptr(), w1k.data_ptr(), b1k.data_ptr(),
         w2k.data_ptr(), b2k.data_ptr(), w3k.data_ptr(), b3k.data_ptr(),
-        y1.data_ptr(), out.data_ptr(), n, hh, wc, cin, out_h, out_w,
-        build.stream_handle(x.device))
+        y1.data_ptr(), out.data_ptr(),
+        None if tap_i is None else tap_i.data_ptr(),
+        None if tap_f is None else tap_f.data_ptr(), windowed,
+        n, hh, wc, cin, out_h, out_w, build.stream_handle(x.device))
     build.check(err, "fast3r_trunk_head_fwd")
     return out
 

@@ -68,8 +68,8 @@ CATEGORIES = (
     ("fused GEMM kernel (and replay)", ("fused_gemm_kernel",)),
     ("whole-MLP kernel", ("ln_mlp_kernel",)),
     ("LayerNorm kernel", ("ln_fwd_kernel",)),
-    ("LayerNorm backward kernel", ("ln_bwd_kernel",)),
-    ("trunk kernel", ("conv3x3_mma", "conv3x3_f32")),
+    ("LayerNorm backward kernel", ("ln_bwd_",)),
+    ("trunk kernel", ("trunk_conv_kernel", "conv3x3_f32")),
     ("resize kernel", ("resize_bilinear",)),
     ("library convs", ("conv", "fprop", "dgrad", "wgrad", "implicit",
                        "winograd")),

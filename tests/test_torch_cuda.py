@@ -233,22 +233,30 @@ def test_layernorm_kernel_rejects_what_it_cannot_take(dev):
                              torch.zeros(16400, device=dev), 1e-6)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hh,wc,H,W", [(12, 20, 24, 40), (7, 9, 16, 21)])
-def test_trunk_kernel_matches_plain(dev, dtype, hh, wc, H, W):
-    """fp32: 1e-4 relative to max |plain|; bf16: the plain version rounds
-    after every op, 3e-2 relative to max |plain|."""
-    g = _gen(3)
+def _trunk_args(dev, dtype, n, hh, wc, cin, H, W, seed=3):
+    g = _gen(seed)
 
     def uni(shape, fan_in):
         return ((torch.rand(shape, generator=g, device=dev) * 2 - 1)
                 / math.sqrt(fan_in)).to(dtype)
 
-    n, cin = 2, 64
     x = torch.randn((n, hh, wc, cin), generator=g, device=dev).to(dtype)
-    args = (uni((128, cin, 3, 3), 9 * cin), uni((128,), 9 * cin),
-            uni((128, 128, 3, 3), 1152), uni((128,), 1152),
-            uni((4, 128, 1, 1), 128), uni((4,), 128), H, W)
+    return x, (uni((128, cin, 3, 3), 9 * cin), uni((128,), 9 * cin),
+               uni((128, 128, 3, 3), 1152), uni((128,), 1152),
+               uni((4, 128, 1, 1), 128), uni((4,), 128), H, W)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hh,wc,H,W", [
+    (12, 20, 24, 40), (7, 9, 16, 21),   # ragged edge tiles
+    (20, 12, 40, 24),                   # portrait
+    (40, 150, 16, 30),                  # a downscale: taps read from memory
+    (24, 32, 48, 64)])                  # whole tiles
+@pytest.mark.parametrize("n,cin", [(2, 64), (1, 256)])
+def test_trunk_kernel_matches_plain(dev, dtype, hh, wc, H, W, n, cin):
+    """fp32: 1e-4 relative to max |plain|; bf16: the plain version rounds
+    after every op, 3e-2 relative to max |plain|."""
+    x, args = _trunk_args(dev, dtype, n, hh, wc, cin, H, W)
     before = t_trunk.fused_regression_head_t.launches
     out = t_trunk.fused_regression_head_t(x, *args)
     assert t_trunk.fused_regression_head_t.launches == before + 1
@@ -258,12 +266,39 @@ def test_trunk_kernel_matches_plain(dev, dtype, hh, wc, H, W):
     assert err <= rel * ref.float().abs().max().item()
 
 
+@pytest.mark.parametrize("n,hh,wc,H,W", [
+    (20, 192, 256, 384, 512),   # the 20-view request's chunk
+    (6, 256, 192, 512, 384)])   # the mixed request's portrait group
+def test_trunk_kernel_at_the_request_shapes(dev, n, hh, wc, H, W):
+    """bf16 at Cin 256: 3e-2 of max |plain|; two runs give the same bits."""
+    x, args = _trunk_args(dev, torch.bfloat16, n, hh, wc, 256, H, W)
+    out = t_trunk.fused_regression_head_t(x, *args)
+    again = t_trunk.fused_regression_head_t(x, *args)
+    ref = t_trunk._plain_head(x.permute(0, 3, 1, 2), *args).reshape(n, 4, -1)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 3e-2 * ref.float().abs().max().item()
+    assert torch.equal(out, again)
+
+
+def test_trunk_kernel_is_deterministic_and_takes_n_0(dev):
+    x, args = _trunk_args(dev, torch.bfloat16, 3, 7, 9, 64, 16, 21)
+    assert torch.equal(t_trunk.fused_regression_head_t(x, *args),
+                       t_trunk.fused_regression_head_t(x, *args))
+    before = t_trunk.fused_regression_head_t.launches
+    out = t_trunk.fused_regression_head_t(x[:0], *args)
+    assert out.shape == (0, 4, 16 * 21)
+    assert t_trunk.fused_regression_head_t.launches == before
+
+
 def test_trunk_kernel_rejects_other_widths(dev):
     x = torch.zeros((1, 4, 4, 64), device=dev)
     w = torch.zeros((64, 64, 3, 3), device=dev)
     b = torch.zeros(64, device=dev)
     with pytest.raises(ValueError, match="w1"):
         t_trunk.fused_regression_head_t(x, w, b, w, b, w, b, 8, 8)
+    x, args = _trunk_args(dev, torch.bfloat16, 1, 4, 4, 24, 8, 8)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        t_trunk.fused_regression_head_t(x, *args)
 
 
 def _shallow_cfg(width, heads, fused):
@@ -627,8 +662,11 @@ def test_packed_qkv_attention_bwd_kernel_matches_plain(dev, B, N):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("shape", [(300, 1024), (2, 5, 64), (7, 96),
-                                   (1500, 1024)])
+@pytest.mark.parametrize("shape", [
+    (300, 1024), (2, 5, 64), (7, 96), (1500, 1024),  # a warp a row
+    (15360, 1024),                                   # the blocks' shape
+    (4, 16384), (3, 2056),                           # a CTA a row
+    (9, 100), (5, 17)])                              # scalar (bf16; (5, 17) both)
 def test_layernorm_bwd_kernel_matches_plain(dev, dtype, tol, shape):
     """dx within tol of max |plain| (bf16: one output rounding); fp32
     dweight / dbias sums over the rows in another order, 1e-4 relative."""
@@ -643,6 +681,47 @@ def test_layernorm_bwd_kernel_matches_plain(dev, dtype, tol, shape):
     assert t_ln.layernorm_bwd.launches == before + 1
     assert dx.dtype == dtype and _rel_max(dx, rdx) < tol
     assert _rel_max(dw, rdw) < 1e-4 and _rel_max(db, rdb) < 1e-4
+
+
+@pytest.mark.parametrize("pdtype", [torch.float32, torch.bfloat16])
+def test_layernorm_bwd_kernel_unaligned_and_mixed_weight(dev, pdtype):
+    """x and dy 2 bytes past a 16-byte boundary take the scalar road, the
+    aligned ones the warp road; bf16 x with an fp32 or bf16 weight."""
+    g = _gen(23)
+    bx = (torch.randn(1 + 33 * 512, generator=g, device=dev) * 3 + 1).to(
+        torch.bfloat16)
+    bd = torch.randn(1 + 33 * 512, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn(512, generator=g, device=dev).to(pdtype)
+    for x, dy in ((bx[1:].view(33, 512), bd[1:].view(33, 512)),
+                  (bx[:-1].view(33, 512), bd[:-1].view(33, 512))):
+        dx, dw, db = t_ln.layernorm_bwd(x, w, dy, 1e-6)
+        rdx, rdw, rdb = t_ln.layernorm_bwd_ref(x, w, dy, 1e-6)
+        assert _rel_max(dx, rdx) < 2e-2
+        assert _rel_max(dw, rdw) < 1e-4 and _rel_max(db, rdb) < 1e-4
+
+
+def test_layernorm_bwd_kernel_takes_no_rows(dev):
+    x = torch.zeros((0, 64), device=dev, dtype=torch.bfloat16)
+    before = t_ln.layernorm_bwd.launches
+    dx, dw, db = t_ln.layernorm_bwd(x, torch.ones(64, device=dev), x, 1e-6)
+    assert dx.shape == (0, 64) and dx.dtype == torch.bfloat16
+    assert torch.equal(dw, torch.zeros(64, device=dev))
+    assert torch.equal(db, torch.zeros(64, device=dev))
+    assert t_ln.layernorm_bwd.launches == before
+
+
+def test_layernorm_bwd_kernel_is_deterministic(dev):
+    """No float atomics: dx, dweight and dbias are the same bits on two
+    launches, on each road and in each dtype."""
+    g = _gen(24)
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((15360, 1024), (4, 16384), (9, 100), (5, 17)):
+            x = torch.randn(shape, generator=g, device=dev).to(dtype)
+            w = torch.randn(shape[-1], generator=g, device=dev).to(dtype)
+            dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+            for a, b in zip(t_ln.layernorm_bwd(x, w, dy, 1e-6),
+                            t_ln.layernorm_bwd(x, w, dy, 1e-6)):
+                assert torch.equal(a, b)
 
 
 def test_layernorm_autograd_on_cuda(dev):
