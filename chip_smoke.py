@@ -111,7 +111,7 @@ printing each one's seconds:
      scene.ply checked and each stage timed; ``inference_from_raw`` against
      ``load_images`` + ``inference`` on the same frames; pose recovery on
      the card against fp32 on the CPU for the same predictions (a seeded
-     scene of three known cameras at 448x512) and minimal samples;
+     scene of three known cameras at 224x256) and minimal samples;
   15. the ring kernel (K14's forward, ``csrc/ring_attention.cu``) at the
      decoder's shape (15,360 tokens, 16 heads, head dim 64, bf16) over n =
      1, 2, 3, 4 and 8 ranks on the card, and the self-ring (n = 1, 4
@@ -132,7 +132,8 @@ printing each one's seconds:
      over 2 ranks within 5% of fp32 on the CPU;
   17. the backward ring kernels (K14's backward: the dq and dk/dv rings,
      ``csrc/ring_attention_bwd.cu``) at the decoder's shape over n = 1, 2,
-     3, 4 and 8 ranks, in bf16 and fp32, against ``ring_attention_bwd_ref``
+     3, 4 and 8 ranks in bf16 and at n = 4 in fp32, against
+     ``ring_attention_bwd_ref``
      (held one head at a time), each ring's time and TFLOP/s over the
      products it runs (dq 3, dk/dv 4) and the pair's; at n = 4 the plain
      version's time, K9's and the autograd of SDPA on the gathered
@@ -142,9 +143,31 @@ printing each one's seconds:
      kernels, remat), counts reset just before and read just after (K14
      forward 48, each backward ring 24, decoder K1 / K9 0 per step), each
      step's time and the peak memory; and one 2-view 224x224 step's loss
-     and gradients within 5% of fp32 on the CPU and of the single-device
-     card step;
-  19. launch counts: every kernel of a path must have launched on it, the
+     and gradients within 5% of fp32 on the CPU (phase 6's reference: the
+     same weights, batch and image ids) and of the single-device card step;
+  19. training from the command line: a CO3D-format root written with PIL
+     and numpy (two orbiting sequences of 100 frames, one of 640x480
+     frames, one alternating 640x480 and 480x640; JPEG, 16-bit PNG depth,
+     PNG masks, .npz cameras), then ``fast3r_torch.cli.train --experiment
+     super_long_training`` (the flagship at full width, 647,551,368
+     parameters, 20 views a sample at the five resolutions with aug_crop
+     and ColorJitter) with its own Co3d entries retargeted to that root (6
+     training samples from 3 ``spawn`` workers, started while the model
+     builds; 2 validation samples of 10 views, loaded inline), one epoch:
+       * run 1 in a subprocess, sent SIGUSR1 once metrics.csv has a row,
+         must save checkpoints/last and exit 0;
+       * run 2 in this process with ``--resume`` (``train_step`` wrapped to
+         print each step's resolution, orientation flag, seconds and loader
+         wait; the checkpoint's save and load timed; counts reset just
+         before and read just after) must continue run 1's step count,
+         finish the epoch at two or more resolutions with a
+         mixed-orientation batch among them, and validate with the pose
+         suite;
+     every logged loss finite, metrics.csv and TensorBoard events written,
+     the validation row with the loss and the pose keys, and the
+     training-only kernels (K7's backward, K9, K10, K11) launched exactly
+     the steps taken times phase 5's launches a step;
+  20. launch counts: every kernel of a path must have launched on it, the
      RMS kernels on no path but the llama fused road's, K12 on no path of
      384x512 views, the trunk kernel on no path of 512x512 or 448x512
      views, the ring kernels on no path but the sequence-sharded ones; no
@@ -1473,13 +1496,18 @@ RING_BWD = ("ring_attention_bwd_dq", "ring_attention_bwd_dkv")
 PATHS["seq_train"] = PATHS["seq_sharded"] + RING_BWD + (
     "layernorm_bwd", "packed_qkv_attention_bwd", "ln_matmul_replay")
 SEQ_PATHS = ("seq_sharded", "seq_train")
+# phase 19: the training CLI's run 2 takes the fused road's training kernels
+# on the loader's batches; its heads take K8 or K12 by view shape (checked
+# in the phase: one of them launched)
+PATHS["cli_train"] = tuple(k for k in PATHS["train"] if k != "trunk")
 # K13 launches on the llama fused roads only, K12 on no path of 384x512
 # views, the trunk kernel on no path of 512x512 or 448x512 views, K14 on
 # the sequence-sharded paths only (its backward on the training one), the
 # decoder's K1 / K9 on neither
 NO_LAUNCH = {
     path: ((() if path in ("llama", "llama_train") else K13)
-           + (() if path in ("square", "mixed", "images_to_poses")
+           + (() if path in ("square", "mixed", "images_to_poses",
+                             "cli_train")
               else ("resize",))
            + (("trunk",) if path in ("square", "images_to_poses") else ())
            + (("attention", "ln_qkv") if path in SEQ_PATHS
@@ -1597,6 +1625,8 @@ def phase_end_to_end(cpu_model, model, plain, phase: str = "phase 4") -> dict:
 
 BATCH_KEYS = ("imgs", "true_shapes", "pts3d", "valid_mask", "camera_pose")
 TRAIN_OPT = OptimConfig(warmup_steps=2, total_steps=1000)
+TRAIN_STEPS = 4  # phase 5's steps on the fused road
+FLAGSHIP_PARAMS = 647_551_368
 
 
 def _reset_counts() -> None:
@@ -1652,7 +1682,7 @@ def phase_training(gpu: str, cpu_model) -> dict:
     batch = {k: torch.as_tensor(v).cuda() for k, v in
              make_dummy_batch(1, 20, 384, 512, seed=0).items()
              if k in BATCH_KEYS}
-    counts = {"train": train_road("train", net, cfg, batch, 4, gpu),
+    counts = {"train": train_road("train", net, cfg, batch, TRAIN_STEPS, gpu),
               "train_plain": train_road("train_plain", net,
                                         cfg.with_fused_blocks(False), batch, 2,
                                         gpu)}
@@ -1701,7 +1731,8 @@ def _grads_by_group(net, loss) -> dict:
 
 
 def phase_train_end_to_end(cpu_model, plain_cfg,
-                           phase: str = "phase 6") -> dict:
+                           phase: str = "phase 6") -> tuple:
+    """Returns the CPU's fp32 loss and gradients (the reference)."""
     log(f"== {phase}: one training step's loss and gradients, bf16 on the "
         "card vs fp32 plain versions on the CPU")
     batch = {k: torch.as_tensor(v) for k, v in
@@ -1727,7 +1758,7 @@ def phase_train_end_to_end(cpu_model, plain_cfg,
     if bad:
         raise AssertionError(f"training end-to-end error above "
                              f"{E2E_TRAIN_REL}: {bad}")
-    return errs
+    return ref_loss, ref
 
 
 # the slice of phases 7-10: the flagship with its decoder replaced by the
@@ -1967,8 +1998,10 @@ def phase_images_to_poses(gpu: str, model) -> dict:
     # predictions and minimal samples.  The random model's pointmaps give an
     # ill-posed problem (any tie between hypotheses decides), so the
     # predictions are a seeded scene seen by known cameras, with noise and
-    # confident outliers, at the CLI's view shape
-    preds, gt = pose_scene(3, 448, 512, seed=14)
+    # confident outliers, at half the CLI's view shape in each dimension
+    # (the CPU's Gauss-Newton polish over every hypothesis and point takes
+    # about 25 s at the full shape; the card's pose stage ran it above)
+    preds, gt = pose_scene(3, *POSE_HW, seed=14)
     mask = torch.stack([torch.as_tensor(p["conf"][0]).reshape(-1) > 1.0
                         for p in preds]).cuda()
     idx = draw_samples(mask, 32, 8,
@@ -1994,6 +2027,7 @@ def phase_images_to_poses(gpu: str, model) -> dict:
 
 
 POSE_FOCAL = 420.0
+POSE_HW = (224, 256)  # the pose comparison's view shape
 
 
 def pose_scene(V: int, H: int, W: int, seed: int):
@@ -2274,7 +2308,8 @@ def phase_ring_bwd(results: list) -> None:
         "decoder's shape vs their plain version")
     for dtype in (torch.bfloat16, torch.float32):
         name = "bfloat16" if dtype == torch.bfloat16 else "float32"
-        for n in RING_N:
+        # fp32 (summation order only) at the main rank count, as phase 15
+        for n in RING_N if dtype == torch.bfloat16 else (SEQ_RANKS,):
             q, k, v = _ring_qkv(n, dtype, 70 + n)
             do = torch.randn(q.shape, generator=_gen(80 + n),
                              device="cuda").to(dtype)
@@ -2288,8 +2323,7 @@ def phase_ring_bwd(results: list) -> None:
             torch.cuda.empty_cache()
             delta, meta = _bwd_rows(o, do, lse)
             main = n == SEQ_RANKS
-            reps = (10 if main else 5) if dtype == torch.bfloat16 else (
-                3 if main else 1)
+            reps = (10 if main else 5) if dtype == torch.bfloat16 else 3
             s_loc = M_TOK // n
             extra = {
                 "pair_ms": median_ms(lambda: _ring_backward(
@@ -2340,16 +2374,17 @@ def phase_ring_bwd(results: list) -> None:
             torch.cuda.empty_cache()
 
 
-def phase_seq_train(gpu: str) -> dict:
+def phase_seq_train(gpu: str, cpu_model, cpu_ref: tuple) -> dict:
+    """``cpu_model``: phase 3's flagship (fp32, CPU); ``cpu_ref``: phase 6's
+    fp32 loss and gradients of its 2-view 224x224 step on the CPU."""
     log(f"== phase 18: the sequence-sharded training step (flagship, random "
         f"weights seed 0, bf16 params and moments, 20 views at 512x384 over "
         f"{SEQ_RANKS} ranks, remat, the ring kernels forward and backward)")
     t0 = time.perf_counter()
-    cfg = Fast3RConfig.flagship()
-    cpu_model = Fast3R.from_random(cfg, seed=0, device="cpu")
+    cfg = cpu_model.cfg
     net = cpu_model.to(device="cuda", dtype=torch.bfloat16).params
     torch.cuda.synchronize()
-    log(f"model built and moved in {time.perf_counter() - t0:.1f} s")
+    log(f"model moved in {time.perf_counter() - t0:.1f} s")
     batch = {k: torch.as_tensor(v).cuda() for k, v in
              make_dummy_batch(1, 20, 384, 512, seed=0).items()
              if k in BATCH_KEYS}
@@ -2368,17 +2403,14 @@ def phase_seq_train(gpu: str) -> dict:
     torch.cuda.empty_cache()
 
     # end to end: one 2-view 224x224 step over 2 ranks, bf16 on the card,
-    # against fp32 on the CPU (plain ring) and the single-device card step
-    # on the same decoder road (plain blocks, K1 / K9)
+    # against fp32 on the CPU (phase 6's step: the same weights, batch and
+    # image ids on one device) and the single-device card step on the same
+    # decoder road (plain blocks, K1 / K9)
     batch = {k: torch.as_tensor(v) for k, v in
              make_dummy_batch(1, 2, 224, 224, seed=1).items()
              if k in BATCH_KEYS}
     ids = sample_random_image_ids(torch.Generator().manual_seed(0), 1, 2)
-    t = time.perf_counter()
-    ref_loss, ref = _loss_and_grads(cpu_model.params,
-                                    seq_sharded_config(cfg, 2, "plain"),
-                                    batch, ids)
-    t_cpu = time.perf_counter() - t
+    ref_loss, ref = cpu_ref
     gpu_model = cpu_model.to(device="cuda", dtype=torch.bfloat16)
     loss, grads = _loss_and_grads(gpu_model.params, seq_sharded_config(cfg, 2),
                                   batch, ids)
@@ -2396,8 +2428,7 @@ def phase_seq_train(gpu: str) -> dict:
                     if not e <= E2E_TRAIN_REL})
     log(json.dumps({"seq_train_2x224_rel_err": errs,
                     "tolerance": E2E_TRAIN_REL, "loss_cpu_fp32": ref_loss,
-                    "loss_card_seq": loss, "loss_card_single": one_loss,
-                    "cpu_fp32_s": t_cpu}))
+                    "loss_card_seq": loss, "loss_card_single": one_loss}))
     del gpu_model
     torch.cuda.empty_cache()
     if bad:
@@ -2406,9 +2437,350 @@ def phase_seq_train(gpu: str) -> dict:
     return {"seq_train": counts}
 
 
+# phase 19: the training CLI on a CO3D-format root written here with PIL
+CO3D_FRAMES = 100   # frames a sequence (CO3D's combinations index 100)
+CO3D_F = 500.0      # focal length, pixels
+CO3D_RADIUS = 3.0   # camera distance from the object's centre
+CO3D_MAX_DEPTH = 10.0
+CLI_TRAIN_SAMPLES = 6   # the epoch: 6 samples of 20 views, batch 1
+CLI_VAL_SAMPLES = 2     # validation: 2 samples of 10 views
+
+
+def _sphere_frame(w: int, h: int, seed: int):
+    """The unit sphere at the origin seen from CO3D_RADIUS away by a pinhole
+    of focal CO3D_F with its principal point in the middle: an 8-bit RGB
+    image (shading and seeded texture), depth in metres (background at
+    CO3D_MAX_DEPTH) and the silhouette as a 0 / 255 mask."""
+    rng = np.random.default_rng(seed)
+    u, v = np.meshgrid(np.arange(w) - w / 2, np.arange(h) - h / 2)
+    d = np.stack([u / CO3D_F, v / CO3D_F, np.ones_like(u)], -1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    # |c + t d| = 1 with the centre at depth CO3D_RADIUS on the optical axis
+    b = d[..., 2] * CO3D_RADIUS
+    disc = b * b - (CO3D_RADIUS ** 2 - 1.0)
+    hit = disc > 0
+    t = np.where(hit, b - np.sqrt(np.maximum(disc, 0.0)), 0.0)
+    depth = np.where(hit, t * d[..., 2], CO3D_MAX_DEPTH).astype(np.float32)
+    shade = np.where(hit, 0.35 + 0.65 * (CO3D_RADIUS - depth) , 0.15)
+    tex = _photo(h, w, seed).astype(np.float32) / 255.0
+    img = np.clip(255 * (0.6 * shade[..., None] + 0.4 * tex)
+                  + rng.normal(0, 3, (h, w, 3)), 0, 255).astype(np.uint8)
+    return img, depth, np.where(hit, 255, 0).astype(np.uint8)
+
+
+def _orbit_pose(theta: float) -> np.ndarray:
+    """cam2world of a camera CO3D_RADIUS from the origin at azimuth theta,
+    looking at the origin (OpenCV axes: x right, y down, z forward)."""
+    eye = CO3D_RADIUS * np.array([np.sin(theta), 0.0, -np.cos(theta)])
+    z = -eye / np.linalg.norm(eye)
+    x = np.cross(np.array([0.0, -1.0, 0.0]), z)
+    x /= np.linalg.norm(x)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = np.stack([x, np.cross(z, x), z], 1)
+    T[:3, 3] = eye
+    return T
+
+
+def make_co3d_root(root: str) -> str:
+    """A CO3D-format root (``Co3d_Multiview``'s layout, as
+    ``tests/test_real_datasets.py`` builds it) written with PIL and numpy:
+    category "teddybear" with two sequences of CO3D_FRAMES frames orbiting
+    the object, "landscape" of 640x480 frames and "mixed" alternating 640x480
+    and 480x640 frames; JPEG images, 16-bit PNG depth (scaled by
+    maximum_depth / 65535), PNG masks and per-frame .npz cameras; listed in
+    selected_seqs_{train,test}.json."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    frames = list(range(1, CO3D_FRAMES + 1))
+    shapes = {"landscape": lambda i: (640, 480),
+              "mixed": lambda i: (640, 480) if i % 2 else (480, 640)}
+    scenes = {wh: _sphere_frame(*wh, seed=wh[0])
+              for wh in ((640, 480), (480, 640))}
+
+    def write(seq: str, i: int) -> None:
+        base = os.path.join(root, "teddybear", seq)
+        w, h = shapes[seq](i)
+        img, depth, mask = scenes[w, h]
+        name = f"frame{i:06d}"
+        rng = np.random.default_rng(i)
+        jitter = rng.integers(-6, 7, img.shape)
+        PIL.Image.fromarray(np.clip(img + jitter, 0, 255).astype(
+            np.uint8)).save(os.path.join(base, "images", name + ".jpg"),
+                            quality=90)
+        K = np.array([[CO3D_F, 0, w / 2], [0, CO3D_F, h / 2], [0, 0, 1]],
+                     np.float32)
+        np.savez(os.path.join(base, "images", name + ".npz"),
+                 camera_pose=_orbit_pose(2 * np.pi * i / CO3D_FRAMES),
+                 camera_intrinsics=K,
+                 maximum_depth=np.float32(CO3D_MAX_DEPTH))
+        PIL.Image.fromarray(np.round(
+            depth / CO3D_MAX_DEPTH * 65535).astype(np.uint16)).save(
+            os.path.join(base, "depths", name + ".jpg.geometric.png"),
+            compress_level=1)
+        PIL.Image.fromarray(mask).save(
+            os.path.join(base, "masks", name + ".png"), compress_level=1)
+
+    for seq in shapes:
+        for sub in ("images", "depths", "masks"):
+            os.makedirs(os.path.join(root, "teddybear", seq, sub),
+                        exist_ok=True)
+    # PIL's encoders release the GIL: one thread a core
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        list(pool.map(lambda job: write(*job),
+                      [(seq, i) for seq in shapes for i in frames]))
+    for split in ("train", "test"):
+        with open(os.path.join(root, f"selected_seqs_{split}.json"),
+                  "w") as f:
+            json.dump({"teddybear": {s: frames for s in shapes}}, f)
+    return root
+
+
+def _cli_overrides(root: str, run_dir: str) -> list:
+    """super_long_training's own Co3d train and test entries with ROOT and
+    the sample counts changed, one epoch, a CSV row per step."""
+    from fast3r_torch.config import CONFIG_DIR, load_config
+
+    exp = load_config(os.path.join(CONFIG_DIR, "train.yaml"),
+                      "super_long_training")["data"]
+    (train,) = [d for d in exp["train_datasets"] if "Co3d_Multiview" in d]
+    (val,) = [d for d in exp["validation_datasets"] if "Co3d_Multiview" in d]
+
+    def retarget(spec: str, n: int) -> str:
+        count, _, call = spec.partition(" @ ")
+        old_root = call.split("ROOT='", 1)[1].split("'", 1)[0]
+        return f"{n} @ " + call.replace(f"ROOT='{old_root}'", f"ROOT='{root}'")
+
+    return [f"paths.run_dir={run_dir}",
+            f"data.train_datasets={[retarget(train, CLI_TRAIN_SAMPLES)]!r}",
+            f"data.validation_datasets={[retarget(val, CLI_VAL_SAMPLES)]!r}",
+            "trainer.max_epochs=1", "trainer.log_every_n_steps=1",
+            "data.num_workers=3", "data.num_workers_val=0"]
+
+
+def _csv_rows(path: str) -> list:
+    import csv
+
+    if not os.path.exists(path):
+        return []
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def phase_cli_train(gpu: str, train_counts: dict, train_steps: int) -> dict:
+    """Run 1: ``python -m fast3r_torch.cli.train --experiment
+    super_long_training`` in a subprocess, sent SIGUSR1 once metrics.csv has
+    its first row; it must save "last" and exit 0.  Run 2:
+    ``fast3r_torch.cli.train.main`` in this process with ``--resume``, its
+    ``train_step`` wrapped to record each step; it must continue the step
+    count, finish the epoch and validate with the pose suite."""
+    import signal
+
+    from fast3r_torch.cli import train as cli_train
+    from fast3r_torch.train import trainer as trainer_mod
+    from fast3r_torch.utils.tb_writer import decode_scalar_event, iter_records
+
+    log("== phase 19: the training CLI (--experiment super_long_training, "
+        "flagship at full width, 20 views, 5 resolutions, ColorJitter) on a "
+        "CO3D-format root: SIGUSR1 checkpoint, then --resume to the epoch's "
+        "end and validation with the pose suite")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="fast3r_cli_")
+    try:
+        t = time.perf_counter()
+        root = make_co3d_root(os.path.join(tmp, "co3d"))
+        log(json.dumps({"path": "cli_train", "co3d_root_s":
+                        time.perf_counter() - t, "frames": 2 * CO3D_FRAMES}))
+        run_dir = os.path.join(tmp, "run")
+        args = ["--experiment", "super_long_training",
+                *_cli_overrides(root, run_dir)]
+        csv_path = os.path.join(run_dir, "metrics.csv")
+
+        # run 1: a subprocess, stopped by SIGUSR1 after its first CSV row
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        # its output goes to a file: the loader's workers and their resource
+        # tracker inherit the process's descriptors, and a pipe would stay
+        # open as long as the last of them
+        run1_log = os.path.join(tmp, "run1.log")
+        with open(run1_log, "w") as out_f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "fast3r_torch.cli.train",
+                 "--no-resume", *args], cwd=repo, stdout=out_f,
+                stderr=subprocess.STDOUT)
+        try:
+            signalled = None
+            while proc.poll() is None and signalled is None:
+                if _csv_rows(csv_path):
+                    proc.send_signal(signal.SIGUSR1)
+                    signalled = time.perf_counter() - t
+                time.sleep(0.1)
+            proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        run1_s = time.perf_counter() - t
+        with open(run1_log) as f:
+            out = f.read()
+        for line in out.splitlines():
+            if "fast3r_torch" in line and " INFO " in line:
+                log("   run 1: " + line.split(" INFO ", 1)[1])
+        ckpt = os.path.join(run_dir, "checkpoints", "last.pt")
+        rows1 = _csv_rows(csv_path)
+        if (proc.returncode != 0 or signalled is None or not rows1
+                or not os.path.exists(ckpt)
+                or "stopping for requeue" not in out):
+            raise AssertionError(f"run 1: exit {proc.returncode}, signalled "
+                                 f"{signalled}, {ckpt} "
+                                 f"{os.path.exists(ckpt)}; output tail:\n"
+                                 + "\n".join(out.splitlines()[-30:]))
+        run1_step = int(rows1[-1]["step"])
+        log(json.dumps({"path": "cli_train", "run": 1, "exit": 0,
+                        "signalled_at_s": signalled, "total_s": run1_s,
+                        "steps": run1_step,
+                        "checkpoint_gb": os.path.getsize(ckpt) / 1e9}))
+
+        # run 2: in this process, train_step wrapped
+        steps, ckpt_s, resumed = [], {"save": [], "load": []}, {}
+        last_end = [time.perf_counter()]
+        orig_step = trainer_mod.train_step
+        orig_save = trainer_mod.Trainer.save_checkpoint
+        orig_load = trainer_mod.Trainer.load_checkpoint
+
+        def step_fn(state, batch, *a, **kw):
+            t0 = time.perf_counter()
+            state, m = orig_step(state, batch, *a, **kw)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rec = {"path": "cli_train", "run": 2, "train_step": state.step,
+                   "views": int(np.shape(batch["imgs"])[1]),
+                   "image_hw": list(np.shape(batch["imgs"])[2:4]),
+                   "mixed": kw["mixed_orientation"], "step_s": t1 - t0,
+                   "loader_wait_s": t0 - last_end[0], "loss": loss,
+                   "skipped_nonfinite": int(m["skipped_nonfinite"]),
+                   "gpu": gpu}
+            steps.append(rec)
+            log(json.dumps(rec))
+            last_end[0] = time.perf_counter()
+            return state, m
+
+        def save(self, name="last"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = orig_save(self, name)
+            ckpt_s["save"].append(time.perf_counter() - t0)
+            return path
+
+        def load(self, name="last"):
+            t0 = time.perf_counter()
+            ok = orig_load(self, name)
+            torch.cuda.synchronize()
+            ckpt_s["load"].append(time.perf_counter() - t0)
+            resumed["step"] = self.state.step
+            resumed["params"] = sum(p.numel()
+                                    for p in self.state.params.parameters())
+            last_end[0] = time.perf_counter()
+            return ok
+
+        trainer_mod.train_step = step_fn
+        trainer_mod.Trainer.save_checkpoint = save
+        trainer_mod.Trainer.load_checkpoint = load
+        torch.cuda.reset_peak_memory_stats()
+        # the loader's spawn workers import the main module: as main, the
+        # CLI module, so that they import what run 1's do (the data
+        # pipeline, no torch), not this script
+        main_module = sys.modules["__main__"]
+        sys.modules["__main__"] = cli_train
+        _reset_counts()
+        t = time.perf_counter()
+        try:
+            trainer = cli_train.main(["--resume", *args])
+        finally:
+            sys.modules["__main__"] = main_module
+            trainer_mod.train_step = orig_step
+            trainer_mod.Trainer.save_checkpoint = orig_save
+            trainer_mod.Trainer.load_checkpoint = orig_load
+        counts = _read_counts()
+        run2_s = time.perf_counter() - t
+        log(json.dumps({"path": "cli_train", "run": 2, "total_s": run2_s,
+                        "steps": len(steps), "final_step": trainer.state.step,
+                        "checkpoint_save_s": ckpt_s["save"],
+                        "checkpoint_load_s": ckpt_s["load"],
+                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "parameters": resumed.get("params"), "gpu": gpu}))
+
+        # the checks
+        bad = []
+        if resumed.get("step") != run1_step:
+            bad.append(f"run 2 resumed at step {resumed.get('step')}, run 1 "
+                       f"stopped at {run1_step}")
+        if resumed.get("params") != FLAGSHIP_PARAMS:
+            bad.append(f"{resumed.get('params')} parameters, not the "
+                       f"flagship's {FLAGSHIP_PARAMS}")
+        if len(steps) != CLI_TRAIN_SAMPLES or trainer.state.step != (
+                run1_step + CLI_TRAIN_SAMPLES):
+            bad.append(f"run 2 took {len(steps)} steps to step "
+                       f"{trainer.state.step}")
+        if any(r["views"] != 20 for r in steps):
+            bad.append("a step of other than 20 views")
+        if len({tuple(r["image_hw"]) for r in steps}) < 2:
+            bad.append("run 2 trained at one resolution only")
+        if not any(r["mixed"] for r in steps):
+            bad.append("no mixed-orientation batch")
+        rows = _csv_rows(csv_path)
+        losses = [float(r["loss"]) for r in rows if r.get("loss")]
+        if len(losses) < len(steps) + run1_step or not all(
+                math.isfinite(x) for x in losses) or any(
+                r["skipped_nonfinite"] for r in steps):
+            bad.append(f"logged losses {losses}")
+        val = [r for r in rows if r.get("val/dataset_0/loss")]
+        want = ["val/dataset_0/loss"] + [
+            f"val/dataset_0/pose/{k}" for k in (
+                "RRA_at_5", "RTA_at_5", "RRA_at_15", "RTA_at_15",
+                "RRA_at_30", "RTA_at_30", "mAA_30")]
+        if len(val) != 1 or not all(val[0].get(k) for k in want):
+            bad.append(f"validation rows {val}")
+        tb_dir = os.path.join(run_dir, "tensorboard")
+        tags = set()
+        for name in (os.listdir(tb_dir) if os.path.isdir(tb_dir) else []):
+            with open(os.path.join(tb_dir, name), "rb") as f:
+                for rec in list(iter_records(f.read()))[1:]:
+                    tags |= set(decode_scalar_event(rec)[1])
+        if not {"loss", "val/dataset_0/pose/RRA_at_15"} <= tags:
+            bad.append(f"TensorBoard tags {sorted(tags)}")
+        n = len(steps)
+        for k in TRAIN_KERNELS:
+            per_step = train_counts[k] / train_steps
+            if counts[k] != n * per_step:
+                bad.append(f"{k}: {counts[k]} launches over {n} steps, "
+                           f"phase 5 took {per_step} a step")
+        if counts["trunk"] + counts["resize"] == 0:
+            bad.append("the heads launched neither K8 nor K12")
+        by_hw = {}
+        for r in steps:
+            by_hw.setdefault("x".join(map(str, r["image_hw"])), []).append(
+                r["step_s"])
+        log(json.dumps({"path": "cli_train", "step_s_by_hw": by_hw,
+                        "loader_wait_s": [r["loader_wait_s"] for r in steps],
+                        "launches": {k: counts[k] for k in TRAIN_KERNELS},
+                        "per_step_phase5": {
+                            k: train_counts[k] / train_steps
+                            for k in TRAIN_KERNELS}, "gpu": gpu}))
+        if bad:
+            raise AssertionError(f"phase 19: {bad}")
+        del trainer
+        torch.cuda.empty_cache()
+        return {"cli_train": counts}
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_counts(counts: dict) -> None:
-    log("== phase 19: kernel launches on each path of phases 3, 5, 7, 9, 11, "
-        "12, 14, 16 and 18")
+    log("== phase 20: kernel launches on each path of phases 3, 5, 7, 9, 11, "
+        "12, 14, 16, 18 and 19")
     log(json.dumps(counts))
     missing = [f"{path}: {k}" for path, names in PATHS.items()
                for k in names if counts[path][k] <= 0]
@@ -2435,7 +2807,7 @@ MAIN_CASE = {"attention": "decoder", "layernorm": "eps=1e-05",
 
 def kernel_summary(results: list, counts: dict) -> dict:
     """One entry per kernel: launches summed over the paths of phases 3, 5,
-    7, 9, 11, 12, 14, 16 and 18 (and per path); the largest bfloat16 error,
+    7, 9, 11, 12, 14, 16, 18 and 19 (and per path); the largest bfloat16 error,
     and the bfloat16 times and bound at its heaviest main-path shape, from
     phase 2 (the ring kernel: phase 15, n = 4; its backward rings: phase
     17, n = 4)."""
@@ -2487,8 +2859,9 @@ def main() -> int:
     done("phase 4")
     counts.update(phase_training(gpu, cpu_model))
     done("phase 5")
-    phase_train_end_to_end(cpu_model, cpu_model.cfg.with_fused_blocks(False))
-    del cpu_model
+    flagship_cpu = cpu_model
+    flagship_ref = phase_train_end_to_end(cpu_model,
+                                          cpu_model.cfg.with_fused_blocks(False))
     done("phase 6")
     cpu_model, model, plain, llama_counts = phase_llama_requests(gpu)
     counts.update(llama_counts)
@@ -2522,10 +2895,13 @@ def main() -> int:
     done("phase 16")
     phase_ring_bwd(results)
     done("phase 17")
-    counts.update(phase_seq_train(gpu))
+    counts.update(phase_seq_train(gpu, flagship_cpu, flagship_ref))
+    del flagship_cpu, flagship_ref
     done("phase 18")
-    phase_counts(counts)
+    counts.update(phase_cli_train(gpu, counts["train"], TRAIN_STEPS))
     done("phase 19")
+    phase_counts(counts)
+    done("phase 20")
     log(json.dumps(kernel_summary(results, counts)))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
-"""Training loop: epochs over a loader, validation loss, checkpoint / resume.
+"""Training loop: epochs over a loader, validation suites, checkpoint / resume,
+requeue on a signal.
 
 Counterpart of ``fast3r_tpu/train/trainer.py`` (``TrainerConfig``,
-``Trainer.fit``, ``validate``, ``save_checkpoint`` / ``load_checkpoint``) on
-one device:
+``Trainer.fit``, ``install_signal_handlers``, ``validate``,
+``save_checkpoint`` / ``load_checkpoint``) on one device:
 
   * per-epoch ``set_epoch`` on the loader (or on its dataset and sampler);
   * :func:`fast3r_torch.train.step.train_step` per batch, the mixed
@@ -15,12 +16,20 @@ one device:
     to run, so a resume continues rather than repeats) and
     ``epoch_{epoch:04d}`` every ``ckpt_every_n_epochs``; ``fit`` resumes
     from "last" when it exists;
+  * SIGTERM / SIGUSR1 (``install_signal_handlers``) only set a flag; at the
+    next step boundary ``fit`` saves "last" and returns (the cluster
+    requeue flow);
   * ``model_config.json`` beside the checkpoints, so that
     ``utils.checkpoint_utils.load_model`` serves a run directory;
-  * validation: the mean loss of every val loader.  The pose and
-    reconstruction suites wait for the eval modules.
+  * validation: the mean loss of every val loader, and the camera-pose
+    suite (RRA / RTA at 5, 15, 30 degrees and mAA(30), through
+    ``eval.pose.estimate_camera_poses`` on the params' device) on loaders
+    whose dataset is ``Co3d_v2``, dispatched as JAX does.  The
+    reconstruction suite is not ported yet: its dispatch raises.
 
-Metrics go to ``{run_dir}/metrics.jsonl``, one JSON object per logged step.
+Metrics go through ``utils.logging.MetricLogger``: ``{run_dir}/metrics.csv``
+and the sinks of ``TrainerConfig.loggers`` (TensorBoard events under
+``{run_dir}/tensorboard`` by default).
 """
 
 from __future__ import annotations
@@ -28,7 +37,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Dict, Optional
+import signal
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,16 +58,28 @@ from fast3r_torch.train.step import (
     train_step,
 )
 from fast3r_torch.utils.checkpoint_utils import RUN_CONFIG, config_to_dict
+from fast3r_torch.utils.logging import MetricLogger, RankedLogger
+
+log = RankedLogger(__name__)
+
+# the reference's validation_step auto-dispatch (module.py:290-301): pose
+# metrics for CO3D batches, reconstruction metrics for the recon sets
+POSE_EVAL_DATASETS = frozenset({"Co3d_v2"})
+RECON_EVAL_DATASETS = frozenset({"dtu", "7scenes", "nrgbd"})
 
 
 @dataclasses.dataclass
 class TrainerConfig:
     max_epochs: int = 10
     val_every_n_epochs: int = 1
+    recon_val_every_n_epochs: int = 5   # reference: every 5th epoch
     ckpt_every_n_epochs: int = 20
     run_dir: str = "runs/default"
     log_every_n_steps: int = 10
     seed: int = 42
+    # metric sinks beyond the always-on CSV: "tensorboard" (own event
+    # writer); wandb/mlflow/comet/neptune/aim attach if importable
+    loggers: Tuple[str, ...] = ("tensorboard",)
     remat: bool = True
 
 
@@ -92,13 +115,40 @@ class Trainer:
         os.makedirs(self.cfg.run_dir, exist_ok=True)
         with open(os.path.join(self.cfg.run_dir, RUN_CONFIG), "w") as f:
             json.dump(config_to_dict(model_cfg), f, indent=2)
+        self.metrics = MetricLogger(
+            os.path.join(self.cfg.run_dir, "metrics.csv"),
+            sinks=self.cfg.loggers)
         if params is None:
             params = init_fast3r(model_cfg, trainer_cfg.seed, dtype, device)
         self.state = init_train_state(params.train(), optim_cfg,
                                       trainer_cfg.seed + 1)
+        # parameter accounting (reference utils/logging_utils.py:18-63)
+        by_top = {name: sum(p.numel() for p in mod.parameters())
+                  for name, mod in params.named_children()}
+        log.info("model parameters: total %.1fM (%s)",
+                 sum(by_top.values()) / 1e6,
+                 ", ".join(f"{k}={v / 1e6:.1f}M"
+                           for k, v in sorted(by_top.items())))
         self.epoch = 0
         self.total_samples = 0
         self.total_images = 0
+        self._stop_requested = False
+
+    # ---- signal-based requeue (reference SLURMEnvironment auto_requeue) ----
+    def install_signal_handlers(self):
+        """SIGTERM / SIGUSR1 set a flag; ``fit`` saves "last" at the next
+        step boundary and returns.  The handler itself does no I/O.
+        :meth:`restore_signal_handlers` puts the previous handlers back."""
+        def handler(signum, frame):
+            self._stop_requested = True
+
+        self._prev_handlers = {sig: signal.signal(sig, handler)
+                               for sig in (signal.SIGTERM, signal.SIGUSR1)}
+
+    def restore_signal_handlers(self):
+        for sig, prev in getattr(self, "_prev_handlers", {}).items():
+            signal.signal(sig, prev)
+        self._prev_handlers = {}
 
     # ---- checkpointing --------------------------------------------------
     def _ckpt_path(self, name: str) -> str:
@@ -114,8 +164,11 @@ class Trainer:
                 "total_images": self.total_images}
         path = self._ckpt_path(name)
         os.makedirs(os.path.dirname(path), exist_ok=True)
+        t = time.time()
         torch.save(blob, path + ".tmp")
         os.replace(path + ".tmp", path)  # a reader never sees half a file
+        log.info(f"saved checkpoint {name!r} at step {s.step} in "
+                 f"{time.time() - t:.1f}s")
         return path
 
     def load_checkpoint(self, name: str = "last") -> bool:
@@ -124,6 +177,7 @@ class Trainer:
             return False
         s = self.state
         dev = next(s.params.parameters()).device
+        t = time.time()
         blob = torch.load(path, map_location=dev, weights_only=True)
         s.params.load_state_dict(blob["params"])
         o = blob["opt_state"]
@@ -133,15 +187,16 @@ class Trainer:
         self.epoch = blob["epoch"]
         self.total_samples = blob["total_samples"]
         self.total_images = blob["total_images"]
+        log.info(f"resumed from {name!r}: epoch={self.epoch} step={s.step} "
+                 f"(read in {time.time() - t:.1f}s)")
         return True
 
     # ---- train ----------------------------------------------------------
-    def _log(self, record: Dict[str, Any]) -> None:
-        with open(os.path.join(self.cfg.run_dir, "metrics.jsonl"), "a") as f:
-            f.write(json.dumps(record) + "\n")
-
     def fit(self, train_loader, val_loaders: Optional[Dict[str, Any]] = None,
-            resume: bool = True) -> None:
+            resume: bool = True,
+            on_step: Optional[Callable[[], None]] = None) -> None:
+        """Train to ``max_epochs`` (from "last" when ``resume`` finds it);
+        ``on_step()`` is called after each step (the CLI's profiler)."""
         if resume:
             self.load_checkpoint("last")
         for epoch in range(self.epoch, self.cfg.max_epochs):
@@ -153,6 +208,7 @@ class Trainer:
                     train_loader.dataset.set_epoch(epoch)
                 if getattr(train_loader, "sampler", None) is not None:
                     train_loader.sampler.set_epoch(epoch)
+            t_epoch = time.time()
             for i, batch in enumerate(train_loader):
                 self.state, m = train_step(
                     self.state, batch, self.model_cfg, self.optim_cfg,
@@ -162,12 +218,20 @@ class Trainer:
                 self.total_samples += _global_count(B)
                 self.total_images += _global_count(B * V)
                 if i % self.cfg.log_every_n_steps == 0:
-                    self._log({
-                        "step": self.state.step, "epoch": epoch,
-                        "total_samples": self.total_samples,
-                        "total_images": self.total_images,
+                    self.metrics.log(
+                        step=self.state.step, epoch=epoch,
+                        total_samples=self.total_samples,
+                        total_images=self.total_images,
                         **{k: float(v) for k, v in m.items()
-                           if np.ndim(v) == 0}})
+                           if np.ndim(v) == 0})
+                if on_step is not None:
+                    on_step()
+                if self._stop_requested:
+                    self.save_checkpoint("last")
+                    log.info("stopping for requeue")
+                    return
+            log.info(f"epoch {epoch} done in {time.time() - t_epoch:.1f}s "
+                     f"(step {self.state.step})")
             if val_loaders and (epoch + 1) % self.cfg.val_every_n_epochs == 0:
                 self.validate(val_loaders, epoch)
             # persist the NEXT epoch to run so a resume continues
@@ -178,25 +242,92 @@ class Trainer:
 
     # ---- validation ------------------------------------------------------
     @torch.no_grad()
-    def validate(self, val_loaders: Dict[str, Any],
-                 epoch: int) -> Dict[str, float]:
-        """Mean validation loss per loader (inference forward: the entropy
-        scale and the image ids of a generator seeded 0)."""
+    def validate(self, val_loaders: Dict[str, Any], epoch: int,
+                 eval_pose: Optional[Dict[str, Optional[bool]]] = None,
+                 eval_recon: Optional[Dict[str, Optional[bool]]] = None
+                 ) -> Dict[str, float]:
+        """Per-loader val loss and metric suites (inference forward: the
+        entropy scale and the image ids of a generator seeded 0).
+
+        Dispatch follows JAX's (the reference's validation_step,
+        module.py:290-301): a loader's entry in ``eval_pose`` /
+        ``eval_recon`` forces its suite on or off; when it is None (or the
+        dict is None) the suite runs when the batch's dataset name holds a
+        name of ``POSE_EVAL_DATASETS`` / ``RECON_EVAL_DATASETS``
+        (case-insensitive), the recon suite only at epoch 0 and every
+        ``recon_val_every_n_epochs``-th epoch (0, 4, 9, ... for 5).
+        A recon dispatch raises: that suite is not ported yet."""
+        from fast3r_torch.eval.pose import estimate_camera_poses
+        from fast3r_torch.eval.pose_metrics import pose_metrics
+
+        def dispatch(flags, name, batch, auto_names, epoch_ok=True):
+            want = flags.get(name) if flags else None
+            if want is not None:
+                return want
+            ds = batch.get("dataset")
+            if not (epoch_ok and bool(ds)):
+                return False
+            ds_name = str(ds[0][0]).lower()
+            return any(a.lower() in ds_name for a in auto_names)
+
+        recon_epoch_ok = epoch == 0 or (
+            (epoch + 1) % self.cfg.recon_val_every_n_epochs == 0)
         net = self.state.params
         p0 = next(net.parameters())
-        results = {}
+        results: Dict[str, float] = {}
         for name, loader in val_loaders.items():
-            losses = []
+            losses: List[float] = []
+            pose_ms = []
+            suite_matched = False
             for batch in loader:
                 b = {k: torch.as_tensor(batch[k]).to(p0.device) for k in
                      ("imgs", "pts3d", "valid_mask", "camera_pose")}
+                ts = np.asarray(batch["true_shapes"])
                 preds = fast3r_forward(
                     net, self.model_cfg, b["imgs"].to(p0.dtype),
-                    torch.as_tensor(batch["true_shapes"]),
-                    mixed_orientation=_mixed(batch))
+                    torch.as_tensor(ts), mixed_orientation=_mixed(batch))
                 loss, _ = conf_loss_multiview_v2(b, preds, self.loss_cfg)
                 losses.append(float(loss))
+                pose_on = dispatch(eval_pose, name, batch, POSE_EVAL_DATASETS)
+                suite_matched |= bool(pose_on or dispatch(
+                    eval_recon, name, batch, RECON_EVAL_DATASETS))
+                if pose_on:
+                    V = preds["pts3d_in_other_view"].shape[1]
+                    preds_v = [{k: v[:, i] for k, v in preds.items()}
+                               for i in range(V)]
+                    # true shapes un-transpose portrait samples' maps
+                    # before PnP (correct_preds_orientation)
+                    views_v = [{"true_shape": ts[:, i]} for i in range(V)]
+                    poses, _ = estimate_camera_poses(preds_v, views=views_v,
+                                                     device=p0.device)
+                    for i in range(len(poses)):
+                        gt = np.asarray(batch["camera_pose"][i])
+                        pose_ms.append(pose_metrics(np.stack(poses[i]), gt))
+                if dispatch(eval_recon, name, batch, RECON_EVAL_DATASETS,
+                            recon_epoch_ok):
+                    raise NotImplementedError(
+                        f"val loader {name!r}: the reconstruction suite "
+                        "(eval/recon.py metrics) is not ported to "
+                        "fast3r_torch yet (ROADMAP.md, Queue 1: the eval "
+                        "slice)")
+            if losses and not suite_matched:
+                log.warning(
+                    f"val loader {name!r}: no metric suite dispatched; only "
+                    "val loss is recorded for it")
             results[f"val/{name}/loss"] = (float(np.mean(losses)) if losses
                                            else float("nan"))
-        self._log({"step": self.state.step, "epoch": epoch, **results})
+            if pose_ms:
+                for key in pose_ms[0]:
+                    results[f"val/{name}/pose/{key}"] = float(
+                        np.mean([m[key] for m in pose_ms]))
+        if (torch.distributed.is_available()
+                and torch.distributed.is_initialized()):
+            # the mean over the ranks (JAX: process_allgather + nanmean)
+            gathered = [None] * torch.distributed.get_world_size()
+            torch.distributed.all_gather_object(gathered, results)
+            results = {k: float(np.nanmean([g[k] for g in gathered]))
+                       for k in sorted(results)}
+        self.metrics.log(step=self.state.step, epoch=epoch, **results)
+        log.info(f"validation @ epoch {epoch}: "
+                 + json.dumps({k: round(v, 4) for k, v in results.items()}))
         return results

@@ -3,11 +3,11 @@
 Counterpart of ``fast3r_tpu/utils/checkpoint_utils.py`` (``load_model``,
 ``_inference_overrides``, here ``inference.serving_config``):
 ``load_model`` accepts an HF-format directory (config.json + weights) or a
-run directory of the port's
-``train/trainer.py`` (model_config.json, written by
-:func:`config_to_dict`, + checkpoints/{name}.pt), and applies the
-reference's inference override (plain patch embedding).  A fast3r_tpu run
-directory (config.yaml + an orbax checkpoint) raises.
+run directory of the port's ``train/trainer.py`` (model_config.json,
+written by :func:`config_to_dict`, + checkpoints/{name}.pt; the training
+CLI also writes config.yaml there), and applies the reference's inference
+override (plain patch embedding).  A fast3r_tpu run directory (config.yaml
+and an orbax checkpoint, no checkpoints/{name}.pt) raises.
 """
 
 from __future__ import annotations
@@ -32,7 +32,8 @@ def load_model(checkpoint_dir: str, dtype=torch.float32, device="cuda",
                ckpt_name: str = "last") -> Fast3R:
     """A Fast3R model from an HF-format directory or a port run directory."""
     run_ckpt = os.path.join(checkpoint_dir, "checkpoints", f"{ckpt_name}.pt")
-    if os.path.exists(os.path.join(checkpoint_dir, "config.yaml")):
+    if (os.path.exists(os.path.join(checkpoint_dir, "config.yaml"))
+            and not os.path.exists(run_ckpt)):
         raise ValueError(
             f"{checkpoint_dir} is a fast3r_tpu run directory (orbax "
             "checkpoint); export it with fast3r_tpu's "

@@ -766,7 +766,7 @@ def test_llama_trainer_fit(tiny, tmp_path):
     """Trainer.fit takes the llama configuration: two epochs of one batch,
     finite logged losses, a validation loss, and the rotary ids drawn from
     the trainer's generator."""
-    import json
+    import csv
 
     from fast3r_torch.data.dummy import make_dummy_batch
     from fast3r_torch.train.trainer import Trainer, TrainerConfig
@@ -779,8 +779,9 @@ def test_llama_trainer_fit(tiny, tmp_path):
     batches = [make_dummy_batch(1, 3, 32, 48, seed=20)]
     trainer.fit(batches, val_loaders={"val": batches})
     assert trainer.state.step == 2 and trainer.epoch == 2
-    lines = [json.loads(ln) for ln in
-             (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    with open(tmp_path / "metrics.csv", newline="") as f:
+        lines = [{k: float(v) for k, v in row.items() if v}
+                 for row in csv.DictReader(f)]
     losses = [ln["loss"] for ln in lines if "loss" in ln]
     assert len(losses) == 2 and all(np.isfinite(losses))
     assert any("val/val/loss" in ln for ln in lines)

@@ -309,7 +309,7 @@ def test_trainer_fit_checkpoint_resume(setup, tmp_path):
     for k, v in c.state.params.state_dict().items():
         torch.testing.assert_close(b.state.params.state_dict()[k], v, rtol=0,
                                    atol=0, msg=k)
-    lines = (tmp_path / "a" / "metrics.jsonl").read_text().splitlines()
+    lines = (tmp_path / "a" / "metrics.csv").read_text().splitlines()
     assert any("val/val/loss" in ln for ln in lines)
 
 
