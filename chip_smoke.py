@@ -167,7 +167,38 @@ printing each one's seconds:
      the validation row with the loss and the pose keys, and the
      training-only kernels (K7's backward, K9, K10, K11) launched exactly
      the steps taken times phase 5's launches a step;
-  20. launch counts: every kernel of a path must have launched on it, the
+  20. evaluation from the command line: a run directory of the flagship
+     (random weights, seed 0, bfloat16; model_config.json,
+     checkpoints/last.pt, config.yaml) and, under one data root written
+     with PIL and numpy, the preset's four validation sets in their own
+     layouts at their frame sizes (DTU 1600x1200 JPEG, .npy depth, PNG
+     masks, MVSNet cams; 7-Scenes and NRGBD 640x480 PNG with 16-bit depth
+     and their pose files; phase 19's CO3D root), cameras on a quarter
+     orbit around a textured sphere, EVAL_VIEWS * kf_every frames a recon
+     scene (the ones that the preset's kf_every reads written, the others
+     links to them):
+       * run 1: ``fast3r_torch.cli.eval --eval-config
+         ablation_recon_better_inference_hp`` in this process, only
+         ``data.data_root`` and the CO3D sample count changed; pose keys on
+         CO3D only, recon keys on DTU / 7-Scenes / NRGBD only, every value
+         finite; each forward (10 views) launching K1 and K2 24 times, K8
+         or K12 as ``head_road`` picks for its view shape, and no backward
+         kernel; each set's forward seconds, peak memory and suite seconds
+         by stage (alignment, similarity fit, normals, nearest-neighbour
+         queries, the pose suite);
+       * run 2: ``evaluate_reconstruction`` on a 10-view 512x384 DTU
+         sample whose predictions are its ground truth moved by known
+         similarities (conf 1): accuracy and completion below 1e-4 of the
+         scene's extent, normal consistencies above 0.99, and the CPU's
+         dict within 1e-5 (distances: of the extent); each stage's seconds;
+       * run 3: ``fast3r_torch.cli.re10k_pose_eval`` on 2 scenes of 10
+         640x360 JPEGs with RealEstate10K txt files of known cameras (512x288
+         views): finite RRA / RTA / mAA for both, K8 or K12 as
+         ``head_road`` picks;
+       * run 4: ``fast3r_torch.cli.robustmvd_eval --data-root`` on 2
+         scenes of 5 512x384 PNGs with .npy depth: finite absrel and
+         inliers_1.03;
+  21. launch counts: every kernel of a path must have launched on it, the
      RMS kernels on no path but the llama fused road's, K12 on no path of
      384x512 views, the trunk kernel on no path of 512x512 or 448x512
      views, the ring kernels on no path but the sequence-sharded ones; no
@@ -1500,6 +1531,12 @@ SEQ_PATHS = ("seq_sharded", "seq_train")
 # on the loader's batches; its heads take K8 or K12 by view shape (checked
 # in the phase: one of them launched)
 PATHS["cli_train"] = tuple(k for k in PATHS["train"] if k != "trunk")
+# phase 20: the eval CLI's forwards take the fused road at 384x512 (CO3D:
+# K8) and 512x512 (the recon sets: K12); the drivers' heads take K8 or K12
+# by view shape (checked in the phase)
+PATHS["eval_cli"] = PATHS["mixed"]
+PATHS["re10k"] = PATHS["robustmvd"] = tuple(
+    k for k in PATHS["fused"] if k != "trunk")
 # K13 launches on the llama fused roads only, K12 on no path of 384x512
 # views, the trunk kernel on no path of 512x512 or 448x512 views, K14 on
 # the sequence-sharded paths only (its backward on the training one), the
@@ -1507,7 +1544,7 @@ PATHS["cli_train"] = tuple(k for k in PATHS["train"] if k != "trunk")
 NO_LAUNCH = {
     path: ((() if path in ("llama", "llama_train") else K13)
            + (() if path in ("square", "mixed", "images_to_poses",
-                             "cli_train")
+                             "cli_train", "eval_cli", "re10k", "robustmvd")
               else ("resize",))
            + (("trunk",) if path in ("square", "images_to_poses") else ())
            + (("attention", "ln_qkv") if path in SEQ_PATHS
@@ -1517,7 +1554,8 @@ NO_LAUNCH = {
 # the serving paths, on which every kernel input maps in place (no layout
 # copy); the training paths' counts are reported
 SERVE_PATHS = ("fused", "plain", "two_kernel_mlp", "llama", "llama_plain",
-               "square", "mixed", "images_to_poses", "seq_sharded")
+               "square", "mixed", "images_to_poses", "seq_sharded",
+               "eval_cli", "re10k", "robustmvd")
 OUT_KEYS = ("pts3d_in_other_view", "conf", "pts3d_local", "conf_local")
 # phase 4: |gpu bf16 - cpu fp32| / |cpu fp32| in the L2 norm, per output.
 # bf16 keeps 8 bits of mantissa; through 48 blocks and two heads the
@@ -2446,14 +2484,14 @@ CLI_TRAIN_SAMPLES = 6   # the epoch: 6 samples of 20 views, batch 1
 CLI_VAL_SAMPLES = 2     # validation: 2 samples of 10 views
 
 
-def _sphere_frame(w: int, h: int, seed: int):
+def _sphere_frame(w: int, h: int, seed: int, f: float = CO3D_F):
     """The unit sphere at the origin seen from CO3D_RADIUS away by a pinhole
-    of focal CO3D_F with its principal point in the middle: an 8-bit RGB
+    of focal ``f`` with its principal point in the middle: an 8-bit RGB
     image (shading and seeded texture), depth in metres (background at
     CO3D_MAX_DEPTH) and the silhouette as a 0 / 255 mask."""
     rng = np.random.default_rng(seed)
     u, v = np.meshgrid(np.arange(w) - w / 2, np.arange(h) - h / 2)
-    d = np.stack([u / CO3D_F, v / CO3D_F, np.ones_like(u)], -1)
+    d = np.stack([u / f, v / f, np.ones_like(u)], -1)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     # |c + t d| = 1 with the centre at depth CO3D_RADIUS on the optical axis
     b = d[..., 2] * CO3D_RADIUS
@@ -2778,9 +2816,539 @@ def phase_cli_train(gpu: str, train_counts: dict, train_steps: int) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: evaluation from the command line
+# ---------------------------------------------------------------------------
+
+EVAL_PRESET = "ablation_recon_better_inference_hp"
+EVAL_VIEWS = 10         # num_views_val of every preset
+EVAL_CO3D_SAMPLES = 2   # the preset's CO3D count, cut from 100
+# the preset's recon sets under data.data_root: folder, kf_every, frame size
+# (w, h), focal length (pixels); each gets EVAL_VIEWS * kf_every frames
+RECON_ROOTS = {"dtu": ("dtu_test_mvsnet_release", 5, (1600, 1200), 1250.0),
+               "7scenes": ("7_scenes_processed", 20, (640, 480), 525.0),
+               "nrgbd": ("neural_rgbd", 40, (640, 480), 554.2562584220408)}
+RECON_KEYS = ("accuracy", "accuracy_median", "completion",
+              "completion_median", "nc1", "nc1_median", "nc2", "nc2_median")
+POSE_KEYS = ("RRA_at_5", "RTA_at_5", "RRA_at_15", "RTA_at_15", "RRA_at_30",
+             "RTA_at_30", "mAA_30")
+RE10K_SCENES, RE10K_FRAMES = 2, 10       # 640x360 JPEGs -> 512x288 views
+RMVD_SCENES, RMVD_VIEWS = 2, 5           # 512x384 PNGs with .npy depth
+
+
+RELIEF_AMP, RELIEF_FREQ, RELIEF_HALF = 0.1, 3.0, 1.2  # the recon scene
+
+
+def _relief_pose(i: int, n: int) -> np.ndarray:
+    """cam2world of frame i of n: a quarter orbit at 45 degrees of elevation,
+    3 sqrt(2) from the origin, looking at it (OpenCV axes, y down)."""
+    theta = 0.5 * np.pi * i / n
+    eye = 3.0 * np.array([np.sin(theta), -1.0, -np.cos(theta)])
+    z = -eye / np.linalg.norm(eye)
+    x = np.cross(np.array([0.0, -1.0, 0.0]), z)
+    x /= np.linalg.norm(x)
+    T = np.eye(4)
+    T[:3, :3] = np.stack([x, np.cross(z, x), z], 1)
+    T[:3, 3] = eye
+    return T
+
+
+def _relief_frame(w: int, h: int, f: float, c2w: np.ndarray, seed: int,
+                  device="cuda"):
+    """A textured relief, y = RELIEF_AMP sin(RELIEF_FREQ x) cos(RELIEF_FREQ
+    z) over |x|, |z| < RELIEF_HALF, seen through a pinhole of focal ``f``
+    (principal point in the middle) from ``c2w``: the 8-bit RGB image
+    (Lambert shading and a seeded texture), the z-depth (0 off the relief,
+    which the recon sets read as invalid) and the 0 / 255 mask.  The rays
+    are intersected on ``device`` (Newton steps from the plane y = 0)."""
+    dev = torch.device(device)
+    R = torch.tensor(c2w[:3, :3], device=dev)
+    o = torch.tensor(c2w[:3, 3], device=dev)
+    v, u = torch.meshgrid(torch.arange(h, device=dev, dtype=torch.float64),
+                          torch.arange(w, device=dev, dtype=torch.float64),
+                          indexing="ij")
+    dc = torch.stack([(u - w / 2) / f, (v - h / 2) / f, torch.ones_like(u)],
+                     -1)
+    d = dc @ R.T
+    a, k = RELIEF_AMP, RELIEF_FREQ
+    t = -o[1] / d[..., 1]
+    for _ in range(8):
+        p = o + t[..., None] * d
+        sx, cx = torch.sin(k * p[..., 0]), torch.cos(k * p[..., 0])
+        sz, cz = torch.sin(k * p[..., 2]), torch.cos(k * p[..., 2])
+        g = p[..., 1] - a * sx * cz
+        dg = d[..., 1] - a * k * (cx * cz * d[..., 0] - sx * sz * d[..., 2])
+        t = t - g / dg
+    p = o + t[..., None] * d
+    sx, cx = torch.sin(k * p[..., 0]), torch.cos(k * p[..., 0])
+    sz, cz = torch.sin(k * p[..., 2]), torch.cos(k * p[..., 2])
+    hit = ((d[..., 1] > 0.05) & (t > 0) & (p[..., 0].abs() < RELIEF_HALF)
+           & (p[..., 2].abs() < RELIEF_HALF)
+           & ((p[..., 1] - a * sx * cz).abs() < 1e-5))
+    n = torch.stack([-a * k * cx * cz, torch.ones_like(t),
+                     a * k * sx * sz], -1)
+    shade = (n @ torch.tensor([0.3, 0.8, -0.5], device=dev, dtype=n.dtype)
+             ).abs() / n.norm(dim=-1)
+    hit, t, shade = (x.cpu().numpy() for x in (hit, t, shade))
+    tex = _photo(h, w, seed).astype(np.float32) / 255.0
+    img = np.where(hit[..., None], 255 * (0.45 * shade[..., None] + 0.55 * tex),
+                   40.0)
+    return (np.clip(img, 0, 255).astype(np.uint8),
+            np.where(hit, t, 0.0).astype(np.float32),
+            np.where(hit, 255, 0).astype(np.uint8))
+
+
+def make_recon_roots(data_root: str, device="cuda") -> dict:
+    """The preset's DTU, 7-Scenes and NRGBD roots under ``data_root``, each
+    in its dataset's layout and frame size, written with PIL and numpy:
+    one scene of EVAL_VIEWS * kf_every frames of the relief on a quarter
+    orbit, of which the frames that ``full_video`` with the preset's
+    kf_every reads are written and the others are links to them (the
+    loaders list them and read only every kf_every-th).
+
+      * DTU: scan1/{images/%08d.jpg, depths/%08d.npy, binary_masks/%08d.png,
+        cams/%08d_cam.txt (MVSNet: w2c and K)};
+      * 7-Scenes: chess/TestSplit.txt and chess/seq-01/frame-%06d.
+        {color.png, depth.proj.png (16-bit mm), pose.txt (c2w)};
+      * NRGBD: kitchen/{images/img%d.png, depth/depth%d.png (16-bit mm),
+        poses.txt (4x4 c2w blocks, OpenGL axes)}.
+    Returns each set's frame count."""
+    out = {}
+    for name, (folder, kf, (w, h), f) in RECON_ROOTS.items():
+        n = EVAL_VIEWS * kf
+        K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float32)
+        root = os.path.join(data_root, folder)
+        if name == "dtu":
+            base = os.path.join(root, "scan1")
+            paths = {sub: os.path.join(base, sub) for sub in
+                     ("images", "depths", "binary_masks", "cams")}
+            for p in paths.values():
+                os.makedirs(p, exist_ok=True)
+            for i in range(0, n, kf):
+                img, depth, mask = _relief_frame(w, h, f, _relief_pose(i, n), i,
+                                               device)
+                stem = f"{i:08d}"
+                PIL.Image.fromarray(img).save(
+                    os.path.join(paths["images"], stem + ".jpg"), quality=90)
+                np.save(os.path.join(paths["depths"], stem + ".npy"), depth)
+                PIL.Image.fromarray(mask).save(
+                    os.path.join(paths["binary_masks"], stem + ".png"))
+                w2c = np.linalg.inv(_relief_pose(i, n))
+                with open(os.path.join(paths["cams"], stem + "_cam.txt"),
+                          "w") as fh:
+                    fh.write("extrinsic\n" + "\n".join(
+                        " ".join(f"{x:.9f}" for x in r) for r in w2c)
+                        + "\n\nintrinsic\n" + "\n".join(
+                        " ".join(f"{x:.6f}" for x in r) for r in K)
+                        + "\n\n425.0 2.5\n")
+            links = [(os.path.join(paths["images"], f"{(i // kf) * kf:08d}.jpg"),
+                      os.path.join(paths["images"], f"{i:08d}.jpg"))
+                     for i in range(n) if i % kf]
+        elif name == "7scenes":
+            base = os.path.join(root, "chess", "seq-01")
+            os.makedirs(base, exist_ok=True)
+            with open(os.path.join(root, "chess", "TestSplit.txt"), "w") as fh:
+                fh.write("sequence1\n")
+            for i in range(0, n, kf):
+                img, depth, _ = _relief_frame(w, h, f, _relief_pose(i, n), i,
+                                               device)
+                stem = os.path.join(base, f"frame-{i:06d}")
+                PIL.Image.fromarray(img).save(stem + ".color.png",
+                                              compress_level=1)
+                PIL.Image.fromarray(np.round(depth * 1000).astype(np.uint16)
+                                    ).save(stem + ".depth.proj.png",
+                                           compress_level=1)
+                np.savetxt(stem + ".pose.txt", _relief_pose(i, n))
+            links = [(os.path.join(base, f"frame-{(i // kf) * kf:06d}.color.png"),
+                      os.path.join(base, f"frame-{i:06d}.color.png"))
+                     for i in range(n) if i % kf]
+        else:
+            base = os.path.join(root, "kitchen")
+            for sub in ("images", "depth"):
+                os.makedirs(os.path.join(base, sub), exist_ok=True)
+            for i in range(0, n, kf):
+                img, depth, _ = _relief_frame(w, h, f, _relief_pose(i, n), i,
+                                               device)
+                PIL.Image.fromarray(img).save(
+                    os.path.join(base, "images", f"img{i}.png"),
+                    compress_level=1)
+                PIL.Image.fromarray(np.round(depth * 1000).astype(np.uint16)
+                                    ).save(os.path.join(base, "depth",
+                                                        f"depth{i}.png"),
+                                           compress_level=1)
+            with open(os.path.join(base, "poses.txt"), "w") as fh:
+                for i in range(n):
+                    gl = _relief_pose(i, n).copy()
+                    gl[:, 1:3] *= -1.0   # OpenCV -> OpenGL: the loader flips
+                    fh.write("\n".join(" ".join(f"{x:.9f}" for x in r)
+                                       for r in gl) + "\n")
+            links = [(os.path.join(base, "images", f"img{(i // kf) * kf}.png"),
+                      os.path.join(base, "images", f"img{i}.png"))
+                     for i in range(n) if i % kf]
+        for src, dst in links:
+            os.symlink(src, dst)
+        out[name] = n
+    return out
+
+
+def write_eval_run_dir(run_dir: str) -> None:
+    """A run directory of the port with the flagship's random weights (seed
+    0, bfloat16): model_config.json, checkpoints/last.pt and the
+    super_long_training config.yaml, as ``cli/train.py`` leaves one."""
+    from fast3r_torch.config import CONFIG_DIR, load_config, save_config
+    from fast3r_torch.utils.checkpoint_utils import RUN_CONFIG, config_to_dict
+
+    model = Fast3R.from_random(Fast3RConfig.flagship(), seed=0,
+                               dtype=torch.bfloat16, device="cuda")
+    save_config(load_config(os.path.join(CONFIG_DIR, "train.yaml"),
+                            "super_long_training"), run_dir)
+    with open(os.path.join(run_dir, RUN_CONFIG), "w") as f:
+        json.dump(config_to_dict(model.cfg), f)
+    os.makedirs(os.path.join(run_dir, "checkpoints"), exist_ok=True)
+    torch.save({"params": model.params.state_dict()},
+               os.path.join(run_dir, "checkpoints", "last.pt"))
+    del model
+    torch.cuda.empty_cache()
+
+
+class _StageClock:
+    """Wraps module functions to sum their seconds by stage name (a
+    synchronise at each call's end); a call inside ``inside`` (e.g. the fit
+    inside the alignment) counts only there."""
+
+    def __init__(self):
+        self.seconds, self._active = {}, []
+
+    def wrap(self, module, attr: str, stage: str, inside=()):
+        orig = getattr(module, attr)
+
+        def timed(*a, **kw):
+            if any(s in self._active for s in inside):
+                return orig(*a, **kw)
+            self._active.append(stage)
+            t0 = time.perf_counter()
+            try:
+                out = orig(*a, **kw)
+                torch.cuda.synchronize()
+            finally:
+                self._active.pop()
+            self.seconds[stage] = (self.seconds.get(stage, 0.0)
+                                   + time.perf_counter() - t0)
+            return out
+
+        setattr(module, attr, timed)
+        return orig
+
+    def take(self) -> dict:
+        out = dict(self.seconds)
+        self.seconds.clear()
+        return out
+
+
+def _finite(d: dict) -> bool:
+    return all(math.isfinite(v) for v in d.values())
+
+
+def phase_eval(gpu: str) -> dict:
+    """Run 1: ``fast3r_torch.cli.eval.main`` with ``--eval-config
+    ablation_recon_better_inference_hp`` on a run directory of the
+    flagship, its four validation sets on synthetic roots (only ROOT and
+    the CO3D sample count changed); run 2: ``evaluate_reconstruction`` on a
+    10-view 512x384 DTU sample whose predictions are the ground truth moved
+    by known similarities, on the card and on the CPU; runs 3 and 4: the
+    RE10K and RobustMVD drivers."""
+    import shutil
+    import yaml
+
+    from fast3r_torch.cli import eval as cli_eval
+    from fast3r_torch.cli import re10k_pose_eval, robustmvd_eval
+    from fast3r_torch.config import CONFIG_DIR
+    from fast3r_torch.data.dsl import build_dataset
+    from fast3r_torch.data.imgproc import rodrigues
+    from fast3r_torch.eval import pose as pose_mod
+    from fast3r_torch.eval import recon as recon_mod
+    from fast3r_torch.models import dpt_head as dpt_mod
+    from fast3r_torch.train import trainer as trainer_mod
+
+    log("== phase 20: evaluation from the command line (--eval-config "
+        f"{EVAL_PRESET}: CO3D pose, DTU / 7-Scenes / NRGBD recon, "
+        f"{EVAL_VIEWS} views a sample, the flagship at full width), the "
+        "recon metrics at 10 x 512x384, the RE10K and RobustMVD drivers")
+    tmp = tempfile.mkdtemp(prefix="fast3r_eval_")
+    clock = _StageClock()
+    roads = []
+    orig_road = dpt_mod.head_road
+
+    def road(*a, **kw):
+        r = orig_road(*a, **kw)
+        roads.append(r)
+        return r
+
+    wrapped = [(recon_mod, "evaluate_reconstruction", "recon_suite", ()),
+               (recon_mod, "align_local_pts3d_to_global", "alignment", ()),
+               (recon_mod, "rigid_points_registration", "similarity_fit",
+                ("alignment",)),
+               (recon_mod, "estimate_normals", "normals", ()),
+               (recon_mod, "accuracy", "nn_queries", ()),
+               (recon_mod, "completion", "nn_queries", ()),
+               (pose_mod, "estimate_camera_poses", "pose_suite", ())]
+    origs = []
+    try:
+        t = time.perf_counter()
+        run_dir = os.path.join(tmp, "run")
+        write_eval_run_dir(run_dir)
+        ckpt_s = time.perf_counter() - t
+        t = time.perf_counter()
+        data_root = os.path.join(tmp, "data")
+        frames = make_recon_roots(data_root)
+        make_co3d_root(os.path.join(data_root, "co3d_processed"))
+        log(json.dumps({"path": "eval_cli", "checkpoint_write_s": ckpt_s,
+                        "roots_s": time.perf_counter() - t,
+                        "recon_frames": frames, "gpu": gpu}))
+
+        # run 1: the eval CLI, each forward's launches and seconds recorded
+        with open(os.path.join(CONFIG_DIR, "eval",
+                               EVAL_PRESET + ".yaml")) as f:
+            preset = yaml.safe_load(f)["data"]["validation_datasets"]
+        specs = [s.replace("100 @ ", f"{EVAL_CO3D_SAMPLES} @ ", 1)
+                 for s in preset]
+        names = ["co3d"] * EVAL_CO3D_SAMPLES + list(RECON_ROOTS)
+        fwds = []
+        orig_fwd = trainer_mod.fast3r_forward
+
+        suites = {}
+
+        def flush_suites():
+            """The suites' seconds since the last forward, to its set."""
+            if fwds:
+                for k, v in clock.take().items():
+                    stages = suites.setdefault(fwds[-1]["dataset"], {})
+                    stages[k] = stages.get(k, 0.0) + v
+
+        def fwd(net, cfg, imgs, *a, **kw):
+            flush_suites()
+            before = _read_counts()
+            del roads[:]
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = orig_fwd(net, cfg, imgs, *a, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            after = _read_counts()
+            i = len(fwds)
+            fwds.append({
+                "path": "eval_cli", "dataset": names[i] if i < len(names)
+                else "?", "views": int(imgs.shape[1]),
+                "image_hw": list(imgs.shape[2:4]), "forward_s": dt,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "head_roads": sorted(set(roads)),
+                "launches": {k: after[k] - before[k] for k in after
+                             if after[k] != before[k]}})
+            return out
+
+        trainer_mod.fast3r_forward = fwd
+        for mod, attr, stage, inside in wrapped:
+            origs.append((mod, attr, clock.wrap(mod, attr, stage, inside)))
+        dpt_mod.head_road = road
+        # the loader's spawn worker (num_workers_val: 1) imports the main
+        # module: as main, the CLI module (as phase 19 does)
+        main_module = sys.modules["__main__"]
+        sys.modules["__main__"] = cli_eval
+        _reset_counts()
+        t = time.perf_counter()
+        try:
+            results = cli_eval.main([
+                "--run-dir", run_dir, "--eval-config", EVAL_PRESET,
+                f"data.data_root={data_root}",
+                f"data.validation_datasets={specs!r}"])
+        finally:
+            sys.modules["__main__"] = main_module
+            trainer_mod.fast3r_forward = orig_fwd
+        counts = {"eval_cli": _read_counts()}
+        run1_s = time.perf_counter() - t
+        flush_suites()
+        for rec in fwds:
+            log(json.dumps({**rec, "gpu": gpu}))
+        for name in ["co3d", *RECON_ROOTS]:
+            log(json.dumps({"path": "eval_cli", "dataset": name,
+                            "suite_s": suites.get(name), "gpu": gpu}))
+        log(json.dumps({"path": "eval_cli", "total_s": run1_s,
+                        "results": results, "gpu": gpu}))
+        bad = []
+        idx = {"co3d": 0, "dtu": 1, "7scenes": 2, "nrgbd": 3}
+        for name, i in idx.items():
+            got = {k.split("/", 2)[2] for k in results
+                   if k.startswith(f"val/dataset_{i}/")}
+            want = {"loss"} | ({f"pose/{k}" for k in POSE_KEYS}
+                               if name == "co3d" else
+                               {f"recon/{k}" for k in RECON_KEYS})
+            if got != want:
+                bad.append(f"{name}: keys {sorted(got)}")
+        if not _finite(results):
+            bad.append("a result is not finite")
+        if len(fwds) != len(names):
+            bad.append(f"{len(fwds)} forwards for {len(names)} samples")
+        for rec in fwds:
+            n = rec["launches"]
+            if rec["views"] != EVAL_VIEWS:
+                bad.append(f"{rec['dataset']}: {rec['views']} views")
+            for k in ("attention", "packed_qkv_attention"):
+                if n.get(k, 0) != 24:
+                    bad.append(f"{rec['dataset']}: {k} {n.get(k, 0)} "
+                               "launches a forward, not 24")
+            want_k = {"trunk": "trunk", "resize_kernel": "resize"}
+            used = {want_k[r] for r in rec["head_roads"] if r in want_k}
+            for k in ("trunk", "resize"):
+                if (n.get(k, 0) > 0) != (k in used):
+                    bad.append(f"{rec['dataset']}: {k} {n.get(k, 0)} "
+                               f"launches, head roads {rec['head_roads']}")
+        for k in TRAIN_KERNELS:
+            if counts["eval_cli"][k]:
+                bad.append(f"eval_cli: backward kernel {k} launched")
+        if bad:
+            raise AssertionError(f"phase 20, run 1: {bad}")
+
+        # run 2: the recon metrics at 10 x 512x384 on the card and the CPU
+        ds = build_dataset(
+            f"DTU(split='test', ROOT='{data_root}/{RECON_ROOTS['dtu'][0]}', "
+            f"resolution=(512, 384), num_seq=1, full_video=True, "
+            f"kf_every={RECON_ROOTS['dtu'][1]})")
+        sample = ds[(0, 0)]
+        views = [{"pts3d": torch.from_numpy(v["pts3d"][None]),
+                  "valid_mask": torch.from_numpy(v["valid_mask"][None])}
+                 for v in sample]
+        gt = np.concatenate([v["pts3d"][v["valid_mask"]] for v in sample])
+        extent = float(np.ptp(gt, axis=0).max())
+
+        def moved(x, seed):
+            rng = np.random.default_rng(seed)
+            R = torch.from_numpy(rodrigues(rng.normal(size=3)))
+            s, tr = 0.5 + rng.random(), torch.from_numpy(rng.normal(size=3))
+            return (s * x.double() @ R.T + tr).float()
+
+        def preds_on(device):
+            return [{"pts3d_in_other_view": moved(v["pts3d"], 1).to(device),
+                     "conf": torch.ones(v["valid_mask"].shape, device=device),
+                     "pts3d_local": moved(v["pts3d"], 10 + i).to(device),
+                     "conf_local": torch.ones(v["valid_mask"].shape,
+                                              device=device)}
+                    for i, v in enumerate(views)]
+
+        metrics, stage_s = {}, {}
+        for device in ("cuda", "cpu"):
+            clock.take()
+            t = time.perf_counter()
+            (m,) = recon_mod.evaluate_reconstruction(
+                views, preds_on(device), device=device)
+            stage_s[device] = {**clock.take(),
+                               "total": time.perf_counter() - t}
+            metrics[device] = m
+        log(json.dumps({"path": "recon_metrics", "views": len(views),
+                        "image_hw": list(sample[0]["pts3d"].shape[:2]),
+                        "points": int(len(gt)), "extent": extent,
+                        "metrics": metrics, "stage_s": stage_s, "gpu": gpu}))
+        m, c = metrics["cuda"], metrics["cpu"]
+        dist = ("accuracy", "accuracy_median", "completion",
+                "completion_median")
+        if not (all(m[k] < 1e-4 * extent for k in dist)
+                and all(m[k] > 0.99 for k in RECON_KEYS if k not in dist)
+                and all(abs(m[k] - c[k]) <= 1e-5 * extent for k in dist)
+                and all(abs(m[k] - c[k]) <= 1e-5 for k in RECON_KEYS
+                        if k not in dist)):
+            raise AssertionError(f"phase 20, run 2: card {m}, cpu {c}, "
+                                 f"extent {extent}")
+
+        # run 3: the RE10K driver on 2 scenes of known cameras
+        vroot, troot = os.path.join(tmp, "re10k", "videos"), os.path.join(
+            tmp, "re10k", "txts")
+        scenes = [f"{0xabc0 + s:016x}" for s in range(RE10K_SCENES)]
+        for s, scene in enumerate(scenes):
+            os.makedirs(os.path.join(vroot, scene))
+            os.makedirs(troot, exist_ok=True)
+            lines = ["https://example.com/watch"]
+            for i in range(RE10K_FRAMES):
+                fid = str(1000 * i)
+                PIL.Image.fromarray(_photo(360, 640, 100 * s + i)).save(
+                    os.path.join(vroot, scene, fid + ".jpg"), quality=90)
+                w2c = np.linalg.inv(_orbit_pose(0.05 * i + s))
+                lines.append(" ".join(
+                    [fid, "0.9", "1.6", "0.5", "0.5", "0", "0"]
+                    + [f"{x:.9f}" for x in w2c[:3].reshape(-1)]))
+            with open(os.path.join(troot, scene + ".txt"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+        with open(os.path.join(tmp, "re10k", "list.txt"), "w") as f:
+            f.write("\n".join(scenes) + "\n")
+        del roads[:]
+        _reset_counts()
+        t = time.perf_counter()
+        res = re10k_pose_eval.main([
+            "--video-root", vroot, "--txt-root", troot, "--checkpoint",
+            run_dir, "--scene-list", os.path.join(tmp, "re10k", "list.txt"),
+            "--out", os.path.join(tmp, "re10k", "out.json")])
+        counts["re10k"] = _read_counts()
+        log(json.dumps({"path": "re10k", "total_s": time.perf_counter() - t,
+                        "result": res, "head_roads": sorted(set(roads)),
+                        "launches": {k: counts["re10k"][k]
+                                     for k in ("trunk", "resize")},
+                        "pose_suite_s": clock.take().get("pose_suite"),
+                        "gpu": gpu}))
+        if (res is None or sorted(res["per_scene"]) != sorted(scenes)
+                or not all(set(POSE_KEYS) <= set(m) and _finite(m)
+                           for m in res["per_scene"].values())):
+            raise AssertionError(f"phase 20, run 3: {res}")
+        _check_roads("re10k", roads, counts["re10k"])
+
+        # run 4: the RobustMVD driver on 2 scenes of 5 images
+        rroot = os.path.join(tmp, "rmvd")
+        for s in range(RMVD_SCENES):
+            sdir = os.path.join(rroot, f"scene{s}")
+            os.makedirs(os.path.join(sdir, "images"))
+            os.makedirs(os.path.join(sdir, "depth"))
+            for i in range(RMVD_VIEWS):
+                img, depth, _ = _relief_frame(512, 384, 400.0,
+                                              _relief_pose(i, 8), s + i)
+                PIL.Image.fromarray(img).save(
+                    os.path.join(sdir, "images", f"{i:04d}.png"),
+                    compress_level=1)
+                if i == 0:
+                    np.save(os.path.join(sdir, "depth", "0000.npy"), depth)
+        del roads[:]
+        _reset_counts()
+        t = time.perf_counter()
+        res = robustmvd_eval.main([
+            "--checkpoint", run_dir, "--data-root", rroot, "--views",
+            str(RMVD_VIEWS), "--out", os.path.join(rroot, "out.json")])
+        counts["robustmvd"] = _read_counts()
+        log(json.dumps({"path": "robustmvd",
+                        "total_s": time.perf_counter() - t, "result": res,
+                        "head_roads": sorted(set(roads)), "gpu": gpu}))
+        if (res is None or len(res["per_scene"]) != RMVD_SCENES or not all(
+                math.isfinite(m["absrel"]) and math.isfinite(m["inliers_1.03"])
+                for m in res["per_scene"].values())):
+            raise AssertionError(f"phase 20, run 4: {res}")
+        _check_roads("robustmvd", roads, counts["robustmvd"])
+        torch.cuda.empty_cache()
+        return counts
+    finally:
+        dpt_mod.head_road = orig_road
+        for mod, attr, orig in origs:
+            setattr(mod, attr, orig)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _check_roads(path: str, roads: list, counts: dict) -> None:
+    """The head kernel of each road taken launched, the other did not."""
+    used = {"trunk": "trunk" in roads, "resize": "resize_kernel" in roads}
+    bad = [k for k, u in used.items() if (counts[k] > 0) != u]
+    if bad or not roads:
+        raise AssertionError(f"phase 20, {path}: head roads {set(roads)}, "
+                             f"launches trunk {counts['trunk']} resize "
+                             f"{counts['resize']}")
+
+
 def phase_counts(counts: dict) -> None:
-    log("== phase 20: kernel launches on each path of phases 3, 5, 7, 9, 11, "
-        "12, 14, 16, 18 and 19")
+    log("== phase 21: kernel launches on each path of phases 3, 5, 7, 9, 11, "
+        "12, 14, 16, 18, 19 and 20")
     log(json.dumps(counts))
     missing = [f"{path}: {k}" for path, names in PATHS.items()
                for k in names if counts[path][k] <= 0]
@@ -2807,7 +3375,7 @@ MAIN_CASE = {"attention": "decoder", "layernorm": "eps=1e-05",
 
 def kernel_summary(results: list, counts: dict) -> dict:
     """One entry per kernel: launches summed over the paths of phases 3, 5,
-    7, 9, 11, 12, 14, 16, 18 and 19 (and per path); the largest bfloat16 error,
+    7, 9, 11, 12, 14, 16, 18, 19 and 20 (and per path); the largest bfloat16 error,
     and the bfloat16 times and bound at its heaviest main-path shape, from
     phase 2 (the ring kernel: phase 15, n = 4; its backward rings: phase
     17, n = 4)."""
@@ -2900,8 +3468,10 @@ def main() -> int:
     done("phase 18")
     counts.update(phase_cli_train(gpu, counts["train"], TRAIN_STEPS))
     done("phase 19")
-    phase_counts(counts)
+    counts.update(phase_eval(gpu))
     done("phase 20")
+    phase_counts(counts)
+    done("phase 21")
     log(json.dumps(kernel_summary(results, counts)))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {

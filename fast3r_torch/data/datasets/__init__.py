@@ -1,12 +1,18 @@
 """Dataset implementations + DSL registry.
 
-Counterpart of ``fast3r_tpu/data/datasets/__init__.py``, holding what the port
-has: the synthetic ``DummyMultiview`` and the six training datasets.  The
-names in ``NOT_PORTED`` (the eval sets, ASE and the pairwise legacy loaders)
-raise the DSL's unknown-name error, naming ROADMAP.md's queue.
+Counterpart of ``fast3r_tpu/data/datasets/__init__.py``: the same names.
 """
 
 from fast3r_torch.data.datasets.dummy_multiview import DummyMultiview  # noqa: F401
+from fast3r_torch.data.datasets.eval_many_view import (  # noqa: F401
+    DTU,
+    NRGBD,
+    Co3d,
+    BaseManyViewDataset,
+    Demo,
+    Scannet,
+    SevenScenes,
+)
 from fast3r_torch.data.datasets.multiview import (  # noqa: F401
     ARKitScenes_Multiview,
     BlendedMVS_Multiview,
@@ -15,11 +21,18 @@ from fast3r_torch.data.datasets.multiview import (  # noqa: F401
     MegaDepth_Multiview,
     ScanNetpp_Multiview,
 )
+from fast3r_torch.data.datasets.eval_many_view_extra import (  # noqa: F401,E402
+    ArkitScene,
+    BlendMVS,
+    HabitatEval,
+    Scannetpp,
+)
 
-# registered by fast3r_tpu.data.datasets, not yet by the port
-NOT_PORTED = frozenset({
-    "DTU", "NRGBD", "Co3d", "BaseManyViewDataset", "Demo", "Scannet",
-    "SevenScenes", "ArkitScene", "BlendMVS", "BlendMVSEval", "HabitatEval",
-    "Scannetpp", "ASE_Multiview", "Co3dPairwise", "StaticThings3D", "Waymo",
-    "WildRGBD",
-})
+BlendMVSEval = BlendMVS  # backward-compat alias (same class in the DSL)
+from fast3r_torch.data.datasets.ase_multiview import ASE_Multiview  # noqa: F401,E402
+from fast3r_torch.data.datasets.pairwise_legacy import (  # noqa: F401,E402
+    Co3dPairwise,
+    StaticThings3D,
+    Waymo,
+    WildRGBD,
+)

@@ -11,9 +11,7 @@ Here the same grammar is parsed with the ast module and restricted to:
 
 Dataset names resolve against the registry populated by
 fast3r_torch.data.datasets (register_dataset / DATASET_REGISTRY).  Counterpart
-of ``fast3r_tpu/data/dsl.py``; a dataset that the JAX package registers and
-the port does not yet have (the eval sets) raises the same unknown-name
-error, naming the ROADMAP queue that holds it.
+of ``fast3r_tpu/data/dsl.py``.
 """
 
 from __future__ import annotations
@@ -36,14 +34,9 @@ def register_dataset(cls=None, *, name: str = None):
 
 
 def _check_registered(name: str) -> None:
-    if name in DATASET_REGISTRY:
-        return
-    from fast3r_torch.data.datasets import NOT_PORTED
-
-    hint = (f"; {name!r} is not ported to fast3r_torch yet (ROADMAP.md, "
-            "Queue 1: the eval slice)" if name in NOT_PORTED else "")
-    raise KeyError(f"unknown dataset {name!r}{hint}; registered: "
-                   f"{sorted(DATASET_REGISTRY)}")
+    if name not in DATASET_REGISTRY:
+        raise KeyError(f"unknown dataset {name!r}; registered: "
+                       f"{sorted(DATASET_REGISTRY)}")
 
 
 def _build(node: ast.AST):

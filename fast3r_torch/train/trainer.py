@@ -21,11 +21,13 @@ Counterpart of ``fast3r_tpu/train/trainer.py`` (``TrainerConfig``,
     requeue flow);
   * ``model_config.json`` beside the checkpoints, so that
     ``utils.checkpoint_utils.load_model`` serves a run directory;
-  * validation: the mean loss of every val loader, and the camera-pose
-    suite (RRA / RTA at 5, 15, 30 degrees and mAA(30), through
-    ``eval.pose.estimate_camera_poses`` on the params' device) on loaders
-    whose dataset is ``Co3d_v2``, dispatched as JAX does.  The
-    reconstruction suite is not ported yet: its dispatch raises.
+  * validation (under ``torch.inference_mode``): the mean loss of every
+    val loader, the camera-pose suite (RRA / RTA at 5, 15, 30 degrees and
+    mAA(30), through ``eval.pose.estimate_camera_poses`` on the params'
+    device) on loaders whose dataset is ``Co3d_v2``, and the
+    reconstruction suite (``eval.recon.evaluate_reconstruction``:
+    accuracy, completion and normal consistency, their medians) on
+    ``dtu`` / ``7scenes`` / ``nrgbd``, dispatched as JAX does.
 
 Metrics go through ``utils.logging.MetricLogger``: ``{run_dir}/metrics.csv``
 and the sinks of ``TrainerConfig.loggers`` (TensorBoard events under
@@ -241,10 +243,11 @@ class Trainer:
                 self.save_checkpoint(f"epoch_{epoch:04d}")
 
     # ---- validation ------------------------------------------------------
-    @torch.no_grad()
+    @torch.inference_mode()
     def validate(self, val_loaders: Dict[str, Any], epoch: int,
                  eval_pose: Optional[Dict[str, Optional[bool]]] = None,
-                 eval_recon: Optional[Dict[str, Optional[bool]]] = None
+                 eval_recon: Optional[Dict[str, Optional[bool]]] = None,
+                 use_pts3d_from_local_head: bool = True
                  ) -> Dict[str, float]:
         """Per-loader val loss and metric suites (inference forward: the
         entropy scale and the image ids of a generator seeded 0).
@@ -256,9 +259,12 @@ class Trainer:
         name of ``POSE_EVAL_DATASETS`` / ``RECON_EVAL_DATASETS``
         (case-insensitive), the recon suite only at epoch 0 and every
         ``recon_val_every_n_epochs``-th epoch (0, 4, 9, ... for 5).
-        A recon dispatch raises: that suite is not ported yet."""
+        The recon suite aligns the local head's points to the global
+        head's first (``use_pts3d_from_local_head``), or takes the global
+        head's; its metrics average into ``val/{name}/recon/{key}``."""
         from fast3r_torch.eval.pose import estimate_camera_poses
         from fast3r_torch.eval.pose_metrics import pose_metrics
+        from fast3r_torch.eval.recon import evaluate_reconstruction
 
         def dispatch(flags, name, batch, auto_names, epoch_ok=True):
             want = flags.get(name) if flags else None
@@ -277,7 +283,7 @@ class Trainer:
         results: Dict[str, float] = {}
         for name, loader in val_loaders.items():
             losses: List[float] = []
-            pose_ms = []
+            pose_ms, recon_ms = [], []
             suite_matched = False
             for batch in loader:
                 b = {k: torch.as_tensor(batch[k]).to(p0.device) for k in
@@ -291,8 +297,8 @@ class Trainer:
                 pose_on = dispatch(eval_pose, name, batch, POSE_EVAL_DATASETS)
                 suite_matched |= bool(pose_on or dispatch(
                     eval_recon, name, batch, RECON_EVAL_DATASETS))
+                V = preds["pts3d_in_other_view"].shape[1]
                 if pose_on:
-                    V = preds["pts3d_in_other_view"].shape[1]
                     preds_v = [{k: v[:, i] for k, v in preds.items()}
                                for i in range(V)]
                     # true shapes un-transpose portrait samples' maps
@@ -305,21 +311,27 @@ class Trainer:
                         pose_ms.append(pose_metrics(np.stack(poses[i]), gt))
                 if dispatch(eval_recon, name, batch, RECON_EVAL_DATASETS,
                             recon_epoch_ok):
-                    raise NotImplementedError(
-                        f"val loader {name!r}: the reconstruction suite "
-                        "(eval/recon.py metrics) is not ported to "
-                        "fast3r_torch yet (ROADMAP.md, Queue 1: the eval "
-                        "slice)")
+                    views_v = [{"pts3d": batch["pts3d"][:, i],
+                                "valid_mask": batch["valid_mask"][:, i]}
+                               for i in range(V)]
+                    preds_v = [{k: v[:, i] for k, v in preds.items()}
+                               for i in range(V)]
+                    rs = evaluate_reconstruction(
+                        views_v, preds_v,
+                        use_pts3d_from_local_head=use_pts3d_from_local_head,
+                        device=p0.device)
+                    recon_ms.extend(r for r in rs if r)
             if losses and not suite_matched:
                 log.warning(
                     f"val loader {name!r}: no metric suite dispatched; only "
                     "val loss is recorded for it")
             results[f"val/{name}/loss"] = (float(np.mean(losses)) if losses
                                            else float("nan"))
-            if pose_ms:
-                for key in pose_ms[0]:
-                    results[f"val/{name}/pose/{key}"] = float(
-                        np.mean([m[key] for m in pose_ms]))
+            for ms, prefix in ((pose_ms, "pose"), (recon_ms, "recon")):
+                if ms:
+                    for key in ms[0]:
+                        results[f"val/{name}/{prefix}/{key}"] = float(
+                            np.mean([m[key] for m in ms]))
         if (torch.distributed.is_available()
                 and torch.distributed.is_initialized()):
             # the mean over the ranks (JAX: process_allgather + nanmean)

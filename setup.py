@@ -32,6 +32,7 @@ setup(
     include_package_data=True,
     package_data={"fast3r_tpu": ["configs/*.yaml", "configs/experiment/*.yaml"],
                   "fast3r_torch": ["csrc/*.cu", "configs/*.yaml",
+                                   "configs/*.txt", "configs/eval/*.yaml",
                                    "configs/experiment/*.yaml",
                                    "configs/experiment/*/*.yaml"]},
 )

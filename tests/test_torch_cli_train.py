@@ -219,31 +219,37 @@ def test_validation_keys_match_jax_on_co3d(tmp_path):
     assert sorted(port) == sorted(ref)
     assert "val/co3d/pose/RRA_at_15" in port and "val/co3d/loss" in port
     assert all(np.isfinite(v) for v in port.values())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_tr.validate({"co3d": loader}, epoch=1,
-                         eval_recon={"co3d": True})
+    forced = port_tr.validate({"co3d": loader}, epoch=1,
+                              eval_recon={"co3d": True})
+    recon = {k: v for k, v in forced.items() if "/recon/" in k}
+    assert sorted(recon) == [f"val/co3d/recon/{k}" for k in (
+        "accuracy", "accuracy_median", "completion", "completion_median",
+        "nc1", "nc1_median", "nc2", "nc2_median")]
+    assert all(np.isfinite(v) for v in recon.values())
     rows = _rows(tmp_path / "port" / "metrics.csv")
     assert rows[-1]["val/co3d/pose/mAA_30"] != ""
 
 
 @pytest.mark.parametrize("every, raising", [(5, (0, 4)), (2, (0, 1, 3))])
 def test_recon_val_every_n_epochs(tmp_path, every, raising):
-    """A loader whose dataset names a reconstruction suite dispatches it
-    (and so raises, not ported yet) at epoch 0 and every
-    ``recon_val_every_n_epochs``-th epoch; at the others only its loss is
-    recorded."""
+    """A loader whose dataset names a reconstruction suite dispatches it at
+    epoch 0 and every ``recon_val_every_n_epochs``-th epoch (``raising``
+    lists them): the recon metrics join its loss there, finite; at the
+    others only its loss is recorded."""
     from fast3r_torch.data.dummy import make_dummy_batch
 
     batch = dict(make_dummy_batch(1, 2, 48, 64, seed=0),
                  dataset=[["DTU", "DTU"]])
     tr = _tiny_trainer(tmp_path, recon_val_every_n_epochs=every)
     for epoch in range(5):
+        out = tr.validate({"dtu": [batch]}, epoch=epoch)
+        assert np.isfinite(out["val/dtu/loss"])
+        recon = sorted(k for k in out if k.startswith("val/dtu/recon/"))
         if epoch in raising:
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                tr.validate({"dtu": [batch]}, epoch=epoch)
+            assert "val/dtu/recon/accuracy" in recon and len(recon) == 8
+            assert all(np.isfinite(out[k]) for k in recon)
         else:
-            out = tr.validate({"dtu": [batch]}, epoch=epoch)
-            assert np.isfinite(out["val/dtu/loss"])
+            assert sorted(out) == ["val/dtu/loss"]
 
 
 # ---------------------------------------------------------------------------

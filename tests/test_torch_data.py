@@ -381,12 +381,21 @@ def test_pts3d_against_jax_native(tmp_path):
                         pts_rel=PTS_REL)
 
 
-def test_unported_dataset_names_raise():
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        port_build("DTU(split='test', ROOT='/x', resolution=512, num_seq=1)")
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        validate_dataset_spec("10 @ BlendMVS(split='train', ROOT='/x', "
-                              "resolution=(512, 384))")
+def test_unported_dataset_names_raise(tmp_path):
+    """The eval sets build on fixture roots (DTU, BlendMVS); an unknown
+    name raises."""
+    from test_real_datasets import make_dtu_root
+    from test_torch_eval_data import make_blendmvs_root
+
+    dtu = make_dtu_root(tmp_path / "dtu")
+    ds = port_build(f"DTU(split='test', ROOT='{dtu}', resolution=(64, 48), "
+                    "num_seq=1, full_video=True, kf_every=2, seed=777)")
+    assert type(ds).__name__ == "DTU" and len(ds[(0, 0)]) == 2
+    root = make_blendmvs_root(str(tmp_path / "blendmvs"))
+    spec = (f"10 @ BlendMVS(split='train', num_frames=3, ROOT='{root}', "
+            "resolution=(512, 384))")
+    validate_dataset_spec(spec)
+    assert len(port_build(spec)) == 10
     with pytest.raises(KeyError, match="unknown dataset 'Nope'"):
         port_build("Nope(resolution=64)")
     with pytest.raises(ValueError):
