@@ -70,7 +70,8 @@ printing each one's seconds:
          views, once;
      outputs must be finite, of the right shapes, with conf >= 1, and no
      kernel input copied for want of a layout its tensor map reads
-     (``tma_view.copies`` 0 on every path);
+     (``tma_view.copies`` 0 on every path); each request's line carries
+     its forward's FLOPs (``utils/flops.py``) over its wall as TFLOP/s;
   4. end to end: the same weights in float32 on the CPU (the plain
      versions) and in bfloat16 on the card, on the fused and on the plain
      road, answer one 2-view 224x224 request; every output must agree
@@ -106,12 +107,18 @@ printing each one's seconds:
   13. the head end to end at a K12 shape: ``dpt_head_forward`` on one
      512x512 view from seeded hook tokens, bf16 on the card (unfused road,
      K12) against fp32 on the CPU;
-  14. images to poses: ``fast3r_torch.cli.reconstruct`` on 6 seeded
-     1152x1008 PNGs (448x512 views) on the card, its poses.json and
-     scene.ply checked and each stage timed; ``inference_from_raw`` against
-     ``load_images`` + ``inference`` on the same frames; pose recovery on
-     the card against fp32 on the CPU for the same predictions (a seeded
-     scene of three known cameras at 224x256) and minimal samples;
+  14. images to poses: ``fast3r_torch.cli.reconstruct --gif`` on 6 seeded
+     1152x1008 PNGs (448x512 views) on the card, its poses.json, scene.ply
+     and orbit.gif (24 frames of 640x480) checked and each stage timed;
+     ``inference_from_raw`` against ``load_images`` + ``inference`` on the
+     same frames; pose recovery on the card against fp32 on the CPU for
+     the same predictions (a seeded scene of three known cameras at
+     224x256) and minimal samples; a 20-view 384x512 seeded scene of
+     focals from 0.7 to 2.4 times the width solved with "individual"
+     focals (a focal search a view), timed, every view's focal within two
+     grid steps of its truth; the focal search on 8 such views (3% of the
+     pixels confident; 25,600 hypotheses, the eigh in chunks) on the card
+     against fp32 on the CPU on the same samples, within one grid step;
   15. the ring kernel (K14's forward, ``csrc/ring_attention.cu``) at the
      decoder's shape (15,360 tokens, 16 heads, head dim 64, bf16) over n =
      1, 2, 3, 4 and 8 ranks on the card, and the self-ring (n = 1, 4
@@ -153,13 +160,16 @@ printing each one's seconds:
      parameters, 20 views a sample at the five resolutions with aug_crop
      and ColorJitter) with its own Co3d entries retargeted to that root (6
      training samples from 3 ``spawn`` workers, started while the model
-     builds; 2 validation samples of 10 views, loaded inline), one epoch:
+     builds; 2 validation samples of 10 views, loaded inline), one epoch,
+     on fp32 master weights and moments with a bf16 working copy:
        * run 1 in a subprocess, sent SIGUSR1 once metrics.csv has a row,
          must save checkpoints/last and exit 0;
        * run 2 in this process with ``--resume`` (``train_step`` wrapped to
          print each step's resolution, orientation flag, seconds and loader
-         wait; the checkpoint's save and load timed; counts reset just
-         before and read just after) must continue run 1's step count,
+         wait; the checkpoint's save and load timed, its size and the peak
+         memory printed; counts reset just before and read just after)
+         must train fp32 params and moments through a bf16 copy, continue
+         run 1's step count,
          finish the epoch at two or more resolutions with a
          mixed-orientation batch among them, and validate with the pose
          suite;
@@ -198,7 +208,21 @@ printing each one's seconds:
        * run 4: ``fast3r_torch.cli.robustmvd_eval --data-root`` on 2
          scenes of 5 512x384 PNGs with .npy depth: finite absrel and
          inliers_1.03;
-  21. launch counts: every kernel of a path must have launched on it, the
+  21. master weights and dropout: phase 3's weights as fp32 master weights
+     on the card take one ``train_step`` of phase 6's 2-view 224x224 batch
+     and image ids through the bf16 working copy at lr 1e-6: the loss and
+     each top-level group's gradient (the first moment over 1 - b1) within
+     phase 6's 5% of fp32 on the CPU, every LayerNorm scale of the master
+     moved, the copy the master rounded to bf16, and each forward and
+     training kernel of phase 5's fused road launched as many times as a
+     step of it; the same step on the bf16 road, the LayerNorm scales it
+     moved printed; the optimizer's update alone on each road, timed
+     beside its bytes' bound; two dropout steps (encoder drop and
+     drop_path 0.1, decoder drop, attn_drop and drop_path 0.1) finite, on
+     the plain road (no fused kernel launched, its road printed); the
+     seven legacy losses of ``train/losses.py`` at 384x512 on the card
+     against the CPU (1e-4 relative);
+  22. launch counts: every kernel of a path must have launched on it, the
      RMS kernels on no path but the llama fused road's, K12 on no path of
      384x512 views, the trunk kernel on no path of 512x512 or 448x512
      views, the ring kernels on no path but the sequence-sharded ones; no
@@ -231,7 +255,7 @@ import torch.nn.functional as F
 from fast3r_torch import Fast3R, Fast3RConfig, fast3r_forward, inference
 from fast3r_torch.cli import reconstruct
 from fast3r_torch.data.dummy import make_dummy_batch
-from fast3r_torch.eval.pose import estimate_camera_poses
+from fast3r_torch.eval.pose import estimate_camera_poses, individual_focals
 from fast3r_torch.eval.recon import align_local_pts3d_to_global
 from fast3r_torch.inference import inference_from_raw
 from fast3r_torch.kernels import build
@@ -258,7 +282,7 @@ from fast3r_torch.ops.fused_layernorm import (
     layernorm_bwd_ref,
     layernorm_ref,
 )
-from fast3r_torch.ops.pnp import draw_samples
+from fast3r_torch.ops.pnp import EIGH_BATCH, NUM_FOCALS, draw_samples
 from fast3r_torch.ops.resize import resize_matmul
 from fast3r_torch.ops.resize_kernel import resize_bilinear_kernel
 from fast3r_torch.ops.rope2d import (
@@ -282,8 +306,16 @@ from fast3r_torch.parallel.sequence import (
     ring_flash_attention,
     seq_sharded_config,
 )
+from fast3r_torch.train import losses as train_losses
 from fast3r_torch.train.losses import conf_loss_multiview_v2
-from fast3r_torch.train.step import OptimConfig, init_train_state, train_step
+from fast3r_torch.train.step import (
+    OptimConfig,
+    _adamw_update,
+    init_train_state,
+    refresh_working_copy,
+    train_step,
+)
+from fast3r_torch.utils.flops import fast3r_forward_flops
 from fast3r_torch.utils.image import load_images, load_images_raw
 
 DEC_SCALE = 0.125 * math.sqrt(math.log(137) / math.log(20))
@@ -1859,9 +1891,13 @@ def _serve(path: str, model, views, serve: int, gpu: str) -> dict:
     dt = time.perf_counter() - t
     shapes = [tuple(np.asarray(v["true_shape"]).reshape(-1)) for v in views]
     check_preds(out["preds"], shapes)
+    hw = sorted({(int(h), int(w)) for h, w in shapes})
+    # the forward's matmul and conv FLOPs (utils/flops.py) over the wall
+    tflops = (fast3r_forward_flops(model.cfg, len(views), *hw[0])["total"]
+              / dt / 1e12 if len(hw) == 1 else None)
     rec = {"path": path, "request_views": len(views), "serve": serve,
-           "image_hw": sorted({(int(h), int(w)) for h, w in shapes}),
-           "latency_s": dt, "images_per_s": len(views) / dt, "gpu": gpu,
+           "image_hw": hw, "latency_s": dt, "images_per_s": len(views) / dt,
+           "tflops_per_s": tflops, "gpu": gpu,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     log(json.dumps(rec))
     return rec
@@ -1981,9 +2017,14 @@ def phase_images_to_poses(gpu: str, model) -> dict:
                 os.path.join(images, f"{i:02d}.png"))
         _reset_counts()
         t = time.perf_counter()
-        res = reconstruct.main([images, "--out", out_dir])
+        res = reconstruct.main([images, "--out", out_dir, "--gif"])
         total = time.perf_counter() - t
         counts = _read_counts()
+        with PIL.Image.open(os.path.join(out_dir, "orbit.gif")) as gif:
+            gif_frames, gif_size = gif.n_frames, gif.size
+        if (gif_frames, gif_size) != (24, (640, 480)):
+            raise AssertionError(f"orbit.gif: {gif_frames} frames of "
+                                 f"{gif_size}")
         check_preds([{k: p[k] for k in OUT_KEYS} for p in res["preds"]],
                     [(448, 512)] * 6)
         with open(os.path.join(out_dir, "poses.json")) as f:
@@ -2061,18 +2102,85 @@ def phase_images_to_poses(gpu: str, model) -> dict:
                     "pose_cpu_s": t_cpu}))
     if not err <= POSE_ATOL:
         raise AssertionError(f"pose recovery, card vs CPU: {err}")
+
+    # a focal a view: a 20-view request at the served shape on a seeded
+    # scene of known cameras whose focals differ (spread over the search's
+    # grid), every view's focal within two grid steps of its own truth
+    # (tests/test_torch_focal_gif.py's bound)
+    truth = np.geomspace(0.7, 2.4, 20) * 512
+    preds, gt = pose_scene(20, 384, 512, seed=15, focals=truth)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    poses, focals = estimate_camera_poses(
+        preds, focal_length_estimation_method="individual", device="cuda")
+    t_ind = time.perf_counter() - t
+    steps = np.log(np.asarray(focals[0]) / truth) / FOCAL_GRID_STEP
+    rot_err = float(np.abs(np.stack(poses[0])[:, :3, :3]
+                           - gt[:, :3, :3]).max())
+    log(json.dumps({"path": "individual_focals", "views": 20,
+                    "image_hw": [384, 512], "pose_s": t_ind,
+                    "focal_truth": truth.round(2).tolist(),
+                    "focal_grid_steps_from_truth": steps.round(3).tolist(),
+                    "rotation_max_abs_err": rot_err,
+                    "pose_max_abs_err": float(np.abs(np.stack(poses[0])
+                                                     - gt).max()),
+                    "gpu": gpu}))
+    if not (np.isfinite(np.stack(poses[0])).all()
+            and np.abs(steps).max() <= 2.0 + 1e-3):
+        raise AssertionError(f"individual focals: {steps.tolist()} grid "
+                             f"steps from {truth.tolist()}")
+
+    # the focal search on the card against fp32 on the CPU, on the same
+    # predictions and minimal samples: 8 views of different focals at the
+    # served shape, 3% of the pixels confident (so that the CPU scores in
+    # seconds), 25,600 hypotheses (the card's eigh in chunks of at most
+    # EIGH_BATCH).  Inlier counts of the two focals beside a truth can tie
+    # within a rounding, so the two choices agree within one grid step
+    truth = np.geomspace(0.7, 2.4, 8) * 512
+    preds, _ = pose_scene(8, 384, 512, seed=16, focals=truth)
+    pts = torch.cat([p["pts3d_in_other_view"] for p in preds])
+    conf = torch.cat([p["conf"] for p in preds])
+    conf[torch.rand(conf.shape, generator=torch.Generator().manual_seed(16))
+         >= 0.03] = 0.5
+    idx = draw_samples((conf > 1.0).reshape(8, -1).cuda(), 32, 8,
+                       torch.Generator(device="cuda").manual_seed(1))
+    assert 8 * NUM_FOCALS * 32 > EIGH_BATCH
+    t = time.perf_counter()
+    f_gpu = individual_focals(pts.cuda(), conf.cuda(), sample_idx=idx).cpu()
+    t_gpu = time.perf_counter() - t
+    t = time.perf_counter()
+    f_cpu = individual_focals(pts, conf, sample_idx=idx.cpu())
+    t_cpu = time.perf_counter() - t
+    apart = np.abs(np.log(f_gpu.numpy() / f_cpu.numpy())) / FOCAL_GRID_STEP
+    steps = np.log(f_gpu.numpy() / truth) / FOCAL_GRID_STEP
+    log(json.dumps({"path": "focal_sweep_gpu_vs_cpu", "views": 8,
+                    "image_hw": [384, 512], "focal_truth":
+                    truth.round(2).tolist(),
+                    "focal_gpu": f_gpu.tolist(), "focal_cpu": f_cpu.tolist(),
+                    "equal": int((f_gpu == f_cpu).sum()),
+                    "grid_steps_apart": apart.round(3).tolist(),
+                    "gpu_grid_steps_from_truth": steps.round(3).tolist(),
+                    "sweep_gpu_s": t_gpu, "sweep_cpu_s": t_cpu}))
+    if not (apart.max() <= 1.0 + 1e-3 and np.abs(steps).max() <= 2.0 + 1e-3):
+        raise AssertionError(f"focal search, card {f_gpu.tolist()} vs CPU "
+                             f"{f_cpu.tolist()}, truth {truth.tolist()}")
     return {"images_to_poses": counts}
 
 
 POSE_FOCAL = 420.0
+FOCAL_GRID_STEP = math.log(6.0) / 99  # ops.pnp.focal_grid's ratio
 POSE_HW = (224, 256)  # the pose comparison's view shape
 
 
-def pose_scene(V: int, H: int, W: int, seed: int):
+def pose_scene(V: int, H: int, W: int, seed: int, focals=None):
     """Predictions of a seeded scene: V cameras (view 0 the identity) with
-    focal POSE_FOCAL see depths of 2-4, the pointmaps in view 0's frame with
-    1% depth noise, 5% confident outliers and 15% pixels under the conf > 1
-    mask.  Returns the preds and the true c2w (V, 4, 4)."""
+    focal POSE_FOCAL, or ``focals[v]`` for view v, see depths of 2-4, the
+    pointmaps in view 0's frame with 1% depth noise, 5% confident outliers
+    and 15% pixels under the conf > 1 mask.  Returns the preds and the true
+    c2w (V, 4, 4)."""
+    f = np.broadcast_to(POSE_FOCAL if focals is None
+                        else np.asarray(focals, np.float64), (V,))
+    f = f[:, None, None]
     rng = np.random.default_rng(seed)
     c2w = np.tile(np.eye(4), (V, 1, 1))
     for v in range(1, V):
@@ -2085,8 +2193,8 @@ def pose_scene(V: int, H: int, W: int, seed: int):
         c2w[v, :3, 3] = rng.normal(size=3) * 0.3
     ys, xs = np.mgrid[:H, :W].astype(np.float64)
     depth = rng.uniform(2.0, 4.0, (V, H, W))
-    cam = np.stack([depth * (xs - W / 2) / POSE_FOCAL,
-                    depth * (ys - H / 2) / POSE_FOCAL, depth], -1)
+    cam = np.stack([depth * (xs - W / 2) / f,
+                    depth * (ys - H / 2) / f, depth], -1)
     cam *= 1 + 0.01 * rng.normal(size=(V, H, W, 1))
     pts = np.einsum("vij,vhwj->vhwi", c2w[:, :3, :3], cam) \
         + c2w[:, None, None, :3, 3]
@@ -2741,15 +2849,25 @@ def phase_cli_train(gpu: str, train_counts: dict, train_steps: int) -> dict:
             trainer_mod.Trainer.load_checkpoint = orig_load
         counts = _read_counts()
         run2_s = time.perf_counter() - t
+        st = trainer.state
+        dtypes = {"master": str(next(st.params.parameters()).dtype),
+                  "moments": str(next(iter(st.opt_state.mu.values())).dtype),
+                  "working_copy": str(None if st.work is None else
+                                      next(st.work.parameters()).dtype)}
         log(json.dumps({"path": "cli_train", "run": 2, "total_s": run2_s,
                         "steps": len(steps), "final_step": trainer.state.step,
                         "checkpoint_save_s": ckpt_s["save"],
                         "checkpoint_load_s": ckpt_s["load"],
+                        "checkpoint_gb": os.path.getsize(ckpt) / 1e9,
                         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-                        "parameters": resumed.get("params"), "gpu": gpu}))
+                        "parameters": resumed.get("params"),
+                        "dtypes": dtypes, "gpu": gpu}))
 
         # the checks
         bad = []
+        if dtypes != {"master": "torch.float32", "moments": "torch.float32",
+                      "working_copy": "torch.bfloat16"}:
+            bad.append(f"not the master-weights road: {dtypes}")
         if resumed.get("step") != run1_step:
             bad.append(f"run 2 resumed at step {resumed.get('step')}, run 1 "
                        f"stopped at {run1_step}")
@@ -3336,6 +3454,237 @@ def phase_eval(gpu: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: fp32 master weights and the Block's dropout on the card
+# ---------------------------------------------------------------------------
+
+# lr 1e-6 from the first step: an update far below bf16's spacing at 1.0
+# (2^-7), which only fp32 master weights keep
+MASTER_OPT = OptimConfig(lr=1e-6, warmup_steps=0, total_steps=1000,
+                         eta_min=1e-6)
+# the encoder keeps its attention kernel (no attn_drop), the decoder's
+# dropped softmax weights take the materialised-logits road
+ENC_DROPOUT = dict(drop=0.1, drop_path=0.1)
+DEC_DROPOUT = dict(drop=0.1, attn_drop=0.1, drop_path=0.1)
+FUSED_ONLY = ("packed_qkv_attention", "ln_qkv_rope", "ln_qkv",
+              "matmul_residual", "ln_mlp", "ln_matmul", "ln_matmul_replay",
+              "packed_qkv_attention_bwd")
+
+
+def _update_ms(state, reps: int = 3) -> dict:
+    """Host-clock ms of the optimizer's update alone (AdamW on every
+    parameter, then the working copy's refresh), each call synchronised,
+    with the compute copy's tensors standing in for the gradients; and its
+    bound: each parameter's param and moments read and written, its
+    gradient read and its copy written once, at 3.35 TB/s."""
+    named = dict(state.params.named_parameters())
+    src = dict(state.compute_params.named_parameters())
+    grads = {k: src[k].detach() for k in named}
+    ms = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _adamw_update(named, grads, state.opt_state, MASTER_OPT,
+                      torch.ones((), device="cuda"))
+        refresh_working_copy(state)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    nbytes = sum(p.numel() * (3 * 2 * p.element_size()
+                              + src[k].element_size()
+                              * (1 if state.work is None else 2))
+                 for k, p in named.items())
+    return {"update_ms": ms[1:], "first_update_ms": ms[0],
+            "update_bound_ms": nbytes / PEAK_BYTES * 1e3,
+            "update_gb": nbytes / 1e9}
+
+
+# the legacy losses, card against CPU (fp32 both, sums in another order)
+LEGACY_RTOL, LEGACY_ATOL = 1e-4, 1e-6
+LEGACY_PAIR = ("regr3d_pair", "conf_loss_pair", "regr3d_scale_shift_inv")
+LEGACY_MULTIVIEW = ("regr3d_multiview_v1", "regr3d_multiview_v2",
+                    "regr3d_multiview_v3", "conf_loss_multiview_v1")
+
+
+def _legacy_inputs(seed: int, lead: tuple, H: int = 384, W: int = 512):
+    """Seeded ground truth (points, masks, random cam2world) and
+    predictions (points, conf >= 1, local points) of shape lead + (H, W)."""
+    rng = np.random.default_rng(seed)
+
+    def pose():
+        q, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = q * np.sign(np.linalg.det(q))
+        T[:3, 3] = rng.standard_normal(3)
+        return T
+
+    n = int(np.prod(lead))
+    gt = {"pts3d": rng.standard_normal(lead + (H, W, 3)).astype(np.float32)
+          + 1, "valid_mask": rng.random(lead + (H, W)) < 0.8,
+          "camera_pose": np.stack([pose() for _ in range(n)]).reshape(
+              lead + (4, 4))}
+    pred = {k: rng.standard_normal(lead + (H, W, 3)).astype(np.float32)
+            for k in ("pts3d", "pts3d_in_other_view", "pts3d_local")}
+    pred["conf"] = (1 + np.exp(rng.standard_normal(lead + (H, W)))).astype(
+        np.float32)
+    return gt, pred
+
+
+def _flat(out) -> dict:
+    """Every array a loss returns, by name, as float64 numpy."""
+    items = {}
+    for i, part in enumerate(out if isinstance(out, tuple) else (out,)):
+        parts = part.items() if isinstance(part, dict) else [("", part)]
+        for k, v in parts:
+            items[f"{i}/{k}"] = v.detach().double().cpu().numpy()
+    return items
+
+
+def legacy_losses_on_card(gpu: str) -> None:
+    """The seven legacy losses on the card against the CPU at the served
+    view shape (a pair of 2 samples; 2 samples of 3 views)."""
+    gt1, pred1 = _legacy_inputs(21, (2,))
+    gt2, pred2 = _legacy_inputs(22, (2,))
+    gts, preds = _legacy_inputs(23, (2, 3))
+    errs, secs = {}, {}
+    for name in LEGACY_PAIR + LEGACY_MULTIVIEW:
+        fn = getattr(train_losses, name)
+        args = ((gt1, gt2, pred1, pred2) if name in LEGACY_PAIR
+                else (gts, preds))
+        outs = []
+        for dev in ("cuda", "cpu"):
+            targs = [{k: torch.from_numpy(v).to(dev) for k, v in a.items()}
+                     for a in args]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            outs.append(_flat(fn(*targs)))
+            secs[f"{name}/{dev}"] = time.perf_counter() - t
+        card, cpu = outs
+        errs[name] = max(float(np.max(np.abs(card[k] - cpu[k])
+                                      / (LEGACY_ATOL / LEGACY_RTOL
+                                         + np.abs(cpu[k]))))
+                         for k in cpu)
+    log(json.dumps({"path": "legacy_losses", "image_hw": [384, 512],
+                    "max_rel_err": errs, "rtol": LEGACY_RTOL,
+                    "atol": LEGACY_ATOL, "seconds": secs, "gpu": gpu}))
+    bad = {k: e for k, e in errs.items() if not e <= LEGACY_RTOL}
+    if bad:
+        raise AssertionError(f"legacy losses, card vs CPU: {bad}")
+
+
+def _ln_scales(net) -> dict:
+    return {n: p.detach().clone() for n, p in net.named_parameters()
+            if n.rsplit(".", 2)[-2] in ("norm", "norm1", "norm2")
+            and n.endswith(".weight")}
+
+
+def phase_master_weights(gpu: str, cpu_model, cpu_ref: tuple,
+                         train_counts: dict, train_steps: int) -> dict:
+    """``cpu_model``: phase 3's flagship (fp32, CPU); ``cpu_ref``: phase 6's
+    fp32 CPU loss and gradients of the 2-view 224x224 batch."""
+    log("== phase 21: fp32 master weights on the card (one 2-view 224x224 "
+        "step at lr 1e-6 through the bf16 working copy, against fp32 on the "
+        "CPU), the bf16 road at the same step, and a dropout step")
+    ref_loss, ref_grads = cpu_ref
+    batch = {k: torch.as_tensor(v).cuda() for k, v in
+             make_dummy_batch(1, 2, 224, 224, seed=1).items()
+             if k in BATCH_KEYS}
+    ids = sample_random_image_ids(torch.Generator().manual_seed(0), 1, 2)
+    cfg = cpu_model.cfg
+    state = init_train_state(cpu_model.to(device="cuda").params.train(),
+                             MASTER_OPT, compute_dtype=torch.bfloat16)
+    before = _ln_scales(state.params)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t = time.perf_counter()
+    state, m = train_step(state, batch, cfg, MASTER_OPT, remat=True,
+                          view_ids=ids)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    counts = _read_counts()
+    # mu after one step is (1 - b1) times the fp32 gradient AdamW took
+    b1 = MASTER_OPT.betas[0]
+    groups: dict = {}
+    for name, mu in state.opt_state.mu.items():
+        groups.setdefault(name.split(".")[0], []).append(
+            (mu / (1 - b1)).float().cpu().reshape(-1))
+    errs = {"loss": abs(float(m["loss"]) - ref_loss) / abs(ref_loss),
+            **{f"grad/{k}": ((torch.cat(v) - ref_grads[k]).norm()
+                             / ref_grads[k].norm()).item()
+               for k, v in groups.items()}}
+    moved = {n: bool((p != before[n]).all())
+             for n, p in _ln_scales(state.params).items()}
+    work = dict(state.work.named_parameters())
+    copy_exact = all(torch.equal(work[n], p.to(torch.bfloat16))
+                     for n, p in state.params.named_parameters())
+    per_step = {k: train_counts[k] / train_steps for k in PATHS["train"]
+                if k != "trunk"}
+    bad = [f"{k} {e}" for k, e in errs.items() if not e <= E2E_TRAIN_REL]
+    bad += [f"LayerNorm scale {n} not moved" for n, ok in moved.items()
+            if not ok]
+    bad += [f"{k}: {counts[k]} launches, the fused road's step {v}"
+            for k, v in per_step.items() if counts[k] != v]
+    if not copy_exact:
+        bad.append("the working copy is not the master rounded to bf16")
+    if len(moved) != 2 * 24 + 2 * 24 + 2:
+        bad.append(f"{len(moved)} LayerNorm scales")
+    log(json.dumps({"path": "master_train", "views": 2,
+                    "image_hw": [224, 224], "step_s": step_s,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "rel_err_vs_cpu_fp32": errs, "tolerance": E2E_TRAIN_REL,
+                    "ln_scales_moved": sum(moved.values()),
+                    "ln_scales": len(moved), "working_copy_exact": copy_exact,
+                    "launches": {k: counts[k] for k in per_step},
+                    **_update_ms(state), "gpu": gpu}))
+    del state
+
+    # today's bf16 road: bf16 params and moments, the same step
+    bstate = init_train_state(cpu_model.to(device="cuda",
+                                           dtype=torch.bfloat16)
+                              .params.train(), MASTER_OPT)
+    bstate, _ = train_step(bstate, batch, cfg, MASTER_OPT, remat=True,
+                           view_ids=ids)
+    bf16_moved = sum(bool((p != 1.0).any())
+                     for p in _ln_scales(bstate.params).values())
+    log(json.dumps({"path": "bf16_train", "ln_scales_moved": bf16_moved,
+                    "ln_scales": len(moved), **_update_ms(bstate),
+                    "gpu": gpu}))
+    del bstate
+
+    # the Block's dropout: non-zero rates in both stacks send every block
+    # down the plain road (no fused product), on the master road
+    dcfg = dataclasses.replace(
+        cfg, encoder=dataclasses.replace(cfg.encoder, **ENC_DROPOUT),
+        decoder=dataclasses.replace(cfg.decoder, **DEC_DROPOUT))
+    dstate = init_train_state(cpu_model.to(device="cuda").params.train(),
+                              TRAIN_OPT, compute_dtype=torch.bfloat16)
+    _reset_counts()
+    t = time.perf_counter()
+    for _ in range(2):
+        dstate, dm = train_step(dstate, batch, dcfg, TRAIN_OPT, remat=True)
+        if dm["skipped_nonfinite"] or not math.isfinite(float(dm["loss"])):
+            bad.append(f"dropout step: loss {float(dm['loss'])}, skipped "
+                       f"{int(dm['skipped_nonfinite'])}")
+    torch.cuda.synchronize()
+    dcounts = _read_counts()
+    fused = {k: dcounts[k] for k in FUSED_ONLY if dcounts[k]}
+    road = "fused" if fused else "plain"
+    log(json.dumps({"path": "dropout_train", "encoder": ENC_DROPOUT,
+                    "decoder": DEC_DROPOUT, "steps": 2,
+                    "road": road, "loss": float(dm["loss"]),
+                    "steps_s": time.perf_counter() - t,
+                    "launches": {k: v for k, v in dcounts.items() if v},
+                    "gpu": gpu}))
+    if fused or not all(dcounts[k] > 0 for k in (
+            "attention", "layernorm", "layernorm_bwd", "attention_bwd")):
+        bad.append(f"dropout step launches {dcounts}")
+    del dstate
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"phase 21: {bad}")
+    legacy_losses_on_card(gpu)
+    return {"master_train": counts, "dropout_train": dcounts}
+
+
 def _check_roads(path: str, roads: list, counts: dict) -> None:
     """The head kernel of each road taken launched, the other did not."""
     used = {"trunk": "trunk" in roads, "resize": "resize_kernel" in roads}
@@ -3347,8 +3696,8 @@ def _check_roads(path: str, roads: list, counts: dict) -> None:
 
 
 def phase_counts(counts: dict) -> None:
-    log("== phase 21: kernel launches on each path of phases 3, 5, 7, 9, 11, "
-        "12, 14, 16, 18, 19 and 20")
+    log("== phase 22: kernel launches on each path of phases 3, 5, 7, 9, 11, "
+        "12, 14, 16, 18, 19, 20 and 21")
     log(json.dumps(counts))
     missing = [f"{path}: {k}" for path, names in PATHS.items()
                for k in names if counts[path][k] <= 0]
@@ -3375,7 +3724,7 @@ MAIN_CASE = {"attention": "decoder", "layernorm": "eps=1e-05",
 
 def kernel_summary(results: list, counts: dict) -> dict:
     """One entry per kernel: launches summed over the paths of phases 3, 5,
-    7, 9, 11, 12, 14, 16, 18, 19 and 20 (and per path); the largest bfloat16 error,
+    7, 9, 11, 12, 14, 16, 18, 19, 20 and 21 (and per path); the largest bfloat16 error,
     and the bfloat16 times and bound at its heaviest main-path shape, from
     phase 2 (the ring kernel: phase 15, n = 4; its backward rings: phase
     17, n = 4)."""
@@ -3464,14 +3813,17 @@ def main() -> int:
     phase_ring_bwd(results)
     done("phase 17")
     counts.update(phase_seq_train(gpu, flagship_cpu, flagship_ref))
-    del flagship_cpu, flagship_ref
     done("phase 18")
     counts.update(phase_cli_train(gpu, counts["train"], TRAIN_STEPS))
     done("phase 19")
     counts.update(phase_eval(gpu))
     done("phase 20")
-    phase_counts(counts)
+    counts.update(phase_master_weights(gpu, flagship_cpu, flagship_ref,
+                                       counts["train"], TRAIN_STEPS))
+    del flagship_cpu, flagship_ref
     done("phase 21")
+    phase_counts(counts)
+    done("phase 22")
     log(json.dumps(kernel_summary(results, counts)))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {

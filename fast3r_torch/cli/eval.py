@@ -94,7 +94,7 @@ def main(argv=None):
         TrainerConfig(run_dir=(os.path.join(args.run_dir, "eval")
                                if args.run_dir else "eval_out"),
                       remat=False),
-        params=model.params, device=device, dtype=dtype)
+        params=model.params, device=device)
 
     data_cfg = cfg.get("data", {})
     dm = MultiViewDataModule(

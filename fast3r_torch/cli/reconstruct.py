@@ -13,9 +13,9 @@ or ``--host-preprocess``, through ``load_images`` and ``inference``.
 Without ``--checkpoint`` the weights are random (seed 0): the flagship's on
 the card, whose kernels take the flagship's widths only, and the tiny
 configuration's on the CPU.  Writes scene.ply (the merged coloured cloud),
-poses.json (per-view c2w and focals) and, with ``--save-npz``, one .npz of
-pointmaps per view.  ``--backend cv2``, ``--gif`` and video input are not
-ported.
+poses.json (per-view c2w and focals), with ``--gif`` orbit.gif (an orbit
+of the cloud, rendered on the host) and, with ``--save-npz``, one .npz of
+pointmaps per view.  ``--backend cv2`` and video input are not ported.
 """
 
 from __future__ import annotations
@@ -46,6 +46,8 @@ def main(argv=None) -> dict:
                          "the global head")
     ap.add_argument("--mask-sky", action="store_true")
     ap.add_argument("--save-npz", action="store_true")
+    ap.add_argument("--gif", action="store_true",
+                    help="also render an orbit GIF of the merged cloud")
     ap.add_argument("--color-mode", default="rgb", choices=["rgb", "conf"],
                     help="point colors: image RGB or confidence heatmap")
     ap.add_argument("--host-preprocess", action="store_true",
@@ -66,6 +68,7 @@ def main(argv=None) -> dict:
         assemble_scene,
         confidence_colors,
         export_scene_ply,
+        render_scene_gif,
     )
     from fast3r_torch.utils.image import load_images, load_images_raw
 
@@ -140,7 +143,10 @@ def main(argv=None) -> dict:
         for i, p in enumerate(preds):
             np.savez(os.path.join(args.out, f"view_{i:04d}.npz"),
                      **{k: np.asarray(v) for k, v in p.items()})
-    mark("ply_s", t)
+    t = mark("ply_s", t)
+    if args.gif:
+        render_scene_gif(scene, os.path.join(args.out, "orbit.gif"))
+        mark("gif_s", t)
     print(f"wrote {ply_path} ({len(scene['points'])} points) and poses.json")
     print(json.dumps({"stage_times": times}))
     return {"views": views, "preds": preds, "poses": poses, "focals": focals,

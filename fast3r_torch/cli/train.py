@@ -8,17 +8,20 @@ with optional resume).  Usage:
         [--resume | --no-resume] [--distributed] [--profile-dir DIR] \
         [--device cuda|cpu] [key=value ...]
 
-The run trains on the card (bf16 params and moments) unless ``--device cpu``
-is given (fp32, every op on its plain version); without a GPU the default
-raises torch's own error.  ``--distributed`` joins the process group of a
-``torchrun`` launch (NCCL on the card, gloo on the CPU), one device per
-process; the batch per process is ``data.batch_size_per_device`` and the
-samplers slice the data by rank.  ``--profile-dir`` records a
-``torch.profiler`` trace of PROFILE_STEPS training steps there, after one
-skipped step and one warm-up step.  ``pretrained:`` names an
-HF-format checkpoint directory or a fast3r_torch run directory whose
-weights replace the random ones (unless a resume finds "last").  The
-resolved config is written to ``{run_dir}/config.yaml``.
+The run trains on the card unless ``--device cpu`` is given: fp32 params
+and AdamW moments on either device, as the JAX trainer's; on the card the
+forward and backward run on a bf16 working copy of the params (its
+kernels take bf16), on the CPU in fp32 (every op on its plain version).
+Without a GPU the default raises torch's own error.  ``--distributed``
+joins the process group of a ``torchrun`` launch (NCCL on the card, gloo
+on the CPU), one device per process; the batch per process is
+``data.batch_size_per_device`` and the samplers slice the data by rank.
+``--profile-dir`` records a ``torch.profiler`` trace of PROFILE_STEPS
+training steps there, after one skipped step and one warm-up step.
+``pretrained:`` names an HF-format checkpoint directory or a fast3r_torch
+run directory whose weights replace the random ones (unless a resume
+finds "last").  The resolved config is written to
+``{run_dir}/config.yaml``.
 """
 
 from __future__ import annotations
@@ -109,19 +112,20 @@ def main(argv=None):
         # the loader's workers import and unpickle while the model builds
         if train_loader is not None:
             train_loader.start()
-        trainer = Trainer(
-            model_cfg, optim_cfg, loss_cfg, trainer_cfg, device=device,
-            dtype=torch.bfloat16 if args.device == "cuda" else torch.float32)
+        trainer = Trainer(model_cfg, optim_cfg, loss_cfg, trainer_cfg,
+                          device=device)
         trainer.install_signal_handlers()
 
         pretrained = cfg.get("pretrained")
         if pretrained and not (args.resume and os.path.exists(
                 trainer._ckpt_path("last"))):
+            from fast3r_torch.train.step import refresh_working_copy
             from fast3r_torch.utils.checkpoint_utils import load_model
 
             log.info(f"loading pretrained weights from {pretrained}")
             trainer.state.params.load_state_dict(
                 load_model(pretrained, device="cpu").params.state_dict())
+            refresh_working_copy(trainer.state)
 
         if args.profile_dir:
             acts = [torch.profiler.ProfilerActivity.CPU]

@@ -7,9 +7,10 @@ port computes each operation as cv2 (5.0) does:
     of a uint8 image: half-pixel source coordinates clamped at the edges,
     cv2's fixed point (11-bit coefficients, the horizontal pass in exact
     integers, the vertical pass rounded as cv2's SIMD road rounds it).
-    Downscales equal cv2's bytes; upscales differ from them by at most one
-    level in under 1% of the pixels, all on the first and last output
-    rows.  An equal-size resize returns a copy of the input.
+    cv2 zeroes the fraction of a clamped column but keeps that of a
+    clamped row, whose two taps then read the same source row, each
+    product rounded on its own.  Every shape equals cv2's bytes.  An
+    equal-size resize returns a copy of the input.
   * :func:`erode`: ``cv2.erode(img, np.ones((kh, kw)))``: the minimum over
     the kernel's window anchored at its centre, the border at +inf.
   * :func:`rodrigues`: ``cv2.Rodrigues`` of a rotation vector, float64.
@@ -30,18 +31,18 @@ import scipy.ndimage
 RESIZE_COEF_SCALE = 2048   # INTER_RESIZE_COEF_SCALE: 11-bit coefficients
 
 
-def _linear_taps(src: int, dst: int):
-    """cv2's INTER_LINEAR source index and fraction of each output:
-    fx = (d + 0.5) * (src / dst) - 0.5 (double, then float), floored, the
-    fraction 0 where the index is clamped to the first or last pixel."""
+def _linear_taps(src: int, dst: int, zero_clamped: bool):
+    """cv2's INTER_LINEAR source indices and fraction of each output:
+    fx = (d + 0.5) * (src / dst) - 0.5 (double, then float), floored, both
+    indices clamped to the image; with ``zero_clamped`` (cv2's columns, not
+    its rows) the fraction is 0 where the first index is clamped."""
     scale = 1.0 / (dst / src)
     f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
     i = np.floor(f).astype(np.int64)
     frac = f - i.astype(np.float32)
-    lo, hi = i < 0, i >= src - 1
-    frac[lo | hi] = 0.0
-    i = np.where(lo, 0, np.where(hi, src - 1, i))
-    return i, np.minimum(i + 1, src - 1), frac
+    if zero_clamped:
+        frac[(i < 0) | (i >= src - 1)] = 0.0
+    return np.clip(i, 0, src - 1), np.clip(i + 1, 0, src - 1), frac
 
 
 def _fixed(frac: np.ndarray):
@@ -61,8 +62,8 @@ def resize_linear(img: np.ndarray, size) -> np.ndarray:
     H, W = img.shape[:2]
     if (out_h, out_w) == (H, W):
         return img.copy()
-    x0, x1, fx = _linear_taps(W, out_w)
-    y0, y1, fy = _linear_taps(H, out_h)
+    x0, x1, fx = _linear_taps(W, out_w, zero_clamped=True)
+    y0, y1, fy = _linear_taps(H, out_h, zero_clamped=False)
     a0, a1 = _fixed(fx)
     b0, b1 = _fixed(fy)
     ex = (slice(None),) + (None,) * (img.ndim - 2)

@@ -9,8 +9,12 @@ mixed shapes one solve per view, its generator seeded from the seed and the
 view index.
 
 Focal modes: "first_view_from_global_head" and
-"first_view_from_local_head".  "individual" raises: the JAX backend
-collapses it to one view-0 focal, which the port does not inherit.
+"first_view_from_local_head" (one focal for every view), and "individual":
+a focal a view, found as the JAX package's cv2 backend finds it
+(``fast_pnp_cv2``: a RANSAC-PnP at each of 100 focals from S / 2 to 3 S,
+the most inliers winning; ``ops.pnp.focal_sweep``, all focals of all views
+at once), then each view's pose solved at its focal.  JAX's own backend
+collapses "individual" to one view-0 focal; the port does not follow it.
 """
 
 from __future__ import annotations
@@ -21,9 +25,15 @@ import numpy as np
 import torch
 
 from fast3r_torch.ops.geometry import xy_grid
-from fast3r_torch.ops.pnp import estimate_focal_weiszfeld, pnp_ransac
+from fast3r_torch.ops.pnp import (
+    estimate_focal_weiszfeld,
+    focal_grid,
+    focal_sweep,
+    pnp_ransac,
+)
 
-FOCAL_METHODS = ("first_view_from_global_head", "first_view_from_local_head")
+FOCAL_METHODS = ("first_view_from_global_head", "first_view_from_local_head",
+                 "individual")
 
 
 def _maybe_untranspose(arr, hw):
@@ -61,23 +71,44 @@ def _view_seed(seed: int, v: int) -> int:
     return (seed << 16) + v + 1
 
 
+def _pnp_inputs(pts3d: torch.Tensor, conf: torch.Tensor):
+    """(V, N, 3) points, the (N, 2) pixel grid, the conf > 1 mask (V, N)
+    and the principal point of V same-shape views."""
+    V, H, W, _ = pts3d.shape
+    pp = torch.tensor([W / 2.0, H / 2.0], dtype=pts3d.dtype,
+                      device=pts3d.device)
+    pixels = xy_grid(W, H, pts3d.dtype, pts3d.device).reshape(-1, 2)
+    return pts3d.reshape(V, -1, 3), pixels, conf.reshape(V, -1) > 1.0, pp
+
+
+def individual_focals(pts3d: torch.Tensor, conf: torch.Tensor,
+                      niter: int = 32,
+                      generator: Optional[torch.Generator] = None,
+                      sample_idx=None) -> torch.Tensor:
+    """A focal a view of V same-shape views, (V,): the focal of
+    ``focal_grid`` whose RANSAC-PnP finds the most inliers."""
+    V, H, W, _ = pts3d.shape
+    pts, pixels, mask, pp = _pnp_inputs(pts3d, conf)
+    return focal_sweep(pts, pixels, mask, focal_grid(H, W, pts3d.dtype,
+                                                     pts3d.device),
+                       pp, iters=niter, generator=generator,
+                       sample_idx=sample_idx)
+
+
 def estimate_poses(pts3d: torch.Tensor, conf: torch.Tensor, focal=None,
                    niter: int = 32,
                    generator: Optional[torch.Generator] = None,
                    sample_idx=None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Poses of V same-shape views of one sample on their device:
-    pts3d (V, H, W, 3) in view 0's frame, conf (V, H, W).  Returns c2w
-    (V, 4, 4), inlier counts (V,) and the focal used."""
-    V, H, W, _ = pts3d.shape
+    pts3d (V, H, W, 3) in view 0's frame, conf (V, H, W); ``focal`` one for
+    all views or one a view (V,), by default view 0's Weiszfeld focal.
+    Returns c2w (V, 4, 4), inlier counts (V,) and the focal used."""
     if focal is None:
         focal = estimate_focal_weiszfeld(pts3d[0], conf[0], 10.0)
     focal = torch.as_tensor(focal, dtype=pts3d.dtype, device=pts3d.device)
-    pp = torch.tensor([W / 2.0, H / 2.0], dtype=pts3d.dtype,
-                      device=pts3d.device)
-    pixels = xy_grid(W, H, pts3d.dtype, pts3d.device).reshape(-1, 2)
-    c2w, inl = pnp_ransac(pts3d.reshape(V, -1, 3), pixels,
-                          conf.reshape(V, -1) > 1.0, focal, pp, iters=niter,
+    pts, pixels, mask, pp = _pnp_inputs(pts3d, conf)
+    c2w, inl = pnp_ransac(pts, pixels, mask, focal, pp, iters=niter,
                           generator=generator, sample_idx=sample_idx)
     return c2w, inl, focal
 
@@ -95,11 +126,9 @@ def estimate_camera_poses(
     (B, H, W) (tensors, arrays or per-sample lists); views, when given,
     carry "true_shape" to un-transpose portrait maps.  ``sample_idx``, one
     (V, iters, 8) index array per sample, replaces the random minimal
-    samples (row v for view v)."""
-    if focal_length_estimation_method == "individual":
-        raise NotImplementedError(
-            "focal_length_estimation_method='individual' (a focal per view) "
-            "is not ported")
+    samples (row v for view v; with "individual" focals the focal search
+    takes the same samples).  The focal search of "individual" draws its
+    samples first from the generator the poses' draws then continue."""
     if focal_length_estimation_method not in FOCAL_METHODS:
         raise ValueError(focal_length_estimation_method)
     if backend != "torch":
@@ -123,24 +152,31 @@ def estimate_camera_poses(
     for b in range(B):
         pts = [sample_map(v, "pts3d_in_other_view", b) for v in range(V)]
         conf = [sample_map(v, "conf", b) for v in range(V)]
+        focal = None   # "individual": a focal a view, below
         if use_local:
             focal = estimate_focal_weiszfeld(
                 sample_map(0, "pts3d_local_aligned_to_global", b),
                 sample_map(0, "conf_local", b), 10.0)
-        else:
+        elif focal_length_estimation_method != "individual":
             focal = estimate_focal_weiszfeld(pts[0], conf[0], 10.0)
         idx = None if sample_idx is None else torch.as_tensor(
             sample_idx[b], device=device)
+
+        def solve(p, c, gen, ix):
+            f = (individual_focals(p, c, niter, gen, ix) if focal is None
+                 else focal)
+            c2w, _, f = estimate_poses(p, c, f, niter, gen, ix)
+            return c2w, f.expand(p.shape[0])
+
         if len({tuple(p.shape) for p in pts}) == 1:
             gen = torch.Generator(device=device).manual_seed(seed)
-            c2w = estimate_poses(torch.stack(pts), torch.stack(conf), focal,
-                                 niter, gen, idx)[0]
+            c2w, f = solve(torch.stack(pts), torch.stack(conf), gen, idx)
         else:
-            c2w = torch.cat([estimate_poses(
-                pts[v][None], conf[v][None], focal, niter,
+            c2w, f = (torch.cat(x) for x in zip(*[solve(
+                pts[v][None], conf[v][None],
                 torch.Generator(device=device).manual_seed(_view_seed(seed, v)),
-                None if idx is None else idx[v:v + 1])[0] for v in range(V)])
+                None if idx is None else idx[v:v + 1]) for v in range(V)]))
         c2w = c2w.cpu().numpy()
         poses_all.append([c2w[v] for v in range(V)])
-        focals_all.append([float(focal)] * V)
+        focals_all.append([float(x) for x in f.cpu()])
     return poses_all, focals_all

@@ -71,11 +71,11 @@ def config_from_reference_args(encoder_args: Dict, decoder_args: Dict,
     ``ops.attention.IMPLS`` for the decoder; with "pallas" the encoder
     takes "batched" (both are the attention kernel on CUDA), as
     ``Fast3RConfig.flagship()``.  The DINO encoder is not ported: see
-    ROADMAP.md, Queue 1 item 7."""
+    ROADMAP.md, Queue 1 item 5."""
     if encoder_args.get("encoder_type", "croco") == "dino":
         raise NotImplementedError(
             "encoder_type 'dino' is not ported to fast3r_torch (ROADMAP.md, "
-            "Queue 1 item 7)")
+            "Queue 1 item 5)")
     enc = EncoderConfig(
         patch_size=encoder_args.get("patch_size", 16),
         patch_embed_cls=encoder_args.get("patch_embed_cls",

@@ -23,7 +23,6 @@ import torch
 from torch import nn
 
 from fast3r_torch.nn.layers import (
-    check_no_dropout,
     layernorm,
     linear,
     make_vit_stack,
@@ -56,7 +55,7 @@ class DecoderConfig:
     final_ln_eps: float = 1e-6
     # the fused-GEMM blocks (nn.fused_block), as in the JAX package
     fused_blocks: bool = True
-    # the reference Block's dropout rates; only 0 is supported
+    # the reference Block's dropout rates (nn.layers.vit_block)
     drop: float = 0.0
     attn_drop: float = 0.0
     drop_path: float = 0.0
@@ -117,15 +116,17 @@ def sample_random_image_ids(generator: Optional[torch.Generator],
 
 def decoder_forward(params: Decoder, cfg: DecoderConfig, feats: torch.Tensor,
                     image_ids: torch.Tensor, is_training: bool = False,
-                    remat: bool = False) -> Dict[int, torch.Tensor]:
+                    remat: bool = False,
+                    generator: Optional[torch.Generator] = None
+                    ) -> Dict[int, torch.Tensor]:
     """Run the fusion decoder.
 
     feats: (B, S, D_enc) fused encoder tokens; image_ids: (B, S) integer image
     id per token; ``is_training`` selects the softmax scale, ``remat``
-    recomputes the blocks in the backward.  Returns {hook: activation} for
-    ``cfg.hooks``.
+    recomputes the blocks in the backward and ``generator`` seeds the
+    blocks' dropout (a training forward's only).  Returns {hook: activation}
+    for ``cfg.hooks``.
     """
-    check_no_dropout(cfg, is_training)
     outputs: Dict[int, torch.Tensor] = {0: feats}
     x = linear(params.decoder_embed, feats)
     table = torch.as_tensor(image_idx_table(cfg.embed_dim), device=x.device,
@@ -137,7 +138,10 @@ def decoder_forward(params: Decoder, cfg: DecoderConfig, feats: torch.Tensor,
                               cfg.attn_scale(is_training),
                               rope_cos_sin=None, attn_impl=cfg.attn_impl,
                               ln_eps=cfg.block_ln_eps, hooks=inner_hooks,
-                              fused=cfg.fused_blocks, remat=remat)
+                              fused=cfg.fused_blocks, remat=remat,
+                              drop=cfg.drop, attn_drop=cfg.attn_drop,
+                              drop_path_rate=cfg.drop_path,
+                              generator=generator if is_training else None)
     outputs.update(hooked)
     outputs[cfg.depth] = layernorm(params.norm, x, cfg.final_ln_eps)
     return outputs

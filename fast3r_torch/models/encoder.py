@@ -4,8 +4,8 @@ Counterpart of ``fast3r_tpu/models/encoder.py``: patch embed -> depth x pre-LN
 ViT block with 2D RoPE (base 100) -> final LayerNorm (eps 1e-6).  Flagship:
 ViT-L/16, embed_dim 1024, depth 24, 16 heads, mlp_ratio 4.  The RoPE tables
 are computed once per forward and shared by every block.  The dropout knobs
-(``drop``, ``attn_drop``, ``drop_path``) are 0 in every shipped
-configuration; a training forward with a non-zero rate raises.
+(``drop``, ``attn_drop``, ``drop_path``, 0 in every shipped configuration)
+act when the forward is given a generator (``nn.layers``).
 """
 
 from __future__ import annotations
@@ -21,7 +21,6 @@ from fast3r_torch.models.patch_embed import (
     patch_embed_simple,
 )
 from fast3r_torch.nn.layers import (
-    check_no_dropout,
     layernorm,
     make_vit_stack,
     run_vit_stack,
@@ -42,7 +41,7 @@ class EncoderConfig:
     ln_eps: float = 1e-6
     # the fused-GEMM blocks (nn.fused_block), as in the JAX package
     fused_blocks: bool = True
-    # the reference Block's dropout rates; only 0 is supported
+    # the reference Block's dropout rates (nn.layers.vit_block)
     drop: float = 0.0
     attn_drop: float = 0.0
     drop_path: float = 0.0
@@ -60,13 +59,14 @@ class Encoder(nn.Module):
 
 def encoder_forward(params: Encoder, cfg: EncoderConfig, img: torch.Tensor,
                     true_shape: Optional[torch.Tensor] = None,
-                    remat: bool = False, is_training: bool = False
+                    remat: bool = False,
+                    generator: Optional[torch.Generator] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Encode (B, H, W, 3) images (landscape storage layout, normalised to
     [-1, 1]); true_shape (B, 2) int (height, width) defaults to the storage
-    shape.  ``remat`` recomputes the blocks in the backward.  Returns feats
+    shape.  ``remat`` recomputes the blocks in the backward; ``generator``
+    (a training forward's) seeds the blocks' dropout.  Returns feats
     (B, P, embed_dim) and positions (B, P, 2)."""
-    check_no_dropout(cfg, is_training)
     B, H, W, _ = img.shape
     if true_shape is None:
         true_shape = torch.tensor([H, W], dtype=torch.int32).expand(B, 2)
@@ -81,5 +81,6 @@ def encoder_forward(params: Encoder, cfg: EncoderConfig, img: torch.Tensor,
     x, _ = run_vit_stack(params.blocks, x, cfg.num_heads, head_dim ** -0.5,
                          rope_cos_sin=rope, attn_impl=cfg.attn_impl,
                          ln_eps=cfg.ln_eps, fused=cfg.fused_blocks,
-                         remat=remat)
+                         remat=remat, drop=cfg.drop, attn_drop=cfg.attn_drop,
+                         drop_path_rate=cfg.drop_path, generator=generator)
     return layernorm(params.norm, x, cfg.ln_eps), pos

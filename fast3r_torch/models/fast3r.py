@@ -34,7 +34,7 @@ from fast3r_torch.models.llama_decoder import (
     LlamaDecoderConfig,
     llama_decoder_forward,
 )
-from fast3r_torch.nn.layers import init_params_
+from fast3r_torch.nn.layers import has_dropout, init_params_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,6 +174,10 @@ def fast3r_forward(params: Fast3RNet, cfg: Fast3RConfig, imgs: torch.Tensor,
       is_training: the decoder's training softmax scale (no entropy bias;
         the llama decoder has none in either case).
       remat: recompute the plain road's blocks in the backward.
+      generator: a training forward's CPU generator.  When a stack sets a
+        dropout rate, two seeds are drawn from it first (one a stack, as the
+        JAX package splits its rng only then) for the blocks' dropout; the
+        image ids follow.
 
     Returns pts3d_in_other_view (B, V, H, W, 3), conf (B, V, H, W)
     [, pts3d_local, conf_local].
@@ -182,9 +186,14 @@ def fast3r_forward(params: Fast3RNet, cfg: Fast3RConfig, imgs: torch.Tensor,
     if true_shapes is None:
         true_shapes = torch.tensor([H, W], dtype=torch.int32).expand(B, V, 2)
     flat_shapes = true_shapes.reshape(B * V, 2)
+    enc_gen = dec_gen = None
+    if is_training and generator is not None and (
+            has_dropout(cfg.encoder) or has_dropout(cfg.decoder)):
+        enc_gen, dec_gen = (torch.Generator().manual_seed(int(torch.randint(
+            0, 2 ** 63 - 1, (), generator=generator))) for _ in range(2))
     feats, _ = encoder_forward(params.encoder, cfg.encoder,
                                imgs.reshape(B * V, H, W, 3), flat_shapes,
-                               remat=remat, is_training=is_training)
+                               remat=remat, generator=enc_gen)
     P = feats.shape[1]
     fused = feats.reshape(B, V * P, -1)
 
@@ -205,7 +214,7 @@ def fast3r_forward(params: Fast3RNet, cfg: Fast3RConfig, imgs: torch.Tensor,
     else:
         dec_out = decoder_forward(params.decoder, cfg.decoder, fused,
                                   image_ids, is_training=is_training,
-                                  remat=remat)
+                                  remat=remat, generator=dec_gen)
     hook_seq = [dec_out[h] for h in cfg.decoder.hooks]  # each (B, V*P, C)
     is_portrait = ((flat_shapes[:, 1] < flat_shapes[:, 0]).to(imgs.device)
                    if mixed_orientation else None)

@@ -19,6 +19,16 @@ matmuls, as the JAX package leaves them to XLA in that configuration.
 Training: every block is differentiable; with ``remat`` the plain road's
 blocks run under ``torch.utils.checkpoint`` (the JAX package's
 ``jax.checkpoint``), while the fused block recomputes in its own backward.
+
+The reference Block's dropout knobs act in a training forward that is given
+a generator: ``drop`` (inverted dropout on the GELU hidden, the MLP output
+and the attention projection's output), ``attn_drop`` (on the softmax
+weights, which the materialised-logits road computes) and ``drop_path``
+(per-sample stochastic depth on both residual branches).  Any non-zero
+rate sends the block down the plain road, as the JAX package's
+``vit_block`` does.  Each block draws its masks from a generator of its own
+on the activations' device, seeded from the stack's generator before the
+block runs, so a recomputed block draws the same masks.
 """
 
 from __future__ import annotations
@@ -74,13 +84,11 @@ class RMSNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim))
 
 
-def check_no_dropout(cfg, is_training: bool) -> None:
-    """Raise if a training forward would need the Block's dropout knobs
-    (``drop``, ``attn_drop``, ``drop_path`` of a stack config): 0 in every
-    shipped configuration, and not ported."""
-    rates = {k: getattr(cfg, k) for k in ("drop", "attn_drop", "drop_path")}
-    if is_training and any(r > 0 for r in rates.values()):
-        raise NotImplementedError(f"dropout is not ported: {rates}")
+def has_dropout(cfg) -> bool:
+    """Whether a stack configuration sets a non-zero dropout rate (the llama
+    decoder has none)."""
+    return any(getattr(cfg, k, 0.0) > 0.0
+               for k in ("drop", "attn_drop", "drop_path"))
 
 
 def make_vit_stack(depth: int, dim: int, mlp_ratio: float = 4.0,
@@ -137,8 +145,39 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
-def mlp(p: Mlp, x: torch.Tensor) -> torch.Tensor:
-    return linear(p.fc2, gelu(linear(p.fc1, x)))
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout (torch ``nn.Dropout`` in train mode): each element
+    kept with probability 1 - rate and scaled by 1 / (1 - rate), the mask
+    drawn from ``generator`` on x's device.  The identity when rate is 0 or
+    there is no generator."""
+    if rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def drop_path(x: torch.Tensor, rate: float,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Stochastic depth a sample: one draw per leading row, kept rows scaled
+    by 1 / (1 - rate); at rate 1 the branch is zeroed unscaled (the
+    reference's ``keep_prob > 0`` guard)."""
+    if rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    mask = (torch.rand(shape, generator=generator, device=x.device)
+            < keep).to(x.dtype)
+    if keep > 0.0:
+        mask = mask / keep
+    return x * mask
+
+
+def mlp(p: Mlp, x: torch.Tensor, drop: float = 0.0,
+        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    h = dropout(gelu(linear(p.fc1, x)), drop, generator)
+    return dropout(linear(p.fc2, h), drop, generator)
 
 
 def conv2d(p: nn.Conv2d, x: torch.Tensor, stride: int = 1, padding=0,
@@ -164,41 +203,67 @@ def conv_transpose2d(p: nn.ConvTranspose2d, x: torch.Tensor,
 
 def attention_layer(p: Attention, x: torch.Tensor, num_heads: int,
                     scale: float,
-                    rope_cos_sin: Optional[Tuple[torch.Tensor, torch.Tensor]],
-                    attn_impl: AttnImpl) -> torch.Tensor:
+                    rope_cos_sin: Optional[Tuple[torch.Tensor, ...]],
+                    attn_impl: AttnImpl, attn_drop: float = 0.0,
+                    proj_drop: float = 0.0,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
     """Self-attention sublayer on x (B, N, C).  q, k and v stay strided views
     of the qkv projection's (B, N, 3, H, D) output; RoPE, when given,
     rotates q and k in fp32.  ``attn_impl`` is an implementation's name or
-    a callable ``(q, k, v, scale) -> o`` (``ops.attention``)."""
+    a callable ``(q, k, v, scale) -> o`` (``ops.attention``).  With a
+    generator and a non-zero ``attn_drop`` the softmax weights are
+    materialised (fp32 logits, weights in x's dtype) and dropped before
+    ``@ v``; ``proj_drop`` follows the output projection."""
     B, N, C = x.shape
     qkv = linear(p.qkv, x).reshape(B, N, 3, num_heads, C // num_heads)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     if rope_cos_sin is not None:
-        cos, sin = rope_cos_sin
+        cos, sin = rope_cos_sin[0], rope_cos_sin[1]
         q = apply_rope2d_bnhd(q, cos, sin)
         k = apply_rope2d_bnhd(k, cos, sin)
-    o = dot_product_attention(q, k, v, scale=scale, impl=attn_impl)
-    return linear(p.proj, o.reshape(B, N, C))
+    if attn_drop > 0.0 and generator is not None:
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+        w = dropout(torch.softmax(logits, -1).to(q.dtype), attn_drop,
+                    generator)
+        o = torch.einsum("bhqk,bkhd->bqhd", w, v)
+    else:
+        o = dot_product_attention(q, k, v, scale=scale, impl=attn_impl)
+    return dropout(linear(p.proj, o.reshape(B, N, C)), proj_drop, generator)
 
 
 def vit_block(p: Block, x: torch.Tensor, num_heads: int, scale: float,
               rope_cos_sin=None, attn_impl: AttnImpl = "pallas",
-              ln_eps: float = 1e-6, fused: bool = False) -> torch.Tensor:
+              ln_eps: float = 1e-6, fused: bool = False, drop: float = 0.0,
+              attn_drop: float = 0.0, drop_path_rate: float = 0.0,
+              seed: Optional[int] = None) -> torch.Tensor:
     """Pre-LN ViT block: the fused block with ``fused=True``, else the plain
-    composition of the JAX package."""
-    if fused:
+    composition of the JAX package.  With a ``seed`` and a non-zero rate the
+    block drops (a generator seeded ``seed`` on x's device draws the masks,
+    in the order attention weights, projection, first branch, MLP hidden,
+    MLP output, second branch) and takes the plain road."""
+    gen = None
+    if seed is not None and (drop > 0.0 or attn_drop > 0.0
+                             or drop_path_rate > 0.0):
+        gen = torch.Generator(device=x.device).manual_seed(seed)
+    if fused and gen is None:
         return fused_vit_block(p, x, rope_cos_sin, num_heads, scale,
                                attn_impl, ln_eps)
-    x = x + attention_layer(p.attn, layernorm(p.norm1, x, ln_eps), num_heads,
-                            scale, rope_cos_sin, attn_impl)
-    return x + mlp(p.mlp, layernorm(p.norm2, x, ln_eps))
+    a = attention_layer(p.attn, layernorm(p.norm1, x, ln_eps), num_heads,
+                        scale, rope_cos_sin, attn_impl, attn_drop, drop, gen)
+    x = x + drop_path(a, drop_path_rate, gen)
+    m = mlp(p.mlp, layernorm(p.norm2, x, ln_eps), drop, gen)
+    return x + drop_path(m, drop_path_rate, gen)
 
 
 def run_vit_stack(blocks: Sequence[Block], x: torch.Tensor, num_heads: int,
                   scale: float, rope_cos_sin=None,
                   attn_impl: AttnImpl = "pallas",
                   ln_eps: float = 1e-6, hooks: Sequence[int] = (),
-                  fused: bool = False, remat: bool = False
+                  fused: bool = False, remat: bool = False,
+                  drop: float = 0.0, attn_drop: float = 0.0,
+                  drop_path_rate: float = 0.0,
+                  generator: Optional[torch.Generator] = None
                   ) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
     """Run the blocks; return (output, {hook: activation}) with hook i the
     output after block i (1-based).  On the fused road with "batched"
@@ -206,7 +271,12 @@ def run_vit_stack(blocks: Sequence[Block], x: torch.Tensor, num_heads: int,
     for the whole stack and every block gets (cos, sin, ct, st).  A callable
     ``attn_impl`` (``(q, k, v, scale) -> o``) serves every block's
     attention.  ``remat`` recomputes each plain block in the backward (the
-    fused block always does)."""
+    fused block always does).  With a ``generator`` (a training forward's)
+    and a non-zero dropout rate, each block drops with a seed drawn from it
+    and runs on the plain road; the generator is not read otherwise."""
+    drops = generator is not None and (drop > 0.0 or attn_drop > 0.0
+                                       or drop_path_rate > 0.0)
+    fused = fused and not drops
     if (fused and attn_impl == "batched" and rope_cos_sin is not None
             and len(rope_cos_sin) == 2):
         ct, st = expand_rope_tables(rope_cos_sin[0], rope_cos_sin[1],
@@ -215,8 +285,10 @@ def run_vit_stack(blocks: Sequence[Block], x: torch.Tensor, num_heads: int,
     outputs: Dict[int, torch.Tensor] = {}
     checkpoint = remat and not fused and torch.is_grad_enabled()
     for i, block in enumerate(blocks):
+        seed = (int(torch.randint(0, 2 ** 63 - 1, (), generator=generator))
+                if drops else None)
         args = (block, x, num_heads, scale, rope_cos_sin, attn_impl, ln_eps,
-                fused)
+                fused, drop, attn_drop, drop_path_rate, seed)
         x = (torch.utils.checkpoint.checkpoint(vit_block, *args,
                                                use_reentrant=False)
              if checkpoint else vit_block(*args))

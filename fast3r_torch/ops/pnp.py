@@ -15,10 +15,13 @@ Counterpart of ``fast3r_tpu/ops/pnp.py`` (``estimate_focal_weiszfeld``,
 
 The JAX package maps over views and vmaps over hypotheses; here the views x
 hypotheses are one batch of tensors, cut into chunks of views so that the
-(batch, points, 2, 6) Jacobians stay bounded.  The minimal samples come
-from a ``torch.Generator`` or are passed in as a (V, iters, sample_size)
-index tensor (the way to reproduce another implementation's draws).  The
-cv2 backend (``fast_pnp_cv2``) is not ported.
+(batch, points, 2, 6) Jacobians stay bounded.  The focal may be one for all
+views or one a view.  The minimal samples come from a ``torch.Generator``
+or are passed in as a (V, iters, sample_size) index tensor (the way to
+reproduce another implementation's draws).  The cv2 backend
+(``fast_pnp_cv2``) is not ported; :func:`focal_sweep` is its focal search
+(a RANSAC-PnP at each of 100 focals, the most inliers winning) with the
+focals as a leading axis of the hypotheses.
 """
 
 from __future__ import annotations
@@ -26,12 +29,21 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from fast3r_torch.ops.geometry import xy_grid
 
 # hypotheses x points per polish chunk: bounds the Jacobians at ~0.2 GB
 CHUNK_POINTS = 1 << 22
+# hypotheses x points per scoring chunk of the focal search (a few
+# (chunk, 3) fp32 temporaries, about 0.4 GB each)
+SWEEP_CHUNK_POINTS = 1 << 25
+NUM_FOCALS = 100   # fast_pnp_cv2's num_guessed_focals
+# matrices a batched eigh call takes: the H100's cuSOLVER (CUDA 12.8) turns
+# down batches of 32,767 12x12 matrices and more, takes 16,384
+# (scripts/probe_eigh_batch.py)
+EIGH_BATCH = 1 << 14
 
 
 def estimate_focal_weiszfeld(pts3d: torch.Tensor,
@@ -103,8 +115,9 @@ def _dlt_pose(pts3d: torch.Tensor, rays: torch.Tensor, w: torch.Tensor
     A = torch.cat([torch.cat([-Xh, zero, u * Xh], -1),
                    torch.cat([zero, -Xh, v * Xh], -1)], -2)  # (B, 2n, 12)
     ww = torch.cat([w, w], -1)[..., None]
-    _, vecs = torch.linalg.eigh(_gram(A * ww, A))
-    P = vecs[..., 0].reshape(B, 3, 4)
+    G = _gram(A * ww, A)
+    P = torch.cat([torch.linalg.eigh(G[i:i + EIGH_BATCH])[1][..., 0]
+                   for i in range(0, B, EIGH_BATCH)]).reshape(B, 3, 4)
     M, t = P[..., :3], P[..., 3]
     # scale by det(M)^(1/3); sign: most (weighted) points in front
     scale = torch.linalg.det(M).abs().pow(1.0 / 3.0)
@@ -138,6 +151,14 @@ def _exp_so3(w: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=w.dtype, device=w.device) + a * K + b * (K @ K)
 
 
+def _batch_focal(focal):
+    """A focal for (B, N, k) arithmetic: one for the batch as it is, one a
+    batch entry (B,) as (B, 1, 1)."""
+    if torch.is_tensor(focal) and focal.dim() > 0:
+        return focal.reshape(-1, 1, 1)
+    return focal
+
+
 def _gauss_newton_polish(pts3d, pixels, w, focal, pp, R, t, iters: int = 8,
                          huber_px: float = 2.5,
                          huber_px_start: Optional[float] = None,
@@ -146,8 +167,10 @@ def _gauss_newton_polish(pts3d, pixels, w, focal, pp, R, t, iters: int = 8,
     Huber width annealed geometrically from ``huber_px_start`` (8x the
     final width by default) to ``huber_px``; left-multiplicative so(3)
     updates.  Batched: pts3d (B, N, 3), pixels (N, 2), w (B, N), R
-    (B, 3, 3), t (B, 3).  Points closer than 1% of the mean scene distance
-    are left out of each step (their Jacobian leverage would swamp JtJ)."""
+    (B, 3, 3), t (B, 3), focal a scalar or (B,).  Points closer than 1% of
+    the mean scene distance are left out of each step (their Jacobian
+    leverage would swamp JtJ)."""
+    focal = _batch_focal(focal)
     if huber_px_start is None:
         huber_px_start = 8.0 * huber_px
     decay = (huber_px / huber_px_start) ** (1.0 / max(iters - 1, 1))
@@ -169,12 +192,12 @@ def _gauss_newton_polish(pts3d, pixels, w, focal, pp, R, t, iters: int = 8,
         a, b, c = (cam - t[:, None]).unbind(-1)            # R X
         iz2 = inv_z * inv_z
         zero = torch.zeros_like(inv_z)
-        J = focal * torch.stack([
+        J = torch.stack([
             torch.stack([-x * iz2 * b, inv_z * c + x * iz2 * a, -inv_z * b,
                          inv_z, zero, -x * iz2], -1),
             torch.stack([-inv_z * c - y * iz2 * b, y * iz2 * a, inv_z * a,
                          zero, inv_z, -y * iz2], -1),
-        ], -2).flatten(1, 2)                               # (B, 2N, 6)
+        ], -2).flatten(1, 2) * focal                       # (B, 2N, 6)
         rn = torch.linalg.norm(r, dim=-1)
         hub = (huber_i / rn.clamp(min=1e-9)).clamp(max=1.0)
         ww = (w * hub * (cam[..., 2] > z_min)).repeat_interleave(2, -1)
@@ -192,7 +215,9 @@ def _gauss_newton_polish(pts3d, pixels, w, focal, pp, R, t, iters: int = 8,
 
 
 def _reproj_errors(pts3d, pixels, R, t, focal, pp):
-    """(B, N) reprojection errors in pixels; 1e9 behind the camera."""
+    """(B, N) reprojection errors in pixels; 1e9 behind the camera.  focal:
+    a scalar or (B,)."""
+    focal = _batch_focal(focal)
     cam = pts3d @ R.transpose(-1, -2) + t[:, None]
     proj = cam[..., :2] / cam[..., 2:3].clamp(min=1e-8) * focal + pp
     err = torch.linalg.norm(proj - pixels, dim=-1)
@@ -221,11 +246,13 @@ def pnp_ransac(pts3d: torch.Tensor, pixels: torch.Tensor, mask: torch.Tensor,
     """Fixed-shape RANSAC-PnP of V views at once.
 
     pts3d (V, N, 3) world points, pixels (N, 2), mask (V, N) valid points,
-    focal a scalar, pp (2,).  The minimal samples are ``sample_idx``
-    (V, iters, sample_size) when given, else drawn from ``generator``.
-    Returns c2w (V, 4, 4) and the inlier counts (V,)."""
+    focal a scalar or one a view (V,), pp (2,).  The minimal samples are
+    ``sample_idx`` (V, iters, sample_size) when given, else drawn from
+    ``generator``.  Returns c2w (V, 4, 4) and the inlier counts (V,)."""
     V, N, _ = pts3d.shape
-    rays = (pixels - pp) / focal
+    focal = torch.as_tensor(focal, dtype=pts3d.dtype,
+                            device=pts3d.device).expand(V)
+    rays = (pixels - pp) / focal[:, None, None]                # (V, N, 2)
     mf = mask.to(pts3d.dtype)
     if sample_idx is None:
         sample_idx = draw_samples(mask, iters, sample_size, generator)
@@ -244,16 +271,19 @@ def pnp_ransac(pts3d: torch.Tensor, pixels: torch.Tensor, mask: torch.Tensor,
         n = p.shape[0]
         flat = ix.reshape(n, -1)
         seeds = torch.gather(p, 1, flat[..., None].expand(-1, -1, 3))
+        seed_rays = torch.gather(rays[v0:v0 + vpc], 1,
+                                 flat[..., None].expand(-1, -1, 2))
         R, t = _dlt_pose(seeds.reshape(n * iters, -1, 3),
-                         rays[ix].reshape(n * iters, -1, 2),
+                         seed_rays.reshape(n * iters, -1, 2),
                          torch.ones(ix.shape, dtype=p.dtype,
                                     device=p.device).reshape(n * iters, -1))
         pb = p[:, None].expand(-1, iters, -1, -1).reshape(n * iters, N, 3)
         mb = m[:, None].expand(-1, iters, -1).reshape(n * iters, N)
-        R, t = _gauss_newton_polish(pb, pixels, mb, focal, pp, R, t,
+        fb = focal[v0:v0 + vpc].repeat_interleave(iters)
+        R, t = _gauss_newton_polish(pb, pixels, mb, fb, pp, R, t,
                                     iters=12, huber_px=reproj_thresh / 2.0,
                                     huber_px_start=8.0 * reproj_thresh)
-        err = _reproj_errors(pb, pixels, R, t, focal, pp)
+        err = _reproj_errors(pb, pixels, R, t, fb, pp)
         Rs.append(R.reshape(n, iters, 3, 3))
         ts.append(t.reshape(n, iters, 3))
         costs.append(robust_cost(err, mb).reshape(n, iters))
@@ -267,7 +297,7 @@ def pnp_ransac(pts3d: torch.Tensor, pixels: torch.Tensor, mask: torch.Tensor,
     w_in = ((err < reproj_thresh) & mask).to(pts3d.dtype)
     cost = robust_cost(err, mf)
     enough = w_in.sum(-1) >= 6
-    R1, t1 = _dlt_pose(pts3d, rays.expand(V, N, 2), w_in + 1e-9)
+    R1, t1 = _dlt_pose(pts3d, rays, w_in + 1e-9)
     err1 = _reproj_errors(pts3d, pixels, R1, t1, focal, pp)
     cost1 = robust_cost(err1, mf)
     take = enough & (cost1 < cost)
@@ -294,3 +324,62 @@ def pnp_ransac(pts3d: torch.Tensor, pixels: torch.Tensor, mask: torch.Tensor,
     c2w[:, :3, :3] = Rt
     c2w[:, :3, 3] = -(Rt @ t[..., None])[..., 0]
     return c2w, w_in.sum(-1).to(torch.int32)
+
+
+def focal_grid(height: int, width: int, dtype=torch.float32, device=None,
+               num: int = NUM_FOCALS) -> torch.Tensor:
+    """fast_pnp_cv2's tentative focals: ``num`` geometrically spaced from
+    S / 2 to 3 S, S = max(height, width) (float64, then ``dtype``)."""
+    S = max(width, height)
+    return torch.as_tensor(np.geomspace(S / 2, S * 3, num=num), dtype=dtype,
+                           device=device)
+
+
+def focal_sweep(pts3d: torch.Tensor, pixels: torch.Tensor, mask: torch.Tensor,
+                focals: torch.Tensor, pp: torch.Tensor, iters: int = 32,
+                sample_size: int = 8, reproj_thresh: float = 5.0,
+                generator: Optional[torch.Generator] = None,
+                sample_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A RANSAC-PnP of each of V views at each of F focals, all at once: the
+    ``iters`` minimal samples of a view (``sample_idx`` or drawn from
+    ``generator``) seed an 8-point DLT at every focal, and each of these
+    V x F x iters hypotheses is scored by its inliers, the masked points
+    that it reprojects within ``reproj_thresh`` pixels.
+
+    pts3d (V, N, 3), pixels (N, 2), mask (V, N), focals (F,), pp (2,).
+    Returns each view's focal whose best hypothesis has the most inliers
+    (V,), the smallest of a tie (cv2's search keeps the first)."""
+    V, N, _ = pts3d.shape
+    F = focals.shape[0]
+    if sample_idx is None:
+        sample_idx = draw_samples(mask, iters, sample_size, generator)
+    idx = torch.as_tensor(sample_idx, device=pts3d.device).long()
+    iters, k = idx.shape[1], idx.shape[2]
+    flat = idx.reshape(V, -1)
+    seeds = torch.gather(pts3d, 1, flat[..., None].expand(-1, -1, 3))
+    rays = (pixels[flat] - pp)[:, None] / focals[None, :, None, None]
+    H = F * iters                                  # hypotheses a view
+    R, t = _dlt_pose(
+        seeds.reshape(V, 1, iters, k, 3).expand(V, F, iters, k, 3)
+        .reshape(V * H, k, 3), rays.reshape(V * H, k, 2),
+        torch.ones((V * H, k), dtype=pts3d.dtype, device=pts3d.device))
+    R, t = R.reshape(V, H, 3, 3), t.reshape(V, H, 3)
+    fh = focals.repeat_interleave(iters)           # (H,): focal-major
+    # only the masked points can be inliers: each view's first, padded to
+    # the most any view has
+    M = max(int(mask.sum(-1).max()), 1)
+    keep = torch.sort(mask.to(torch.uint8), stable=True, dim=-1,
+                      descending=True)[1][:, :M]
+    pts_m = torch.gather(pts3d, 1, keep[..., None].expand(-1, -1, 3))
+    pix_m, mask_m = pixels[keep], torch.gather(mask, 1, keep)
+    step = max(1, SWEEP_CHUNK_POINTS // M)
+    counts = []
+    for v in range(V):
+        for h0 in range(0, H, step):
+            h1 = min(h0 + step, H)
+            err = _reproj_errors(pts_m[v][None].expand(h1 - h0, M, 3),
+                                 pix_m[v], R[v, h0:h1], t[v, h0:h1],
+                                 fh[h0:h1], pp)
+            counts.append(((err < reproj_thresh) & mask_m[v]).sum(-1))
+    best = torch.cat(counts).reshape(V, F, iters).amax(-1)    # (V, F)
+    return focals[best.argmax(-1)]

@@ -2,12 +2,14 @@
 
 Counterpart of ``fast3r_tpu/serve/visualizer.py`` (``detect_sky_mask``,
 ``is_outdoor_scene``, ``assemble_scene``, ``export_scene_ply``,
-``confidence_colors``), host numpy: per-frame point clouds from the global
-or the aligned local head, confidence-percentile filtering, HSV sky masking
-and confidence colouring.  The HSV conversion and the JET colour map are
-OpenCV's 8-bit ones written out in numpy (the fixed-point HSV of
-``cv2.cvtColor`` and ``COLORMAP_JET``'s integer ramps), the morphology is
-scipy's.  The viser server and the GIF render are not ported.
+``confidence_colors``, ``render_scene_frame``, ``render_scene_gif``), host
+numpy: per-frame point clouds from the global or the aligned local head,
+confidence-percentile filtering, HSV sky masking, confidence colouring and
+an orbit GIF of the merged cloud (z-buffered 1-pixel splats, written with
+PIL).  The HSV conversion and the JET colour map are OpenCV's 8-bit ones
+written out in numpy (the fixed-point HSV of ``cv2.cvtColor`` and
+``COLORMAP_JET``'s integer ramps), the morphology is scipy's.  The viser
+server is not ported.
 """
 
 from __future__ import annotations
@@ -138,3 +140,67 @@ def confidence_colors(conf: np.ndarray, vmin: Optional[float] = None,
     hi = np.max(x) if vmax is None else np.log(max(vmax, 1e-8))
     t = np.clip((x - lo) / max(hi - lo, 1e-12), 0.0, 1.0)
     return _jet_lut()[(t * 255).astype(np.uint8)].astype(np.float32) / 255.0
+
+
+def _look_at(eye: np.ndarray, target: np.ndarray, up=(0.0, -1.0, 0.0)):
+    """World-to-camera (R, t) of a camera at ``eye`` looking at
+    ``target`` (OpenCV axes: rows right, down, forward)."""
+    fwd = target - eye
+    fwd = fwd / (np.linalg.norm(fwd) + 1e-12)
+    right = np.cross(fwd, np.asarray(up, np.float64))
+    right = right / (np.linalg.norm(right) + 1e-12)
+    down = np.cross(fwd, right)
+    R = np.stack([right, down, fwd])
+    return R, -R @ eye
+
+
+def render_scene_frame(scene: Dict, eye: np.ndarray, target: np.ndarray,
+                       hw=(480, 640), focal: float = 500.0,
+                       background=(255, 255, 255)) -> np.ndarray:
+    """The merged cloud seen from one pinhole camera: 1-pixel splats, the
+    nearest point winning each pixel.  Returns (H, W, 3) uint8."""
+    H, W = hw
+    pts = np.asarray(scene["points"], np.float64)
+    cols = (np.asarray(scene["colors"]) * 255).astype(np.uint8)
+    frame = np.full((H, W, 3), background, np.uint8)
+    if len(pts) == 0:
+        return frame
+    R, t = _look_at(eye, target)
+    cam = pts @ R.T + t
+    z = cam[:, 2]
+    front = z > 1e-6
+    cam, z, cols = cam[front], z[front], cols[front]
+    u = np.round(cam[:, 0] / z * focal + W / 2).astype(np.int64)
+    v = np.round(cam[:, 1] / z * focal + H / 2).astype(np.int64)
+    ok = (u >= 0) & (u < W) & (v >= 0) & (v < H)
+    u, v, z, cols = u[ok], v[ok], z[ok], cols[ok]
+    order = np.argsort(-z)  # far to near: the nearest is written last
+    frame[v[order], u[order]] = cols[order]
+    return frame
+
+
+def render_scene_gif(scene: Dict, path: str, n_frames: int = 24,
+                     hw=(480, 640), fps: int = 8,
+                     elevation: float = 0.35) -> str:
+    """An orbit of ``n_frames`` views around the cloud's median point, at
+    2.5 times its 90th-percentile radius, written to ``path`` as a looping
+    GIF."""
+    import PIL.Image
+
+    pts = np.asarray(scene["points"], np.float64)
+    if len(pts) == 0:
+        center, radius = np.zeros(3), 1.0
+    else:
+        center = np.median(pts, axis=0)
+        radius = float(np.quantile(
+            np.linalg.norm(pts - center, axis=-1), 0.9)) + 1e-6
+    frames = []
+    for i in range(n_frames):
+        ang = 2 * np.pi * i / n_frames
+        eye = center + 2.5 * radius * np.array([
+            np.sin(ang), -elevation, -np.cos(ang)])
+        frames.append(PIL.Image.fromarray(
+            render_scene_frame(scene, eye, center, hw=hw)))
+    frames[0].save(path, save_all=True, append_images=frames[1:],
+                   duration=int(1000 / fps), loop=0)
+    return path

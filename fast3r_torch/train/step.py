@@ -19,10 +19,20 @@ optimizer state (moments and count) untouched while ``step`` advances.
 The port updates params and moments in place (the JAX step returns new
 arrays); moments take the params' dtype, as optax's do.  Norms (gradient
 norm, clip, ``watch/``) are taken in fp32.
+
+Master weights: ``init_train_state(..., compute_dtype=torch.bfloat16)`` on
+fp32 params keeps them (and the moments) in fp32 as the master and adds a
+working copy in bf16, allocated once, on which ``train_step`` runs the
+forward and backward (the card's kernels take bf16).  The working copy's
+gradients are cast to the master's dtype for the norm, the clip, AdamW and
+``lr_scales``; after an update the working copy is refreshed from the
+master in place.  Without a compute dtype (or with the params' own) there
+is no copy and the step computes in the params' dtype.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Dict, List, Optional, Tuple
@@ -75,10 +85,17 @@ class AdamWState:
 
 @dataclasses.dataclass
 class TrainState:
-    params: Fast3RNet
+    params: Fast3RNet             # the weights AdamW updates (the master)
     opt_state: AdamWState
     step: int
     generator: torch.Generator    # CPU; the decoder's random image ids
+    # the compute copy of params in another dtype (forward and backward),
+    # or None when the step computes on params themselves
+    work: Optional[Fast3RNet] = None
+
+    @property
+    def compute_params(self) -> Fast3RNet:
+        return self.params if self.work is None else self.work
 
 
 def _check_lr_scales(cfg: OptimConfig, params: Fast3RNet) -> None:
@@ -90,16 +107,39 @@ def _check_lr_scales(cfg: OptimConfig, params: Fast3RNet) -> None:
 
 
 def init_train_state(params: Fast3RNet, optim_cfg: OptimConfig,
-                     seed: int = 0) -> TrainState:
-    """Zero moments in the params' dtype and device, count 0, step 0."""
+                     seed: int = 0,
+                     compute_dtype: Optional[torch.dtype] = None
+                     ) -> TrainState:
+    """Zero moments in the params' dtype and device, count 0, step 0; with a
+    ``compute_dtype`` other than the params', a working copy of the params
+    in it (the master-weights road)."""
     _check_lr_scales(optim_cfg, params)
     named = dict(params.named_parameters())
+    work = None
+    if compute_dtype is not None and compute_dtype != next(
+            params.parameters()).dtype:
+        # a copy of the module whose parameters are cast, not copied first
+        memo = {id(p): torch.nn.Parameter(p.detach().to(compute_dtype),
+                                          requires_grad=p.requires_grad)
+                for p in named.values()}
+        work = copy.deepcopy(params, memo)
     return TrainState(
         params=params,
         opt_state=AdamWState(
             count=0, mu={k: torch.zeros_like(p) for k, p in named.items()},
             nu={k: torch.zeros_like(p) for k, p in named.items()}),
-        step=0, generator=torch.Generator().manual_seed(seed))
+        step=0, generator=torch.Generator().manual_seed(seed), work=work)
+
+
+@torch.no_grad()
+def refresh_working_copy(state: TrainState) -> None:
+    """The working copy set from the master (rounded to its dtype), in
+    place; nothing without one."""
+    if state.work is None:
+        return
+    work = dict(state.work.named_parameters())
+    master = list(state.params.named_parameters())
+    torch._foreach_copy_([work[n] for n, _ in master], [p for _, p in master])
 
 
 def global_norm(ts: List[torch.Tensor]) -> torch.Tensor:
@@ -113,25 +153,43 @@ def global_norm(ts: List[torch.Tensor]) -> torch.Tensor:
 def _adamw_update(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
                   state: AdamWState, cfg: OptimConfig, grad_norm: torch.Tensor
                   ) -> None:
-    """One AdamW update in place (params and moments), count advanced."""
+    """One AdamW update in place (params and moments), count advanced:
+    torch's fused AdamW, one call a learning-rate scale.  It decays the
+    param before the Adam step, which is optax's
+    ``p - lr (m / (sqrt(v) + eps) + wd p)`` up to rounding."""
     b1, b2 = cfg.betas
     lr = make_schedule(cfg)(state.count)
     state.count += 1
-    c1, c2 = 1 - b1 ** state.count, 1 - b2 ** state.count
-    # optax's clip_by_global_norm: scale to grad_clip unless below it
-    clip = cfg.grad_clip is not None and not bool(grad_norm < cfg.grad_clip)
+    # optax's clip_by_global_norm: scale to grad_clip unless below it (the
+    # fused call divides the gradients by grad_scale)
+    grad_scale = None
+    if cfg.grad_clip is not None:
+        grad_scale = (grad_norm.float() / cfg.grad_clip).clamp(min=1.0)
     scales = dict(cfg.lr_scales or ())
-    for name, p in params.items():
-        g = grads[name]
-        if clip:
-            g = (g / grad_norm.to(g.device, g.dtype)) * cfg.grad_clip
-        mu, nu = state.mu[name], state.nu[name]
-        mu.mul_(b1).add_(g, alpha=1 - b1)
-        nu.mul_(b2).add_(g.square(), alpha=1 - b2)
-        upd = (mu / c1) / (torch.sqrt(nu / c2) + ADAM_EPS)
-        upd = upd + cfg.weight_decay * p
-        upd = upd * (-lr * scales.get(name.split(".", 1)[0], 1.0))
-        p.copy_(p + upd)
+    groups: Dict[float, List[str]] = {}
+    for name in params:
+        groups.setdefault(scales.get(name.split(".", 1)[0], 1.0),
+                          []).append(name)
+    for scale, names in groups.items():
+        ps = [params[n] for n in names]
+        dev = ps[0].device
+        count = torch.tensor(float(state.count), device=dev)
+        # the fused kernels walk every list's tensors in one layout: the
+        # gradients in their param's dtype and strides
+        gs = [grads[n] for n in names]
+        if any((g.dtype, g.stride()) != (p.dtype, p.stride())
+               for g, p in zip(gs, ps)):
+            cast = [torch.empty_like(p) for p in ps]
+            torch._foreach_copy_(cast, gs)
+            gs = cast
+        torch._fused_adamw_(
+            ps, gs,
+            [state.mu[n] for n in names], [state.nu[n] for n in names], [],
+            [count] * len(ps), lr=lr * scale, beta1=b1, beta2=b2,
+            weight_decay=cfg.weight_decay, eps=ADAM_EPS, amsgrad=False,
+            maximize=False,
+            grad_scale=None if grad_scale is None else grad_scale.to(dev),
+            found_inf=None)
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -151,7 +209,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     Metrics: loss, lr, grad_norm, skipped_nonfinite, the loss details and
     ``watch/grad_norm/{group}``, ``watch/param_norm/{group}``.
     """
-    net = state.params
+    net = state.compute_params
     p0 = next(net.parameters())
     dev, dt = p0.device, p0.dtype
     b = {k: torch.as_tensor(batch[k]).to(dev) for k in
@@ -178,13 +236,16 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    "grad_norm": grad_norm,
                    "skipped_nonfinite": int(not finite),
                    **{k: v.detach() for k, v in details.items()}}
-        for group, mod in net.named_children():
+        for group, mod in state.params.named_children():
             names = [f"{group}.{k}" for k, _ in mod.named_parameters()]
             metrics[f"watch/grad_norm/{group}"] = global_norm(
                 [grads[n] for n in names if n in grads])
             metrics[f"watch/param_norm/{group}"] = global_norm(
                 [p for _, p in mod.named_parameters()])
     if finite:
-        _adamw_update(named, grads, state.opt_state, optim_cfg, grad_norm)
+        master = dict(state.params.named_parameters())
+        _adamw_update({k: master[k] for k in named}, grads, state.opt_state,
+                      optim_cfg, grad_norm)
+        refresh_working_copy(state)
     state.step += 1
     return state, metrics

@@ -11,6 +11,9 @@ Counterpart of ``fast3r_tpu/train/trainer.py`` (``TrainerConfig``,
   * sample and image counters that sum the batches actually seen, all-reduced
     over the ranks when ``torch.distributed`` is initialised (the JAX
     trainer multiplies the local count by the host count);
+  * fp32 params and AdamW moments, as the JAX trainer's; on the card the
+    forward and backward run on a bf16 working copy of them
+    (``init_train_state(compute_dtype=...)``), refreshed after each update;
   * ``torch.save`` checkpoints of {params, optimizer state, step, generator
     state, epoch, counters}: "last" after every epoch (with the next epoch
     to run, so a resume continues rather than repeats) and
@@ -54,9 +57,9 @@ from fast3r_torch.models.fast3r import (
 )
 from fast3r_torch.train.losses import LossConfig, conf_loss_multiview_v2
 from fast3r_torch.train.step import (
-    AdamWState,
     OptimConfig,
     init_train_state,
+    refresh_working_copy,
     train_step,
 )
 from fast3r_torch.utils.checkpoint_utils import RUN_CONFIG, config_to_dict
@@ -106,10 +109,13 @@ class Trainer:
     def __init__(self, model_cfg: Fast3RConfig, optim_cfg: OptimConfig,
                  loss_cfg: LossConfig = LossConfig(),
                  trainer_cfg: TrainerConfig = TrainerConfig(),
-                 params: Optional[Fast3RNet] = None, device="cuda",
-                 dtype=torch.bfloat16):
-        """``params`` default to ``init_fast3r(model_cfg, trainer_cfg.seed)``
-        in ``dtype`` on ``device`` (the card's kernels train bf16 params)."""
+                 params: Optional[Fast3RNet] = None, device="cuda"):
+        """``params`` (the master weights AdamW updates) default to
+        ``init_fast3r(model_cfg, trainer_cfg.seed)`` in fp32 on ``device``.
+        On a CUDA device the forward and backward run on a bf16 working
+        copy of them (the card's kernels take bf16), elsewhere on the
+        params themselves.  Params handed in bf16 train in bf16, without a
+        copy."""
         self.model_cfg = model_cfg
         self.optim_cfg = optim_cfg
         self.loss_cfg = loss_cfg
@@ -121,9 +127,11 @@ class Trainer:
             os.path.join(self.cfg.run_dir, "metrics.csv"),
             sinks=self.cfg.loggers)
         if params is None:
-            params = init_fast3r(model_cfg, trainer_cfg.seed, dtype, device)
-        self.state = init_train_state(params.train(), optim_cfg,
-                                      trainer_cfg.seed + 1)
+            params = init_fast3r(model_cfg, trainer_cfg.seed, torch.float32,
+                                 device)
+        self.state = init_train_state(
+            params.train(), optim_cfg, trainer_cfg.seed + 1,
+            torch.bfloat16 if next(params.parameters()).is_cuda else None)
         # parameter accounting (reference utils/logging_utils.py:18-63)
         by_top = {name: sum(p.numel() for p in mod.parameters())
                   for name, mod in params.named_children()}
@@ -178,12 +186,23 @@ class Trainer:
         if not os.path.exists(path):
             return False
         s = self.state
-        dev = next(s.params.parameters()).device
         t = time.time()
-        blob = torch.load(path, map_location=dev, weights_only=True)
+        # mapped on the host and copied into the state's own tensors (their
+        # device and dtype), so the card never holds two copies
+        blob = torch.load(path, map_location="cpu", weights_only=True,
+                          mmap=True)
         s.params.load_state_dict(blob["params"])
+        refresh_working_copy(s)
         o = blob["opt_state"]
-        s.opt_state = AdamWState(count=o["count"], mu=o["mu"], nu=o["nu"])
+        with torch.no_grad():
+            for mine, saved in ((s.opt_state.mu, o["mu"]),
+                                (s.opt_state.nu, o["nu"])):
+                if mine.keys() != saved.keys():
+                    raise ValueError(f"{path}: optimizer state of other "
+                                     "parameters")
+                for k, v in saved.items():
+                    mine[k].copy_(v)
+        s.opt_state.count = o["count"]
         s.step = blob["step"]
         s.generator.set_state(blob["generator"].cpu())
         self.epoch = blob["epoch"]
@@ -278,7 +297,7 @@ class Trainer:
 
         recon_epoch_ok = epoch == 0 or (
             (epoch + 1) % self.cfg.recon_val_every_n_epochs == 0)
-        net = self.state.params
+        net = self.state.compute_params
         p0 = next(net.parameters())
         results: Dict[str, float] = {}
         for name, loader in val_loaders.items():

@@ -5,8 +5,9 @@ Counterpart of ``fast3r_tpu/utils/checkpoint_utils.py`` (``load_model``,
 ``load_model`` accepts an HF-format directory (config.json + weights) or a
 run directory of the port's ``train/trainer.py`` (model_config.json,
 written by :func:`config_to_dict`, + checkpoints/{name}.pt; the training
-CLI also writes config.yaml there), and applies the reference's inference
-override (plain patch embedding).  A fast3r_tpu run directory (config.yaml
+CLI also writes config.yaml there) in the ``dtype`` asked for (a run's
+fp32 master weights serve in bf16 on the card), and applies the
+reference's inference override (plain patch embedding).  A fast3r_tpu run directory (config.yaml
 and an orbax checkpoint, no checkpoints/{name}.pt) raises.
 """
 
@@ -42,7 +43,10 @@ def load_model(checkpoint_dir: str, dtype=torch.float32, device="cuda",
         with open(os.path.join(checkpoint_dir, RUN_CONFIG)) as f:
             cfg = serving_config(config_from_dict(json.load(f)))
         net = empty_fast3r(cfg, device="cpu")
-        blob = torch.load(run_ckpt, map_location="cpu", weights_only=True)
+        # mapped, not read: only the params are touched, not the optimizer
+        # moments beside them (two more copies of the weights)
+        blob = torch.load(run_ckpt, map_location="cpu", weights_only=True,
+                          mmap=True)
         net.load_state_dict(blob["params"], strict=True)
         return Fast3R(cfg, net.to(device=device, dtype=dtype))
     model = Fast3R.from_pretrained(checkpoint_dir, dtype=dtype, device=device)

@@ -170,7 +170,7 @@ def _tiny_trainer(tmp_path, **kw):
                                                     total_steps=50),
                    trainer_cfg=TrainerConfig(run_dir=str(tmp_path), remat=False,
                                              log_every_n_steps=1, **kw),
-                   device="cpu", dtype=torch.float32)
+                   device="cpu")
 
 
 def test_signal_handlers_set_a_flag_and_restore(tmp_path):

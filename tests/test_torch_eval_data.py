@@ -81,12 +81,7 @@ def test_resize_linear_matches_cv2(src, dst, channels):
     want = cv2.resize(img, dst[::-1])
     got = imgproc.resize_linear(img, dst[::-1])
     assert got.dtype == np.uint8 and got.shape == want.shape
-    d = np.abs(got.astype(int) - want.astype(int))
-    if dst[0] <= src[0] and dst[1] <= src[1]:
-        np.testing.assert_array_equal(got, want)   # downscale, equal size
-    else:
-        assert d.max() <= 1 and (d > 0).mean() < 0.02
-        assert not d[1:-1].any()                   # only the edge rows
+    np.testing.assert_array_equal(got, want)   # every shape, upscales too
 
 
 def test_cv2_ops_match():

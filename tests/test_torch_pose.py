@@ -199,10 +199,16 @@ def test_pose_from_local_head_and_seeded_draws():
 
 
 def test_individual_focal_raises():
+    """The "individual" mode gives a focal a view (held against JAX's cv2
+    backend in tests/test_torch_focal_gif.py); an unknown mode raises."""
     pts, conf, _ = synthetic_scene(V=2)
-    with pytest.raises(NotImplementedError, match="individual"):
+    _, focals = t_pose.estimate_camera_poses(
+        _preds(pts, conf), focal_length_estimation_method="individual",
+        device="cpu")
+    assert len(focals[0]) == 2 and all(np.isfinite(focals[0]))
+    with pytest.raises(ValueError, match="per_view"):
         t_pose.estimate_camera_poses(
-            _preds(pts, conf), focal_length_estimation_method="individual",
+            _preds(pts, conf), focal_length_estimation_method="per_view",
             device="cpu")
 
 

@@ -404,7 +404,7 @@ def test_load_model_run_dir_and_refusals(tmp_path):
     _, _, model = _tiny()
     tr = Trainer(model.cfg, OptimConfig(),
                  trainer_cfg=TrainerConfig(run_dir=str(tmp_path / "run")),
-                 params=model.to().params, device="cpu", dtype=torch.float32)
+                 params=model.to().params, device="cpu")
     tr.save_checkpoint("last")
     loaded = t_cu.load_model(str(tmp_path / "run"), device="cpu")
     for k, v in model.params.state_dict().items():

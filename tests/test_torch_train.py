@@ -336,17 +336,30 @@ def test_params_to_jax_round_trip(setup):
 
 def test_training_forward_scale_and_dropout(setup):
     """The training decoder scale has no entropy bias; a non-zero dropout
-    rate raises in a training forward; a training forward without ids or a
-    generator raises."""
+    rate drops in a training forward given a generator (one seed, one
+    output; without a generator the forward equals the zero-rate one); a
+    training forward without ids or a generator raises."""
     _, _, cfg = setup
     assert cfg.decoder.attn_scale(True) == cfg.decoder.head_dim ** -0.5
     assert cfg.decoder.attn_scale() > cfg.decoder.attn_scale(True)
-    net = fast3r_torch.models.fast3r.empty_fast3r(cfg, device="cpu")
-    imgs = torch.zeros((1, 2, 32, 48, 3))
+    net = fast3r_torch.models.fast3r.init_fast3r(cfg, seed=0, device="cpu")
+    imgs = torch.from_numpy(_batch(17)["imgs"][:1, :2])
+    ids = torch.tensor([[0, 5]], dtype=torch.int32)
     drop = dataclasses.replace(
-        cfg, encoder=dataclasses.replace(cfg.encoder, drop_path=0.1))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        fast3r_torch.fast3r_forward(net, drop, imgs, is_training=True,
-                                    view_ids=torch.zeros((1, 2), dtype=torch.int32))
+        cfg, encoder=dataclasses.replace(cfg.encoder, drop=0.1))
+    with torch.no_grad():
+        a, b = (fast3r_torch.fast3r_forward(
+            net, drop, imgs, is_training=True,
+            generator=torch.Generator().manual_seed(5)) for _ in range(2))
+        plain = fast3r_torch.fast3r_forward(net, drop, imgs, is_training=True,
+                                            view_ids=ids)
+        ref = fast3r_torch.fast3r_forward(net, cfg, imgs, is_training=True,
+                                          view_ids=ids)
+    for k in ref:
+        assert torch.equal(a[k], b[k]) and torch.equal(plain[k], ref[k]), k
+        assert torch.isfinite(a[k]).all(), k
+    assert not torch.equal(a["conf"], fast3r_torch.fast3r_forward(
+        net, drop, imgs, is_training=True,
+        generator=torch.Generator().manual_seed(6))["conf"])
     with pytest.raises(ValueError, match="generator"):
         fast3r_torch.fast3r_forward(net, cfg, imgs, is_training=True)
