@@ -8,7 +8,7 @@ printing each one's seconds:
 
   1. device: the card's name and power limit, torch / CUDA versions, the
      kernel build time and what ptxas reports for every kernel; for the
-     Hopper kernels (``fused_gemm_kernel<PRO, EPI>``, ``ln_mlp_kernel``,
+     Hopper kernels (``fused_gemm_kernel<PRO, EPI, WIDE>``, ``ln_mlp_kernel<C>``,
      the attention forward's ``attention_fwd_kernel`` and the bf16 ring
      ``ring_attention_fwd_kernel``, the attention backward's
      ``attention_bwd_dq_kernel`` and ``attention_bwd_dkv_kernel`` and the
@@ -222,11 +222,48 @@ printing each one's seconds:
      the plain road (no fused kernel launched, its road printed); the
      seven legacy losses of ``train/losses.py`` at 384x512 on the card
      against the CPU (1e-4 relative);
-  22. launch counts: every kernel of a path must have launched on it, the
+  22. the DINOv2 model (the ViT-L/14 encoder of ``DinoEncoderConfig()``, the
+     flagship's decoder and heads at patch 14; random weights seed 0,
+     bfloat16, 648,820,104 parameters) serves a 20-view 392x518 request
+     twice and a mixed request (10 x 392x518, 10 x 518x392: the encoder's
+     portrait branch) twice, counts reset before and read after each path;
+     each view shape's head road (``head_road``) printed and its kernel
+     (K8 or K12) required; a 2-view 224x224 request in bf16 on the card
+     (fused and plain roads) within 5% relative L2 of fp32 on the CPU;
+  23. one DINOv2-model training step, 8 views at 224x224, on fp32 master
+     weights with a bf16 working copy (remat), finite, its launches
+     counted;
+  24. the model_scaling overlays (``configs/experiment/model_scaling``:
+     base 768 x 12 decoder at 12 heads, large 1024 x 24 at 16, huge 1280 x
+     32 at 16, head_dim 80), each built through ``config.py`` at full
+     width (random weights seed 0): an 8-view 224x224 request in bf16
+     twice, three ``train_step``s of batch 8 x 8 views at 224x224 on fp32
+     master weights (remat; step seconds, peak memory), a 2-view step's
+     loss and gradients against fp32 on the CPU (phase 6's 5%); then
+     ``fast3r_torch.cli.train --experiment model_scaling/model_scaling_huge``
+     in this process on a CO3D-format root (phase 19's writer), its
+     datasets cut to the Co3d entries (24 training samples: 3 steps of
+     batch 8; 2 validation samples), one epoch, every loss finite, the
+     master-weights road;
+  25. the widened kernels against their plain versions under the
+     tolerances of their head_dim-64 / width-1024 checks: K1 at head_dim
+     80 on the huge decoder's (8, 1568, 16, 80) in fp32 and bf16 and at
+     head_dim 64 on the DINO encoder's 1037-token views (a ragged key
+     tile); K9 at (8, 1568, 16, 80); K12 on the DINO requests' heads (20 x
+     224x296 -> 392x518, 10 x 296x224 -> 518x392) and K8 at 224x224
+     (patch 14: 8 x 128x128; patch 16: 64 x 112x112); the fused GEMMs
+     (ln_qkv, ln_matmul GELU, the replay on fc1 and qkv, matmul_residual on
+     proj and fc2) and the whole-MLP kernel at widths 768 and 1280 (M =
+     12544 rows, hidden 4 x width), each with its library call's time and
+     its bound; the kernel summary lists each of these shapes as an entry
+     of its own, with its launches on the paths that run it;
+  26. launch counts: every kernel of a path must have launched on it, the
      RMS kernels on no path but the llama fused road's, K12 on no path of
      384x512 views, the trunk kernel on no path of 512x512 or 448x512
-     views, the ring kernels on no path but the sequence-sharded ones; no
-     layout copy on a serving path.
+     views, the ring kernels on no path but the sequence-sharded ones, the
+     CroCo encoder's kernels on no path of the DINO model's, no backward
+     kernel on a serving path of phases 22-24; no layout copy on a serving
+     path.
 
 Any failure raises (exit code 1).  Without a CUDA device the script exits
 with code 2 before printing any result.  The last line of standard output
@@ -260,7 +297,8 @@ from fast3r_torch.eval.recon import align_local_pts3d_to_global
 from fast3r_torch.inference import inference_from_raw
 from fast3r_torch.kernels import build
 from fast3r_torch.models.decoder import sample_random_image_ids
-from fast3r_torch.models.dpt_head import dpt_head_forward
+from fast3r_torch.models.dino_encoder import DinoEncoderConfig
+from fast3r_torch.models.dpt_head import dpt_head_forward, head_road
 from fast3r_torch.models.llama_decoder import LlamaDecoderConfig
 from fast3r_torch.nn import fused_block as fb
 from fast3r_torch.ops.batched_attention import (
@@ -466,7 +504,7 @@ def _sass_tool() -> str:
 
 
 def _kernel_label(mangled: str):
-    """fused_gemm_kernel<1, 3>, ln_mlp_kernel, attention_fwd_kernel,
+    """fused_gemm_kernel<1, 3, 0>, ln_mlp_kernel<1024>, attention_fwd_kernel,
     ring_bwd_dkv_kernel<bf16>, ... from a mangled name (matched with its
     length prefix, so attention_fwd_kernel is not ring_attention_fwd_kernel);
     None for a kernel that is not on wgmma and TMA (the fp32 variants, the
@@ -474,15 +512,21 @@ def _kernel_label(mangled: str):
     if "17trunk_conv_kernel" in mangled:  # conv1 <1>, conv2 <2>
         return f"trunk_conv_kernel<{1 if 'ILi1E' in mangled else 2}>"
     if "fused_gemm_kernel" in mangled:
-        tail = mangled.split("fused_gemm_kernel", 1)[1]
-        modes = tail.split("EE", 1)[0].replace("ILi", "").split("ELi")
+        import re
+
+        tail = mangled.split("fused_gemm_kernel", 1)[1].split("EE", 1)[0]
+        modes = re.findall(r"L[ib](\d+)E", tail + "E")  # prologue, epilogue, wide
         return f"fused_gemm_kernel<{', '.join(modes)}>"
+    if "ln_mlp_kernel" in mangled:  # one instantiation a width
+        return "ln_mlp_kernel<" + mangled.split("ln_mlp_kernel", 1)[1].split(
+            "ILi", 1)[1].split("E", 1)[0] + ">"
     for label in ATTN_KERNELS:
         name = label.split("<")[0]
         if f"{len(name)}{name}" in mangled and (
                 "<" not in label or "bfloat16" in mangled):
-            return label
-    return "ln_mlp_kernel" if "ln_mlp_kernel" in mangled else None
+            # K1 and K9 at head_dim 80 (the model_scaling_huge decoder)
+            return f"{label}<80>" if "ILi80E" in mangled else label
+    return None
 
 
 # the attention kernels on the wgmma tiles: the forward's
@@ -491,6 +535,10 @@ def _kernel_label(mangled: str):
 ATTN_KERNELS = {"attention_fwd_kernel": "fwd", "ring_attention_fwd_kernel": "ring_fwd",
                 "attention_bwd_dq_kernel": "bwd", "attention_bwd_dkv_kernel": "bwd",
                 "ring_bwd_dq_kernel<bf16>": "bwd", "ring_bwd_dkv_kernel<bf16>": "bwd"}
+# the head_dim-80 instantiations of K1's and K9's kernels
+ATTN_KERNELS_80 = {"attention_fwd_kernel<80>": "fwd80",
+                   "attention_bwd_dq_kernel<80>": "bwd80",
+                   "attention_bwd_dkv_kernel<80>": "bwd80"}
 
 
 # K8's two launches (csrc/trunk.cu): conv1, and conv2 with the resize and
@@ -526,7 +574,8 @@ def hopper_kernel_report(blog: str, sass: str) -> dict:
             for op in ("HGMMA", "UTMALDG"):
                 if op in line:
                     report[name][op] += 1
-    missing = [n for n in (*ATTN_KERNELS, *TRUNK_KERNELS) if n not in report]
+    missing = [n for n in (*ATTN_KERNELS, *ATTN_KERNELS_80, *TRUNK_KERNELS)
+               if n not in report]
     if not report or missing:
         raise AssertionError(f"Hopper kernels missing from the library: "
                              f"{missing or 'all'}")
@@ -534,11 +583,14 @@ def hopper_kernel_report(blog: str, sass: str) -> dict:
     smem = {"fwd": lib.fast3r_attention_fwd_smem_bytes(),
             "ring_fwd": lib.fast3r_ring_attention_fwd_smem_bytes(),
             "bwd": lib.fast3r_attention_bwd_smem_bytes(),
+            "fwd80": lib.fast3r_attention_fwd_smem_bytes_d80(),
+            "bwd80": lib.fast3r_attention_bwd_smem_bytes_d80(),
             "gemm": lib.fast3r_gemm_smem_bytes(),
             "trunk1": lib.fast3r_trunk_smem_bytes(1),
             "trunk2": lib.fast3r_trunk_smem_bytes(2)}
     for name, r in sorted(report.items()):
-        r["smem"] = smem[ATTN_KERNELS.get(name, TRUNK_KERNELS.get(name, "gemm"))]
+        r["smem"] = smem[{**ATTN_KERNELS, **ATTN_KERNELS_80}.get(
+            name, TRUNK_KERNELS.get(name, "gemm"))]
         log(f"hopper kernel {name}: {'; '.join(r['ptxas'])}; dynamic shared "
             f"memory {r['smem']} bytes; SASS HGMMA {r.get('HGMMA', 0)}, "
             f"UTMALDG {r.get('UTMALDG', 0)}")
@@ -1176,34 +1228,40 @@ def _attn_bwd_bound(B, N, H, D):
                  8 * B * N * H * D * 2 + 2 * B * H * N * 4)
 
 
-def _device_ms(fn, names: dict, reps: int = 5) -> dict:
+def _device_ms(fn, names: dict, reps: int = 5, tries: int = 3) -> dict:
     """Mean device time a call of each kernel whose name contains
-    names[key], over reps calls of fn under the profiler: {key: ms}."""
+    names[key], over reps calls of fn under the profiler: {key: ms}.  A
+    profile that lost a kernel's records (a 0) is taken again, up to
+    ``tries`` profiles."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys(names, 0.0)
-    for evt in prof.key_averages():
-        us = (getattr(evt, "self_device_time_total", 0)
-              or getattr(evt, "self_cuda_time_total", 0))
-        for key, sub in names.items():
-            if sub in evt.key:
-                out[key] += us / reps / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = dict.fromkeys(names, 0.0)
+        for evt in prof.key_averages():
+            us = (getattr(evt, "self_device_time_total", 0)
+                  or getattr(evt, "self_cuda_time_total", 0))
+            for key, sub in names.items():
+                if sub in evt.key:
+                    out[key] += us / reps / 1e3
+        if all(out.values()):
+            break
     return out
 
 
 def _pass_rates(B, N, H, D, ms: dict) -> dict:
     """The dq pass's and the dk/dv pass's device times and TFLOP/s over the
-    products each runs: dq 3 (6 B H N^2 D FLOPs), dk/dv 4 (8)."""
+    products each runs: dq 3 (6 B H N^2 D FLOPs), dk/dv 4 (8); a pass whose
+    records every profile lost is None (not measured)."""
     flops = {"dq": 6.0 * B * H * N * N * D, "dkv": 8.0 * B * H * N * N * D}
-    return {**{f"{k}_ms": v for k, v in ms.items()},
-            **{f"{k}_tflops": flops[k] / (v * 1e-3) / 1e12
+    return {**{f"{k}_ms": v or None for k, v in ms.items()},
+            **{f"{k}_tflops": flops[k] / (v * 1e-3) / 1e12 if v else None
                for k, v in ms.items()}}
 
 
@@ -1437,6 +1495,223 @@ def check_rms(results: list) -> None:
     torch.cuda.empty_cache()
 
 
+# the model_scaling decoders' shapes (configs/experiment/model_scaling/*:
+# 8 views of 224x224 a sample, 196 tokens a view, batch 8): 1568 tokens a
+# sample's decoder sequence, 12544 rows a product; width -> heads
+MS_TOK, MS_ROWS = 8 * 196, 8 * 8 * 196
+MS_WIDTHS = {768: 12, 1280: 16}
+DINO_TOK = 1 + 28 * 37  # a 392x518 view's tokens in the DINO encoder
+
+
+def _attention_case(results, name, shape, scale, dtype, kernel):
+    """K1 (flash_attention, the forward kernel at the shape's head_dim) on
+    strided views of a packed (B, N, 3, H, D) buffer against its plain
+    version; a bf16 case's line carries the device time and TFLOP/s."""
+    B, N, H, D = shape
+    qkv = torch.randn((B, N, 3, H, D), generator=_gen(11), device="cuda",
+                      dtype=torch.float32).to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    r = compare("attention", flash_attention(q, k, v, scale),
+                attention_ref(q, k, v, scale), dtype)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale)  # noqa: E731
+    r.update(kernel="attention", case=f"{name} {B}x{N}x{H}x{D}",
+             dtype=str(dtype).split(".")[-1],
+             ms=median_ms(lambda: flash_attention(q, k, v, scale), 10),
+             plain_ms=median_ms(lambda: attention_ref(q, k, v, scale), 3),
+             library="F.scaled_dot_product_attention",
+             library_ms=median_ms(sdpa, 10),
+             **bound(4.0 * B * H * N * N * D, 4 * B * N * H * D * qkv.element_size(),
+                     dtype))
+    if dtype == torch.bfloat16:
+        r.update(fwd_rates(float(B * H) * N * N, D,
+                           lambda: flash_attention(q, k, v, scale), kernel, sdpa))
+    results.append(r)
+    log(json.dumps(r))
+
+
+def check_widths(results: list) -> None:
+    """Phase 25: the kernels widened for the model_scaling decoders and the
+    DINO encoder, each against its plain version under the tolerance of
+    its head_dim-64 / K = 1024 check: K1 at head_dim 80 on the huge
+    decoder's (8, 1568, 16, 80) in fp32 and bf16, and at head_dim 64 on the
+    DINO encoder's 1037 tokens a 392x518 view (a ragged last key tile);
+    K9 at (8, 1568, 16, 80); the fused GEMMs (K3 ln_qkv, K5 ln_matmul GELU
+    and matmul_residual, K11 the replay) and the whole-MLP kernel (K6) at
+    the 768 and 1280 widths, M = 12544 rows (hidden 4 x width)."""
+    log("== phase 25: the widened kernels (head_dim 80; widths 768, 1280)")
+    bf, it = torch.bfloat16, 2
+    huge = (8, MS_TOK, 16, 80)
+    for dtype in (torch.float32, bf):
+        _attention_case(results, "huge decoder", huge, 80 ** -0.5, dtype,
+                        "attention_fwd_kernel<80>")
+    _attention_case(results, "dino encoder", (20, DINO_TOK, 16, 64), 0.125, bf,
+                    "attention_fwd_kernel<64>")
+    torch.cuda.empty_cache()
+
+    B, N, H, D = huge
+    g = _gen(12)
+    qkv = torch.randn((B, N, 3, H, D), generator=g, device="cuda").to(bf)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn((B, N, H, D), generator=g, device="cuda").to(bf)
+    scale = D ** -0.5
+    o, lse = attention_fwd_lse(q, k, v, scale)
+    got = attention_bwd(q, k, v, o, lse, do, scale)
+    ref = attention_bwd_ref(q, k, v, o, lse, do, scale)
+    errs = [compare("attention_bwd", a, b, bf) for a, b in zip(got, ref)]
+    del ref
+    ql, kl, vl = (t.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+    r = dict(_merge(errs), kernel="attention_bwd",
+             case=f"huge decoder {B}x{N}x{H}x{D}", dtype="bfloat16",
+             ms=median_ms(lambda: attention_bwd(q, k, v, o, lse, do, scale), 10),
+             plain_ms=median_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do,
+                                                          scale), 2),
+             library="autograd of F.scaled_dot_product_attention",
+             library_ms=_grad_ms(ol, (ql, kl, vl), do.transpose(1, 2), 10),
+             **_pass_rates(B, N, H, D, _device_ms(
+                 lambda: attention_bwd(q, k, v, o, lse, do, scale),
+                 {"dq": "attention_bwd_dq_kernel<80>",
+                  "dkv": "attention_bwd_dkv_kernel<80>"})),
+             **_attn_bwd_bound(B, N, H, D))
+    results.append(r)
+    log(json.dumps(r))
+    del qkv, q, k, v, do, o, lse, got, ql, kl, vl, ol
+    torch.cuda.empty_cache()
+
+    # the heads' kernels at the variants' view shapes, by head_road: K12 on
+    # the DINO requests' 392x518 and 518x392 views (path1 at 8x the 28 x 37
+    # patch grid, a 1.75x resize), K8 at 224x224 (patch 14: 128 x 128;
+    # patch 16: 112 x 112)
+    for shape, (Hh, Wh) in (((20, 128, 224, 296), (392, 518)),
+                            ((10, 128, 296, 224), (518, 392))):
+        xr = torch.randn(shape, generator=g, device="cuda").to(bf)
+        out = resize_bilinear_kernel(xr, Hh, Wh)
+        r = compare("resize", out, resize_matmul(xr, Hh, Wh), bf)
+        b_, c_, h_, w_ = shape
+        r.update(kernel="resize", case=f"dino {b_}x{c_}x{h_}x{w_} -> {Hh}x{Wh}",
+                 dtype="bfloat16",
+                 ms=median_ms(lambda: resize_bilinear_kernel(xr, Hh, Wh), 20),
+                 plain_ms=median_ms(lambda: resize_matmul(xr, Hh, Wh), 5),
+                 library="F.interpolate(bilinear, align_corners=True)",
+                 library_ms=median_ms(lambda: F.interpolate(
+                     xr, size=(Hh, Wh), mode="bilinear", align_corners=True), 20),
+                 **bound(3.0 * b_ * c_ * Hh * (w_ + Wh),
+                         (xr.numel() + out.numel()) * 2, torch.float32))
+        results.append(r)
+        log(json.dumps(r))
+        del xr, out
+    for name, (n, hh) in (("dino", (8, 128)), ("model_scaling", (64, 112))):
+        x, wts = _trunk_inputs(n, hh, hh, 256, bf)
+        targs = (*wts, 224, 224)
+        xc = x.permute(0, 3, 1, 2)
+        out = fused_regression_head_t(x, *targs)
+        r = compare("trunk", out, _plain_head(xc, *targs).reshape(n, 4, -1), bf)
+        flops = 2.0 * (n * hh * hh * 128 * 256 * 9
+                       + n * 224 * 224 * (128 * 128 * 9 + 128 * 4))
+        r.update(kernel="trunk", case=f"{name} {n}x{hh}x{hh}x256 -> 224x224",
+                 dtype="bfloat16",
+                 ms=median_ms(lambda: fused_regression_head_t(x, *targs), 5),
+                 plain_ms=median_ms(lambda: _plain_head(xc, *targs), 3),
+                 library="F.conv2d + F.interpolate(bilinear, align_corners) + "
+                         "F.conv2d + F.relu + F.conv2d",
+                 library_ms=median_ms(lambda: F.conv2d(F.relu(F.conv2d(
+                     F.interpolate(F.conv2d(xc, wts[0], wts[1], padding=1),
+                                   size=(224, 224), mode="bilinear",
+                                   align_corners=True),
+                     wts[2], wts[3], padding=1)), wts[4], wts[5]), 5),
+                 **bound(flops, (x.numel() + n * 4 * 224 * 224) * 2, bf))
+        results.append(r)
+        log(json.dumps(r))
+        del x, xc, out
+    torch.cuda.empty_cache()
+
+    M = MS_ROWS
+    for c, heads in MS_WIDTHS.items():
+        hid = 4 * c
+        x = (torch.randn((M, c), generator=g, device="cuda") * 2 + 0.5).to(bf)
+        gamma = (1 + 0.1 * torch.randn((c,), generator=g, device="cuda")).to(bf)
+        beta = (0.1 * torch.randn((c,), generator=g, device="cuda")).to(bf)
+        wqkv, bqkv = _linear(3 * c, c, g)
+        wproj, bproj = _linear(c, c, g)
+        w1, b1 = _linear(hid, c, g)
+        w2, b2 = _linear(c, hid, g)
+
+        def ln_linear(w, b, eps):
+            return F.linear(F.layer_norm(x, (c,), gamma, beta, eps), w, b)
+
+        args = (x, gamma, beta, wqkv, bqkv, 1e-6)
+        _record(results, "ln_qkv", "fused_gemm", f"K={c} {M}x{c} -> 3x{c}",
+                torch.stack(fb.ln_qkv(*args)), torch.stack(fb.ln_qkv_ref(*args)),
+                lambda: fb.ln_qkv(*args), lambda: fb.ln_qkv_ref(*args),
+                lambda: ln_linear(wqkv, bqkv, 1e-6).split(c, dim=1),
+                "F.layer_norm + F.linear", 2.0 * M * c * 3 * c,
+                (3 * c * c + 5 * c + 4 * M * c) * it)
+        args = (x, gamma, beta, w1, b1, 1e-6)
+        _record(results, "ln_matmul", "fused_gemm", f"K={c} {M}x{c} -> {hid} gelu",
+                fb.ln_matmul(*args, act="gelu"), fb.ln_matmul_ref(*args, act="gelu"),
+                lambda: fb.ln_matmul(*args, act="gelu"),
+                lambda: fb.ln_matmul_ref(*args, act="gelu"),
+                lambda: F.gelu(ln_linear(w1, b1, 1e-6)),
+                "F.layer_norm + F.linear + F.gelu", 2.0 * M * c * hid,
+                (M * c + hid * c + hid + 2 * c + M * hid) * it)
+        for mode, w, b, n, lib in (
+                ("gelu", w1, b1, hid, lambda: F.gelu(ln_linear(w1, b1, 1e-6))),
+                ("qkv", wqkv, bqkv, 3 * c, lambda: ln_linear(wqkv, bqkv, 1e-6))):
+            rargs = (mode, x, gamma, beta, w, b, 1e-6, None, heads)
+            got = fb._replay(*rargs)
+            ref = fb._replay_ref(*rargs)
+            errs = [compare("fused_gemm", got[0], ref[0], bf),
+                    compare("replay_u", got[1], ref[1], bf)]
+            errs += [compare("replay_stats", a, e, bf)
+                     for a, e in zip(got[2:4], ref[2:4])]
+            if mode == "gelu":
+                errs.append(compare("fused_gemm", got[4], ref[4], bf))
+            r = dict(errs[0], kernel="ln_matmul_replay",
+                     case=f"K={c} {mode} {M}x{c} -> {n}", dtype="bfloat16",
+                     max_abs_err_residuals=max(e["max_abs_err"] for e in errs[1:]),
+                     ms=median_ms(lambda: fb._replay(*rargs), 10),
+                     plain_ms=median_ms(lambda: fb._replay_ref(*rargs), 3),
+                     library="F.layer_norm + F.linear"
+                     + (" + F.gelu" if mode == "gelu" else ""),
+                     library_ms=median_ms(lib, 10),
+                     **bound(2.0 * M * c * n,
+                             (2 * M * c + n * c + M * n) * it + (n + 2 * c + 2 * M) * 4
+                             + (M * n * it if mode == "gelu" else 0)))
+            results.append(r)
+            log(json.dumps(r))
+            del got, ref
+        o = (torch.randn((M, c), generator=g, device="cuda") * 0.5).to(bf)
+        args = (o, wproj, bproj, x)
+        _record(results, "matmul_residual", "fused_gemm", f"K={c} proj {M}x{c} -> {c}",
+                fb.matmul_residual(*args), fb.matmul_residual_ref(*args),
+                lambda: fb.matmul_residual(*args),
+                lambda: fb.matmul_residual_ref(*args),
+                lambda: F.linear(o, wproj, bproj) + x, "F.linear + add",
+                2.0 * M * c * c, (3 * M * c + c * c + c) * it)
+        h = fb.ln_matmul(x, gamma, beta, w1, b1, 1e-6, act="gelu")
+        args = (h, w2, b2, x)
+        _record(results, "matmul_residual", "fused_gemm", f"K={hid} fc2 {M}x{hid} -> {c}",
+                fb.matmul_residual(*args), fb.matmul_residual_ref(*args),
+                lambda: fb.matmul_residual(*args),
+                lambda: fb.matmul_residual_ref(*args),
+                lambda: F.linear(h, w2, b2) + x, "F.linear + add",
+                2.0 * M * hid * c, (M * hid + 2 * M * c + hid * c + c) * it)
+        args = (x, gamma, beta, w1, b1, w2, b2, 1e-6)
+        _record(results, "ln_mlp", "ln_mlp", f"C={c} {M}x{c}, hidden {hid}",
+                fb.ln_mlp(*args), fb.ln_mlp_ref(*args),
+                lambda: fb.ln_mlp(*args), lambda: fb.ln_mlp_ref(*args),
+                lambda: x + F.linear(F.gelu(ln_linear(w1, b1, 1e-6)), w2, b2),
+                "F.layer_norm + F.linear + F.gelu + F.linear + add",
+                4.0 * M * c * hid, (2 * M * c + 2 * hid * c + hid + 3 * c) * it,
+                two_kernel_ms=median_ms(lambda: fb.matmul_residual(
+                    fb.ln_matmul(x, gamma, beta, w1, b1, 1e-6, act="gelu"),
+                    w2, b2, x), 10))
+        del x, h, o
+        torch.cuda.empty_cache()
+
+
 def phase_kernels() -> list:
     log("== phase 2: kernels vs plain versions")
     # the plain versions compute fp32 products in full fp32
@@ -1583,11 +1858,37 @@ NO_LAUNCH = {
               else ("ring_attention",))
            + (("attention_bwd",) if path == "seq_train" else RING_BWD))
     for path in PATHS}
+# phases 22-24: the DINO model's roads (its encoder: K7 and K1 on strided
+# q, k, v, 1037 tokens a 392x518 view; the flagship's fused decoder; the
+# heads by head_road, checked in the phase) and the model_scaling overlays'
+# (the flagship's fused roads at their widths, the decoder's attention at
+# head_dim 80 in huge); none of them launches the llama, ring or (serving)
+# backward kernels, the DINO model's no kernel of the CroCo encoder
+DINO_FWD = ("attention", "layernorm", "ln_qkv", "matmul_residual", "ln_mlp")
+PATHS["dino"] = PATHS["dino_mixed"] = DINO_FWD
+PATHS["dino_train"] = DINO_FWD + ("layernorm_bwd", "attention_bwd",
+                                  "ln_matmul_replay")
+MS_FWD = tuple(k for k in PATHS["fused"] if k != "trunk")
+MS_PATHS = {short: (short, f"{short}_train") for short in
+            ("ms_base", "ms_large", "ms_huge")}
+MS_PATHS["ms_huge"] += ("ms_huge_cli",)
+for _short, _paths in MS_PATHS.items():
+    for _p in _paths:
+        PATHS[_p] = MS_FWD + (TRAIN_KERNELS if _p != _short else ())
+_TRAIN_ONLY = ("layernorm_bwd", "attention_bwd", "packed_qkv_attention_bwd",
+               "ln_matmul_replay")
+for _p in ("dino", "dino_mixed", "dino_train", *sum(MS_PATHS.values(), ())):
+    NO_LAUNCH[_p] = (K13 + ("ring_attention",) + RING_BWD
+                     + (("packed_qkv_attention", "packed_qkv_attention_bwd",
+                         "ln_qkv_rope") if _p.startswith("dino") else ())
+                     + (_TRAIN_ONLY if _p in ("dino", "dino_mixed", *MS_PATHS)
+                        else ()))
 # the serving paths, on which every kernel input maps in place (no layout
 # copy); the training paths' counts are reported
 SERVE_PATHS = ("fused", "plain", "two_kernel_mlp", "llama", "llama_plain",
                "square", "mixed", "images_to_poses", "seq_sharded",
-               "eval_cli", "re10k", "robustmvd")
+               "eval_cli", "re10k", "robustmvd", "dino", "dino_mixed",
+               *MS_PATHS)
 OUT_KEYS = ("pts3d_in_other_view", "conf", "pts3d_local", "conf_local")
 # phase 4: |gpu bf16 - cpu fp32| / |cpu fp32| in the L2 norm, per output.
 # bf16 keeps 8 bits of mantissa; through 48 blocks and two heads the
@@ -1715,14 +2016,15 @@ def _read_counts() -> dict:
 
 
 def train_road(road: str, net, cfg, batch, steps: int, gpu: str,
-               step=None) -> dict:
+               step=None, compute_dtype=None) -> dict:
     """``steps`` train_steps (or ``step(state, batch)``s) from fresh
     optimizer state, the launch counts set to 0 just before and read just
-    after; every loss and gradient norm finite, no step skipped."""
+    after; every loss and gradient norm finite, no step skipped.  With
+    ``compute_dtype`` (bf16) and fp32 ``net``, the master-weights road."""
     if step is None:
         def step(state, batch):
             return train_step(state, batch, cfg, TRAIN_OPT, remat=True)
-    state = init_train_state(net, TRAIN_OPT)
+    state = init_train_state(net, TRAIN_OPT, compute_dtype=compute_dtype)
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     V = batch["imgs"].shape[1]
@@ -3685,19 +3987,252 @@ def phase_master_weights(gpu: str, cpu_model, cpu_ref: tuple,
     return {"master_train": counts, "dropout_train": dcounts}
 
 
-def _check_roads(path: str, roads: list, counts: dict) -> None:
+# ---------------------------------------------------------------------------
+# phases 22-24: the model variants (the DINOv2 encoder; the model_scaling
+# decoders)
+# ---------------------------------------------------------------------------
+
+def dino_cfg() -> Fast3RConfig:
+    """The flagship's decoder and heads behind the DINOv2 ViT-L/14 encoder
+    (``DinoEncoderConfig()``: 1024 wide, 24 deep, 16 heads, a 37 x 37
+    position grid), the heads at patch 14."""
+    flag = Fast3RConfig.flagship()
+    return dataclasses.replace(flag, encoder=DinoEncoderConfig(),
+                               head=dataclasses.replace(flag.head, patch_size=14))
+
+
+def view_roads(cfg, shapes) -> dict:
+    """The trunk road ``head_road`` picks for each bf16 view shape."""
+    fd, c1 = cfg.head.feature_dim, cfg.head.feature_dim // 2
+    ps = cfg.head.patch_size
+    return {f"{h}x{w}": head_road((1, fd, 8 * (h // ps), 8 * (w // ps)), (h, w),
+                                  c1, cfg.head.last_dim, cfg.head.num_channels,
+                                  torch.bfloat16)
+            for h, w in shapes}
+
+
+def _serve_counted(path, model, requests, gpu, roads) -> dict:
+    """Each request of ``requests`` ((views, serve) pairs) served with the
+    counts set to 0 before the first and read after the last; the heads'
+    kernels those of ``roads``."""
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for views, serve in requests:
+        _serve(path, model, views, serve, gpu)
+    counts = _read_counts()
+    _check_roads(path, roads, counts, "phases 22-24")
+    return counts
+
+
+def phase_dino_requests(gpu: str):
+    log("== phase 22: DINOv2 encoder requests (ViT-L/14 encoder, flagship "
+        "decoder and heads at patch 14; random weights seed 0, bfloat16)")
+    t0 = time.perf_counter()
+    cfg = dino_cfg()
+    cpu_model = Fast3R.from_random(cfg, seed=0, device="cpu")
+    model = cpu_model.to(device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.params.parameters())
+    log(f"model: {n_params} parameters, built and moved in "
+        f"{time.perf_counter() - t0:.1f} s")
+    roads = view_roads(cfg, [(392, 518), (518, 392), (224, 224)])
+    log(json.dumps({"dino_head_roads": roads}))
+    inference(request_views(2, 392, 518, 97), model, verbose=False)  # warm-up
+    counts = {"dino": _serve_counted(
+        "dino", model, [(request_views(20, 392, 518, 20 + i), i) for i in (1, 2)],
+        gpu, [roads["392x518"]])}
+    mixed = request_views(10, 392, 518, 31) + request_views(10, 518, 392, 32)
+    counts["dino_mixed"] = _serve_counted(
+        "dino_mixed", model, [(mixed, 1), (mixed, 2)], gpu,
+        [roads["392x518"], roads["518x392"]])
+    phase_end_to_end(cpu_model, model,
+                     Fast3R(cfg.with_fused_blocks(False), model.params),
+                     "phase 22 (dino)")
+    del model
+    torch.cuda.empty_cache()
+    return cpu_model, counts
+
+
+def phase_dino_training(gpu: str, cpu_model) -> dict:
+    log("== phase 23: one DINOv2-model training step (8 views at 224x224, fp32 "
+        "master weights and moments, bf16 working copy, remat)")
+    net = cpu_model.to(device="cuda").params
+    batch = {k: torch.as_tensor(v).cuda() for k, v in
+             make_dummy_batch(1, 8, 224, 224, seed=2).items() if k in BATCH_KEYS}
+    counts = {"dino_train": train_road("dino_train", net, cpu_model.cfg, batch, 1,
+                                       gpu, compute_dtype=torch.bfloat16)}
+    _check_roads("dino_train", list(view_roads(cpu_model.cfg,
+                                               [(224, 224)]).values()),
+                 counts["dino_train"], "phase 23")
+    del net, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+MS_EXPERIMENTS = ("model_scaling_base", "model_scaling_large",
+                  "model_scaling_huge")
+MS_BATCH = 8    # the overlays' batch_size_per_device
+MS_STEPS = 3    # train_steps a model
+MS_CLI_SAMPLES = 24  # the CLI run's epoch: 3 steps of batch 8
+
+
+def ms_cfg(name: str) -> Fast3RConfig:
+    """An overlay's model through the training CLI's config loader."""
+    from fast3r_torch.config import CONFIG_DIR, load_config, model_config_from_dict
+
+    return model_config_from_dict(load_config(
+        os.path.join(CONFIG_DIR, "train.yaml"), f"model_scaling/{name}")["model"])
+
+
+def phase_model_scaling(gpu: str) -> dict:
+    log("== phase 24: the model_scaling overlays (base 768 x 12, large 1024 x "
+        "24, huge 1280 x 32 at head_dim 80), each at full width: one 8-view "
+        "224x224 request (bf16), three train_steps of batch 8 x 8 views on "
+        "fp32 master weights (remat), a 2-view step against fp32 on the CPU")
+    counts = {}
+    batch = {k: torch.as_tensor(v).cuda() for k, v in
+             make_dummy_batch(MS_BATCH, 8, 224, 224, seed=3).items()
+             if k in BATCH_KEYS}
+    for name in MS_EXPERIMENTS:
+        short = name.replace("model_scaling_", "ms_")
+        cfg = ms_cfg(name)
+        t0 = time.perf_counter()
+        cpu_model = Fast3R.from_random(cfg, seed=0, device="cpu")
+        n_params = sum(p.numel() for p in cpu_model.params.parameters())
+        d = cfg.decoder
+        log(json.dumps({"path": short, "parameters": n_params,
+                        "decoder": [d.embed_dim, d.depth, d.num_heads,
+                                    d.head_dim],
+                        "attn_impl": [cfg.encoder.attn_impl, d.attn_impl],
+                        "built_s": time.perf_counter() - t0}))
+        roads = list(view_roads(cfg, [(224, 224)]).values())
+        model = cpu_model.to(device="cuda", dtype=torch.bfloat16)
+        inference(request_views(2, 224, 224, 96), model, verbose=False)
+        views = request_views(8, 224, 224, 40)
+        counts[short] = _serve_counted(short, model, [(views, 1), (views, 2)],
+                                       gpu, roads)
+        del model
+        torch.cuda.empty_cache()
+        net = cpu_model.to(device="cuda").params  # fp32 master weights
+        counts[f"{short}_train"] = train_road(f"{short}_train", net, cfg, batch,
+                                              MS_STEPS, gpu,
+                                              compute_dtype=torch.bfloat16)
+        _check_roads(f"{short}_train", roads, counts[f"{short}_train"],
+                     "phase 24")
+        del net
+        torch.cuda.empty_cache()
+        phase_train_end_to_end(cpu_model, cfg.with_fused_blocks(False),
+                               f"phase 24 ({short})")
+        del cpu_model
+    del batch
+    torch.cuda.empty_cache()
+    counts.update(phase_cli_model_scaling(gpu))
+    return counts
+
+
+def phase_cli_model_scaling(gpu: str) -> dict:
+    """``fast3r_torch.cli.train --experiment model_scaling/model_scaling_huge``
+    in this process on a CO3D-format root (phase 19's writer), the overlay's
+    own data recipe with its datasets cut to the Co3d entries (the other
+    three sets have no synthetic root) retargeted there with
+    MS_CLI_SAMPLES training and 2 validation samples, one epoch."""
+    import shutil
+
+    from fast3r_torch.cli import train as cli_train
+    from fast3r_torch.config import CONFIG_DIR, load_config
+    from fast3r_torch.train import trainer as trainer_mod
+
+    exp = load_config(os.path.join(CONFIG_DIR, "train.yaml"),
+                      "model_scaling/model_scaling_huge")["data"]
+    tmp = tempfile.mkdtemp(prefix="fast3r_ms_cli_")
+    try:
+        t = time.perf_counter()
+        root = make_co3d_root(os.path.join(tmp, "co3d"))
+        root_s = time.perf_counter() - t
+
+        def retarget(spec: str, n: int) -> str:
+            call = spec.partition(" @ ")[2]
+            old_root = call.split("ROOT='", 1)[1].split("'", 1)[0]
+            return f"{n} @ " + call.replace(f"ROOT='{old_root}'", f"ROOT='{root}'")
+
+        (train,) = [d for d in exp["train_datasets"] if "Co3d_Multiview" in d]
+        (val,) = [d for d in exp["validation_datasets"] if "Co3d_Multiview" in d]
+        run_dir = os.path.join(tmp, "run")
+        args = ["--experiment", "model_scaling/model_scaling_huge", "--no-resume",
+                f"paths.run_dir={run_dir}",
+                f"data.train_datasets={[retarget(train, MS_CLI_SAMPLES)]!r}",
+                f"data.validation_datasets={[retarget(val, CLI_VAL_SAMPLES)]!r}",
+                "trainer.max_epochs=1", "trainer.log_every_n_steps=1",
+                "data.num_workers=3", "data.num_workers_val=0"]
+        steps = []
+        orig_step = trainer_mod.train_step
+
+        def step_fn(state, batch, *a, **kw):
+            t0 = time.perf_counter()
+            state, m = orig_step(state, batch, *a, **kw)
+            torch.cuda.synchronize()
+            steps.append({"step_s": time.perf_counter() - t0,
+                          "imgs": list(np.shape(batch["imgs"]))})
+            return state, m
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        main_module = sys.modules["__main__"]
+        sys.modules["__main__"] = cli_train  # the spawn workers import it
+        trainer_mod.train_step = step_fn
+        _reset_counts()
+        t = time.perf_counter()
+        try:
+            trainer = cli_train.main(args)
+        finally:
+            sys.modules["__main__"] = main_module
+            trainer_mod.train_step = orig_step
+        counts = _read_counts()
+        total_s = time.perf_counter() - t
+        rows = _csv_rows(os.path.join(run_dir, "metrics.csv"))
+        losses = [float(r["loss"]) for r in rows if r.get("loss")]
+        val = [r for r in rows if r.get("val/dataset_0/loss")]
+        st = trainer.state
+        rec = {"path": "ms_huge_cli", "co3d_root_s": root_s, "total_s": total_s,
+               "steps": st.step, "losses": losses,
+               "steps_taken": steps,
+               "val_loss": val[0]["val/dataset_0/loss"] if val else None,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "parameters": sum(p.numel() for p in st.params.parameters()),
+               "master": str(next(st.params.parameters()).dtype),
+               "working_copy": str(None if st.work is None else
+                                   next(st.work.parameters()).dtype),
+               "gpu": gpu}
+        log(json.dumps(rec))
+        want_steps = MS_CLI_SAMPLES // MS_BATCH
+        if (st.step != want_steps or len(steps) != want_steps
+                or any(x["imgs"][:2] != [MS_BATCH, 8] for x in steps)
+                or len(losses) < want_steps
+                or not all(math.isfinite(x) for x in losses) or len(val) != 1
+                or rec["working_copy"] != "torch.bfloat16"):
+            raise AssertionError(f"phase 24, the training CLI on "
+                                 f"model_scaling_huge: {rec}")
+        del trainer, st
+        return {"ms_huge_cli": counts}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _check_roads(path: str, roads: list, counts: dict,
+                 phase: str = "phase 20") -> None:
     """The head kernel of each road taken launched, the other did not."""
     used = {"trunk": "trunk" in roads, "resize": "resize_kernel" in roads}
     bad = [k for k, u in used.items() if (counts[k] > 0) != u]
     if bad or not roads:
-        raise AssertionError(f"phase 20, {path}: head roads {set(roads)}, "
+        raise AssertionError(f"{phase}, {path}: head roads {set(roads)}, "
                              f"launches trunk {counts['trunk']} resize "
                              f"{counts['resize']}")
 
 
 def phase_counts(counts: dict) -> None:
-    log("== phase 22: kernel launches on each path of phases 3, 5, 7, 9, 11, "
-        "12, 14, 16, 18, 19, 20 and 21")
+    log("== phase 26: kernel launches on each path of phases 3, 5, 7, 9, 11, "
+        "12, 14, 16, 18, 19, 20, 21, 22, 23 and 24")
     log(json.dumps(counts))
     missing = [f"{path}: {k}" for path, names in PATHS.items()
                for k in names if counts[path][k] <= 0]
@@ -3722,9 +4257,28 @@ MAIN_CASE = {"attention": "decoder", "layernorm": "eps=1e-05",
              "ring_attention_bwd_dq": "n=4 ", "ring_attention_bwd_dkv": "n=4 "}
 
 
+# the widened kernels' shapes (phase 25), each with the paths that run it
+WIDE_CASES = (
+    ("attention", "huge decoder", MS_PATHS["ms_huge"]),
+    ("resize", "dino", ("dino", "dino_mixed")),
+    ("trunk", "dino", ("dino_train",)),
+    ("trunk", "model_scaling", sum(MS_PATHS.values(), ())),
+    ("attention", "dino encoder", ("dino", "dino_mixed", "dino_train")),
+    ("attention_bwd", "huge decoder", MS_PATHS["ms_huge"]),
+    *((k, case, MS_PATHS["ms_base"]) for k, case in (
+        ("ln_qkv", "K=768"), ("ln_matmul", "K=768"),
+        ("ln_matmul_replay", "K=768"), ("matmul_residual", "K=768"),
+        ("matmul_residual", "K=3072"), ("ln_mlp", "C=768"))),
+    *((k, case, MS_PATHS["ms_huge"]) for k, case in (
+        ("ln_qkv", "K=1280"), ("ln_matmul", "K=1280"),
+        ("ln_matmul_replay", "K=1280"), ("matmul_residual", "K=1280"),
+        ("matmul_residual", "K=5120"), ("ln_mlp", "C=1280"))),
+)
+
+
 def kernel_summary(results: list, counts: dict) -> dict:
     """One entry per kernel: launches summed over the paths of phases 3, 5,
-    7, 9, 11, 12, 14, 16, 18, 19, 20 and 21 (and per path); the largest bfloat16 error,
+    7, 9, 11, 12, 14, 16, 18, 19, 20, 21 and 22-24 (and per path); the largest bfloat16 error,
     and the bfloat16 times and bound at its heaviest main-path shape, from
     phase 2 (the ring kernel: phase 15, n = 4; its backward rings: phase
     17, n = 4)."""
@@ -3752,6 +4306,24 @@ def kernel_summary(results: list, counts: dict) -> dict:
             if key in main:
                 entry[key] = main[key]
         kernels.append(entry)
+    for name, prefix, paths in WIDE_CASES:
+        _, route, source, replaces = KERNELS[name]
+        for r in results:
+            if (r["kernel"] != name or r["dtype"] != "bfloat16"
+                    or not r["case"].startswith(prefix)):
+                continue
+            by_path = {p: counts[p][name] for p in paths}
+            kernels.append({
+                "name": f"{name} [{r['case']}]", "route": route,
+                "source": source, "replaces": replaces,
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": r["max_abs_err"], "atol": r["atol"],
+                "rtol": r["rtol"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"], "library": r["library"],
+                "case": r["case"] + " bfloat16",
+                **{k: r[k] for k in ("device_ms", "tflops", "dq_ms", "dkv_ms",
+                                     "two_kernel_ms") if k in r}})
     return {"kernels": kernels}
 
 
@@ -3822,8 +4394,18 @@ def main() -> int:
                                        counts["train"], TRAIN_STEPS))
     del flagship_cpu, flagship_ref
     done("phase 21")
-    phase_counts(counts)
+    dino_cpu, dino_counts = phase_dino_requests(gpu)
+    counts.update(dino_counts)
     done("phase 22")
+    counts.update(phase_dino_training(gpu, dino_cpu))
+    del dino_cpu
+    done("phase 23")
+    counts.update(phase_model_scaling(gpu))
+    done("phase 24")
+    check_widths(results)
+    done("phase 25")
+    phase_counts(counts)
+    done("phase 26")
     log(json.dumps(kernel_summary(results, counts)))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {

@@ -34,8 +34,11 @@ from fast3r_torch.train.step import OptimConfig
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "configs")
-# JAX attention implementations -> the port's (ops.attention.IMPLS)
-ATTN_IMPLS = {"xla": "naive"}
+# JAX attention implementations -> the port's (ops.attention.IMPLS): the
+# configs' "xla" (XLA's own attention in the JAX package) takes the port's
+# kernel roads, as "pallas" does (the encoder "batched", the decoder the
+# attention kernel): on the card every attention is a hand-written kernel
+ATTN_IMPLS = {"xla": "pallas"}
 
 
 def deep_merge(base: Dict, overlay: Dict) -> Dict:

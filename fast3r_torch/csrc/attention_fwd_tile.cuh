@@ -1,6 +1,7 @@
-// The attention forward on wgmma, for head_dim 64 and bf16 (csrc/
-// attention_fwd.cu: K1, and K2 and the batched encoder attention through
-// strides; csrc/ring_attention.cu: the bf16 ring, K14's forward): the
+// The attention forward on wgmma, for head_dim 64 (and 80: the tail below)
+// and bf16 (csrc/attention_fwd.cu: K1, and K2 and the batched encoder
+// attention through strides; csrc/ring_attention.cu: the bf16 ring, K14's
+// forward, head_dim 64 only): the
 // shared-memory plan, the producer's loads, the consumers' per-item body
 // and the epilogue, over tiles in the 128-byte-swizzled, K-major layout TMA
 // writes (hopper.cuh's descriptors).  The consumer machinery (the thread's
@@ -47,6 +48,16 @@
 // Rounding points: those of attention_ref's kernel counterpart: fp32
 // scores and statistics, P rounded to bf16 before P V, fp32 accumulation,
 // o rounded once.
+// Head_dim 80 (the model_scaling_huge decoder, 1280 / 16): a bf16 row is
+// 160 bytes, past the 128-byte swizzle span, so each row of Q, K and V
+// comes in as two TMA boxes: columns 0 .. 63 into the 128-byte-swizzled
+// tiles above, columns 64 .. 79 (32 bytes a row) into 32-byte-swizzled
+// tail tiles (TailSmem, after Smem; 40 KB more, 217 KB in all).  S = Q K^T
+// takes a fifth k16 step (an m64n128k16 on the tails' descriptors); O's
+// tail, 16 columns (8 registers), is P V_tail as eight m64n16k16 RS
+// products beside P V's m64n64; no product is padded.  The tail of o is
+// stored from registers (4-byte stores: 32 of a row's 160 bytes).  The
+// head_dim 64 path compiles without any of it (D is a template argument).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -63,7 +74,7 @@ namespace ab = fast3r_attn_bwd;
 using ab::Consumer;
 using fast3r_ptx::pack_bf16;
 
-constexpr int kD = 64;       // head dim: one 128-byte swizzle span
+constexpr int kD = 64;       // a box row: one 128-byte swizzle span
 constexpr int kRows = 128;   // queries of an item
 constexpr int kKeys = 128;   // keys of a streamed tile
 constexpr int kStages = 4;
@@ -77,6 +88,9 @@ constexpr int kEpiBar = 10;              // named barriers 10, 11 (8, 9: turns)
 constexpr int kStateWords = 36;          // O 32, m 2, l 2 per consumer thread
 constexpr float kLn2 = 0.6931471805599453f;
 static_assert(kRows == kKeys, "one box size for the Q, K and V maps");
+constexpr int kTailCols = 16;                  // head_dim 80: columns 64 .. 79
+constexpr int kTailBox = kRows * kTailCols * 2;  // a 128-row tail box, 4 KB
+constexpr int kTailHalf = 64 * kTailCols * 2;    // a warpgroup's 64 rows of it
 
 using StageRing = Ring<kStages>;
 using OwnRing = Ring<2>;
@@ -91,11 +105,32 @@ struct Smem {
 };
 constexpr int kSmemBytes = sizeof(Smem) + 1024;  // + alignment slack
 
+// head_dim 80: the tail tiles, 1024-byte aligned after Smem
+struct TailSmem {
+  char q[2][kTailBox];
+  char k[kStages][kTailBox];
+  char v[kStages][kTailBox];
+};
+constexpr int kMainBytes = (sizeof(Smem) + 1023) / 1024 * 1024;
+template <int D>
+constexpr int smem_bytes() {
+  return D == 64 ? kSmemBytes : kMainBytes + (int)sizeof(TailSmem) + 1024;
+}
+
 __device__ __forceinline__ Smem& smem() {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t off = smem_u32(smem_raw);
   return *reinterpret_cast<Smem*>(smem_raw + ((1024u - (off & 1023u)) & 1023u));
 }
+__device__ __forceinline__ TailSmem& tail(Smem& s) {
+  return *reinterpret_cast<TailSmem*>(reinterpret_cast<char*>(&s) + kMainBytes);
+}
+
+// the tail maps of a head_dim-80 launch (16-column, 32-byte-swizzled boxes
+// of the same tensors; unused at head_dim 64)
+struct TailMaps {
+  const CUtensorMap *q, *k, *v;
+};
 
 // thread 0, then a __syncthreads before any use
 __device__ __forceinline__ void init_barriers(Smem& s) {
@@ -116,23 +151,31 @@ __device__ __forceinline__ void init_barriers(Smem& s) {
 // ---------------------------------------------------------------------------
 
 // an item's query rows row0 .. row0 + 127 of map q, at (c2, c3) of its
-// rank-4 (64, rows, c2, c3) shape, into own slot own.stage; then its n
-// tiles of K and V, keys 128 t .., at (k2, k3) of maps k and v
+// rank-4 (D, rows, c2, c3) shape, into own slot own.stage; then its n
+// tiles of K and V, keys 128 t .., at (k2, k3) of maps k and v; at head_dim
+// 80 each with its tail box (columns 64 ..) from the maps of tm
+template <int D = 64>
 __device__ __forceinline__ void load_item(Smem& s, OwnRing& own, StageRing& ring,
                                           const CUtensorMap* q, int row0, int c2, int c3,
                                           const CUtensorMap* k, const CUtensorMap* v, int k2,
-                                          int k3, int n) {
+                                          int k3, int n, TailMaps tm = {}) {
+  constexpr int kTail = D > 64 ? kTailBox : 0;
   mbar_wait(&s.own_empty[own.stage], own.phase ^ 1u);
   uint64_t* bar = &s.own_full[own.stage];
-  mbar_arrive_expect_tx(bar, kBox);
+  mbar_arrive_expect_tx(bar, kBox + kTail);
   tma_load(s.q[own.stage], q, bar, 0, row0, c2, c3);
+  if constexpr (D > 64) tma_load(tail(s).q[own.stage], tm.q, bar, 64, row0, c2, c3);
   own.advance();
   for (int t = 0; t < n; ++t) {
     mbar_wait(&s.empty[ring.stage], ring.phase ^ 1u);
     bar = &s.full[ring.stage];
-    mbar_arrive_expect_tx(bar, 2 * kBox);
+    mbar_arrive_expect_tx(bar, 2 * (kBox + kTail));
     tma_load(s.k[ring.stage], k, bar, 0, t * kKeys, k2, k3);
     tma_load(s.v[ring.stage], v, bar, 0, t * kKeys, k2, k3);
+    if constexpr (D > 64) {
+      tma_load(tail(s).k[ring.stage], tm.k, bar, 64, t * kKeys, k2, k3);
+      tma_load(tail(s).v[ring.stage], tm.v, bar, 64, t * kKeys, k2, k3);
+    }
     ring.advance();
   }
 }
@@ -224,42 +267,64 @@ __device__ __forceinline__ void softmax(float (&s)[64], State& x, float (&alpha)
   for (int h = 0; h < 2; ++h) x.l[h] = x.l[h] * alpha[h] + (rs[h][0] + rs[h][1]);
 }
 
-// O *= alpha (per row), and the tile's p packed to bf16 as the 8 k16 steps
-// of an RS A operand (mma.m16n8k16's fragment: rows g / g + 8, keys 2 c,
-// 2 c + 8 of the step)
-__device__ __forceinline__ void rescale_pack(State& x, const float (&alpha)[2],
+// O *= alpha (per row; at head_dim 80 its tail ot too), and the tile's p
+// packed to bf16 as the 8 k16 steps of an RS A operand (mma.m16n8k16's
+// fragment: rows g / g + 8, keys 2 c, 2 c + 8 of the step)
+template <int D = 64>
+__device__ __forceinline__ void rescale_pack(State& x, float (&ot)[8], const float (&alpha)[2],
                                              uint32_t (&p)[8][4], const float (&s)[64]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) x.o[i] *= alpha[(i >> 1) & 1];
+  if constexpr (D > 64) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ot[i] *= alpha[(i >> 1) & 1];
+  }
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i) p[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
 }
 
-// S = Q K^T: A (the warpgroup's 64 query rows) at dq, B (128 keys) at dk
-__device__ __forceinline__ void issue_s(float (&s)[64], uint64_t dq, uint64_t dk) {
+// S = Q K^T: A (the warpgroup's 64 query rows) at dq, B (128 keys) at dk;
+// at head_dim 80 a fifth k16 step on the tails at dqt, dkt
+template <int D = 64>
+__device__ __forceinline__ void issue_s(float (&s)[64], uint64_t dq, uint64_t dk,
+                                        uint64_t dqt = 0, uint64_t dkt = 0) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) wgmma_ss_n128(s, dq + 2 * j, dk + 2 * j, j);
+  if constexpr (D > 64) wgmma_ss_n128(s, dqt, dkt, 1);
   wgmma_commit();
 }
-// O += P V: V (128 keys x 64 d) read MN-major at dv
-__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&p)[8][4],
-                                         uint64_t dv) {
+// O += P V: V (128 keys x 64 d) read MN-major at dv; at head_dim 80 also
+// ot += P V_tail (128 keys x 16 d, MN-major at dvt)
+template <int D = 64>
+__device__ __forceinline__ void issue_pv(float (&o)[32], float (&ot)[8],
+                                         const uint32_t (&p)[8][4], uint64_t dv,
+                                         uint64_t dvt = 0) {
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) wgmma_rs_n64_tb(o, p[kk], dv + 128 * kk);
+  if constexpr (D > 64) {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) wgmma_rs_n16_tb(ot, p[kk], dvt + 32 * kk);
+  }
   wgmma_commit();
 }
 
 // a consumer thread: one item, n tiles of K and V against own slot
-// own.stage (Q), from the state x (zero, or an earlier epoch's); keys at or
-// past Nk masked
-__device__ __forceinline__ void fwd_item(State& x, Smem& s, OwnRing& own, StageRing& ring,
-                                         const Consumer& t, int n, int Nk, float scale_log2) {
+// own.stage (Q), from the state x (zero, or an earlier epoch's) and, at
+// head_dim 80, O's tail ot (zero); keys at or past Nk masked
+template <int D>
+__device__ __forceinline__ void fwd_item(State& x, float (&ot)[8], Smem& s, OwnRing& own,
+                                         StageRing& ring, const Consumer& t, int n, int Nk,
+                                         float scale_log2) {
   const int os = own.stage;
   mbar_wait(&s.own_full[os], own.phase);
   own.advance();
   const uint64_t dq = desc_sw128(s.q[os] + t.wg * kHalf);
+  uint64_t dqt = 0;
+  if constexpr (D > 64) dqt = desc_sw32(tail(s).q[os] + t.wg * kTailHalf);
+  auto dkt = [&](int st) { return D > 64 ? desc_sw32(tail(s).k[st]) : 0ull; };
+  auto dvt = [&](int st) { return D > 64 ? desc_sw32(tail(s).v[st]) : 0ull; };
   float sc[64], alpha[2];
   uint32_t p[8][4];
   int st = ring.stage;
@@ -267,12 +332,12 @@ __device__ __forceinline__ void fwd_item(State& x, Smem& s, OwnRing& own, StageR
   ring.advance();
   ab::turn_begin(t);
   wgmma_fence();
-  issue_s(sc, dq, desc_sw128(s.k[st]));
+  issue_s<D>(sc, dq, desc_sw128(s.k[st]), dqt, dkt(st));
   ab::turn_end(t);
   wgmma_wait<0>();
   fence_regs(sc);
   softmax(sc, x, alpha, Nk, t.c(), scale_log2);
-  rescale_pack(x, alpha, p, sc);
+  rescale_pack<D>(x, ot, alpha, p, sc);
   for (int i = 1; i < n; ++i) {
     const int prev = st;
     st = ring.stage;
@@ -280,26 +345,34 @@ __device__ __forceinline__ void fwd_item(State& x, Smem& s, OwnRing& own, StageR
     ring.advance();
     ab::turn_begin(t);
     wgmma_fence();
-    issue_s(sc, dq, desc_sw128(s.k[st]));  // S_i
-    issue_pv(x.o, p, desc_sw128(s.v[prev]));  // O += P_{i-1} V_{i-1}
+    issue_s<D>(sc, dq, desc_sw128(s.k[st]), dqt, dkt(st));  // S_i
+    issue_pv<D>(x.o, ot, p, desc_sw128(s.v[prev]), dvt(prev));  // O += P_{i-1} V_{i-1}
     ab::turn_end(t);
     wgmma_wait<1>();  // S_i
     fence_regs(sc);
     softmax(sc, x, alpha, Nk - i * kKeys, t.c(), scale_log2);
     wgmma_wait<0>();  // P_{i-1} V_{i-1}: p and O free
     fence_regs(x.o);
+    if constexpr (D > 64) fence_regs(ot);
     fence_regs(sc);
     ab::release(&s.empty[prev]);
-    rescale_pack(x, alpha, p, sc);
+    rescale_pack<D>(x, ot, alpha, p, sc);
   }
   ab::release(&s.own_empty[os]);  // Q's last product has retired
   ab::turn_begin(t);
   wgmma_fence();
-  issue_pv(x.o, p, desc_sw128(s.v[st]));
+  issue_pv<D>(x.o, ot, p, desc_sw128(s.v[st]), dvt(st));
   ab::turn_end(t);
   wgmma_wait<0>();
   fence_regs(x.o);
+  if constexpr (D > 64) fence_regs(ot);
   ab::release(&s.empty[st]);
+}
+// head_dim 64 (K1 and the ring)
+__device__ __forceinline__ void fwd_item(State& x, Smem& s, OwnRing& own, StageRing& ring,
+                                         const Consumer& t, int n, int Nk, float scale_log2) {
+  float ot[8];
+  fwd_item<64>(x, ot, s, own, ring, t, n, Nk, scale_log2);
 }
 
 // the end of an item: o = O / l rounded to bf16 through the warpgroup's
@@ -307,9 +380,14 @@ __device__ __forceinline__ void fwd_item(State& x, Smem& s, OwnRing& own, StageR
 // map's edge are not stored); the natural-log lse of row r at lse[r] for
 // r < n_valid (lse may be null).  The warpgroup's first thread issues the
 // store and, before the box is written again, waits until it has been read.
+// At head_dim 80 the tail ot goes out from registers: columns 64 .. 79 of
+// row r at otail + r * ld (rows at or past n_valid are not written).
+template <int D = 64>
 __device__ __forceinline__ void store_item(State& x, Smem& s, const Consumer& t,
                                            const CUtensorMap* mo, int row0, int c2, int c3,
-                                           float* lse, int n_valid, float scale_log2) {
+                                           float* lse, int n_valid, float scale_log2,
+                                           const float (&ot)[8] = {}, __nv_bfloat16* otail = nullptr,
+                                           long long ld = 0) {
   const bool leader = (threadIdx.x & 127) == 0;
   float inv[2];
 #pragma unroll
@@ -320,6 +398,15 @@ __device__ __forceinline__ void store_item(State& x, Smem& s, const Consumer& t,
     const int r = row0 + t.row() + 8 * h;
     if (lse != nullptr && t.c() == 0 && r < n_valid)
       lse[r] = (x.m[h] * scale_log2 + log2f(x.l[h])) * kLn2;
+    if constexpr (D > 64) {
+      if (r < n_valid) {
+        __nv_bfloat16* row = otail + r * ld + 2 * t.c();
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          *reinterpret_cast<uint32_t*>(row + 8 * j) =
+              pack_bf16(ot[4 * j + 2 * h] * inv[h], ot[4 * j + 2 * h + 1] * inv[h]);
+      }
+    }
   }
   if (leader) bulk_wait_read<0>();
   named_sync(kEpiBar + t.wg, 128);

@@ -40,10 +40,11 @@
 //     (128-byte swizzle, full / empty mbarriers, no block barrier), wgmma
 //     m64n256k16 with fp32 accumulators in registers; TMA zero-fills the
 //     ragged M, N and K edges on load and clips them on store;
-//   * LN prologue (K <= 1024, the model width): the band's fp32 two-pass
-//     mean and rstd; each consumer warpgroup normalises its rows of the raw
-//     swizzled x box in place, (x - mean) rstd gamma + beta in fp32, rounded
-//     to bf16 (the TPU kernel's point), and feeds wgmma from shared memory;
+//   * LN prologue (K <= 1280, the model width: 768, 1024 or 1280): the
+//     band's fp32 two-pass mean and rstd; each consumer warpgroup
+//     normalises its rows of the raw swizzled x box in place, (x - mean)
+//     rstd gamma + beta in fp32, rounded to bf16 (the TPU kernel's point),
+//     and feeds wgmma from shared memory;
 //   * RMS prologue (llama): rstd = rsqrt(mean(x^2) + eps), then the two
 //     roundings of the JAX package's _rms_f32: bf16(x rstd), then bf16(that
 //     gamma).  The wrapper passes gamma already rounded to bf16 for the
@@ -74,7 +75,8 @@
 // epilogues (GELU, the RoPE tables) leave the tensor cores idle: see
 // "Not yet".
 // Constraints (the wrapper checks them): K % 32 == 0 (LN and RMS:
-// K % 256 == 0 and K <= 1024), N % 128 == 0, rows and base 16 bytes aligned;
+// K % 256 == 0 and K <= 1024; LN with bias, GELU or the q|k|v split also
+// K <= 1280, in the wide instantiations), N % 128 == 0, rows and base 16 bytes aligned;
 // q|k|v modes need C = N / 3 with C % 128 == 0, RoPE a head_dim of 64.  M
 // may be ragged.
 // Not yet: an epilogue that overlaps the next tile's products (the
@@ -208,7 +210,7 @@ __device__ __forceinline__ void epilogue(const float (&acc)[kAcc],
   }
 }
 
-template <int kPro, int kEpi>
+template <int kPro, int kEpi, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_gemm_kernel(const __grid_constant__ Maps mp, const GemmArgs a) {
   Smem& s = smem();
@@ -243,7 +245,7 @@ fused_gemm_kernel(const __grid_constant__ Maps mp, const GemmArgs a) {
       const bool rep = a.u != nullptr && nt == 0;
       if (kPro != kNoNorm && mt != band) {
         band = mt;
-        rstat = row_stats<kPro>(a.x, M, K, a.eps, m0 + th.row0(),
+        rstat = row_stats<kPro, kWide>(a.x, M, K, a.eps, m0 + th.row0(),
                                 rep ? a.mean : nullptr, rep ? a.rstd : nullptr);
       }
       mainloop<kPro>(acc, s, ring, KT, th, rstat, rep ? a.u : nullptr, m0, M,
@@ -254,12 +256,12 @@ fused_gemm_kernel(const __grid_constant__ Maps mp, const GemmArgs a) {
   }
 }
 
-template <int kPro, int kEpi>
+template <int kPro, int kEpi, bool kWide = false>
 cudaError_t launch(const GemmArgs& a, const void* w, cudaStream_t st) {
   static bool configured = false;
   cudaError_t err;
   if (!configured) {
-    err = cudaFuncSetAttribute(fused_gemm_kernel<kPro, kEpi>,
+    err = cudaFuncSetAttribute(fused_gemm_kernel<kPro, kEpi, kWide>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmemBytes);
     if (err != cudaSuccess) return err;
@@ -286,7 +288,7 @@ cudaError_t launch(const GemmArgs& a, const void* w, cudaStream_t st) {
   const int tiles = ((a.M + kBM - 1) / kBM) * ((a.N + kBN - 1) / kBN);
   const int sms = sm_count();
   if (sms <= 0) return cudaErrorNoDevice;
-  fused_gemm_kernel<kPro, kEpi>
+  fused_gemm_kernel<kPro, kEpi, kWide>
       <<<tiles < sms ? tiles : sms, kThreads, kSmemBytes, st>>>(mp, a);
   return cudaGetLastError();
 }
@@ -337,6 +339,15 @@ int fast3r_fused_gemm(int pro, int epi, const void* x, const void* gamma,
   a.K = K;
   a.eps = eps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pro == kLN && K > kNarrowK) {  // the model_scaling_huge decoder's 1280
+    switch (epi) {
+      case kBias: return launch<kLN, kBias, true>(a, w, s);
+      case kGelu: return launch<kLN, kGelu, true>(a, w, s);
+      case kQkv: return launch<kLN, kQkv, true>(a, w, s);
+    }
+    return cudaErrorInvalidValue;  // RoPE: the encoder's width only
+  }
+  if (pro == kRMS && K > kNarrowK) return cudaErrorInvalidValue;
   if (pro == kLN) {
     switch (epi) {
       case kBias: return launch<kLN, kBias>(a, w, s);

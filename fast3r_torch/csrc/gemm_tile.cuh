@@ -19,7 +19,11 @@
 //
 // The rows' statistics (LN: fp32 two-pass mean and rstd; RMS: rstd of the
 // mean square) come from device memory, each consumer warp its 16 rows, four
-// rows' loads in flight, K <= 1024 in registers.
+// rows' loads in flight, K <= 1280: a lane holds K / 32 values of a row as
+// K / 256 16-byte chunks (768, 1024 and 1280, the decoder widths of the
+// flagship and the model_scaling variants, are 3, 4 and 5), the first four
+// in registers; the wide instantiations (K > 1024) read a fifth again in
+// each pass (row_stats).
 //
 // The epilogue goes through shared memory, one 64 x 64 box at a time: each
 // consumer warpgroup writes the box's bf16 results into its staging box
@@ -64,7 +68,8 @@ constexpr int kConsumerWarps = 8;
 constexpr int kAcc = kBN / 2;    // fp32 accumulators a consumer thread
 constexpr int kATile = kBM * kBK * 2, kBTile = kBN * kBK * 2;
 constexpr int kStageBytes = kATile + kBTile;
-constexpr int kMaxNormK = 1024;  // the norm prologues: K <= 1024, K % 256 == 0
+constexpr int kMaxNormK = 1280;  // the norm prologues: K <= 1280, K % 256 == 0
+constexpr int kNarrowK = 1024;   // past it, the wide instantiations (row_stats)
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 128 x 40 + 256 x 232
 
 constexpr int kOutBox = 64 * 64 * 2;  // a 64 x 64 bf16 box of the output
@@ -148,8 +153,11 @@ struct RowStats {
 
 // a consumer warp: the statistics of rows [row0, row0 + 16) of x (M, K),
 // rows past M as zeros; lane 0 writes them to mean / rstd where given (the
-// replay; mean with LN only)
-template <int kPro>
+// replay; mean with LN only).  A lane holds chunks 0 .. 3 of four rows (64
+// registers); kWide (K up to 1280) adds chunk 4, read again in each pass
+// (an L1 / L2 hit) instead of being held, and compiles only into the wide
+// instantiations, so K <= 1024 runs the code it ran before
+template <int kPro, bool kWide = false>
 __device__ __forceinline__ RowStats row_stats(const bf16* x, int M, int K,
                                               float eps, int row0,
                                               float* mean_out,
@@ -171,12 +179,29 @@ __device__ __forceinline__ RowStats row_stats(const bf16* x, int M, int K,
     }
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
+      // chunk 4 of the row (kWide), read where a pass needs it
+      auto chunk4 = [&]() {
+        const int row = row0 + r0 + q;
+        return (row < M && nv > 4)
+                   ? *reinterpret_cast<const uint4*>(
+                         x + (long long)row * K + 4 * 256 + lane * 8)
+                   : make_uint4(0u, 0u, 0u, 0u);
+      };
       float mean = 0.f;  // RMS: no centring
       if constexpr (kPro == kLN) {
         float sum = 0.f;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const uint32_t* u = reinterpret_cast<const uint32_t*>(&v[q][j]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = unpack_bf16(u[e]);
+            sum += f.x + f.y;
+          }
+        }
+        if constexpr (kWide) {
+          const uint4 c = chunk4();
+          const uint32_t* u = reinterpret_cast<const uint32_t*>(&c);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float2 f = unpack_bf16(u[e]);
@@ -194,6 +219,17 @@ __device__ __forceinline__ RowStats row_stats(const bf16* x, int M, int K,
         for (int e = 0; e < 4; ++e) {
           const float2 f = unpack_bf16(u[e]);
           ss += (f.x - mean) * (f.x - mean) + (f.y - mean) * (f.y - mean);
+        }
+      }
+      if constexpr (kWide) {
+        if (nv > 4) {
+          const uint4 c = chunk4();
+          const uint32_t* u = reinterpret_cast<const uint32_t*>(&c);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = unpack_bf16(u[e]);
+            ss += (f.x - mean) * (f.x - mean) + (f.y - mean) * (f.y - mean);
+          }
         }
       }
       const float rstd = rsqrtf(warp_sum(ss) / K + eps);

@@ -3,7 +3,9 @@
 // (through csrc/attention_fwd_tile.cuh and csrc/attention_bwd_tile.cuh), in
 // the style of ptx.cuh:
 //   * TMA tensor maps: 2-D to 5-D, bf16, 128-byte swizzle, boxes of rows x
-//     64 columns (one 128-byte swizzle span per row), encoded on the host with
+//     64 columns (one 128-byte swizzle span per row), or 32-byte swizzle
+//     with boxes of rows x 16 columns (the columns 64 .. 79 of a head_dim
+//     80 row: csrc/attention_fwd_tile.cuh's tail), encoded on the host with
 //     cuTensorMapEncodeTiled, which cudaGetDriverEntryPoint hands over, so
 //     the library links no -lcuda; kernels take them as
 //     const __grid_constant__ CUtensorMap parameters;
@@ -13,8 +15,8 @@
 //   * wgmma.mma_async m64nNk16, bf16 in, fp32 accumulators, B from shared
 //     memory, A from shared memory (SS) or registers (RS); the shared-memory
 //     matrix descriptor of a 128-byte-swizzled tile, read K-major or, for a
-//     B operand whose N runs along the 128-byte rows, MN-major; fence,
-//     commit and wait;
+//     B operand whose N runs along the 128-byte rows, MN-major, and of a
+//     32-byte-swizzled tile of 16-column rows; fence, commit and wait;
 //   * setmaxnreg for the producer and consumer warpgroups, named barriers;
 //   * the release / acquire counters and the atomic claim of a persistent
 //     tile walk.
@@ -64,7 +66,8 @@ static EncodeTiled encode_tiled() {
 // stored.  TMA needs a 16-byte aligned base and strides.
 static cudaError_t make_tmap_box(CUtensorMap* map, const void* base, int rank,
                                  const long long* dims,
-                                 const long long* strides, const int* box_dims) {
+                                 const long long* strides, const int* box_dims,
+                                 CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   if (rank < 2 || rank > 5) return cudaErrorInvalidValue;
@@ -81,8 +84,7 @@ static cudaError_t make_tmap_box(CUtensorMap* map, const void* base, int rank,
   }
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
                          const_cast<void*>(base), d, st, box, es,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -93,6 +95,15 @@ static cudaError_t make_tmap(CUtensorMap* map, const void* base, int rank,
                              int box_rows) {
   const int box[5] = {64, box_rows, 1, 1, 1};
   return make_tmap_box(map, base, rank, dims, strides, box);
+}
+// boxes of 16 x box_rows (x 1 ...), 32-byte swizzled: rows of 32 bytes in
+// shared memory, each 16-byte chunk XOR bit 7 of its address (so the box
+// base is 256-byte aligned)
+static cudaError_t make_tmap_sw32(CUtensorMap* map, const void* base, int rank,
+                                  const long long* dims, const long long* strides,
+                                  int box_rows) {
+  const int box[5] = {16, box_rows, 1, 1, 1};
+  return make_tmap_box(map, base, rank, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_32B);
 }
 // a row-major (rows, cols) matrix of row stride ld elements
 static cudaError_t make_tmap(CUtensorMap* map, const void* base, long long rows,
@@ -315,6 +326,19 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
   return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | (1ull << 16) |
          (64ull << 32) | (1ull << 62);
 }
+// descriptor of a tile of 32-byte rows (16 bf16) written by TMA with the
+// 32-byte swizzle, 256-byte aligned: 8-row groups 256 bytes apart (SBO),
+// LBO unused (1), layout 3 (32B swizzle).  K-major, a row is one k16 step.
+// MN-major (trans-b 1: N = the row's 16 elements, K down the rows), the
+// k16 step j starts 16 j rows down: descriptor + 32 j.
+__device__ __forceinline__ uint64_t desc_sw32(const void* tile) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | (1ull << 16) |
+         (16ull << 32) | (3ull << 62);
+}
+// byte offset of 16-byte chunk ch (0, 1) of row r in such a tile
+__device__ __forceinline__ int sw32_off(int r, int ch) {
+  return r * 32 + ((ch ^ ((r >> 2) & 1)) << 4);
+}
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -509,6 +533,21 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32],
       "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
       "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
       "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// 64 x 16, RS, B MN-major (trans-b 1), d accumulated (d: 8 fp32 a thread,
+// the same layout with j < 2): the head_dim-80 tail's 16 output columns
+__device__ __forceinline__ void wgmma_rs_n16_tb(float (&d)[8], const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 

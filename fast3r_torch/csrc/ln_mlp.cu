@@ -1,15 +1,19 @@
 // The whole pre-LN MLP sublayer in one launch:
 //   y = x + GELU(LN(x) W1^T + b1) W2^T + b2
 // bf16 in and out, fp32 accumulation, W1 (hidden, C) and W2 (C, hidden) in
-// the nn.Linear layout, C = 1024 (the flagship width).
+// the nn.Linear layout, C a template argument: 1024 (the flagship), 768
+// and 1280 (the model_scaling decoders; 3 and 5 fc2 tiles a band, hidden
+// 3072 and 5120).
 //
 // Replaces the TPU kernel fast3r_tpu/nn/fused_block.py _ln_mlp_kernel
 // (through ln_mlp -> _ln_mlp_call).  That kernel exists to keep the
 // (M, hidden) GELU activation out of device memory (252 MB a layer at
 // M = 15360, 6.3 GB at the 1000-view shape).  Here h is rounded to bf16 (the
 // TPU kernel's rounding point) and passes through a fixed ring of S band
-// slots of 128 x hidden bf16 (1 MB each at hidden 4096; S = 16 by default,
-// so the ring stays in the 50 MB L2), never through an (M, hidden) tensor;
+// slots of 128 x hidden bf16 in device memory (1 MB each at hidden 4096,
+// 1.25 MB at 5120; S = 16 by default, 16-20 MB, so the ring stays in the
+// 50 MB L2; shared memory holds only the tile's stages, whatever the
+// width), never through an (M, hidden) tensor;
 // the residual is added in fp32 and rounded once.
 //
 // What bounds it on an H100: 4 M C hidden FLOPs (0.261 ms at M = 15360 and
@@ -24,7 +28,8 @@
 //   * fc1 tiles: 128 rows x a 256-wide hidden slice over K = C, the LN
 //     prologue (the band's statistics read back) and the bias + GELU
 //     epilogue, bf16 h into the band's ring slot (band b uses slot b % S);
-//   * fc2 tiles: 128 rows x 256 output columns over K = hidden, A = the
+//   * fc2 tiles (C / 256 a band): 128 rows x 256 output columns over
+//     K = hidden, A = the
 //     band's h slot by TMA, the bias + residual epilogue;
 //   * items are claimed from an atomic counter in dependency order: the
 //     statistics of band 0, then for each band b the statistics of band
@@ -60,8 +65,8 @@
 // so h's traffic is not its limit; and slower than its own two-kernel road
 // (ln_matmul GELU, then matmul_residual), since both are bound by the
 // products and their epilogues and the walk adds its waits.
-// Constraints (the wrapper checks them): C == 1024, hidden % 32 == 0; M may
-// be ragged.
+// Constraints (the wrapper checks them): C in {768, 1024, 1280},
+// hidden % 32 == 0; M may be ragged.
 // Not yet: an epilogue that overlaps the next tile's products (the GELU of
 // fc1 tiles leaves the tensor cores idle), 2-CTA clusters with TMA
 // multicast of W1 / W2 slices.
@@ -77,9 +82,6 @@ namespace {
 
 using namespace fast3r_gemm;
 using fast3r_ptx::gelu_erf;
-
-constexpr int kC = 1024;        // model width
-constexpr int kNf2 = kC / kBN;  // fc2 tiles of a band
 
 struct MlpArgs {
   const bf16* x;       // (M, C)
@@ -106,12 +108,12 @@ struct Item {
 };
 
 // claim order: stats(0), then for g = 0 .. nb the group stats(g + 1),
-// fc1(g, 0 .. nf1 - 1), fc2(g - 1, 0 .. kNf2 - 1) (members past the bands
+// fc1(g, 0 .. nf1 - 1), fc2(g - 1, 0 .. nf2 - 1) (members past the bands
 // are skipped): a band's statistics one group ahead of its fc1 tiles, its
 // fc2 tiles one group behind
-__device__ __forceinline__ Item decode(int i, int nb, int nf1) {
+__device__ __forceinline__ Item decode(int i, int nb, int nf1, int nf2) {
   if (i == 0) return {kStats, 0, 0};
-  const int per = 1 + nf1 + kNf2, g = (i - 1) / per, r = (i - 1) % per;
+  const int per = 1 + nf1 + nf2, g = (i - 1) / per, r = (i - 1) % per;
   if (r == 0) return {g + 1 < nb ? kStats : kSkip, g + 1, 0};
   if (r <= nf1) return {g < nb ? kFc1 : kSkip, g, r - 1};
   return {g >= 1 ? kFc2 : kSkip, g - 1, r - 1 - nf1};
@@ -124,17 +126,20 @@ struct Maps {
   CUtensorMap x, w1, h, w2, h_out, x_res, out;
 };
 
+template <int C>
 __global__ void __launch_bounds__(kThreads, 1)
 ln_mlp_kernel(const __grid_constant__ Maps mp, const MlpArgs a) {
   Smem& s = smem();
   if (threadIdx.x == 0) init_barriers(s);
-  load_norm_params<kLN>(s, a.gamma, a.beta, kC);
+  load_norm_params<kLN>(s, a.gamma, a.beta, C);
   __syncthreads();
 
+  constexpr int nf2 = C / kBN;  // fc2 tiles of a band
+  constexpr int KT1 = C / kBK;
   const int M = a.M, hidden = a.hidden, S = a.slots;
   const int nb = (M + kBM - 1) / kBM, nf1 = (hidden + kBN - 1) / kBN;
-  const int claims = 1 + (nb + 1) * (1 + nf1 + kNf2);
-  const int KT1 = kC / kBK, KT2 = (hidden + kBK - 1) / kBK;
+  const int claims = 1 + (nb + 1) * (1 + nf1 + nf2);
+  const int KT2 = (hidden + kBK - 1) / kBK;
   int* stats_done = a.cnt + 1;
   int* fc1_done = a.cnt + 1 + nb;
   int* fc2_done = a.cnt + 1 + 2 * nb;
@@ -149,7 +154,7 @@ ln_mlp_kernel(const __grid_constant__ Maps mp, const MlpArgs a) {
       long long t_dep = 0;
       for (;;) {
         const int i = claim(a.cnt);
-        const Item it = decode(i, nb, nf1);
+        const Item it = decode(i, nb, nf1, nf2);
         if (i < claims && it.kind == kSkip) continue;
         mbar_wait(&s.item_empty[items.stage], items.phase ^ 1u);
         s.item[items.stage] = i < claims ? i : -1;
@@ -191,12 +196,13 @@ ln_mlp_kernel(const __grid_constant__ Maps mp, const MlpArgs a) {
       const long long t1 = clock64();
       t_item += t1 - t0;
       if (i < 0) break;
-      const Item it = decode(i, nb, nf1);
+      const Item it = decode(i, nb, nf1, nf2);
       const int m0 = it.band * kBM, n0 = it.tile * kBN;
       // the row this thread normalises (two lanes a row)
       const int row = m0 + th.row0() + (th.lane >> 1);
       if (it.kind == kStats) {  // the band's rows' statistics, published
-        const RowStats st = row_stats<kLN>(a.x, M, kC, a.eps, m0 + th.row0(),
+        const RowStats st = row_stats<kLN, (C > kNarrowK)>(a.x, M, C, a.eps,
+                                                            m0 + th.row0(),
                                            nullptr, nullptr);
         if ((th.lane & 1) == 0) {
           mean_g[row] = st.mu;
@@ -212,10 +218,10 @@ ln_mlp_kernel(const __grid_constant__ Maps mp, const MlpArgs a) {
         RowStats rstat;
         rstat.mu = __ldcg(mean_g + row);
         rstat.rs = __ldcg(rstd_g + row);
-        mainloop<kLN>(acc, s, ring, KT1, th, rstat, nullptr, m0, M, kC);
+        mainloop<kLN>(acc, s, ring, KT1, th, rstat, nullptr, m0, M, C);
         if (it.band >= S) {  // the slot's previous band read by its fc2 tiles
           t0 = clock64();
-          if (lead) spin_geq(fc2_done + it.band - S, kNf2);
+          if (lead) spin_geq(fc2_done + it.band - S, nf2);
           named_sync(1, kConsumerThreads);
           t_slot += clock64() - t0;
         }
@@ -251,7 +257,7 @@ ln_mlp_kernel(const __grid_constant__ Maps mp, const MlpArgs a) {
         if (lead) red_release_add(fc2_done + it.band, 1);
         // out = x + (acc + b2), rounded once; x's boxes through the staging
         const int rw = m0 + th.wg * 64;
-        out_bias(s, th, a.b2, n0, kC);
+        out_bias(s, th, a.b2, n0, C);
 #pragma unroll
         for (int bx = 0; bx < kBN / 64; ++bx) {
           char* box = out_begin(s, th);
@@ -268,7 +274,7 @@ ln_mlp_kernel(const __grid_constant__ Maps mp, const MlpArgs a) {
                                 x.y + (acc[4 * j + 2 * h + 1] + b.y)));
             }
           }
-          out_store(th, box, &mp.out, n0 + 64 * bx, rw, kC);
+          out_store(th, box, &mp.out, n0 + 64 * bx, rw, C);
         }
         t_fc2 += clock64() - t1;
       }
@@ -285,44 +291,51 @@ ln_mlp_kernel(const __grid_constant__ Maps mp, const MlpArgs a) {
   }
 }
 
+template <int C>
+cudaError_t launch(const Maps& mp, const MlpArgs& a, int ctas, cudaStream_t st) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ln_mlp_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  ln_mlp_kernel<C><<<ctas, kThreads, kSmemBytes, st>>>(mp, a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // x, w1, w2, out bf16; gamma, beta, b1, b2 fp32; ring bf16 (slots * 128,
 // hidden); stats fp32 (2, 128 ceil(M / 128)) scratch; cnt 1 + 3 ceil(M / 128)
-// zeroed int32; prof null or 6 zeroed int64.  C is fixed at 1024; hidden % 32 == 0; slots >= 2 unless M <= 128;
-// ctas >= 1 persistent CTAs.  Returns cudaGetLastError() after the launch.
+// zeroed int32; prof null or 6 zeroed int64.  C is 768, 1024 or 1280 (an
+// instantiation each); hidden % 32 == 0; slots >= 2 unless M <= 128;
+// ctas >= 1 persistent CTAs.
+// Returns cudaGetLastError() after the launch.
 int fast3r_ln_mlp(const void* x, const void* gamma, const void* beta,
                   const void* w1, const void* b1, const void* w2,
                   const void* b2, void* out, void* ring, void* stats,
                   void* cnt, void* prof,
-                  int M, int hidden, int slots, int ctas, float eps,
+                  int M, int C, int hidden, int slots, int ctas, float eps,
                   void* stream) {
   const int nb = (M + kBM - 1) / kBM;
   if (M <= 0 || hidden <= 0 || hidden % 32 || ctas < 1 || slots < 1 ||
       (slots < 2 && nb > 1))
     return cudaErrorInvalidValue;
-  static bool configured = false;
   cudaError_t err;
-  if (!configured) {
-    err = cudaFuncSetAttribute(ln_mlp_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
   Maps mp;
   const long long ring_rows = (long long)slots * kBM;
-  if ((err = make_tmap(&mp.x, x, M, kC, kC, kBM)) != cudaSuccess ||
-      (err = make_tmap(&mp.w1, w1, hidden, kC, kC, kBN)) != cudaSuccess ||
+  if ((err = make_tmap(&mp.x, x, M, C, C, kBM)) != cudaSuccess ||
+      (err = make_tmap(&mp.w1, w1, hidden, C, C, kBN)) != cudaSuccess ||
       (err = make_tmap(&mp.h, ring, ring_rows, hidden, hidden, kBM)) !=
           cudaSuccess ||
-      (err = make_tmap(&mp.w2, w2, kC, hidden, hidden, kBN)) != cudaSuccess ||
+      (err = make_tmap(&mp.w2, w2, C, hidden, hidden, kBN)) != cudaSuccess ||
       (err = make_tmap(&mp.h_out, ring, ring_rows, hidden, hidden, 64)) !=
           cudaSuccess ||
-      (err = make_tmap(&mp.x_res, x, M, kC, kC, 64)) != cudaSuccess ||
-      (err = make_tmap(&mp.out, out, M, kC, kC, 64)) != cudaSuccess)
+      (err = make_tmap(&mp.x_res, x, M, C, C, 64)) != cudaSuccess ||
+      (err = make_tmap(&mp.out, out, M, C, C, 64)) != cudaSuccess)
     return err;
   MlpArgs a;
   a.x = static_cast<const bf16*>(x);
@@ -339,9 +352,13 @@ int fast3r_ln_mlp(const void* x, const void* gamma, const void* beta,
   a.hidden = hidden;
   a.slots = slots;
   a.eps = eps;
-  ln_mlp_kernel<<<ctas, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      mp, a);
-  return cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (C) {  // the models' widths, each its own instantiation
+    case 768: return launch<768>(mp, a, ctas, st);
+    case 1024: return launch<1024>(mp, a, ctas, st);
+    case 1280: return launch<1280>(mp, a, ctas, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -41,6 +41,10 @@ from fast3r_torch.models.decoder import (
     decoder_forward,
     sample_random_image_ids,
 )
+from fast3r_torch.models.dino_encoder import (
+    DinoEncoderConfig,
+    dino_encoder_forward,
+)
 from fast3r_torch.models.dpt_head import DPTHeadConfig, dpt_head_forward
 from fast3r_torch.models.encoder import EncoderConfig, encoder_forward
 from fast3r_torch.models.fast3r import (
@@ -70,12 +74,20 @@ def config_from_reference_args(encoder_args: Dict, decoder_args: Dict,
     the JAX package's defaults for missing keys.  ``attn_impl`` is one of
     ``ops.attention.IMPLS`` for the decoder; with "pallas" the encoder
     takes "batched" (both are the attention kernel on CUDA), as
-    ``Fast3RConfig.flagship()``.  The DINO encoder is not ported: see
-    ROADMAP.md, Queue 1 item 5."""
+    ``Fast3RConfig.flagship()``.  ``encoder_type: dino`` builds the DINOv2
+    ViT-L/14 encoder (its widths overridable, as in the JAX package), whose
+    attention takes ``attn_impl`` as given."""
     if encoder_args.get("encoder_type", "croco") == "dino":
-        raise NotImplementedError(
-            "encoder_type 'dino' is not ported to fast3r_torch (ROADMAP.md, "
-            "Queue 1 item 5)")
+        dino = DinoEncoderConfig(
+            patch_size=encoder_args.get("patch_size", 14),
+            embed_dim=encoder_args.get("embed_dim", 1024),
+            depth=encoder_args.get("depth", 24),
+            num_heads=encoder_args.get("num_heads", 16),
+            mlp_ratio=encoder_args.get("mlp_ratio", 4.0),
+            pos_embed_size=encoder_args.get("pos_embed_size", 37),
+            attn_impl=attn_impl,
+        )
+        return _assemble_config(dino, decoder_args, head_args, attn_impl)
     enc = EncoderConfig(
         patch_size=encoder_args.get("patch_size", 16),
         patch_embed_cls=encoder_args.get("patch_embed_cls",
@@ -94,7 +106,7 @@ def config_from_reference_args(encoder_args: Dict, decoder_args: Dict,
     return _assemble_config(enc, decoder_args, head_args, attn_impl)
 
 
-def _assemble_config(enc: EncoderConfig, decoder_args: Dict, head_args: Dict,
+def _assemble_config(enc, decoder_args: Dict, head_args: Dict,
                      attn_impl: str) -> Fast3RConfig:
     if decoder_args.get("decoder_type", "fast3r") == "llama":
         dec = LlamaDecoderConfig(
@@ -244,7 +256,10 @@ def _inference_image_ids(cfg: Fast3RConfig, num_views: int,
 
 
 def serving_config(cfg: Fast3RConfig) -> Fast3RConfig:
-    """The reference's inference override: plain patch embedding."""
+    """The reference's inference override: plain patch embedding (the
+    DINO encoder has no such knob and is served as it is)."""
+    if cfg.encoder_type == "dino":
+        return cfg
     return dataclasses.replace(cfg, encoder=dataclasses.replace(
         cfg.encoder, patch_embed_cls="PatchEmbedDust3R"))
 
@@ -286,8 +301,11 @@ def _forward_staged(model: Fast3R, groups, shapes, image_ids, sync
     t0 = sync()
     feats: List[Optional[torch.Tensor]] = [None] * V
     for (h, w), (idxs, batch) in groups.items():
-        ts = torch.tensor([h, w], dtype=torch.int32).expand(len(idxs), 2)
-        f, _ = encoder_forward(params.encoder, cfg.encoder, batch, ts)
+        if cfg.encoder_type == "dino":  # the storage shape (JAX's serving)
+            f, _ = dino_encoder_forward(params.encoder, cfg.encoder, batch)
+        else:
+            ts = torch.tensor([h, w], dtype=torch.int32).expand(len(idxs), 2)
+            f, _ = encoder_forward(params.encoder, cfg.encoder, batch, ts)
         for j, i in enumerate(idxs):
             feats[i] = f[j:j + 1]
     fused = torch.cat(feats, dim=1)  # (1, S, C)

@@ -38,17 +38,19 @@ _F = ctypes.c_float
 
 # C signature of every entry point (see the extern "C" blocks in csrc/)
 SIGNATURES = {
-    "fast3r_attention_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I,
+    "fast3r_attention_fwd": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                              _L, _L, _L, _L, _L, _L, _L, _L, _L, _F,
                              _P, _I, _I, _P],
-    "fast3r_attention_bwd": [_P] * 9 + [_I] * 5 + [_L] * 21 + [_F, _P],
+    "fast3r_attention_bwd": [_I] + [_P] * 9 + [_I] * 5 + [_L] * 21 + [_F, _P],
     "fast3r_trunk_head_fwd": [_I] + [_P] * 11 + [_I] * 7 + [_P],
     "fast3r_trunk_smem_bytes": [_I],
     "fast3r_fused_gemm": [_I, _I] + [_P] * 13 + [_I, _I, _I, _F, _P],
-    "fast3r_ln_mlp": [_P] * 12 + [_I, _I, _I, _I, _F, _P],
+    "fast3r_ln_mlp": [_P] * 12 + [_I, _I, _I, _I, _I, _F, _P],
     "fast3r_gemm_smem_bytes": [],
     "fast3r_attention_bwd_smem_bytes": [],
+    "fast3r_attention_bwd_smem_bytes_d80": [],
     "fast3r_attention_fwd_smem_bytes": [],
+    "fast3r_attention_fwd_smem_bytes_d80": [],
     "fast3r_ring_attention_fwd_smem_bytes": [],
     "fast3r_resize_bilinear": [_P] * 8 + [_I] * 12 + [_P],
     "fast3r_resize_smem_bytes": [_I] * 5,

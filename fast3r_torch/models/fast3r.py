@@ -1,6 +1,8 @@
 """Fast3R: N images -> per-view global + local pointmaps and confidence.
 
-Counterpart of ``fast3r_tpu/models/fast3r.py``: CroCo encoder -> fusion
+Counterpart of ``fast3r_tpu/models/fast3r.py``: CroCo encoder (or the
+DINOv2 ViT-L/14 of the ``encoder_type: dino`` variant when ``cfg.encoder``
+is a ``DinoEncoderConfig``) -> fusion
 decoder (the ViT decoder, or the llama decoder of the ``llama_dec``
 ablation when ``cfg.decoder`` is a ``LlamaDecoderConfig``) -> two DPT heads
 ("global": pts3d in view 0's frame, "local": pts3d in each view's own
@@ -27,6 +29,11 @@ from fast3r_torch.models.decoder import (
     decoder_forward,
     sample_random_image_ids,
 )
+from fast3r_torch.models.dino_encoder import (
+    DinoEncoder,
+    DinoEncoderConfig,
+    dino_encoder_forward,
+)
 from fast3r_torch.models.dpt_head import DPTHead, DPTHeadConfig, dpt_head_forward
 from fast3r_torch.models.encoder import Encoder, EncoderConfig, encoder_forward
 from fast3r_torch.models.llama_decoder import (
@@ -39,7 +46,7 @@ from fast3r_torch.nn.layers import has_dropout, init_params_
 
 @dataclasses.dataclass(frozen=True)
 class Fast3RConfig:
-    encoder: EncoderConfig = EncoderConfig()
+    encoder: Union[EncoderConfig, DinoEncoderConfig] = EncoderConfig()
     decoder: Union[DecoderConfig, LlamaDecoderConfig] = DecoderConfig()
     head: DPTHeadConfig = DPTHeadConfig()
     with_local_head: bool = True
@@ -48,6 +55,10 @@ class Fast3RConfig:
     def decoder_type(self) -> str:
         return ("llama" if isinstance(self.decoder, LlamaDecoderConfig)
                 else "fast3r")
+
+    @property
+    def encoder_type(self) -> str:
+        return "dino" if isinstance(self.encoder, DinoEncoderConfig) else "croco"
 
     @staticmethod
     def flagship() -> "Fast3RConfig":
@@ -64,9 +75,12 @@ class Fast3RConfig:
         return Fast3RConfig(encoder=enc, decoder=dec, head=head)
 
     def with_fused_blocks(self, fused: bool) -> "Fast3RConfig":
-        """This configuration with ``fused_blocks`` set in both stacks."""
+        """This configuration with ``fused_blocks`` set in both stacks (the
+        DINO encoder has one road and keeps it)."""
+        enc = (self.encoder if self.encoder_type == "dino" else
+               dataclasses.replace(self.encoder, fused_blocks=fused))
         return dataclasses.replace(
-            self, encoder=dataclasses.replace(self.encoder, fused_blocks=fused),
+            self, encoder=enc,
             decoder=dataclasses.replace(self.decoder, fused_blocks=fused))
 
     @staticmethod
@@ -86,7 +100,8 @@ class Fast3RNet(nn.Module):
 
     def __init__(self, cfg: Fast3RConfig):
         super().__init__()
-        self.encoder = Encoder(cfg.encoder)
+        self.encoder = (DinoEncoder(cfg.encoder) if cfg.encoder_type == "dino"
+                        else Encoder(cfg.encoder))
         self.decoder = (LlamaDecoder(cfg.decoder) if cfg.decoder_type == "llama"
                         else Decoder(cfg.decoder))
         self.head_global = DPTHead(cfg.head)
@@ -191,9 +206,14 @@ def fast3r_forward(params: Fast3RNet, cfg: Fast3RConfig, imgs: torch.Tensor,
             has_dropout(cfg.encoder) or has_dropout(cfg.decoder)):
         enc_gen, dec_gen = (torch.Generator().manual_seed(int(torch.randint(
             0, 2 ** 63 - 1, (), generator=generator))) for _ in range(2))
-    feats, _ = encoder_forward(params.encoder, cfg.encoder,
-                               imgs.reshape(B * V, H, W, 3), flat_shapes,
-                               remat=remat, generator=enc_gen)
+    if cfg.encoder_type == "dino":
+        feats, _ = dino_encoder_forward(params.encoder, cfg.encoder,
+                                        imgs.reshape(B * V, H, W, 3),
+                                        flat_shapes)
+    else:
+        feats, _ = encoder_forward(params.encoder, cfg.encoder,
+                                   imgs.reshape(B * V, H, W, 3), flat_shapes,
+                                   remat=remat, generator=enc_gen)
     P = feats.shape[1]
     fused = feats.reshape(B, V * P, -1)
 

@@ -70,12 +70,20 @@ PREFER_FUSED_MLP = True
 
 ROPE_HEAD_DIM = 64  # the RoPE epilogue's rotate-half groups are 32 lanes
 # the norm prologues hold a row's K values in registers for its statistics
-# (a warp's lane holds K / 32) and gamma / beta in shared memory
-LN_MAX_K = 1024
-# ln_mlp's fc2 tiles cover the output width in 4 tiles of 256 columns, and
-# its fc1 tiles take the LN prologue over K = the width
-MLP_WIDTH = 1024
-MLP_RING_SLOTS = 16  # ln_mlp's h ring: 16 band slots of 128 x hidden bf16
+# (a warp's lane holds K / 32) and gamma / beta in shared memory: K % 256
+# == 0 and K <= 1024, and for the LN products with bias, GELU or the q|k|v
+# split (the decoders' blocks) K <= 1280 in wide instantiations
+# (model_scaling_huge's 1280; base's 768 is a narrow one)
+LN_MAX_K = 1280
+NARROW_MAX_K = 1024  # RMS (llama) and the RoPE epilogue (the encoder)
+# ln_mlp: one instantiation per model width (its fc1 tiles take the LN
+# prologue over K = the width, its fc2 tiles cover the width in 256-column
+# tiles)
+MLP_WIDTHS = (768, 1024, 1280)
+# h ring: 16 band slots of 128 x hidden bf16 in device memory at every
+# width (20 MB at hidden 5120, inside the 50 MB L2; a 120-slot ring past
+# the L2 ran as fast at the flagship's width, csrc/ln_mlp.cu)
+MLP_RING_SLOTS = 16
 # fused_gemm.cu's modes; with the RMS prologue "bias" is the bias-free product
 _PROLOGUE = {None: 0, "ln": 1, "rms": 2}
 _EPILOGUE = {"bias": 0, "gelu": 1, "qkv": 2, "rope": 3, "residual": 4,
@@ -253,9 +261,11 @@ def _gemm(fn: str, epilogue: str, x, w, bias, ln=None, rms=None,
     if epilogue in ("qkv", "rope") and (N % 3 or (N // 3) % 128):
         raise ValueError(f"{fn}: needs N = 3 C with C % 128 == 0, got N={N}")
     pro = "ln" if ln is not None else "rms" if rms is not None else None
-    if pro is not None and (K % 256 or K > LN_MAX_K):
+    max_k = (LN_MAX_K if pro == "ln" and epilogue != "rope"
+             else NARROW_MAX_K)
+    if pro is not None and (K % 256 or K > max_k):
         raise ValueError(f"{fn}: the {pro.upper()} prologue takes "
-                         f"K % 256 == 0 and K <= {LN_MAX_K}, got K={K}")
+                         f"K % 256 == 0 and K <= {max_k}, got K={K}")
     gamma = beta = None
     eps = 0.0
     if pro == "ln":
@@ -472,9 +482,9 @@ def _ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float, ctas=None,
     if x.device.type == "cpu":
         return ln_mlp_ref(x, gamma, beta, w1, b1, w2, b2, eps)
     _check_device("ln_mlp", x)
-    if x.dim() != 2 or x.shape[1] != MLP_WIDTH or w1.dim() != 2:
-        raise ValueError(f"ln_mlp: the kernel takes x (M, {MLP_WIDTH}), got "
-                         f"{tuple(x.shape)}")
+    if x.dim() != 2 or x.shape[1] not in MLP_WIDTHS or w1.dim() != 2:
+        raise ValueError(f"ln_mlp: the kernel takes x (M, C) with C in "
+                         f"{MLP_WIDTHS}, got {tuple(x.shape)}")
     M, C = x.shape
     hidden = w1.shape[0]
     if hidden % 32 or hidden == 0:
@@ -508,7 +518,7 @@ def _ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float, ctas=None,
         x.data_ptr(), g.data_ptr(), b.data_ptr(), w1.data_ptr(),
         bb1.data_ptr(), w2.data_ptr(), bb2.data_ptr(), out.data_ptr(),
         ring.data_ptr(), stats.data_ptr(), counters.data_ptr(),
-        0 if prof is None else prof.data_ptr(), M, hidden, slots, int(ctas),
+        0 if prof is None else prof.data_ptr(), M, C, hidden, slots, int(ctas),
         float(eps), build.stream_handle(dev))
     build.check(err, "fast3r_ln_mlp")
     ln_mlp.launches += 1
@@ -546,8 +556,8 @@ class _LnMlp(torch.autograd.Function):
 
 def ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float):
     """x + GELU(LN(x) @ w1^T + b1) @ w2^T + b2 in one kernel; x (M, C),
-    w1 (hidden, C), w2 (C, hidden).  The kernel takes C == 1024 and
-    hidden % 32 == 0.  Differentiable (the two-kernel road's replay)."""
+    w1 (hidden, C), w2 (C, hidden).  The kernel takes C in 768, 1024 and
+    1280 (the models' widths) and hidden % 32 == 0.  Differentiable (the two-kernel road's replay)."""
     if _training(x, gamma, beta, w1, b1, w2, b2):
         return _LnMlp.apply(x, gamma, beta, w1, b1, w2, b2, eps)
     return _ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps)
@@ -835,7 +845,7 @@ def fused_llama_supported(x_shape, cfg) -> bool:
     d, hidden = cfg.embed_dim, cfg.ffn_hidden
     n_qkv = d + 2 * cfg.kv_heads * cfg.head_dim
     return (len(x_shape) == 3 and x_shape[-1] == d and d % 256 == 0
-            and d <= LN_MAX_K and n_qkv % 128 == 0 and hidden % 128 == 0
+            and d <= NARROW_MAX_K and n_qkv % 128 == 0 and hidden % 128 == 0
             and cfg.head_dim == ROPE_HEAD_DIM
             and cfg.n_heads % cfg.kv_heads == 0)
 

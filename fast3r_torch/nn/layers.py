@@ -100,8 +100,9 @@ def make_vit_stack(depth: int, dim: int, mlp_ratio: float = 4.0,
 def init_params_(module: nn.Module, generator: torch.Generator) -> None:
     """The JAX package's initialisation, drawn from ``generator``: linear and
     conv weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (torch's
-    default bound), LayerNorm scale 1 and bias 0, RMSNorm scale 1, and the
-    llama decoder's ``view0_embed`` N(0, 0.02)."""
+    default bound), LayerNorm scale 1 and bias 0, RMSNorm scale 1, the
+    llama decoder's ``view0_embed`` and the DINO encoder's ``pos_embed``
+    N(0, 0.02), its ``cls_token`` 0 and LayerScale gammas 1."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             w = m.weight
@@ -123,8 +124,13 @@ def init_params_(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, RMSNorm):
             m.weight.fill_(1.0)
     for name, p in module.named_parameters():
-        if name.rsplit(".", 1)[-1] == "view0_embed":
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("view0_embed", "pos_embed"):
             p.copy_(torch.randn(p.shape, generator=generator) * 0.02)
+        elif leaf == "cls_token":
+            p.zero_()
+        elif leaf in ("ls1", "ls2"):
+            p.fill_(1.0)
 
 
 # ----------------------------------------------------------------------------

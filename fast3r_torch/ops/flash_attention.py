@@ -5,7 +5,9 @@ plain versions.
 Counterpart of ``fast3r_tpu/ops/flash_attention.py`` (the decoder's packed
 flash kernels, forward and backward) and ``fast3r_tpu/ops/batched_attention.py``
 (the encoder's many-small-heads kernels): one strided kernel serves both in
-each direction.  The source notes say what bounds them on the H100 and how
+each direction, at head_dim 64 (every encoder, the flagship's and the
+model_scaling base and large decoders) and 80 (model_scaling_huge's
+decoder; JAX's flash kernel takes any head_dim).  The source notes say what bounds them on the H100 and how
 they are laid out.
 
 Numerics: scores and softmax statistics in fp32.  The forward kernel rounds
@@ -28,7 +30,7 @@ import torch
 
 from fast3r_torch.kernels import build
 
-HEAD_DIM = 64
+HEAD_DIMS = (64, 80)  # the flagship's; model_scaling_huge's 1280 / 16
 LSE_ROWS = 64  # lse / delta rows are padded to whole 64-query tiles
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -140,9 +142,9 @@ def _lse_buffer(B: int, H: int, Nq: int, device) -> torch.Tensor:
 def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      scale: float, lse: torch.Tensor = None,
                      ctas: int = 0) -> torch.Tensor:
-    """Launch the forward kernel on CUDA q, k, v (B, N, H, 64) read through
-    their strides (bf16: tensor maps, :func:`tma_view`); (B, Nq, H, 64)
-    contiguous out, and the rows' lse written into ``lse`` (a
+    """Launch the forward kernel on CUDA q, k, v (B, N, H, D), D 64 or 80,
+    read through their strides (bf16: tensor maps, :func:`tma_view`);
+    (B, Nq, H, D) contiguous out, and the rows' lse written into ``lse`` (a
     :func:`_lse_buffer`) when given.  ``ctas`` (bf16): the CTAs of the
     kernel's persistent walk over (batch * head, 128-query block) items, 0
     for one per SM (the item count gives one CTA per item).  Checks what
@@ -152,21 +154,21 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"attention: no kernel for device {q.device}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"attention: dtype {q.dtype} not supported")
-    if q.dim() != 4 or q.shape[3] != HEAD_DIM:
-        raise ValueError(f"attention: q must be (B, N, H, {HEAD_DIM}), "
-                         f"got {tuple(q.shape)}")
+    if q.dim() != 4 or q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"attention: q must be (B, N, H, D) with D in "
+                         f"{HEAD_DIMS}, got {tuple(q.shape)}")
     if q.dtype == torch.bfloat16:
         q, k, v = (tma_view(t) if t.dim() == 4 else t for t in (q, k, v))
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(name, t, q)
     if k.shape[1] != v.shape[1] or k.shape[1] == 0:
         raise ValueError("attention: k and v need the same non-zero length")
-    B, Nq, H, _ = q.shape
+    B, Nq, H, D = q.shape
     Nk = k.shape[1]
-    o = torch.empty((B, Nq, H, HEAD_DIM), device=q.device, dtype=q.dtype)
+    o = torch.empty((B, Nq, H, D), device=q.device, dtype=q.dtype)
     lib = build.library()
     err = lib.fast3r_attention_fwd(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), B, H, Nq, Nk, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], float(scale),
         0 if lse is None else lse.data_ptr(),
@@ -187,7 +189,8 @@ def attention_fwd_lse(q, k, v, scale: float):
 
 def launch_attention_bwd(q, k, v, o, lse, do, scale: float, dq, dk, dv):
     """Launch the backward kernels (dq, then dk / dv) on CUDA bf16 tensors:
-    q, k, v and do (B, N, H, 64) read through rank-4 tensor maps of their
+    q, k, v and do (B, N, H, D), D 64 or 80, read through rank-4 tensor
+    maps of their
     strides (:func:`tma_dims`; views of one packed buffer are fine) and dq,
     dk, dv written through theirs; lse from :func:`attention_fwd_lse`.
     delta = rowsum(do o) is computed here, in fp32, into lse's padded
@@ -196,6 +199,9 @@ def launch_attention_bwd(q, k, v, o, lse, do, scale: float, dq, dk, dv):
     if q.dtype != torch.bfloat16:
         raise ValueError(f"attention backward: the kernel takes bfloat16, "
                          f"got {q.dtype}")
+    if q.dim() != 4 or q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"attention backward: q must be (B, N, H, D) with D "
+                         f"in {HEAD_DIMS}, got {tuple(q.shape)}")
     if do.dim() == 4:
         do = tma_view(do)
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do), ("dq", dq),
@@ -212,7 +218,7 @@ def launch_attention_bwd(q, k, v, o, lse, do, scale: float, dq, dk, dv):
     delta = _lse_buffer(B, H, Nq, q.device)
     delta.copy_((do.float() * o.float()).sum(-1).transpose(1, 2))
     err = build.library().fast3r_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        q.shape[3], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), B, H, Nq, k.shape[1], ldl,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
@@ -224,7 +230,7 @@ def launch_attention_bwd(q, k, v, o, lse, do, scale: float, dq, dk, dv):
 def attention_bwd(q, k, v, o, lse, do, scale: float):
     """(dq, dk, dv) of attention from the forward's o and lse.  CPU tensors
     take :func:`attention_bwd_ref`; CUDA tensors launch the backward kernels
-    into new contiguous (B, N, H, 64) tensors."""
+    into new contiguous (B, N, H, D) tensors."""
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, lse, do, scale)
     dq = torch.empty(q.shape, device=q.device, dtype=q.dtype)
@@ -258,8 +264,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take the plain versions.  CUDA tensors launch the kernels
     (:func:`launch_attention`, and under autograd :func:`attention_bwd`),
     which read q, k and v through their strides (no copy of the qkv
-    projection's views) and take D == 64, in float32 or bfloat16 forward
-    and bfloat16 backward; anything else raises.
+    projection's views) and take D == 64 or 80, in float32 or bfloat16
+    forward and bfloat16 backward; anything else raises.
     """
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

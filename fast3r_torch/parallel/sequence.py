@@ -38,6 +38,7 @@ from fast3r_torch.models.dpt_head import dpt_head_forward
 from fast3r_torch.models.encoder import encoder_forward
 from fast3r_torch.models.fast3r import Fast3RConfig, Fast3RNet, _chunk_views
 from fast3r_torch.ops.flash_attention import attention_lse_ref
+from fast3r_torch.parallel.ring_rdma import HEAD_DIM as RING_HEAD_DIM
 from fast3r_torch.parallel.ring_rdma import ring_flash_attention_rdma_diff
 from fast3r_torch.train.losses import LossConfig, conf_loss_multiview_v2
 from fast3r_torch.train.step import OptimConfig, TrainState, train_step
@@ -163,6 +164,17 @@ def seq_sharded_config(cfg: Fast3RConfig, n: int, ring_impl: str = "rdma"
         cfg.decoder, attn_impl=attn, fused_blocks=False))
 
 
+def _check_ring_head_dim(cfg: Fast3RConfig, ring_impl: str, device) -> None:
+    """The ring kernels (K14, csrc/ring_attention.cu and
+    ring_attention_bwd.cu) take head_dim 64: on CUDA a decoder of another
+    head_dim (model_scaling_huge's 80) raises before the path runs."""
+    if (ring_impl == "rdma" and torch.device(device).type == "cuda"
+            and cfg.decoder.head_dim != RING_HEAD_DIM):
+        raise ValueError(
+            f"the ring kernels take head_dim {RING_HEAD_DIM}; this decoder's "
+            f"is {cfg.decoder.head_dim} (ring_impl='plain' runs any head_dim)")
+
+
 def _run_heads(params: Fast3RNet, cfg: Fast3RConfig, tokens: list,
                hw: Tuple[int, int]) -> Dict[str, torch.Tensor]:
     g = dpt_head_forward(params.head_global, cfg.head, tokens, hw)
@@ -215,6 +227,7 @@ def make_seq_sharded_forward(cfg: Fast3RConfig, n: int, num_views: int,
         if p0.device.type != device.type:
             raise ValueError(f"params are on {p0.device}, the forward on "
                              f"{device}")
+        _check_ring_head_dim(cfg, ring_impl, device)
         if imgs.shape[0] != 1:
             raise ValueError("the 1000-view path is B=1 (reference: bs=1 "
                              f"inference), got a batch of {imgs.shape[0]}")
@@ -311,6 +324,7 @@ def make_seq_sharded_train_step(cfg: Fast3RConfig, optim_cfg: OptimConfig,
         if p0.device.type != device.type:
             raise ValueError(f"params are on {p0.device}, the step on "
                              f"{device}")
+        _check_ring_head_dim(cfg, ring_impl, device)
         B, V, H, W = batch["imgs"].shape[:4]
         if V % n != 0:
             raise ValueError(f"views {V} % ranks {n} != 0")

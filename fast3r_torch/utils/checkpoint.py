@@ -1,7 +1,7 @@
 """Reference-format Fast3R checkpoints -> the port's parameters.
 
-Counterpart of ``fast3r_tpu/utils/checkpoint.py`` (``fast3r_key_map``,
-``llama_decoder_entries``, ``_variant_key_map``,
+Counterpart of ``fast3r_tpu/utils/checkpoint.py`` (``llama_decoder_entries``,
+``dino_encoder_entries``, ``_variant_key_map``,
 ``torch_state_dict_to_params`` / ``params_from_fast3r_checkpoint``).  The
 published weights are a torch state dict of the reference module tree
 (``encoder.* decoder.* downstream_head.* downstream_head_local.*``, keys
@@ -87,19 +87,6 @@ def _head_pair(with_local_head: bool) -> List[Entry]:
                if with_local_head else []))
 
 
-def fast3r_key_map(enc_depth: int, dec_depth: int,
-                   with_local_head: bool) -> List[Entry]:
-    """Every entry of a croco-encoder, ViT-decoder Fast3R checkpoint."""
-    entries = _encoder_entries(enc_depth) + [
-        ("decoder.decoder_embed", ("decoder", "decoder_embed"), "linear"),
-        ("decoder.dec_norm", ("decoder", "norm"), "ln"),
-    ]
-    for i in range(dec_depth):
-        entries += _block_entries(f"decoder.dec_blocks.{i}.",
-                                  ("decoder", "blocks", i))
-    return entries + _head_pair(with_local_head)
-
-
 def llama_decoder_entries(n_layers: int) -> List[Entry]:
     """The llama fusion decoder's tensors; ``tensor`` entries are raw
     parameters (no .weight suffix), RMSNorm weights take the ``ln`` kind."""
@@ -123,16 +110,45 @@ def llama_decoder_entries(n_layers: int) -> List[Entry]:
     return entries
 
 
+def dino_encoder_entries(depth: int) -> List[Entry]:
+    """The DINO encoder's tensors: the reference wraps a torch hub DINOv2
+    ViT as ``encoder.model``; each block's LayerScale gamma is a ``tensor``
+    entry of path (encoder, ls1 | ls2, i), stacked on the depth axis of the
+    port's ``encoder.ls1`` / ``encoder.ls2``."""
+    pre = "encoder.model."
+    entries: List[Entry] = [
+        (pre + "patch_embed.proj", ("encoder", "patch_embed"), "conv"),
+        (pre + "cls_token", ("encoder", "cls_token"), "tensor"),
+        (pre + "pos_embed", ("encoder", "pos_embed"), "tensor"),
+        (pre + "norm", ("encoder", "norm"), "ln"),
+    ]
+    for i in range(depth):
+        entries += _block_entries(f"{pre}blocks.{i}.", ("encoder", "blocks", i))
+        entries += [(f"{pre}blocks.{i}.ls1.gamma", ("encoder", "ls1", i),
+                     "tensor"),
+                    (f"{pre}blocks.{i}.ls2.gamma", ("encoder", "ls2", i),
+                     "tensor")]
+    return entries
+
+
 def _variant_key_map(cfg) -> List[Entry]:
-    """The entries of a Fast3RConfig: croco encoder x ViT | llama decoder
-    (the DINO encoder is not ported: ``config_from_reference_args``
-    raises before a map is needed)."""
-    if cfg.decoder_type != "llama":
-        return fast3r_key_map(cfg.encoder.depth, cfg.decoder.depth,
-                              cfg.with_local_head)
-    return (_encoder_entries(cfg.encoder.depth)
-            + llama_decoder_entries(cfg.decoder.n_layers)
-            + _head_pair(cfg.with_local_head))
+    """The entries of a Fast3RConfig: croco | dino encoder x ViT | llama
+    decoder."""
+    if cfg.encoder_type == "dino":
+        entries = dino_encoder_entries(cfg.encoder.depth)
+    else:
+        entries = _encoder_entries(cfg.encoder.depth)
+    if cfg.decoder_type == "llama":
+        entries += llama_decoder_entries(cfg.decoder.n_layers)
+    else:
+        entries += [
+            ("decoder.decoder_embed", ("decoder", "decoder_embed"), "linear"),
+            ("decoder.dec_norm", ("decoder", "norm"), "ln"),
+        ]
+        for i in range(cfg.decoder.depth):
+            entries += _block_entries(f"decoder.dec_blocks.{i}.",
+                                      ("decoder", "blocks", i))
+    return entries + _head_pair(cfg.with_local_head)
 
 
 def params_from_fast3r_checkpoint(state_dict: Dict[str, torch.Tensor], cfg,
@@ -148,7 +164,14 @@ def params_from_fast3r_checkpoint(state_dict: Dict[str, torch.Tensor], cfg,
             k = k[len("net."):]
         sd[k] = v
     out: Dict[str, torch.Tensor] = {}
+    stacks: Dict[str, Dict[int, torch.Tensor]] = {}
     for prefix, path, kind in _variant_key_map(cfg):
+        if kind == "tensor" and isinstance(path[-1], int):  # LayerScale
+            if prefix not in sd:
+                raise KeyError(f"missing checkpoint tensor {prefix}")
+            stacks.setdefault(".".join(path[:-1]), {})[path[-1]] = \
+                torch.as_tensor(sd[prefix]).to(torch.float32)
+            continue
         name = ".".join(map(str, path))
         keys = ({"": prefix} if kind == "tensor" else
                 {".weight": prefix + ".weight", ".bias": prefix + ".bias"})
@@ -158,6 +181,8 @@ def params_from_fast3r_checkpoint(state_dict: Dict[str, torch.Tensor], cfg,
                     continue  # conv_nobias, RMSNorm, bias-free linears
                 raise KeyError(f"missing checkpoint tensor {key}")
             out[name + suffix] = torch.as_tensor(sd[key]).to(torch.float32)
+    for name, rows in stacks.items():
+        out[name] = torch.stack([rows[i] for i in range(len(rows))])
     return out
 
 

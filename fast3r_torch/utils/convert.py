@@ -12,6 +12,8 @@ The JAX package keeps params as nested dicts and lists of arrays
              a leading depth axis                   -> blocks.{i}, layers.{i}
   lists      ("layer_rn", "refinenet")             -> ModuleList index
   "view0_embed"  a bare (d,) leaf of the llama decoder -> the same parameter
+  "cls_token", "pos_embed", "ls1", "ls2"  the DINO encoder's bare leaves (the
+             LayerScale gammas stacked (depth, d) on both sides) -> the same
 
 Which layout a leaf takes is decided by the port module it lands in, so the
 converter needs no table of names: the module path is the JAX key path.
@@ -30,8 +32,9 @@ from torch import nn
 
 from fast3r_torch.nn.layers import RMSNorm
 
+_BARE = ("view0_embed", "cls_token", "pos_embed", "ls1", "ls2")
 _LEAF_NAMES = {"w": "weight", "b": "bias", "scale": "weight", "bias": "bias",
-               "view0_embed": "view0_embed"}
+               **{k: k for k in _BARE}}
 _STACKED = ("blocks", "layers")  # subtrees stacked on a leading depth axis
 
 
@@ -121,7 +124,7 @@ def _to_jax(module: nn.Module, leaf: str, a: np.ndarray) -> np.ndarray:
 def _jax_leaf(module: nn.Module, leaf: str) -> str:
     if isinstance(module, (nn.LayerNorm, RMSNorm)):
         return {"weight": "scale", "bias": "bias"}[leaf]
-    return {"weight": "w", "bias": "b", "view0_embed": "view0_embed"}[leaf]
+    return {"weight": "w", "bias": "b", **{k: k for k in _BARE}}[leaf]
 
 
 def params_to_jax(tensors: Dict[str, torch.Tensor], cfg) -> Dict[str, Any]:

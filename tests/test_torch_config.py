@@ -8,9 +8,9 @@ CPU.
   with dotted overrides.
 * ``model_config_from_dict``, ``optim_config_from_dict`` and
   ``loss_config_from_dict`` give equal values on the fields both sides
-  have; the attention implementation maps JAX's "xla" (its plain attention)
-  to the port's plain "naive", and the port's encoder takes "batched" where
-  JAX's config says "pallas" (both the attention kernel).
+  have; the attention implementation maps JAX's "xla" (XLA's attention) to
+  the port's kernel roads ("pallas"), and the port's encoder takes
+  "batched" where JAX's config says "pallas" (both the attention kernel).
 """
 
 import dataclasses
@@ -118,8 +118,8 @@ def _same_fields(a, b, path=""):
         if dataclasses.is_dataclass(x) and dataclasses.is_dataclass(y):
             _same_fields(x, y, f"{path}.{name}")
         elif name == "attn_impl":
-            assert x == {"xla": "naive"}.get(y, y) or (
-                x == "batched" and y == "pallas"), (path, x, y)
+            y = {"xla": "pallas"}.get(y, y)
+            assert x == y or (x == "batched" and y == "pallas"), (path, x, y)
         else:
             assert x == y, (f"{path}.{name}", x, y)
 

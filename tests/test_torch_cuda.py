@@ -38,17 +38,19 @@ def _gen(seed):
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("B,N,H", [(2, 768, 4), (1, 196, 2), (3, 64, 1),
-                                   (1, 1000, 2)])
-def test_attention_kernel_matches_plain(dev, dtype, atol, B, N, H):
-    """Strided q/k/v views of a (B, N, 3, H, 64) tensor, ragged N included."""
-    qkv = torch.randn((B, N, 3, H, 64), generator=_gen(0), device=dev).to(dtype)
+                                   (1, 1000, 2), (2, 1037, 2)])
+@pytest.mark.parametrize("D", [64, 80])
+def test_attention_kernel_matches_plain(dev, dtype, atol, B, N, H, D):
+    """Strided q/k/v views of a (B, N, 3, H, D) tensor, ragged N included
+    (1037: a 392x518 DINO view), at head_dim 64 and 80."""
+    qkv = torch.randn((B, N, 3, H, D), generator=_gen(0), device=dev).to(dtype)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     before = t_flash.flash_attention.launches
     out = t_flash.flash_attention(q, k, v, 0.125)
     assert t_flash.flash_attention.launches == before + 1
     ref = t_flash.attention_ref(q, k, v, 0.125)
     torch.cuda.synchronize()
-    assert out.shape == (B, N, H, 64) and out.dtype == dtype
+    assert out.shape == (B, N, H, D) and out.dtype == dtype
     assert (out.float() - ref.float()).abs().max().item() < atol
 
 
@@ -399,14 +401,16 @@ def _assert_bf16_close(out, ref, atol):
 @pytest.mark.parametrize("M", [128, 300, 37])
 @pytest.mark.parametrize("kind", ["ln_matmul", "ln_matmul_gelu", "ln_qkv",
                                   "ln_qkv_rope", "matmul_residual"])
-def test_fused_gemm_kernels_match_plain(dev, kind, M):
+@pytest.mark.parametrize("C", [256, 768, 1280])
+def test_fused_gemm_kernels_match_plain(dev, kind, M, C):
     """Every epilogue of fused_gemm.cu vs its plain version, at whole and
-    ragged row counts (C = 256, 4 heads of 64; hidden 1024)."""
+    ragged row counts (C = 256, 768, 1280: the LN prologue's 1, 3 and 5
+    chunks a lane, 1280 in the wide instantiations, which RoPE has not;
+    heads of 64; hidden 4 C)."""
     from fast3r_torch.nn import fused_block as t_fb
     from fast3r_torch.ops.rope2d import expand_rope_tables, rope2d_cos_sin
 
     g = _gen(4)
-    C = 256
     x = _bf((M, C), g, 2.0, 0.5)
     gamma, beta = _bf((C,), g, 0.1, 1.0), _bf((C,), g, 0.1)
     fn = {"ln_matmul_gelu": "ln_matmul"}.get(kind, kind)
@@ -427,7 +431,11 @@ def test_fused_gemm_kernels_match_plain(dev, kind, M):
         pos = torch.randint(0, 40, (1, M, 2), device="cuda", generator=g)
         ct, st = expand_rope_tables(*rope2d_cos_sin(pos, 64), C,
                                     torch.bfloat16)
-        args = (x, gamma, beta, w, b, ct, st, 4, 1e-6)
+        args = (x, gamma, beta, w, b, ct, st, C // 64, 1e-6)
+        if C > 1024:  # the RoPE epilogue serves the encoder's width only
+            with pytest.raises(ValueError, match="K <= 1024"):
+                wrapper(*args)
+            return
         out = wrapper(*args)
         ref = t_fb.ln_qkv_rope_ref(*args)
     else:
@@ -441,13 +449,13 @@ def test_fused_gemm_kernels_match_plain(dev, kind, M):
 
 
 @pytest.mark.parametrize("M,hidden", [(128, 4096), (300, 1024), (37, 64)])
-def test_ln_mlp_kernel_matches_plain(dev, M, hidden):
-    """The whole-MLP kernel (C = 1024) vs its plain version, ragged rows
-    and short hidden loops included."""
+@pytest.mark.parametrize("C", [768, 1024, 1280])
+def test_ln_mlp_kernel_matches_plain(dev, M, hidden, C):
+    """The whole-MLP kernel (C = 768, 1024, 1280: 3, 4, 5 fc2 tiles a band)
+    vs its plain version, ragged rows and short hidden loops included."""
     from fast3r_torch.nn import fused_block as t_fb
 
     g = _gen(5)
-    C = 1024
     x = _bf((M, C), g, 2.0, 0.5)
     gamma, beta = _bf((C,), g, 0.1, 1.0), _bf((C,), g, 0.1)
     w1, b1 = _linear(hidden, C, g)
@@ -571,7 +579,7 @@ def test_fused_kernels_reject_what_they_cannot_take(dev):
     with pytest.raises(ValueError, match="head_dim"):
         ct = torch.zeros((64, 256), device=dev, dtype=torch.bfloat16)
         t_fb.ln_qkv_rope(x, ones, zeros, w, b, ct, ct, 8, 1e-6)
-    with pytest.raises(ValueError, match="1024"):
+    with pytest.raises(ValueError, match="1024"):  # not a model's width
         w1, b1 = _linear(1024, 256, g)
         w2, b2 = _linear(256, 1024, g)
         t_fb.ln_mlp(x, ones, zeros, w1, b1, w2, b2, 1e-6)
@@ -595,17 +603,18 @@ def _rel_max(out, ref):
                                    # the 128-row CTAs' and 64-row tiles' edges
                                    (1, 127, 2), (1, 129, 2), (1, 200, 2),
                                    (2, 50, 2), (3, 129, 2), (1, 3000, 16)])
-def test_attention_bwd_kernel_matches_plain(dev, B, N, H):
-    """Strided q/k/v views of (B, N, 3, H, 64), ragged N included (one and
-    two tiles past a 128-row CTA, N < 64, B = 3 through the rank-4 maps):
-    the forward's lse against the plain logsumexp (fp32, 1e-3 absolute on
-    values ~5), and dq, dk, dv against the plain backward on the same o and
-    lse within 2e-2 of max |plain|."""
+@pytest.mark.parametrize("D", [64, 80])
+def test_attention_bwd_kernel_matches_plain(dev, B, N, H, D):
+    """Strided q/k/v views of (B, N, 3, H, D), D 64 and 80, ragged N
+    included (one and two tiles past a 128-row CTA, N < 64, B = 3 through
+    the rank-4 maps): the forward's lse against the plain logsumexp (fp32,
+    1e-3 absolute on values ~5), and dq, dk, dv against the plain backward
+    on the same o and lse within 2e-2 of max |plain|."""
     g = _gen(8)
-    qkv = torch.randn((B, N, 3, H, 64), generator=g, device=dev).to(
+    qkv = torch.randn((B, N, 3, H, D), generator=g, device=dev).to(
         torch.bfloat16)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    do = torch.randn((B, N, H, 64), generator=g, device=dev).to(torch.bfloat16)
+    do = torch.randn((B, N, H, D), generator=g, device=dev).to(torch.bfloat16)
     o, lse = t_flash.attention_fwd_lse(q, k, v, 0.125)
     _, lse_ref = t_flash.attention_lse_ref(q, k, v, 0.125)
     assert (lse - lse_ref).abs().max().item() < 1e-3

@@ -715,8 +715,14 @@ def test_llama_dec_config_is_the_slice():
 
 
 def test_config_dino_encoder_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        config_from_reference_args({"encoder_type": "dino"}, {}, {})
+    """``encoder_type: dino`` no longer raises: it builds the DINOv2
+    ViT-L/14 encoder (held against fast3r_tpu in tests/test_torch_dino.py)
+    at its published widths."""
+    cfg = config_from_reference_args({"encoder_type": "dino"}, {}, {})
+    assert cfg.encoder_type == "dino"
+    assert (cfg.encoder.patch_size, cfg.encoder.embed_dim, cfg.encoder.depth,
+            cfg.encoder.num_heads, cfg.encoder.pos_embed_size) == (
+                14, 1024, 24, 16, 37)
 
 
 def test_llama_params_round_trip(tiny):

@@ -156,9 +156,14 @@ def test_attention_ragged_and_naive_match_jax_naive():
 
 
 def test_attention_unknown_impl_raises():
+    """"xla" (the DINO encoder's default) is a known name, mapped to the
+    attention kernel; a name of no implementation raises."""
     q = torch.zeros(1, 4, 1, 64)
     with pytest.raises(ValueError, match="unknown attention impl"):
-        t_attention.dot_product_attention(q, q, q, 1.0, impl="xla")
+        t_attention.dot_product_attention(q, q, q, 1.0, impl="cudnn")
+    torch.testing.assert_close(
+        t_attention.dot_product_attention(q, q, q, 1.0, impl="xla"),
+        t_attention.dot_product_attention(q, q, q, 1.0, impl="naive"))
 
 
 @pytest.mark.parametrize("fn", ["attention", "layernorm", "trunk",

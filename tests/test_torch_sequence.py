@@ -272,4 +272,4 @@ def test_callable_attention_matches_the_string_road():
     assert torch.equal(a, b) and torch.equal(ha[1], hb[1])
     with pytest.raises(ValueError, match="unknown attention impl"):
         dot_product_attention(x[..., None], x[..., None], x[..., None], 1.0,
-                              "xla")
+                              "cudnn")
