@@ -263,7 +263,24 @@ printing each one's seconds:
      views, the ring kernels on no path but the sequence-sharded ones, the
      CroCo encoder's kernels on no path of the DINO model's, no backward
      kernel on a serving path of phases 22-24; no layout copy on a serving
-     path.
+     path;
+  27. the mesh step: the kernels at a model-2 rank's shapes (M = 6144
+     rows, 8 heads: K4 / K3 / K11 at qkv N = 1536, K11 fc1 N = 2048, K5
+     proj K = 512 with and without the residual, K6 hidden 2048 with and
+     without x and b2, K2 / K10 on (3, 8, 768, 512), K1 / K9 at (1, 6144,
+     8, 64)) against their plain versions; super_long_training's model
+     for 3 steps on the one-process Trainer road (fp32 master, bf16
+     working copy) on global batches of 2 x 8 views at 512x384, then on a
+     data 2 x model 2 grid of four processes sharing the card over gloo
+     (ZeRO-2 master and moment shards, tensor-parallel stacks; gloo's
+     collectives on the card's tensors), each rank's step seconds, seconds in
+     collectives and peak memory printed; each rank's loss within 1% of
+     the one-process road's, each top-level group's update within 2%
+     relative L2 or twice the distance between the one-process step's
+     fused and plain roads (its rounding floor), each rank's launch counts
+     equal to the one-process road's, its decoder block's params at the
+     model-2 slice shapes; then one step of the mesh Trainer at world size
+     1 over NCCL.
 
 Any failure raises (exit code 1).  Without a CUDA device the script exits
 with code 2 before printing any result.  The last line of standard output
@@ -299,6 +316,7 @@ from fast3r_torch.kernels import build
 from fast3r_torch.models.decoder import sample_random_image_ids
 from fast3r_torch.models.dino_encoder import DinoEncoderConfig
 from fast3r_torch.models.dpt_head import dpt_head_forward, head_road
+from fast3r_torch.models.fast3r import empty_fast3r
 from fast3r_torch.models.llama_decoder import LlamaDecoderConfig
 from fast3r_torch.nn import fused_block as fb
 from fast3r_torch.ops.batched_attention import (
@@ -3780,7 +3798,7 @@ def _update_ms(state, reps: int = 3) -> dict:
     bound: each parameter's param and moments read and written, its
     gradient read and its copy written once, at 3.35 TB/s."""
     named = dict(state.params.named_parameters())
-    src = dict(state.compute_params.named_parameters())
+    src = dict(state.net.named_parameters())
     grads = {k: src[k].detach() for k in named}
     ms = []
     for _ in range(reps + 1):
@@ -4230,6 +4248,467 @@ def _check_roads(path: str, roads: list, counts: dict,
                              f"{counts['resize']}")
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the mesh step on the card (data 2 x model 2 ranks on one card)
+# ---------------------------------------------------------------------------
+
+# the grid, and each data rank's batch: 1 sample of 8 views at 512x384, so
+# a rank's products have M = 8 x 768 = 6144 rows and, at model 2, 8 heads,
+# qkv N = 1536, proj K = 512 and an MLP hidden of 2048
+MESH_DATA, MESH_MODEL, MESH_VIEWS, MESH_STEPS = 2, 2, 8, 3
+MESH_M = MESH_VIEWS * 768
+MESH_OPT = OptimConfig(lr=1e-4, warmup_steps=1, total_steps=1000)
+# the mesh step against the one-process Trainer road on the same global
+# batch and image ids, both on bf16 working copies of fp32 masters (the TP
+# road sums each sublayer's two bf16 partial outputs, the one-process road
+# rounds one output; the data road reduces fp32 gradient shards in another
+# order): the loss within MESH_LOSS_RTOL relative, and each top-level
+# group's update (master after minus before) within MESH_UPDATE_RTOL
+# relative L2 or within MESH_FLOOR_X times the same group's distance
+# between two roads of the one-process step that differ in rounding only
+# (the fused and the plain block roads), whichever is larger.  AdamW's
+# first steps move each element by about lr whatever its gradient's size,
+# so an element whose gradient is near bf16 noise moves by a different
+# amount on any two roads; the heads' small convolutions have the most such
+# elements (measured on an H100: head_global 2.9% against a floor of 1.8%,
+# the stacks 1.1-1.3% against 0.4-0.8%).
+MESH_LOSS_RTOL = 0.01
+MESH_UPDATE_RTOL = 0.02
+MESH_FLOOR_X = 2.0
+
+
+def mesh_cfg() -> Fast3RConfig:
+    """super_long_training's model through the training CLI's loader: the
+    CroCo encoder 1024 x 24 and the fusion decoder 1024 x 24, both heads,
+    the fused road."""
+    from fast3r_torch.config import CONFIG_DIR, load_config, model_config_from_dict
+
+    return model_config_from_dict(load_config(
+        os.path.join(CONFIG_DIR, "train.yaml"), "super_long_training")["model"])
+
+
+def _mesh_batches() -> list:
+    """The global batches: 2 samples (one a data rank) of 8 views."""
+    return [{k: v for k, v in make_dummy_batch(
+        MESH_DATA, MESH_VIEWS, 384, 512, seed=40 + i).items()
+        if k in BATCH_KEYS} for i in range(MESH_STEPS)]
+
+
+def _mesh_worker(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One rank of the grid: a mesh Trainer (fp32 master shards, bf16
+    working copy, ZeRO-2) takes MESH_STEPS steps on its rows of the global
+    batches over gloo; its records, launch counts and (rank 0) the gathered
+    whole master land in ``out_dir``."""
+    import torch.distributed as dist
+
+    from fast3r_torch.parallel import mesh as mesh_lib
+    from fast3r_torch.train.trainer import Trainer, TrainerConfig
+
+    torch.cuda.set_device(0)
+    # the four ranks share the machine's cores (the whole model's init on
+    # the CPU, gloo's host side)
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    cfg = mesh_cfg()
+    t = time.perf_counter()
+    trainer = Trainer(cfg, MESH_OPT, trainer_cfg=TrainerConfig(
+        run_dir=os.path.join(out_dir, "run"), loggers=(), use_mesh=True,
+        model_axis=MESH_MODEL), device="cuda")
+    init_s = time.perf_counter() - t
+    mesh = trainer.mesh
+    blk = dict(trainer.state.net.decoder.blocks[0].named_parameters())
+    shapes = {k: list(blk[k].shape) for k in
+              ("attn.qkv.weight", "attn.proj.weight", "mlp.fc1.weight",
+               "mlp.fc2.weight")}
+    # the collectives' seconds: each call synchronised and timed
+    coll = [0.0]
+    run = mesh._run
+
+    def timed(group, size, op, *ts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(group, size, op, *ts)
+        torch.cuda.synchronize()
+        coll[0] += time.perf_counter() - t0
+
+    mesh._run = timed
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    recs = []
+    for i, batch in enumerate(_mesh_batches()):
+        rows = mesh_lib.batch_rows(mesh, MESH_DATA)
+        coll[0] = 0.0
+        t = time.perf_counter()
+        trainer.state, m = train_step(
+            trainer.state, {k: v[rows] for k, v in batch.items()}, cfg,
+            MESH_OPT, remat=True)
+        torch.cuda.synchronize()
+        recs.append({"rank": rank, "grid": [mesh.data_rank, mesh.model_rank],
+                     "train_step": i + 1, "step_s": time.perf_counter() - t,
+                     "collective_s": coll[0], "loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "skipped_nonfinite": int(m["skipped_nonfinite"]),
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    counts = _read_counts()
+    master = trainer.params_state_dict()
+    if rank == 0:
+        torch.save(master, os.path.join(out_dir, "mesh_master.pt"))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"steps": recs, "counts": counts, "shapes": shapes,
+                   "init_s": init_s,
+                   "moment_gb": mesh_lib.moment_bytes(trainer.state.opt_state) / 1e9},
+                  f)
+    dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _group_update_err(before: dict, after: dict, ref: dict) -> dict:
+    """Per top-level group: |(after - before) - (ref - before)| /
+    |ref - before| in the L2 norm."""
+    num, den = {}, {}
+    for k, b in before.items():
+        g = k.split(".", 1)[0]
+        du = ref[k].float() - b
+        num[g] = num.get(g, 0.0) + float((after[k].float() - b - du).square().sum())
+        den[g] = den.get(g, 0.0) + float(du.square().sum())
+    return {g: math.sqrt(num[g] / den[g]) for g in num}
+
+
+def check_tp_kernels(results: list) -> None:
+    """The kernels of the mesh step at a model-2 rank's shapes against
+    their plain versions, in the phase-2 manner: M = 6144 rows (8 views x
+    768 tokens), 8 heads of 64, qkv N = 1536 (K4 with RoPE, K3, the K11
+    replay), proj K = 512 with the residual (model rank 0) and without
+    (rank 1: the bias epilogue on a zero bias), the whole MLP at hidden
+    2048 with x and b2 (rank 0) and without (rank 1), the fc1 replay at
+    N = 2048, the encoder's packed attention (3, 8, 768, 512) forward and
+    backward (K2, K10) and the decoder's (1, 6144, 8, 64) (K1, K9)."""
+    g = _gen(27)
+    bf, it = torch.bfloat16, 2
+    M, Cc, Cl, Hl, HIDl = MESH_M, C, C // 2, 8, HID // 2
+    x = (torch.randn((M, Cc), generator=g, device="cuda") * 2 + 0.5).to(bf)
+    gamma = (1 + 0.1 * torch.randn((Cc,), generator=g, device="cuda")).to(bf)
+    beta = (0.1 * torch.randn((Cc,), generator=g, device="cuda")).to(bf)
+    wqkv, bqkv = _linear(3 * Cl, Cc, g)
+    wproj, bproj = _linear(Cc, Cl, g)
+    w1, b1 = _linear(HIDl, Cc, g)
+    w2, b2 = _linear(Cc, HIDl, g)
+    yy, xx = torch.meshgrid(torch.arange(24), torch.arange(32), indexing="ij")
+    pos = torch.stack([yy, xx], -1).reshape(1, -1, 2).repeat(
+        MESH_VIEWS, 1, 1).cuda()
+    cos, sin = rope2d_cos_sin(pos, 64)
+    ct, st = expand_rope_tables(cos, sin, Cl, bf)
+    tp = "model 2 rank"
+
+    def ln_linear(w, b, eps):
+        return F.linear(F.layer_norm(x, (Cc,), gamma, beta, eps), w, b)
+
+    def library_rope():
+        y = ln_linear(wqkv, bqkv, 1e-6)
+
+        def rope(t):
+            t = t.float()
+            return (t * ct + rotate_half_lanes(t, 32) * st).to(bf)
+        return torch.stack([rope(y[:, :Cl]), rope(y[:, Cl:2 * Cl]),
+                            y[:, 2 * Cl:]])
+
+    qkv_flops = 2.0 * M * Cc * 3 * Cl
+    args = (x, gamma, beta, wqkv, bqkv, ct, st, Hl, 1e-6)
+    _record(results, "ln_qkv_rope", "fused_gemm", f"{tp} N=1536 {M}x{Cc}",
+            fb.ln_qkv_rope(*args), fb.ln_qkv_rope_ref(*args),
+            lambda: fb.ln_qkv_rope(*args), lambda: fb.ln_qkv_rope_ref(*args),
+            library_rope, "F.layer_norm + F.linear + torch elementwise RoPE",
+            qkv_flops, (3 * Cl * Cc + 3 * Cl + 2 * Cc + M * Cc + 3 * M * Cl
+                        + 2 * M * Cl) * it)
+    args = (x, gamma, beta, wqkv, bqkv, 1e-5)
+    _record(results, "ln_qkv", "fused_gemm", f"{tp} N=1536 {M}x{Cc}",
+            torch.stack(fb.ln_qkv(*args)), torch.stack(fb.ln_qkv_ref(*args)),
+            lambda: fb.ln_qkv(*args), lambda: fb.ln_qkv_ref(*args),
+            lambda: ln_linear(wqkv, bqkv, 1e-5).split(Cl, dim=1),
+            "F.layer_norm + F.linear", qkv_flops,
+            (3 * Cl * Cc + 3 * Cl + 2 * Cc + M * Cc + 3 * M * Cl) * it)
+    for mode, w, b, n, lib_name, lib in (
+            ("qkv", wqkv, bqkv, 3 * Cl, "F.layer_norm + F.linear",
+             lambda: ln_linear(wqkv, bqkv, 1e-5)),
+            ("gelu", w1, b1, HIDl, "F.layer_norm + F.linear + F.gelu",
+             lambda: F.gelu(ln_linear(w1, b1, 1e-6)))):
+        rargs = (mode, x, gamma, beta, w, b, 1e-6, None, Hl)
+        got = fb._replay(*rargs)
+        ref = fb._replay_ref(*rargs)
+        errs = [compare("fused_gemm", got[0], ref[0], bf),
+                compare("replay_u", got[1], ref[1], bf)]
+        errs += [compare("replay_stats", a, e, bf)
+                 for a, e in zip(got[2:4], ref[2:4])]
+        if mode == "gelu":
+            errs.append(compare("fused_gemm", got[4], ref[4], bf))
+        r = dict(errs[0], kernel="ln_matmul_replay",
+                 case=f"{tp} {mode} N={n} {M}x{Cc}", dtype="bfloat16",
+                 max_abs_err_residuals=max(e["max_abs_err"] for e in errs[1:]),
+                 ms=median_ms(lambda: fb._replay(*rargs), 10),
+                 plain_ms=median_ms(lambda: fb._replay_ref(*rargs), 3),
+                 library=lib_name, library_ms=median_ms(lib, 10),
+                 **bound(2.0 * M * Cc * n,
+                         (2 * M * Cc + n * Cc + M * n) * it
+                         + (n + 2 * Cc + 2 * M) * 4
+                         + (M * n * it if mode == "gelu" else 0)))
+        results.append(r)
+        log(json.dumps(r))
+        del got, ref
+    o = (torch.randn((M, Cl), generator=g, device="cuda") * 0.5).to(bf)
+    zero = torch.zeros_like(bproj)
+    for case, bias, res in (("residual", bproj, x), ("no residual", zero,
+                                                     None)):
+        args = (o, wproj, bias, res)
+        lib = ((lambda: F.linear(o, wproj, bproj) + x) if res is not None
+               else (lambda: F.linear(o, wproj)))
+        _record(results, "matmul_residual", "fused_gemm",
+                f"{tp} proj K={Cl} {case} {M}x{Cl} -> {Cc}",
+                fb.matmul_residual(*args), fb.matmul_residual_ref(*args),
+                lambda: fb.matmul_residual(*args),
+                lambda: fb.matmul_residual_ref(*args), lib,
+                "F.linear + add" if res is not None else "F.linear",
+                2.0 * M * Cl * Cc,
+                (M * Cl + Cc * Cl + Cc + (2 if res is not None else 1) * M * Cc)
+                * it)
+    for case, first in (("x and b2", True), ("no residual", False)):
+        args = (x, gamma, beta, w1, b1, w2, b2 if first else zero, 1e-6)
+        lib = ((lambda: x + F.linear(F.gelu(ln_linear(w1, b1, 1e-6)), w2, b2))
+               if first else
+               (lambda: F.linear(F.gelu(ln_linear(w1, b1, 1e-6)), w2)))
+        _record(results, "ln_mlp", "ln_mlp",
+                f"{tp} hidden {HIDl} {case} {M}x{Cc}",
+                fb._ln_mlp(*args, residual=first),
+                fb.ln_mlp_ref(*args, residual=first),
+                lambda: fb._ln_mlp(*args, residual=first),
+                lambda: fb.ln_mlp_ref(*args, residual=first), lib,
+                "F.layer_norm + F.linear + F.gelu + F.linear"
+                + (" + add" if first else ""), 4.0 * M * Cc * HIDl,
+                (2 * M * Cc + 2 * HIDl * Cc + HIDl + 3 * Cc) * it)
+    del o
+    torch.cuda.empty_cache()
+
+    # the encoder's attention from a rank's packed (3, 8, 768, 512) buffer
+    B, N, D = MESH_VIEWS, 768, 64
+    qkv3 = torch.randn((3, B, N, Cl), generator=g, device="cuda").to(bf)
+    q, k, v = (qkv3[i].view(B, N, Hl, D) for i in range(3))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    _record(results, "packed_qkv_attention", "attention",
+            f"{tp} (3, {B}, {N}, {Cl}), {Hl} heads",
+            packed_qkv_attention(qkv3, Hl, TRAIN_SCALE),
+            attention_ref(q, k, v, TRAIN_SCALE).reshape(B, N, Cl),
+            lambda: packed_qkv_attention(qkv3, Hl, TRAIN_SCALE),
+            lambda: attention_ref(q, k, v, TRAIN_SCALE),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   scale=TRAIN_SCALE),
+            "F.scaled_dot_product_attention", 4.0 * B * Hl * N * N * D,
+            4 * B * N * Cl * it)
+    do = torch.randn((B, N, Cl), generator=g, device="cuda").to(bf)
+    o, lse = attention_fwd_lse(q, k, v, TRAIN_SCALE)
+    got = packed_qkv_attention_bwd(qkv3, o, lse, do, Hl, TRAIN_SCALE)
+    ref = attention_bwd_ref(q, k, v, o, lse, do.view(B, N, Hl, D), TRAIN_SCALE)
+    errs = [compare("attention_bwd", got[i], ref[i].reshape(B, N, Cl), bf)
+            for i in range(3)]
+    del ref
+    ql, kl, vl = (t.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, scale=TRAIN_SCALE)
+    r = dict(_merge(errs), kernel="packed_qkv_attention_bwd",
+             case=f"{tp} (3, {B}, {N}, {Cl}), {Hl} heads", dtype="bfloat16",
+             ms=median_ms(lambda: packed_qkv_attention_bwd(
+                 qkv3, o, lse, do, Hl, TRAIN_SCALE), 10),
+             plain_ms=median_ms(lambda: attention_bwd_ref(
+                 q, k, v, o, lse, do.view(B, N, Hl, D), TRAIN_SCALE), 2),
+             library="autograd of F.scaled_dot_product_attention",
+             library_ms=_grad_ms(ol, (ql, kl, vl),
+                                 do.view(B, N, Hl, D).transpose(1, 2), 10),
+             **_attn_bwd_bound(B, N, Hl, D))
+    results.append(r)
+    log(json.dumps(r))
+    del qkv3, q, k, v, qt, kt, vt, do, o, lse, got, ql, kl, vl, ol
+    torch.cuda.empty_cache()
+
+    # the decoder's attention over a rank's 8 heads of the 6144-token sequence
+    B, N = 1, M
+    qkv = torch.randn((B, N, 3, Hl, D), generator=g, device="cuda").to(bf)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    _record(results, "attention", "attention", f"{tp} decoder {B}x{N}x{Hl}x{D}",
+            flash_attention(q, k, v, TRAIN_SCALE),
+            attention_ref(q, k, v, TRAIN_SCALE),
+            lambda: flash_attention(q, k, v, TRAIN_SCALE),
+            lambda: attention_ref(q, k, v, TRAIN_SCALE),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   scale=TRAIN_SCALE),
+            "F.scaled_dot_product_attention", 4.0 * B * Hl * N * N * D,
+            4 * B * N * Hl * D * it)
+    do = torch.randn((B, N, Hl, D), generator=g, device="cuda").to(bf)
+    o, lse = attention_fwd_lse(q, k, v, TRAIN_SCALE)
+    got = attention_bwd(q, k, v, o, lse, do, TRAIN_SCALE)
+    ref = attention_bwd_ref(q, k, v, o, lse, do, TRAIN_SCALE)
+    errs = [compare("attention_bwd", a, e, bf) for a, e in zip(got, ref)]
+    del ref
+    ql, kl, vl = (t.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, scale=TRAIN_SCALE)
+    r = dict(_merge(errs), kernel="attention_bwd",
+             case=f"{tp} decoder {B}x{N}x{Hl}x{D}", dtype="bfloat16",
+             ms=median_ms(lambda: attention_bwd(q, k, v, o, lse, do,
+                                                TRAIN_SCALE), 10),
+             plain_ms=median_ms(lambda: attention_bwd_ref(
+                 q, k, v, o, lse, do, TRAIN_SCALE), 2),
+             library="autograd of F.scaled_dot_product_attention",
+             library_ms=_grad_ms(ol, (ql, kl, vl), do.transpose(1, 2), 10),
+             **_attn_bwd_bound(B, N, Hl, D))
+    results.append(r)
+    log(json.dumps(r))
+    del qkv, q, k, v, qt, kt, vt, do, o, lse, got, ql, kl, vl, ol
+    torch.cuda.empty_cache()
+
+
+def phase_mesh(gpu: str, results: list) -> dict:
+    """Phase 27: the kernels at a model-2 rank's shapes against their plain
+    versions; the one-process Trainer road's MESH_STEPS steps on the
+    global batches; the same steps on a data 2 x model 2 grid of four
+    processes sharing the card over gloo (on the card's tensors); the two
+    held together; then one step of the mesh Trainer at
+    world size 1 over NCCL.  Returns the launch counts of the one-process
+    road ("mesh_ref") and of each rank ("mesh_rank{r}")."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from fast3r_torch.train.trainer import Trainer, TrainerConfig
+
+    log(f"== phase 27: the mesh step (super_long_training's model, "
+        f"data {MESH_DATA} x model {MESH_MODEL} ranks on one card over gloo, "
+        f"{MESH_VIEWS} views at 512x384 a data rank, fp32 master shards, bf16 "
+        f"working copy, ZeRO-2, {MESH_STEPS} steps)")
+    t0 = time.perf_counter()
+    check_tp_kernels(results)
+    log(f"the model-2 rank shapes' kernels checked in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = mesh_cfg()
+    batches = _mesh_batches()
+    t0 = time.perf_counter()
+    one = Trainer(cfg, MESH_OPT, trainer_cfg=TrainerConfig(
+        run_dir=tempfile.mkdtemp(), loggers=()), device="cuda")
+    before = {k: v.detach().cpu() for k, v in
+              one.state.params.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    ref_loss = []
+    for i, batch in enumerate(batches):
+        t = time.perf_counter()
+        one.state, m = train_step(one.state, batch, cfg, MESH_OPT, remat=True)
+        torch.cuda.synchronize()
+        ref_loss.append(float(m["loss"]))
+        log(json.dumps({"path": "mesh_ref", "train_step": i + 1,
+                        "views": 2 * MESH_VIEWS, "step_s":
+                        time.perf_counter() - t, "loss": ref_loss[-1],
+                        "peak_mem_gb":
+                        torch.cuda.max_memory_allocated() / 1e9, "gpu": gpu}))
+    counts = {"mesh_ref": _read_counts()}
+    after_ref = {k: v.detach().cpu() for k, v in
+                 one.state.params.named_parameters()}
+    del one
+    torch.cuda.empty_cache()
+    # the rounding floor: the same steps on the plain block road
+    net = empty_fast3r(cfg, device="cpu")
+    net.load_state_dict(before)
+    plain_cfg = cfg.with_fused_blocks(False)
+    one = Trainer(plain_cfg, MESH_OPT, trainer_cfg=TrainerConfig(
+        run_dir=tempfile.mkdtemp(), loggers=()), params=net.cuda(),
+        device="cuda")
+    for batch in batches:
+        one.state, _ = train_step(one.state, batch, plain_cfg, MESH_OPT,
+                                  remat=True)
+    floor = _group_update_err(before, {k: v.detach().cpu() for k, v in
+                                       one.state.params.named_parameters()},
+                              after_ref)
+    del one, net
+    torch.cuda.empty_cache()
+    log(f"the one-process roads in {time.perf_counter() - t0:.1f} s")
+
+    world = MESH_DATA * MESH_MODEL
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        mp.spawn(_mesh_worker, args=(world, _free_port(), out), nprocs=world)
+        log(f"the {world} ranks in {time.perf_counter() - t0:.1f} s")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        after = torch.load(os.path.join(out, "mesh_master.pt"), mmap=True)
+        err = _group_update_err(before, after, after_ref)
+        del after
+    bad = []
+    for rk in ranks:
+        for rec in rk["steps"]:
+            log(json.dumps({"path": "mesh", **rec, "gpu": gpu}))
+        r = rk["steps"][0]["rank"]
+        log(json.dumps({"path": "mesh", "rank": r, "init_s": rk["init_s"],
+                        "moment_gb": rk["moment_gb"],
+                        "block_shapes": rk["shapes"]}))
+        counts[f"mesh_rank{r}"] = rk["counts"]
+        if rk["counts"] != counts["mesh_ref"]:
+            bad.append(f"rank {r} launches {rk['counts']} != the one-process "
+                       f"road's {counts['mesh_ref']}")
+        if rk["shapes"] != {"attn.qkv.weight": [3 * C // 2, C],
+                            "attn.proj.weight": [C, C // 2],
+                            "mlp.fc1.weight": [HID // 2, C],
+                            "mlp.fc2.weight": [C, HID // 2]}:
+            bad.append(f"rank {r} block shapes {rk['shapes']}")
+        for rec, want in zip(rk["steps"], ref_loss):
+            if (rec["skipped_nonfinite"] or not math.isfinite(rec["loss"])
+                    or abs(rec["loss"] - want) > MESH_LOSS_RTOL * abs(want)):
+                bad.append(f"rank {r} step {rec['train_step']} loss "
+                           f"{rec['loss']} vs {want}")
+    tol = {g: max(MESH_UPDATE_RTOL, MESH_FLOOR_X * f) for g, f in floor.items()}
+    log(json.dumps({"path": "mesh", "update_rel_l2_by_group": err,
+                    "plain_vs_fused_road_by_group": floor, "tolerance": tol}))
+    bad += [f"{g} update rel L2 {e:.4f} > {tol[g]:.4f}" for g, e in err.items()
+            if not e <= tol[g]]
+
+    # NCCL at world size 1: the mesh Trainer's road builds and launches
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        small = dataclasses.replace(cfg, encoder=dataclasses.replace(
+            cfg.encoder, depth=2), decoder=dataclasses.replace(
+            cfg.decoder, depth=2))
+        tr = Trainer(small, MESH_OPT, trainer_cfg=TrainerConfig(
+            run_dir=tempfile.mkdtemp(), loggers=(), use_mesh=True),
+            device="cuda")
+        x = torch.ones(4, device="cuda")
+        dist.all_reduce(x)
+        b = {k: v[:1, :2] for k, v in batches[0].items()}
+        tr.state, m = train_step(tr.state, b, small, MESH_OPT)
+        torch.cuda.synchronize()
+        rec = {"path": "mesh_nccl_world1", "backend": dist.get_backend(),
+               "loss": float(m["loss"]), "all_reduce": x.tolist(),
+               "seconds": time.perf_counter() - t0}
+        log(json.dumps(rec))
+        if not math.isfinite(rec["loss"]) or x.tolist() != [1.0] * 4:
+            bad.append(f"NCCL world 1: {rec}")
+        del tr
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"phase 27: {bad}")
+    return counts
+
+
 def phase_counts(counts: dict) -> None:
     log("== phase 26: kernel launches on each path of phases 3, 5, 7, 9, 11, "
         "12, 14, 16, 18, 19, 20, 21, 22, 23 and 24")
@@ -4324,6 +4803,26 @@ def kernel_summary(results: list, counts: dict) -> dict:
                 "case": r["case"] + " bfloat16",
                 **{k: r[k] for k in ("device_ms", "tflops", "dq_ms", "dkv_ms",
                                      "two_kernel_ms") if k in r}})
+    # the mesh step's kernels at a model-2 rank's shapes (phase 27), their
+    # launches over the phase's steps on the rank that runs the case: model
+    # rank 1 (global rank 1) the products without the residual, model rank
+    # 0 (global rank 0) the others
+    for r in results:
+        if r["dtype"] != "bfloat16" or not r["case"].startswith("model 2 rank"):
+            continue
+        _, route, source, replaces = KERNELS[r["kernel"]]
+        rank = 1 if "no residual" in r["case"] else 0
+        kernels.append({
+            "name": f"{r['kernel']} [{r['case']}]", "route": route,
+            "source": source, "replaces": replaces,
+            "launches": counts[f"mesh_rank{rank}"][r["kernel"]],
+            "launches_by_path": {p: counts[p][r["kernel"]] for p in counts
+                                 if p.startswith("mesh_rank")},
+            "max_abs_err": r["max_abs_err"], "atol": r["atol"],
+            "rtol": r["rtol"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "library": r["library"],
+            "case": r["case"] + " bfloat16"})
     return {"kernels": kernels}
 
 
@@ -4406,6 +4905,8 @@ def main() -> int:
     done("phase 25")
     phase_counts(counts)
     done("phase 26")
+    counts.update(phase_mesh(gpu, results))
+    done("phase 27")
     log(json.dumps(kernel_summary(results, counts)))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {

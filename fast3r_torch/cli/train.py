@@ -14,8 +14,14 @@ forward and backward run on a bf16 working copy of the params (its
 kernels take bf16), on the CPU in fp32 (every op on its plain version).
 Without a GPU the default raises torch's own error.  ``--distributed``
 joins the process group of a ``torchrun`` launch (NCCL on the card, gloo
-on the CPU), one device per process; the batch per process is
-``data.batch_size_per_device`` and the samplers slice the data by rank.
+on the CPU), one device per process; with more than one rank the trainer
+takes its mesh road (``parallel:``: ``data_axis``, -1 for all the ranks
+the model axis leaves, and ``model_axis``, tensor parallelism when above
+1): one model trained on the global batch, ZeRO-2 optimizer shards.  The
+batch per process is ``data.batch_size_per_device``; the samplers slice
+the data by data rank, and every model rank of a data group steps on its
+first model rank's batch (the trainer shares it: an unseeded dataset's
+crops and jitter differ from process to process).
 ``--profile-dir`` records a ``torch.profiler`` trace of PROFILE_STEPS
 training steps there, after one skipped step and one warm-up step.
 ``pretrained:`` names an HF-format checkpoint directory or a fast3r_torch
@@ -53,6 +59,8 @@ def main(argv=None):
 
     import torch
 
+    from fast3r_torch.parallel.mesh import grid_shape
+
     if args.distributed:
         # a torchrun launch: MASTER_ADDR / MASTER_PORT / RANK / WORLD_SIZE
         # in the environment; one card per process
@@ -86,6 +94,13 @@ def main(argv=None):
     optim_cfg = optim_config_from_dict(cfg.get("optim", {}))
     loss_cfg = loss_config_from_dict(cfg.get("loss", {}))
     tcfg_d = cfg.get("trainer", {})
+    par = cfg.get("parallel", {}) or {}
+    world = (torch.distributed.get_world_size() if args.distributed else 1)
+    data_axis, model_axis = grid_shape(par.get("data_axis", -1),
+                                       par.get("model_axis", 1), world)
+    if data_axis * model_axis != world:
+        raise ValueError(f"parallel: data_axis {data_axis} x model_axis "
+                         f"{model_axis} != {world} ranks")
     trainer_cfg = TrainerConfig(
         max_epochs=tcfg_d.get("max_epochs", 10),
         val_every_n_epochs=tcfg_d.get("val_every_n_epochs", 1),
@@ -95,6 +110,7 @@ def main(argv=None):
         log_every_n_steps=tcfg_d.get("log_every_n_steps", 10),
         seed=cfg.get("seed", 42),
         remat=tcfg_d.get("remat", True),
+        use_mesh=world > 1, data_axis=data_axis, model_axis=model_axis,
     )
 
     data_cfg = cfg.get("data", {})
@@ -104,6 +120,10 @@ def main(argv=None):
         batch_size_per_device=data_cfg.get("batch_size_per_device", 1),
         num_workers=data_cfg.get("num_workers", 4),
         num_workers_val=data_cfg.get("num_workers_val", 0),
+        # the data ranks: global rank = data rank * model_axis + model rank
+        world_size=data_axis,
+        rank=(torch.distributed.get_rank() if args.distributed else 0)
+        // model_axis,
     )
     train_loader = dm.train_dataloader()
     val_loaders = dm.val_dataloaders()
@@ -119,13 +139,11 @@ def main(argv=None):
         pretrained = cfg.get("pretrained")
         if pretrained and not (args.resume and os.path.exists(
                 trainer._ckpt_path("last"))):
-            from fast3r_torch.train.step import refresh_working_copy
             from fast3r_torch.utils.checkpoint_utils import load_model
 
             log.info(f"loading pretrained weights from {pretrained}")
-            trainer.state.params.load_state_dict(
+            trainer.set_params(
                 load_model(pretrained, device="cpu").params.state_dict())
-            refresh_working_copy(trainer.state)
 
         if args.profile_dir:
             acts = [torch.profiler.ProfilerActivity.CPU]

@@ -302,7 +302,9 @@ int fast3r_gemm_smem_bytes() { return kSmemBytes; }
 
 // pro: 0 none, 1 LN, 2 RMS.  epi: 0 bias, 1 bias + GELU, 2 q|k|v split,
 // 3 RoPE packed (these with the LN prologue), 4 bias + residual (no
-// prologue); with the RMS prologue 0 (no bias) and 5 SiLU (no bias).
+// prologue), and 0 without a prologue (a tensor-parallel rank's partial
+// row-parallel product, the residual added on another rank); with the RMS
+// prologue 0 (no bias) and 5 SiLU (no bias).
 // bf16 tensors, fp32 gamma / beta / bias; bias null with RMS.  u, rstd
 // (and with LN mean: all or none; norm prologues only) and z (GELU / SiLU
 // only) may be null: given, the launch is the replay and also writes them.
@@ -362,6 +364,8 @@ int fast3r_fused_gemm(int pro, int epi, const void* x, const void* gamma,
     }
   } else if (pro == kNoNorm && epi == kResidual) {
     return launch<kNoNorm, kResidual>(a, w, s);
+  } else if (pro == kNoNorm && epi == kBias) {
+    return launch<kNoNorm, kBias>(a, w, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -97,6 +97,8 @@ struct MlpArgs {
   int* cnt;
   long long* prof;     // optional clock64 tallies, 6 words
   int M, hidden, slots;
+  int residual;        // 0: no x in the fc2 epilogue (a tensor-parallel
+                       // rank's partial output)
   float eps;
 };
 
@@ -256,19 +258,22 @@ ln_mlp_kernel(const __grid_constant__ Maps mp, const MlpArgs a) {
         named_sync(1, kConsumerThreads);  // the slot's tiles all landed
         if (lead) red_release_add(fc2_done + it.band, 1);
         // out = x + (acc + b2), rounded once; x's boxes through the staging
+        // (without the residual: acc + b2)
         const int rw = m0 + th.wg * 64;
         out_bias(s, th, a.b2, n0, C);
 #pragma unroll
         for (int bx = 0; bx < kBN / 64; ++bx) {
           char* box = out_begin(s, th);
-          out_load(s, th, box, &mp.x_res, n0 + 64 * bx, rw, res_phase);
+          if (a.residual)
+            out_load(s, th, box, &mp.x_res, n0 + 64 * bx, rw, res_phase);
 #pragma unroll
           for (int jj = 0; jj < 8; ++jj) {
             const int j = 8 * bx + jj, cl = 8 * jj + 2 * th.c();
             const float2 b = tile_bias(s, th, 8 * j + 2 * th.c());
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-              const float2 x = out_get(box, r0 + 8 * h, cl);
+              const float2 x = a.residual ? out_get(box, r0 + 8 * h, cl)
+                                          : make_float2(0.f, 0.f);
               out_put(box, r0 + 8 * h, cl,
                       pack_bf16(x.x + (acc[4 * j + 2 * h] + b.x),
                                 x.y + (acc[4 * j + 2 * h + 1] + b.y)));
@@ -312,14 +317,15 @@ extern "C" {
 // hidden); stats fp32 (2, 128 ceil(M / 128)) scratch; cnt 1 + 3 ceil(M / 128)
 // zeroed int32; prof null or 6 zeroed int64.  C is 768, 1024 or 1280 (an
 // instantiation each); hidden % 32 == 0; slots >= 2 unless M <= 128;
-// ctas >= 1 persistent CTAs.
+// ctas >= 1 persistent CTAs; residual 0 leaves x out of the output (a
+// tensor-parallel rank's partial: GELU(LN(x) W1^T + b1) W2^T + b2).
 // Returns cudaGetLastError() after the launch.
 int fast3r_ln_mlp(const void* x, const void* gamma, const void* beta,
                   const void* w1, const void* b1, const void* w2,
                   const void* b2, void* out, void* ring, void* stats,
                   void* cnt, void* prof,
-                  int M, int C, int hidden, int slots, int ctas, float eps,
-                  void* stream) {
+                  int M, int C, int hidden, int slots, int ctas, int residual,
+                  float eps, void* stream) {
   const int nb = (M + kBM - 1) / kBM;
   if (M <= 0 || hidden <= 0 || hidden % 32 || ctas < 1 || slots < 1 ||
       (slots < 2 && nb > 1))
@@ -351,6 +357,7 @@ int fast3r_ln_mlp(const void* x, const void* gamma, const void* beta,
   a.M = M;
   a.hidden = hidden;
   a.slots = slots;
+  a.residual = residual;
   a.eps = eps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (C) {  // the models' widths, each its own instantiation

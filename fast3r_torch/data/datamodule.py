@@ -1,8 +1,13 @@
 """Multiview data module: train/val loader construction from DSL strings.
 
-Counterpart of ``fast3r_tpu/data/datamodule.py``; the world size and rank
-default to ``torch.distributed``'s when it is initialised (1 and 0
-otherwise).  Behavioral reference: fast3r/data/multiview_dust3r_datamodule.py:18-209
+Counterpart of ``fast3r_tpu/data/datamodule.py``.  The data is sliced over
+the data-parallel ranks: ``world_size`` and ``rank`` are the data axis's
+size and this process's data rank (on a ``data x model`` grid every model
+rank of a data group takes the same indices, and the Trainer hands them
+the first model rank's batch, since an unseeded dataset's augmentations
+draw from each process's own entropy); they default to
+``torch.distributed``'s world size and rank when it is initialised (1 and
+0 otherwise), the grid of a run without tensor parallelism.  Behavioral reference: fast3r/data/multiview_dust3r_datamodule.py:18-209
 (MultiViewDUSt3RDataModule): train datasets joined with '+' into one loader;
 one val loader per dataset (resolutions differ across eval sets, so batches
 stay single-dataset — the reference's CombinedLoader(sequential) semantics);

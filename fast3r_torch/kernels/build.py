@@ -45,7 +45,7 @@ SIGNATURES = {
     "fast3r_trunk_head_fwd": [_I] + [_P] * 11 + [_I] * 7 + [_P],
     "fast3r_trunk_smem_bytes": [_I],
     "fast3r_fused_gemm": [_I, _I] + [_P] * 13 + [_I, _I, _I, _F, _P],
-    "fast3r_ln_mlp": [_P] * 12 + [_I, _I, _I, _I, _I, _F, _P],
+    "fast3r_ln_mlp": [_P] * 12 + [_I] * 6 + [_F, _P],
     "fast3r_gemm_smem_bytes": [],
     "fast3r_attention_bwd_smem_bytes": [],
     "fast3r_attention_bwd_smem_bytes_d80": [],

@@ -117,15 +117,18 @@ def sample_random_image_ids(generator: Optional[torch.Generator],
 def decoder_forward(params: Decoder, cfg: DecoderConfig, feats: torch.Tensor,
                     image_ids: torch.Tensor, is_training: bool = False,
                     remat: bool = False,
-                    generator: Optional[torch.Generator] = None
+                    generator: Optional[torch.Generator] = None, mesh=None
                     ) -> Dict[int, torch.Tensor]:
     """Run the fusion decoder.
 
     feats: (B, S, D_enc) fused encoder tokens; image_ids: (B, S) integer image
     id per token; ``is_training`` selects the softmax scale, ``remat``
     recomputes the blocks in the backward and ``generator`` seeds the
-    blocks' dropout (a training forward's only).  Returns {hook: activation}
-    for ``cfg.hooks``.
+    blocks' dropout (a training forward's only); with a
+    ``parallel.mesh.Mesh`` of ``model > 1`` the blocks run tensor-parallel
+    on this rank's slices and heads (``decoder_embed``, the image-index
+    table and the final norm replicated).  Returns {hook: activation} for
+    ``cfg.hooks``.
     """
     outputs: Dict[int, torch.Tensor] = {0: feats}
     x = linear(params.decoder_embed, feats)
@@ -141,7 +144,8 @@ def decoder_forward(params: Decoder, cfg: DecoderConfig, feats: torch.Tensor,
                               fused=cfg.fused_blocks, remat=remat,
                               drop=cfg.drop, attn_drop=cfg.attn_drop,
                               drop_path_rate=cfg.drop_path,
-                              generator=generator if is_training else None)
+                              generator=generator if is_training else None,
+                              mesh=mesh)
     outputs.update(hooked)
     outputs[cfg.depth] = layernorm(params.norm, x, cfg.final_ln_eps)
     return outputs

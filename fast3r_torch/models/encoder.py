@@ -60,13 +60,16 @@ class Encoder(nn.Module):
 def encoder_forward(params: Encoder, cfg: EncoderConfig, img: torch.Tensor,
                     true_shape: Optional[torch.Tensor] = None,
                     remat: bool = False,
-                    generator: Optional[torch.Generator] = None
+                    generator: Optional[torch.Generator] = None, mesh=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Encode (B, H, W, 3) images (landscape storage layout, normalised to
     [-1, 1]); true_shape (B, 2) int (height, width) defaults to the storage
     shape.  ``remat`` recomputes the blocks in the backward; ``generator``
-    (a training forward's) seeds the blocks' dropout.  Returns feats
-    (B, P, embed_dim) and positions (B, P, 2)."""
+    (a training forward's) seeds the blocks' dropout.  With a
+    ``parallel.mesh.Mesh`` of ``model > 1`` the blocks run tensor-parallel
+    on this rank's slices and heads; the patch embedding and the final
+    norm are replicated.  Returns feats (B, P, embed_dim) and positions
+    (B, P, 2)."""
     B, H, W, _ = img.shape
     if true_shape is None:
         true_shape = torch.tensor([H, W], dtype=torch.int32).expand(B, 2)
@@ -82,5 +85,6 @@ def encoder_forward(params: Encoder, cfg: EncoderConfig, img: torch.Tensor,
                          rope_cos_sin=rope, attn_impl=cfg.attn_impl,
                          ln_eps=cfg.ln_eps, fused=cfg.fused_blocks,
                          remat=remat, drop=cfg.drop, attn_drop=cfg.attn_drop,
-                         drop_path_rate=cfg.drop_path, generator=generator)
+                         drop_path_rate=cfg.drop_path, generator=generator,
+                         mesh=mesh)
     return layernorm(params.norm, x, cfg.ln_eps), pos

@@ -170,7 +170,7 @@ def fast3r_forward(params: Fast3RNet, cfg: Fast3RConfig, imgs: torch.Tensor,
                    head_chunk_views: Optional[int] = None,
                    view_ids: Optional[torch.Tensor] = None,
                    is_training: bool = False, remat: bool = False,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None, mesh=None
                    ) -> Dict[str, torch.Tensor]:
     """The forward, for inference and for training (differentiable).
 
@@ -193,11 +193,19 @@ def fast3r_forward(params: Fast3RNet, cfg: Fast3RConfig, imgs: torch.Tensor,
         dropout rate, two seeds are drawn from it first (one a stack, as the
         JAX package splits its rng only then) for the blocks' dropout; the
         image ids follow.
+      mesh: a ``parallel.mesh.Mesh``; with ``model > 1`` ``params`` are
+        this rank's slices (``parallel.mesh.shard_params``) and both
+        stacks run tensor-parallel, the heads replicated.  What that road
+        does not run (the llama decoder, the DINO encoder, dropout, the
+        sequence-sharded decoder, a head count ``model`` does not divide)
+        raises ``parallel.mesh.TensorParallelError``.
 
     Returns pts3d_in_other_view (B, V, H, W, 3), conf (B, V, H, W)
     [, pts3d_local, conf_local].
     """
     B, V, H, W, _ = imgs.shape
+    if mesh is not None:
+        mesh.check_model_config(cfg)
     if true_shapes is None:
         true_shapes = torch.tensor([H, W], dtype=torch.int32).expand(B, V, 2)
     flat_shapes = true_shapes.reshape(B * V, 2)
@@ -213,7 +221,7 @@ def fast3r_forward(params: Fast3RNet, cfg: Fast3RConfig, imgs: torch.Tensor,
     else:
         feats, _ = encoder_forward(params.encoder, cfg.encoder,
                                    imgs.reshape(B * V, H, W, 3), flat_shapes,
-                                   remat=remat, generator=enc_gen)
+                                   remat=remat, generator=enc_gen, mesh=mesh)
     P = feats.shape[1]
     fused = feats.reshape(B, V * P, -1)
 
@@ -234,7 +242,7 @@ def fast3r_forward(params: Fast3RNet, cfg: Fast3RConfig, imgs: torch.Tensor,
     else:
         dec_out = decoder_forward(params.decoder, cfg.decoder, fused,
                                   image_ids, is_training=is_training,
-                                  remat=remat, generator=dec_gen)
+                                  remat=remat, generator=dec_gen, mesh=mesh)
     hook_seq = [dec_out[h] for h in cfg.decoder.hooks]  # each (B, V*P, C)
     is_portrait = ((flat_shapes[:, 1] < flat_shapes[:, 0]).to(imgs.device)
                    if mixed_orientation else None)

@@ -169,12 +169,16 @@ def ln_matmul_replay_ref(x, gamma, beta, w, bias, eps: float, act=None):
 
 
 def matmul_residual_ref(x, w, bias, residual):
-    return (residual.float() + (_mm(x, w) + bias.float())).to(x.dtype)
+    """residual + x w^T + bias; without a residual (None) x w^T + bias."""
+    y = _mm(x, w) + bias.float()
+    return (y if residual is None else residual.float() + y).to(x.dtype)
 
 
-def ln_mlp_ref(x, gamma, beta, w1, b1, w2, b2, eps: float):
+def ln_mlp_ref(x, gamma, beta, w1, b1, w2, b2, eps: float,
+               residual: bool = True):
     h = ln_matmul_ref(x, gamma, beta, w1, b1, eps, act="gelu")
-    return (x.float() + (_mm(h, w2) + b2.float())).to(x.dtype)
+    y = _mm(h, w2) + b2.float()
+    return (x.float() + y if residual else y).to(x.dtype)
 
 
 def _silu(z: torch.Tensor) -> torch.Tensor:
@@ -338,13 +342,18 @@ def ln_matmul_replay(x, gamma, beta, w, bias, eps: float, act=None):
                    bias, eps)
 
 
-def _ln_backward(x, gamma, w, u, mean, rstd, dz):
+def _ln_backward(x, gamma, w, u, mean, rstd, dz, tp=None):
     """(dx, dgamma, dbeta, dw, dbias) of y = LN(x) w^T + bias from the
     replay's residuals and the cotangent dz of the pre-activation
     (``_ln_backward_xla``): du, dw and dx from plain products, the LN
-    backward in fp32; dx and dw in the primal dtypes, the vectors fp32."""
+    backward in fp32; dx and dw in the primal dtypes, the vectors fp32.
+    With a tensor-parallel mesh ``tp`` (w a column slice) du is summed over
+    the model group first (the sublayer's one backward collective), so dx,
+    dgamma and dbeta are the whole's on every rank."""
     dzc = dz.to(x.dtype)
     du = (dzc @ w).float()
+    if tp is not None:
+        tp.all_reduce_model(du)
     dw = dzc.t() @ u
     xhat = (x.float() - mean[:, None]) * rstd[:, None]
     dxhat = du * gamma.float()
@@ -359,12 +368,13 @@ class _LnProduct(torch.autograd.Function):
     saved residuals (x, gamma, w, u, mean, rstd[, z][, tables])."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, w, bias, ct, st, eps, mode, num_heads):
+    def forward(ctx, x, gamma, beta, w, bias, ct, st, eps, mode, num_heads,
+                tp):
         tables = (ct, st) if mode == "rope" else None
         out, u, mean, rstd, z = _replay(mode, x, gamma, beta, w, bias, eps,
                                         tables, num_heads)
         ctx.save_for_backward(x, gamma, w, u, mean, rstd, z, ct, st)
-        ctx.mode, ctx.num_heads = mode, num_heads
+        ctx.mode, ctx.num_heads, ctx.tp = mode, num_heads, tp
         ctx.vec_dtypes = (gamma.dtype, beta.dtype, bias.dtype)
         return out
 
@@ -383,25 +393,28 @@ class _LnProduct(torch.autograd.Function):
         else:
             dz = g
         dx, dgamma, dbeta, dw, dbias = _ln_backward(x, gamma, w, u, mean,
-                                                    rstd, dz)
+                                                    rstd, dz, ctx.tp)
         gd, bd, biasd = ctx.vec_dtypes
         return (dx, dgamma.to(gd), dbeta.to(bd), dw, dbias.to(biasd), None,
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def _training(*ts) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
 
 
-def ln_matmul(x, gamma, beta, w, bias, eps: float, act=None):
+def ln_matmul(x, gamma, beta, w, bias, eps: float, act=None, tp=None):
     """act(LN(x) @ w^T + bias); x (M, K), w (N, K); (M, N) in x.dtype.
-    ``act`` is None or "gelu" (exact erf).  Differentiable (the replay)."""
+    ``act`` is None or "gelu" (exact erf).  Differentiable (the replay).
+    ``tp``: a tensor-parallel mesh when w is a column slice (the gradient
+    into x summed over its model group)."""
     if act not in (None, "gelu"):
         raise ValueError(f"ln_matmul: unknown act {act!r}")
     mode = act or "bias"
     if _training(x, gamma, beta, w, bias):
         return _LnProduct.apply(x, gamma, beta, w, bias, None, None, eps, mode,
-                                0)
+                                0, tp)
     if x.device.type == "cpu":
         return ln_matmul_ref(x, gamma, beta, w, bias, eps, act)
     out = _gemm("ln_matmul", mode, x, w, bias, ln=(gamma, beta, eps))
@@ -409,13 +422,13 @@ def ln_matmul(x, gamma, beta, w, bias, eps: float, act=None):
     return out
 
 
-def ln_qkv(x, gamma, beta, w, bias, eps: float):
+def ln_qkv(x, gamma, beta, w, bias, eps: float, tp=None):
     """LN(x) @ wqkv^T + bias split into q, k, v, each (M, C); wqkv (3C, K).
     On CUDA the three are the slices of one (3, M, C) buffer.
-    Differentiable (the replay)."""
+    Differentiable (the replay); ``tp`` as :func:`ln_matmul`'s."""
     if _training(x, gamma, beta, w, bias):
         return tuple(_LnProduct.apply(x, gamma, beta, w, bias, None, None,
-                                      eps, "qkv", 0).unbind(0))
+                                      eps, "qkv", 0, tp).unbind(0))
     if x.device.type == "cpu":
         return ln_qkv_ref(x, gamma, beta, w, bias, eps)
     out = _gemm("ln_qkv", "qkv", x, w, bias, ln=(gamma, beta, eps))
@@ -423,14 +436,16 @@ def ln_qkv(x, gamma, beta, w, bias, eps: float):
     return tuple(out.unbind(0))
 
 
-def ln_qkv_rope(x, gamma, beta, w, bias, ct, st, num_heads: int, eps: float):
+def ln_qkv_rope(x, gamma, beta, w, bias, ct, st, num_heads: int, eps: float,
+                tp=None):
     """LN(x) @ wqkv^T + bias with RoPE2D on q and k, as ONE packed (3, M, C)
     tensor; ct / st are the flat (M, C) lane tables of
     :func:`fast3r_torch.ops.rope2d.expand_rope_tables` in x.dtype.  The
-    kernel takes head_dim 64.  Differentiable (the replay)."""
+    kernel takes head_dim 64.  Differentiable (the replay); ``tp`` as
+    :func:`ln_matmul`'s."""
     if _training(x, gamma, beta, w, bias):
         return _LnProduct.apply(x, gamma, beta, w, bias, ct, st, eps, "rope",
-                                num_heads)
+                                num_heads, tp)
     if x.device.type == "cpu":
         return ln_qkv_rope_ref(x, gamma, beta, w, bias, ct, st, num_heads, eps)
     _check_rope_heads("ln_qkv_rope", w, num_heads)
@@ -440,47 +455,62 @@ def ln_qkv_rope(x, gamma, beta, w, bias, ct, st, num_heads: int, eps: float):
     return out
 
 
-def _matmul_residual(x, w, bias, residual):
+def _matmul_residual(x, w, bias, residual, tp=None):
+    """The product on one rank; with a tensor-parallel mesh ``tp`` the
+    residual and the bias enter on model rank 0 only (rank 0's kernel takes
+    the residual epilogue, the others' the bias epilogue on a zero bias)
+    and the partial outputs are summed over the model group."""
+    if tp is not None and tp.model_rank != 0:
+        residual, bias = None, torch.zeros_like(bias)
     if x.device.type == "cpu":
-        return matmul_residual_ref(x, w, bias, residual)
-    out = _gemm("matmul_residual", "residual", x, w, bias, residual=residual)
-    matmul_residual.launches += 1
-    return out
+        out = matmul_residual_ref(x, w, bias, residual)
+    else:
+        out = _gemm("matmul_residual", "bias" if residual is None
+                    else "residual", x, w, bias, residual=residual)
+        matmul_residual.launches += 1
+    return out if tp is None else tp.all_reduce_model(out)
 
 
 class _MatmulResidual(torch.autograd.Function):
-    """Backward of r + x w^T + b: plain products (``_matmul_res_p_bwd``)."""
+    """Backward of r + x w^T + b: plain products (``_matmul_res_p_bwd``).
+    Under tensor parallelism g is the whole output's on every rank, so the
+    residual's and the bias's gradients are whole there too."""
 
     @staticmethod
-    def forward(ctx, x, w, bias, residual):
+    def forward(ctx, x, w, bias, residual, tp):
         ctx.save_for_backward(x, w)
         ctx.bias_dtype = bias.dtype
-        return _matmul_residual(x, w, bias, residual)
+        return _matmul_residual(x, w, bias, residual, tp)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        return (g @ w, g.t() @ x, g.float().sum(0).to(ctx.bias_dtype), g)
+        return (g @ w, g.t() @ x, g.float().sum(0).to(ctx.bias_dtype), g,
+                None)
 
 
-def matmul_residual(x, w, bias, residual):
+def matmul_residual(x, w, bias, residual, tp=None):
     """residual + x @ w^T + bias, added in fp32 and rounded once; x (M, K),
     w (N, K), residual (M, N).  The output is a new tensor.
-    Differentiable."""
+    Differentiable.  ``tp``: a tensor-parallel mesh when w is a row slice
+    (x its input columns): the residual and bias are added once, on model
+    rank 0, and the output summed over the model group."""
     if _training(x, w, bias, residual):
-        return _MatmulResidual.apply(x, w, bias, residual)
-    return _matmul_residual(x, w, bias, residual)
+        return _MatmulResidual.apply(x, w, bias, residual, tp)
+    return _matmul_residual(x, w, bias, residual, tp)
 
 
 def _ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float, ctas=None,
-            slots=MLP_RING_SLOTS, prof=None):
+            slots=MLP_RING_SLOTS, prof=None, residual: bool = True):
     """The whole-MLP kernel: ``ctas`` persistent CTAs (default: one per SM)
     and a ring of ``slots`` band slots of h (128 x hidden bf16 each, at most
     one per row band); ``prof``, a zeroed (6,) int64 CUDA tensor, receives
     the kernel's clock64 tallies (fc1 items, fc2 items, waits for a free
-    slot, for the next item, for fc1 bands, statistics items)."""
+    slot, for the next item, for fc1 bands, statistics items).  Without
+    ``residual`` the fc2 epilogue adds no x (a tensor-parallel rank other
+    than the model group's first)."""
     if x.device.type == "cpu":
-        return ln_mlp_ref(x, gamma, beta, w1, b1, w2, b2, eps)
+        return ln_mlp_ref(x, gamma, beta, w1, b1, w2, b2, eps, residual)
     _check_device("ln_mlp", x)
     if x.dim() != 2 or x.shape[1] not in MLP_WIDTHS or w1.dim() != 2:
         raise ValueError(f"ln_mlp: the kernel takes x (M, C) with C in "
@@ -519,16 +549,17 @@ def _ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float, ctas=None,
         bb1.data_ptr(), w2.data_ptr(), bb2.data_ptr(), out.data_ptr(),
         ring.data_ptr(), stats.data_ptr(), counters.data_ptr(),
         0 if prof is None else prof.data_ptr(), M, C, hidden, slots, int(ctas),
-        float(eps), build.stream_handle(dev))
+        int(residual), float(eps), build.stream_handle(dev))
     build.check(err, "fast3r_ln_mlp")
     ln_mlp.launches += 1
     return out
 
 
-def _mlp_backward(x, gamma, beta, w1, b1, w2, b2, eps: float, g):
+def _mlp_backward(x, gamma, beta, w1, b1, w2, b2, eps: float, g, tp=None):
     """Gradients of x + GELU(LN(x) w1^T + b1) w2^T + b2 for the cotangent g,
     through the two-kernel road (``_ln_mlp_p_bwd``): the fc1 replay gives h
-    and z, fc2's backward is plain products, fc1's is :func:`_ln_backward`.
+    and z, fc2's backward is plain products, fc1's is :func:`_ln_backward`
+    (with ``tp``, its du summed over the model group).
     Returns (dx, dgamma, dbeta, dw1, db1, dw2, db2); fc2's forward product
     is not run."""
     h, u, mean, rstd, z = _replay("gelu", x, gamma, beta, w1, b1, eps)
@@ -536,31 +567,46 @@ def _mlp_backward(x, gamma, beta, w1, b1, w2, b2, eps: float, g):
     dh = g @ w2
     dw2, db2 = g.t() @ h, g.float().sum(0)
     dz = dh.float() * _gelu_grad(z.float())
-    dx, dgamma, dbeta, dw1, db1 = _ln_backward(x, gamma, w1, u, mean, rstd, dz)
+    dx, dgamma, dbeta, dw1, db1 = _ln_backward(x, gamma, w1, u, mean, rstd, dz,
+                                               tp)
     return dx + g, dgamma, dbeta, dw1, db1, dw2.to(w2.dtype), db2
+
+
+def _ln_mlp_tp(x, gamma, beta, w1, b1, w2, b2, eps: float, tp=None):
+    """The MLP on one rank; with a tensor-parallel mesh (w1 a column slice,
+    w2 a row slice) x and b2 enter on model rank 0 only and the partial
+    outputs are summed over the model group."""
+    if tp is None:
+        return _ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps)
+    first = tp.model_rank == 0
+    out = _ln_mlp(x, gamma, beta, w1, b1, w2,
+                  b2 if first else torch.zeros_like(b2), eps, residual=first)
+    return tp.all_reduce_model(out)
 
 
 class _LnMlp(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps):
+    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps, tp):
         ctx.save_for_backward(x, gamma, beta, w1, b1, w2, b2)
-        ctx.eps = eps
-        return _ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps)
+        ctx.eps, ctx.tp = eps, tp
+        return _ln_mlp_tp(x, gamma, beta, w1, b1, w2, b2, eps, tp)
 
     @staticmethod
     def backward(ctx, g):
         ts = ctx.saved_tensors
-        grads = _mlp_backward(*ts, ctx.eps, g)
-        return (*(d.to(t.dtype) for d, t in zip(grads, ts)), None)
+        grads = _mlp_backward(*ts, ctx.eps, g, ctx.tp)
+        return (*(d.to(t.dtype) for d, t in zip(grads, ts)), None, None)
 
 
-def ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float):
+def ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float, tp=None):
     """x + GELU(LN(x) @ w1^T + b1) @ w2^T + b2 in one kernel; x (M, C),
     w1 (hidden, C), w2 (C, hidden).  The kernel takes C in 768, 1024 and
-    1280 (the models' widths) and hidden % 32 == 0.  Differentiable (the two-kernel road's replay)."""
+    1280 (the models' widths) and hidden % 32 == 0.  Differentiable (the
+    two-kernel road's replay).  ``tp``: a tensor-parallel mesh when w1 and
+    w2 are this rank's hidden slice."""
     if _training(x, gamma, beta, w1, b1, w2, b2):
-        return _LnMlp.apply(x, gamma, beta, w1, b1, w2, b2, eps)
-    return _ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps)
+        return _LnMlp.apply(x, gamma, beta, w1, b1, w2, b2, eps, tp)
+    return _ln_mlp_tp(x, gamma, beta, w1, b1, w2, b2, eps, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -679,38 +725,44 @@ BLOCK_PARAMS = ("norm1.weight", "norm1.bias", "attn.qkv.weight",
 
 
 def _attention_sublayer(t, x2, shape, rope_cos_sin, num_heads: int,
-                        scale: float, attn_impl: str, ln_eps: float):
+                        scale: float, attn_impl: str, ln_eps: float, tp=None):
     """x2 + proj(attention(LN1(x2))) on x2 (B * N, C); ``t`` the block's
-    tensors in BLOCK_PARAMS order, already in x2's dtype."""
-    B, N, C = shape
+    tensors in BLOCK_PARAMS order, already in x2's dtype.  With a
+    tensor-parallel mesh ``tp``, ``t`` holds this rank's slices and
+    ``num_heads`` its heads (width C' = rows of wqkv / 3)."""
+    B, N, _ = shape
     g1, b1, wqkv, bqkv, wproj, bproj = t[:6]
+    c = wqkv.shape[0] // 3
     if (attn_impl == "batched" and rope_cos_sin is not None
             and len(rope_cos_sin) == 4):
         ct, st = rope_cos_sin[2], rope_cos_sin[3]
-        qkv3 = ln_qkv_rope(x2, g1, b1, wqkv, bqkv, ct, st, num_heads, ln_eps)
-        o = packed_qkv_attention(qkv3.reshape(3, B, N, C), num_heads, scale)
+        qkv3 = ln_qkv_rope(x2, g1, b1, wqkv, bqkv, ct, st, num_heads, ln_eps,
+                           tp)
+        o = packed_qkv_attention(qkv3.reshape(3, B, N, c), num_heads, scale)
     else:
-        q, k, v = (u.reshape(B, N, num_heads, C // num_heads)
-                   for u in ln_qkv(x2, g1, b1, wqkv, bqkv, ln_eps))
+        q, k, v = (u.reshape(B, N, num_heads, c // num_heads)
+                   for u in ln_qkv(x2, g1, b1, wqkv, bqkv, ln_eps, tp))
         if rope_cos_sin is not None:
             cos, sin = rope_cos_sin[0], rope_cos_sin[1]
             q = apply_rope2d_bnhd(q, cos, sin)
             k = apply_rope2d_bnhd(k, cos, sin)
         o = dot_product_attention(q, k, v, scale=scale, impl=attn_impl)
-    return matmul_residual(o.reshape(B * N, C).contiguous(), wproj, bproj, x2)
+    return matmul_residual(o.reshape(B * N, c).contiguous(), wproj, bproj, x2,
+                           tp)
 
 
 def _fused_block_impl(t, x, rope_cos_sin, num_heads: int, scale: float,
-                      attn_impl: str, ln_eps: float) -> torch.Tensor:
+                      attn_impl: str, ln_eps: float, tp=None) -> torch.Tensor:
     B, N, C = x.shape
     t = [p.to(x.dtype) for p in t]
     x2 = _attention_sublayer(t, x.reshape(B * N, C).contiguous(), x.shape,
-                             rope_cos_sin, num_heads, scale, attn_impl, ln_eps)
+                             rope_cos_sin, num_heads, scale, attn_impl, ln_eps,
+                             tp)
     if PREFER_FUSED_MLP:
-        x2 = ln_mlp(x2, *t[6:], ln_eps)
+        x2 = ln_mlp(x2, *t[6:], ln_eps, tp)
     else:
-        h = ln_matmul(x2, *t[6:10], ln_eps, act="gelu")
-        x2 = matmul_residual(h, t[10], t[11], x2)
+        h = ln_matmul(x2, *t[6:10], ln_eps, act="gelu", tp=tp)
+        x2 = matmul_residual(h, t[10], t[11], x2, tp)
     return x2.reshape(B, N, C)
 
 
@@ -730,7 +782,7 @@ class _FusedBlock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, *params = ctx.saved_tensors
-        num_heads, scale, attn_impl, ln_eps = ctx.cfg
+        num_heads, scale, attn_impl, ln_eps, tp = ctx.cfg
         need = ctx.needs_input_grad
         B, N, C = x.shape
         with torch.enable_grad():
@@ -739,9 +791,9 @@ class _FusedBlock(torch.autograd.Function):
             t = [p.to(x.dtype) for p in ps]
             x2 = _attention_sublayer(t, xs.reshape(B * N, C), x.shape,
                                      ctx.rope_cos_sin, num_heads, scale,
-                                     attn_impl, ln_eps)
+                                     attn_impl, ln_eps, tp)
         dx2, *dmlp = _mlp_backward(x2.detach(), *(p.detach() for p in t[6:]),
-                                   ln_eps, g.reshape(B * N, C))
+                                   ln_eps, g.reshape(B * N, C), tp)
         leaves = [u for u in (xs, *ps[:6]) if u.requires_grad]
         got = iter(torch.autograd.grad(x2, leaves, dx2) if leaves else ())
         dx = next(got).reshape(B, N, C) if need[0] else None
@@ -752,7 +804,8 @@ class _FusedBlock(torch.autograd.Function):
 
 
 def fused_vit_block(p, x: torch.Tensor, rope_cos_sin, num_heads: int,
-                    scale: float, attn_impl: str, ln_eps: float) -> torch.Tensor:
+                    scale: float, attn_impl: str, ln_eps: float,
+                    tp=None) -> torch.Tensor:
     """Pre-LN ViT block (``p`` a ``nn.layers.Block``) on x (B, N, C) with the
     elementwise work inside the products (``_fused_block_impl`` of the JAX
     package).  With ``attn_impl == "batched"`` and a 4-tuple
@@ -761,9 +814,14 @@ def fused_vit_block(p, x: torch.Tensor, rope_cos_sin, num_heads: int,
     place; otherwise :func:`ln_qkv`, the (B, N, H, D) RoPE when given, and
     :func:`dot_product_attention`.  Differentiable: under autograd the block
     saves (x, params) and recomputes in its backward (``fused_vit_block``'s
-    custom VJP).  A shape or dtype a kernel cannot take raises on CUDA."""
+    custom VJP).  A shape or dtype a kernel cannot take raises on CUDA.
+    With a tensor-parallel mesh ``tp`` the block's params are this rank's
+    slices (``parallel.mesh.shard_params``), ``num_heads`` its heads, and
+    each sublayer's output is summed over the model group: two collectives
+    in the forward, and in the backward the recomputed forward's and one
+    on the gradient at each sublayer's input."""
     params = [p.get_parameter(name) for name in BLOCK_PARAMS]
-    cfg = (num_heads, scale, attn_impl, ln_eps)
+    cfg = (num_heads, scale, attn_impl, ln_eps, tp)
     if _training(x, *params):
         return _FusedBlock.apply(x, rope_cos_sin, cfg, *params)
     return _fused_block_impl(params, x, rope_cos_sin, *cfg)

@@ -29,6 +29,17 @@ rate sends the block down the plain road, as the JAX package's
 ``vit_block`` does.  Each block draws its masks from a generator of its own
 on the activations' device, seeded from the stack's generator before the
 block runs, so a recomputed block draws the same masks.
+
+Tensor parallelism: given a ``parallel.mesh.Mesh`` with ``model > 1``, a
+stack runs on this rank's slices of the blocks' params
+(``parallel.mesh.shard_params``: whole heads of qkv, a slice of the MLP
+hidden) and ``num_heads / model`` heads.  The fused block sums each
+sublayer's partial
+output over the model group inside its products; the plain road wraps the
+column-parallel products' input in ``mesh.copy_to_model`` and the
+row-parallel products' output in ``mesh.reduce_from_model``, and adds the
+row-parallel bias after the sum, so every replicated tensor and its
+gradient are whole on every rank.
 """
 
 from __future__ import annotations
@@ -180,10 +191,21 @@ def drop_path(x: torch.Tensor, rate: float,
     return x * mask
 
 
+def _row_parallel(p: nn.Linear, x: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel product (``p`` this rank's input columns) summed over
+    the model group, then the whole bias; ``linear`` without ``tp``."""
+    if tp is None:
+        return linear(p, x)
+    y = tp.reduce_from_model(F.linear(x, p.weight.to(x.dtype)))
+    return y + p.bias.to(x.dtype)
+
+
 def mlp(p: Mlp, x: torch.Tensor, drop: float = 0.0,
-        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        generator: Optional[torch.Generator] = None, tp=None) -> torch.Tensor:
+    if tp is not None:
+        x = tp.copy_to_model(x)
     h = dropout(gelu(linear(p.fc1, x)), drop, generator)
-    return dropout(linear(p.fc2, h), drop, generator)
+    return dropout(_row_parallel(p.fc2, h, tp), drop, generator)
 
 
 def conv2d(p: nn.Conv2d, x: torch.Tensor, stride: int = 1, padding=0,
@@ -212,17 +234,22 @@ def attention_layer(p: Attention, x: torch.Tensor, num_heads: int,
                     rope_cos_sin: Optional[Tuple[torch.Tensor, ...]],
                     attn_impl: AttnImpl, attn_drop: float = 0.0,
                     proj_drop: float = 0.0,
-                    generator: Optional[torch.Generator] = None
-                    ) -> torch.Tensor:
+                    generator: Optional[torch.Generator] = None,
+                    tp=None) -> torch.Tensor:
     """Self-attention sublayer on x (B, N, C).  q, k and v stay strided views
     of the qkv projection's (B, N, 3, H, D) output; RoPE, when given,
     rotates q and k in fp32.  ``attn_impl`` is an implementation's name or
     a callable ``(q, k, v, scale) -> o`` (``ops.attention``).  With a
     generator and a non-zero ``attn_drop`` the softmax weights are
     materialised (fp32 logits, weights in x's dtype) and dropped before
-    ``@ v``; ``proj_drop`` follows the output projection."""
-    B, N, C = x.shape
-    qkv = linear(p.qkv, x).reshape(B, N, 3, num_heads, C // num_heads)
+    ``@ v``; ``proj_drop`` follows the output projection.  With a
+    tensor-parallel mesh ``tp``, ``p`` holds this rank's ``num_heads``
+    heads."""
+    B, N, _ = x.shape
+    if tp is not None:
+        x = tp.copy_to_model(x)
+    qkv = linear(p.qkv, x)
+    qkv = qkv.reshape(B, N, 3, num_heads, qkv.shape[-1] // (3 * num_heads))
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     if rope_cos_sin is not None:
         cos, sin = rope_cos_sin[0], rope_cos_sin[1]
@@ -235,30 +262,34 @@ def attention_layer(p: Attention, x: torch.Tensor, num_heads: int,
         o = torch.einsum("bhqk,bkhd->bqhd", w, v)
     else:
         o = dot_product_attention(q, k, v, scale=scale, impl=attn_impl)
-    return dropout(linear(p.proj, o.reshape(B, N, C)), proj_drop, generator)
+    return dropout(_row_parallel(p.proj, o.reshape(B, N, -1), tp), proj_drop,
+                   generator)
 
 
 def vit_block(p: Block, x: torch.Tensor, num_heads: int, scale: float,
               rope_cos_sin=None, attn_impl: AttnImpl = "pallas",
               ln_eps: float = 1e-6, fused: bool = False, drop: float = 0.0,
               attn_drop: float = 0.0, drop_path_rate: float = 0.0,
-              seed: Optional[int] = None) -> torch.Tensor:
+              seed: Optional[int] = None, tp=None) -> torch.Tensor:
     """Pre-LN ViT block: the fused block with ``fused=True``, else the plain
     composition of the JAX package.  With a ``seed`` and a non-zero rate the
     block drops (a generator seeded ``seed`` on x's device draws the masks,
     in the order attention weights, projection, first branch, MLP hidden,
-    MLP output, second branch) and takes the plain road."""
+    MLP output, second branch) and takes the plain road.  ``tp``: a
+    tensor-parallel mesh (``p`` this rank's slices, ``num_heads`` its
+    heads)."""
     gen = None
     if seed is not None and (drop > 0.0 or attn_drop > 0.0
                              or drop_path_rate > 0.0):
         gen = torch.Generator(device=x.device).manual_seed(seed)
     if fused and gen is None:
         return fused_vit_block(p, x, rope_cos_sin, num_heads, scale,
-                               attn_impl, ln_eps)
+                               attn_impl, ln_eps, tp)
     a = attention_layer(p.attn, layernorm(p.norm1, x, ln_eps), num_heads,
-                        scale, rope_cos_sin, attn_impl, attn_drop, drop, gen)
+                        scale, rope_cos_sin, attn_impl, attn_drop, drop, gen,
+                        tp)
     x = x + drop_path(a, drop_path_rate, gen)
-    m = mlp(p.mlp, layernorm(p.norm2, x, ln_eps), drop, gen)
+    m = mlp(p.mlp, layernorm(p.norm2, x, ln_eps), drop, gen, tp)
     return x + drop_path(m, drop_path_rate, gen)
 
 
@@ -269,7 +300,7 @@ def run_vit_stack(blocks: Sequence[Block], x: torch.Tensor, num_heads: int,
                   fused: bool = False, remat: bool = False,
                   drop: float = 0.0, attn_drop: float = 0.0,
                   drop_path_rate: float = 0.0,
-                  generator: Optional[torch.Generator] = None
+                  generator: Optional[torch.Generator] = None, mesh=None
                   ) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
     """Run the blocks; return (output, {hook: activation}) with hook i the
     output after block i (1-based).  On the fused road with "batched"
@@ -279,14 +310,22 @@ def run_vit_stack(blocks: Sequence[Block], x: torch.Tensor, num_heads: int,
     attention.  ``remat`` recomputes each plain block in the backward (the
     fused block always does).  With a ``generator`` (a training forward's)
     and a non-zero dropout rate, each block drops with a seed drawn from it
-    and runs on the plain road; the generator is not read otherwise."""
+    and runs on the plain road; the generator is not read otherwise.  With
+    a ``mesh`` of ``model > 1`` the blocks are this rank's slices and run
+    ``num_heads / model`` heads (tensor parallelism); x and the output stay
+    whole on every rank."""
     drops = generator is not None and (drop > 0.0 or attn_drop > 0.0
                                        or drop_path_rate > 0.0)
     fused = fused and not drops
+    tp = mesh if mesh is not None and mesh.model > 1 else None
+    width = x.shape[-1]
+    if tp is not None:
+        num_heads //= tp.model
+        width //= tp.model
     if (fused and attn_impl == "batched" and rope_cos_sin is not None
             and len(rope_cos_sin) == 2):
         ct, st = expand_rope_tables(rope_cos_sin[0], rope_cos_sin[1],
-                                    x.shape[-1], x.dtype)
+                                    width, x.dtype)
         rope_cos_sin = (rope_cos_sin[0], rope_cos_sin[1], ct, st)
     outputs: Dict[int, torch.Tensor] = {}
     checkpoint = remat and not fused and torch.is_grad_enabled()
@@ -294,7 +333,7 @@ def run_vit_stack(blocks: Sequence[Block], x: torch.Tensor, num_heads: int,
         seed = (int(torch.randint(0, 2 ** 63 - 1, (), generator=generator))
                 if drops else None)
         args = (block, x, num_heads, scale, rope_cos_sin, attn_impl, ln_eps,
-                fused, drop, attn_drop, drop_path_rate, seed)
+                fused, drop, attn_drop, drop_path_rate, seed, tp)
         x = (torch.utils.checkpoint.checkpoint(vit_block, *args,
                                                use_reentrant=False)
              if checkpoint else vit_block(*args))

@@ -11,6 +11,13 @@ views for the global branch, per view for the local one); the per-pixel
 loss is ``conf * ||pred - gt|| - alpha * log(conf)``, a masked mean per
 (view, branch), summed and divided by the number of terms.  All loss math is
 fp32; masked means are ``sum(x * mask) / sum(mask)`` as in the JAX package.
+
+Data parallelism: the means pool over (B, H, W) jointly, so a rank's batch
+rows alone do not give the global batch's loss.  Given ``pool`` (a sum
+over the data-parallel ranks, ``Mesh.sum_data``), the counts are pooled
+before the divide and the returned loss is this rank's share: the sum of
+the ranks' shares is the global loss, and so is the sum of their
+gradients.  The per-view details come back pooled (whole).
 """
 
 from __future__ import annotations
@@ -34,10 +41,16 @@ class LossConfig:
     with_local: bool = True
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None) -> torch.Tensor:
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None,
+                 pool=None) -> torch.Tensor:
+    """sum(x * mask) / sum(mask) (0 where nothing is valid); with ``pool``
+    the count is pooled over the ranks first: this rank's share of the
+    pooled mean."""
     m = mask.to(x.dtype)
     s = (x * m).sum() if dim is None else (x * m).sum(dim)
     n = m.sum() if dim is None else m.sum(dim)
+    if pool is not None:
+        n = pool(n)
     return torch.where(n > 0, s / n.clamp(min=1.0), torch.zeros_like(s))
 
 
@@ -66,14 +79,15 @@ def _perview_norm_factor(pts: torch.Tensor, valid: torch.Tensor,
 
 
 def regr3d_multiview_v4(gts: Tensors, preds: Tensors,
-                        cfg: LossConfig = LossConfig()
+                        cfg: LossConfig = LossConfig(), pool=None
                         ) -> Tuple[Tensors, Tensors]:
     """Per-pixel regression distances of the global (+ local) branch.
 
     gts: pts3d (B, V, H, W, 3) world frame, valid_mask (B, V, H, W) bool,
     camera_pose (B, V, 4, 4) cam2world; preds: pts3d_in_other_view
     [+ pts3d_local].  Returns ({"global": (B, V, H, W)[, "local"],
-    "valid_mask"}, {"global_per_view": (V,)[, "local_per_view"]})."""
+    "valid_mask"}, {"global_per_view": (V,)[, "local_per_view"]}); with
+    ``pool`` the per-view details are pooled over the ranks."""
     gt_pts = gts["pts3d"].float()
     valid = gts["valid_mask"]
     poses = gts["camera_pose"].float()
@@ -93,8 +107,8 @@ def regr3d_multiview_v4(gts: Tensors, preds: Tensors,
     else:
         gt_g = gt_global
     out = {"global": torch.linalg.vector_norm(pr_g - gt_g, dim=-1)}
-    details = {"global_per_view": _masked_mean(out["global"], valid,
-                                               dim=(0, 2, 3))}
+    details = {"global_per_view": _pooled(_masked_mean(
+        out["global"].detach(), valid, (0, 2, 3), pool), pool)}
 
     if cfg.with_local and "pts3d_local" in preds:
         inv_local = se3_inverse(poses.reshape(B * V, 4, 4))
@@ -112,18 +126,26 @@ def regr3d_multiview_v4(gts: Tensors, preds: Tensors,
             pr_l = pr_local / nf_pr[bcast]
             gt_l = gt_local / nf_gt[bcast] if not cfg.gt_scale else gt_local
         out["local"] = torch.linalg.vector_norm(pr_l - gt_l, dim=-1)
-        details["local_per_view"] = _masked_mean(out["local"], valid,
-                                                 dim=(0, 2, 3))
+        details["local_per_view"] = _pooled(_masked_mean(
+            out["local"].detach(), valid, (0, 2, 3), pool), pool)
     out["valid_mask"] = valid
     return out, details
 
 
+def _pooled(share: torch.Tensor, pool) -> torch.Tensor:
+    """The whole value from this rank's share (the share itself without a
+    pool)."""
+    return share if pool is None else pool(share)
+
+
 def conf_loss_multiview_v2(gts: Tensors, preds: Tensors,
-                           cfg: LossConfig = LossConfig()
+                           cfg: LossConfig = LossConfig(), pool=None
                            ) -> Tuple[torch.Tensor, Tensors]:
     """The training objective: (scalar loss, details), details holding the
-    per-view distances and ``conf_loss_{branch}`` (V,) per branch."""
-    pixel, details = regr3d_multiview_v4(gts, preds, cfg)
+    per-view distances and ``conf_loss_{branch}`` (V,) per branch.  With
+    ``pool`` (data parallelism) the loss is this rank's share of the
+    global batch's, the details whole."""
+    pixel, details = regr3d_multiview_v4(gts, preds, cfg, pool)
     valid = pixel["valid_mask"]
     V = valid.shape[1]
     terms = []
@@ -135,8 +157,9 @@ def conf_loss_multiview_v2(gts: Tensors, preds: Tensors,
         px = pixel[branch] * conf - cfg.alpha * torch.log(conf)
         # per-view masked mean over (B, H, W) jointly
         per_view = _masked_mean(px.transpose(0, 1).reshape(V, -1),
-                                valid.transpose(0, 1).reshape(V, -1), dim=-1)
-        details[f"conf_loss_{branch}"] = per_view
+                                valid.transpose(0, 1).reshape(V, -1), -1,
+                                pool)
+        details[f"conf_loss_{branch}"] = _pooled(per_view.detach(), pool)
         terms.append(per_view)
     total = torch.cat(terms)
     return total.sum() / total.shape[0], details

@@ -28,6 +28,20 @@ gradients are cast to the master's dtype for the norm, the clip, AdamW and
 ``lr_scales``; after an update the working copy is refreshed from the
 master in place.  Without a compute dtype (or with the params' own) there
 is no copy and the step computes in the params' dtype.
+
+The mesh road (``init_train_state(..., mesh=...)``, a
+:class:`MeshTrainState` for :func:`train_step`; the JAX package's sharded
+``make_jitted_train_step``): on a ``data x model`` grid of ranks
+(``parallel.mesh``) each data rank takes its rows of the global batch and
+the decoder's image ids are drawn for the whole global batch from the one
+generator every rank holds; both stacks run tensor-parallel over the model
+group; the loss pools its masked means over the data group; the gradients
+are reduce-scattered over the data group into ZeRO-2 shards, on which the
+same fused AdamW runs against the rank's fp32 master shard, all-gathered
+into the compute copy afterwards.  Norms sum the shards' squares over the
+data group and the model-split params' over the model group, counting a
+replicated param once; the non-finite guard reads the pooled loss and
+norm, so every rank skips together.
 """
 
 from __future__ import annotations
@@ -35,10 +49,11 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from fast3r_torch.models.decoder import sample_random_image_ids
 from fast3r_torch.models.fast3r import Fast3RConfig, Fast3RNet, fast3r_forward
 from fast3r_torch.train.losses import LossConfig, conf_loss_multiview_v2
 
@@ -92,10 +107,56 @@ class TrainState:
     # the compute copy of params in another dtype (forward and backward),
     # or None when the step computes on params themselves
     work: Optional[Fast3RNet] = None
+    mesh = None                   # one device, no grid of ranks
 
     @property
-    def compute_params(self) -> Fast3RNet:
+    def net(self) -> Fast3RNet:
+        """The params the forward and backward run on."""
         return self.params if self.work is None else self.work
+
+    @torch.no_grad()
+    def reduce_grads(self, grads: Dict[str, torch.Tensor]):
+        """(the gradients AdamW takes, the global gradient norm, the
+        ``watch/`` norms) of the step's gradients by name."""
+        watch = {}
+        for group, mod in self.params.named_children():
+            names = [f"{group}.{k}" for k, _ in mod.named_parameters()]
+            watch[f"watch/grad_norm/{group}"] = global_norm(
+                [grads[n] for n in names if n in grads])
+            watch[f"watch/param_norm/{group}"] = global_norm(
+                [p for _, p in mod.named_parameters()])
+        return grads, global_norm(list(grads.values())), watch
+
+    def apply(self, grads: Dict[str, torch.Tensor], cfg: OptimConfig,
+              grad_norm: torch.Tensor) -> None:
+        """AdamW on the master, then the working copy refreshed."""
+        master = dict(self.params.named_parameters())
+        _adamw_update({k: master[k] for k in grads}, grads, self.opt_state,
+                      cfg, grad_norm)
+        refresh_working_copy(self)
+
+    def whole(self, which: str, to_all: bool = True
+              ) -> Dict[str, torch.Tensor]:
+        """The master ("master") or a moment ("mu", "nu") by parameter
+        name."""
+        if which == "master":
+            return self.params.state_dict()
+        return getattr(self.opt_state, which)
+
+    @torch.no_grad()
+    def load_whole(self, params: Dict[str, torch.Tensor],
+                   mu: Optional[Dict[str, torch.Tensor]] = None,
+                   nu: Optional[Dict[str, torch.Tensor]] = None) -> None:
+        """The master (and the working copy) and the moments given set
+        from whole tensors by name, in place."""
+        self.params.load_state_dict(params)
+        refresh_working_copy(self)
+        for mine, saved in ((self.opt_state.mu, mu), (self.opt_state.nu, nu)):
+            if saved is not None:
+                if mine.keys() != saved.keys():
+                    raise ValueError("optimizer state of other parameters")
+                for k, v in saved.items():
+                    mine[k].copy_(v)
 
 
 def _check_lr_scales(cfg: OptimConfig, params: Fast3RNet) -> None:
@@ -108,12 +169,33 @@ def _check_lr_scales(cfg: OptimConfig, params: Fast3RNet) -> None:
 
 def init_train_state(params: Fast3RNet, optim_cfg: OptimConfig,
                      seed: int = 0,
-                     compute_dtype: Optional[torch.dtype] = None
-                     ) -> TrainState:
+                     compute_dtype: Optional[torch.dtype] = None,
+                     mesh=None, model_cfg: Optional[Fast3RConfig] = None,
+                     device=None):
     """Zero moments in the params' dtype and device, count 0, step 0; with a
     ``compute_dtype`` other than the params', a working copy of the params
-    in it (the master-weights road)."""
+    in it (the master-weights road).
+
+    With a ``mesh`` (``parallel.mesh``; ``model_cfg`` the model's config)
+    ``params`` are the WHOLE model's, the same on every rank so that the
+    grid does not change the init: a :class:`MeshTrainState` of this rank's
+    slices as its compute copy on ``device`` in ``compute_dtype`` (default:
+    the params'), and its ZeRO-2 shards of them in fp32 as the master, zero
+    moments beside them."""
     _check_lr_scales(optim_cfg, params)
+    generator = torch.Generator().manual_seed(seed)
+    if mesh is not None:
+        # imported here: fast3r_torch.parallel's package imports this module
+        from fast3r_torch.parallel import mesh as mesh_lib
+
+        mesh.check_model_config(model_cfg)
+        device = device if device is not None else next(
+            params.parameters()).device
+        local = mesh_lib.shard_params(params, mesh)
+        zero = mesh_lib.zero_init(local, model_cfg, mesh, device)
+        return MeshTrainState(
+            net=local.to(device=device, dtype=compute_dtype), opt_state=zero,
+            mesh=mesh, cfg=model_cfg, step=0, generator=generator)
     named = dict(params.named_parameters())
     work = None
     if compute_dtype is not None and compute_dtype != next(
@@ -128,7 +210,7 @@ def init_train_state(params: Fast3RNet, optim_cfg: OptimConfig,
         opt_state=AdamWState(
             count=0, mu={k: torch.zeros_like(p) for k, p in named.items()},
             nu={k: torch.zeros_like(p) for k, p in named.items()}),
-        step=0, generator=torch.Generator().manual_seed(seed), work=work)
+        step=0, generator=generator, work=work)
 
 
 @torch.no_grad()
@@ -192,28 +274,44 @@ def _adamw_update(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor
             found_inf=None)
 
 
-def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+def train_step(state, batch: Dict[str, torch.Tensor],
                model_cfg: Fast3RConfig, optim_cfg: OptimConfig,
                loss_cfg: LossConfig = LossConfig(), remat: bool = True,
                mixed_orientation: bool = False,
-               view_ids: Optional[torch.Tensor] = None
-               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """One optimisation step on the params' device; updates ``state`` in
-    place and returns it with the metrics.
+               view_ids: Optional[torch.Tensor] = None):
+    """One optimisation step on the compute params' device: of a
+    :class:`TrainState` on one device, or this rank's part of a grid's step
+    (:class:`MeshTrainState`).  Updates ``state`` in place and returns it
+    with the metrics.
 
     batch: imgs (B, V, H, W, 3), true_shapes (B, V, 2), pts3d
     (B, V, H, W, 3), valid_mask (B, V, H, W), camera_pose (B, V, 4, 4);
     tensors or numpy arrays, moved to the params' device (imgs in their
-    dtype).  ``view_ids`` (B, V) replace the decoder image ids drawn from
-    ``state.generator`` (e.g. to reproduce another implementation's draw).
-    Metrics: loss, lr, grad_norm, skipped_nonfinite, the loss details and
-    ``watch/grad_norm/{group}``, ``watch/param_norm/{group}``.
+    dtype).  On a grid ``batch`` is this data rank's B rows of the global
+    batch of B x data rows (data rank d holding rows d B .. d B + B - 1),
+    the same on every model rank of its group.  ``view_ids`` (global B, V)
+    replace the decoder image ids drawn from ``state.generator`` (e.g. to
+    reproduce another implementation's draw).  Metrics (whole, the same on
+    every rank): loss, lr, grad_norm, skipped_nonfinite, the loss details
+    and ``watch/grad_norm/{group}``, ``watch/param_norm/{group}``.
     """
-    net = state.compute_params
+    net, mesh = state.net, state.mesh
     p0 = next(net.parameters())
     dev, dt = p0.device, p0.dtype
     b = {k: torch.as_tensor(batch[k]).to(dev) for k in
          ("imgs", "true_shapes", "pts3d", "valid_mask", "camera_pose")}
+    pool = None
+    if mesh is not None:
+        # the ids of the global batch, from the generator every rank holds
+        B, V = b["imgs"].shape[:2]
+        if view_ids is None and model_cfg.decoder.random_image_idx_embedding:
+            view_ids = sample_random_image_ids(state.generator, B * mesh.data,
+                                               V)
+        if view_ids is not None:
+            from fast3r_torch.parallel.mesh import batch_rows
+
+            view_ids = view_ids[batch_rows(mesh, view_ids.shape[0])]
+        pool = mesh.sum_data
     named = {k: p for k, p in net.named_parameters() if p.requires_grad}
 
     with torch.enable_grad():
@@ -221,31 +319,99 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                                b["true_shapes"].cpu(),
                                mixed_orientation=mixed_orientation,
                                view_ids=view_ids, is_training=True,
-                               remat=remat, generator=state.generator)
-        loss, details = conf_loss_multiview_v2(b, preds, loss_cfg)
+                               remat=remat, generator=state.generator,
+                               mesh=mesh)
+        # on a grid this rank's share of the global batch's loss
+        loss, details = conf_loss_multiview_v2(b, preds, loss_cfg, pool=pool)
         grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()),
                                                     allow_unused=True)))
     grads = {k: torch.zeros_like(named[k]) if g is None else g
              for k, g in grads.items()}
-    loss = loss.detach()
-    grad_norm = global_norm(list(grads.values()))
+    loss = loss.detach() if mesh is None else mesh.sum_data(loss)
+    grads, grad_norm, watch = state.reduce_grads(grads)
     finite = bool(torch.isfinite(loss)) and bool(torch.isfinite(grad_norm))
-
-    with torch.no_grad():
-        metrics = {"loss": loss, "lr": make_schedule(optim_cfg)(state.step),
-                   "grad_norm": grad_norm,
-                   "skipped_nonfinite": int(not finite),
-                   **{k: v.detach() for k, v in details.items()}}
-        for group, mod in state.params.named_children():
-            names = [f"{group}.{k}" for k, _ in mod.named_parameters()]
-            metrics[f"watch/grad_norm/{group}"] = global_norm(
-                [grads[n] for n in names if n in grads])
-            metrics[f"watch/param_norm/{group}"] = global_norm(
-                [p for _, p in mod.named_parameters()])
+    metrics = {"loss": loss, "lr": make_schedule(optim_cfg)(state.step),
+               "grad_norm": grad_norm, "skipped_nonfinite": int(not finite),
+               **{k: v.detach() for k, v in details.items()}, **watch}
     if finite:
-        master = dict(state.params.named_parameters())
-        _adamw_update({k: master[k] for k in named}, grads, state.opt_state,
-                      optim_cfg, grad_norm)
-        refresh_working_copy(state)
+        state.apply(grads, optim_cfg, grad_norm)
     state.step += 1
     return state, metrics
+
+
+# ---------------------------------------------------------------------------
+# the mesh road: data, ZeRO-2 and tensor parallelism
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MeshTrainState:
+    """A rank's state on a grid: :class:`TrainState`'s interface over
+    ``parallel.mesh``'s model slices and ZeRO-2 shards."""
+    net: Fast3RNet                # this rank's compute copy (model slices)
+    opt_state: Any                # parallel.mesh.ZeroState: AdamW's count,
+    #                               this rank's fp32 master and moment shards
+    mesh: Any                     # parallel.mesh.Mesh
+    cfg: Fast3RConfig             # the model's (whole shapes)
+    step: int
+    generator: torch.Generator    # CPU, the same on every rank
+
+    @torch.no_grad()
+    def reduce_grads(self, grads: Dict[str, torch.Tensor]):
+        """(this rank's gradient shards, reduce-scattered over the data
+        group, the global gradient norm, the ``watch/`` norms): norms sum
+        the shards' squares over the data group and the model-split
+        params' over the model group, a replicated param counted once."""
+        from fast3r_torch.parallel import mesh as mesh_lib
+
+        zero = self.opt_state
+        shards = mesh_lib.zero_grads(zero, grads, self.mesh)
+        gsq = mesh_lib.zero_norms(zero, shards, self.mesh)
+        psq = mesh_lib.zero_norms(zero, zero.master, self.mesh)
+        dev = next(iter(zero.master.values())).device
+
+        def norm(sq, group=None):
+            parts = [v for k, v in sq.items()
+                     if group is None or k.split(".", 1)[0] == group]
+            return torch.sqrt(sum(parts)) if parts else torch.zeros(
+                (), device=dev)
+
+        watch = {}
+        for group, _ in self.net.named_children():
+            watch[f"watch/grad_norm/{group}"] = norm(gsq, group)
+            watch[f"watch/param_norm/{group}"] = norm(psq, group)
+        return shards, norm(gsq), watch
+
+    def apply(self, shards: Dict[str, torch.Tensor], cfg: OptimConfig,
+              grad_norm: torch.Tensor) -> None:
+        """AdamW on the master shards, all-gathered into the compute copy."""
+        from fast3r_torch.parallel import mesh as mesh_lib
+
+        zero = self.opt_state
+        _adamw_update({k: zero.master[k] for k in shards}, shards, zero, cfg,
+                      grad_norm)
+        mesh_lib.zero_publish(zero, self.net, self.mesh)
+
+    def whole(self, which: str, to_all: bool = True
+              ) -> Optional[Dict[str, torch.Tensor]]:
+        """The whole master ("master") or moment ("mu", "nu") by parameter
+        name on the CPU, gathered over the grid (every rank calls it): on
+        every rank, or with ``to_all`` False on global rank 0 only (None on
+        the others)."""
+        from fast3r_torch.parallel import mesh as mesh_lib
+
+        local = mesh_lib.zero_gather(self.opt_state, self.mesh, which, to_all)
+        if local is None:
+            return None
+        return mesh_lib.gather_params(local, self.mesh, self.cfg, to_all)
+
+    def load_whole(self, params: Dict[str, torch.Tensor],
+                   mu: Optional[Dict[str, torch.Tensor]] = None,
+                   nu: Optional[Dict[str, torch.Tensor]] = None) -> None:
+        """This rank's slices and shards of whole tensors by name (the
+        master, the moments given), and the compute copy, in place."""
+        from fast3r_torch.parallel import mesh as mesh_lib
+
+        local = [None if d is None else mesh_lib.shard_params(d, self.mesh)
+                 for d in (params, mu, nu)]
+        mesh_lib.zero_load(self.opt_state, *local)
+        mesh_lib.zero_publish(self.opt_state, self.net, self.mesh)

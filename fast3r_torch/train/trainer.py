@@ -3,7 +3,8 @@ requeue on a signal.
 
 Counterpart of ``fast3r_tpu/train/trainer.py`` (``TrainerConfig``,
 ``Trainer.fit``, ``install_signal_handlers``, ``validate``,
-``save_checkpoint`` / ``load_checkpoint``) on one device:
+``save_checkpoint`` / ``load_checkpoint``) on one device or, with
+``use_mesh``, on a ``data x model`` grid of ranks:
 
   * per-epoch ``set_epoch`` on the loader (or on its dataset and sampler);
   * :func:`fast3r_torch.train.step.train_step` per batch, the mixed
@@ -35,6 +36,19 @@ Counterpart of ``fast3r_tpu/train/trainer.py`` (``TrainerConfig``,
 Metrics go through ``utils.logging.MetricLogger``: ``{run_dir}/metrics.csv``
 and the sinks of ``TrainerConfig.loggers`` (TensorBoard events under
 ``{run_dir}/tensorboard`` by default).
+
+The mesh road (``use_mesh``; JAX's ``data_axis`` / ``model_axis``, data
+-1 taking all the ranks the model axis leaves): every rank builds the whole
+model from the seed and keeps its slices (``parallel.mesh``), so the grid
+does not change the init; the state is ``train.step.MeshTrainState``
+(ZeRO-2 fp32 master and moment shards, tensor-parallel stacks) behind the
+one-device state's interface; every batch is the model group's first
+rank's, shared over the group (``Mesh.share_batch``); the parameter
+accounting is the whole model's; the counters count data ranks; a stop
+signal on any rank stops every rank at the same step; a checkpoint holds
+the whole master and moments, gathered to and written by global rank 0
+(the file of a one-device run), and loads onto any grid; validation runs
+the forward on every model rank and averages over the data ranks.
 """
 
 from __future__ import annotations
@@ -56,12 +70,8 @@ from fast3r_torch.models.fast3r import (
     init_fast3r,
 )
 from fast3r_torch.train.losses import LossConfig, conf_loss_multiview_v2
-from fast3r_torch.train.step import (
-    OptimConfig,
-    init_train_state,
-    refresh_working_copy,
-    train_step,
-)
+from fast3r_torch.parallel import mesh as mesh_lib
+from fast3r_torch.train.step import OptimConfig, init_train_state, train_step
 from fast3r_torch.utils.checkpoint_utils import RUN_CONFIG, config_to_dict
 from fast3r_torch.utils.logging import MetricLogger, RankedLogger
 
@@ -86,10 +96,19 @@ class TrainerConfig:
     # writer); wandb/mlflow/comet/neptune/aim attach if importable
     loggers: Tuple[str, ...] = ("tensorboard",)
     remat: bool = True
+    # the grid of ranks: use_mesh=False keeps the one-device road; data -1
+    # (or 0, None) takes all the ranks the model axis leaves; model > 1 is
+    # tensor parallelism
+    use_mesh: bool = False
+    data_axis: Optional[int] = -1
+    model_axis: int = 1
 
 
-def _global_count(n: int) -> int:
-    """n summed over the ranks (n itself without torch.distributed)."""
+def _global_count(n: int, mesh=None) -> int:
+    """n summed over the data ranks of ``mesh``, else over the ranks (n
+    itself without torch.distributed)."""
+    if mesh is not None:
+        return mesh.count(n)
     if not (torch.distributed.is_available()
             and torch.distributed.is_initialized()):
         return n
@@ -98,6 +117,12 @@ def _global_count(n: int) -> int:
         t = t.cuda()
     torch.distributed.all_reduce(t)
     return int(t.item())
+
+
+def _any(flag: bool, mesh=None) -> bool:
+    """Whether ``flag`` is set on any rank of ``mesh`` (flag itself
+    without one)."""
+    return flag if mesh is None else mesh.any(flag)
 
 
 def _mixed(batch) -> bool:
@@ -115,7 +140,8 @@ class Trainer:
         On a CUDA device the forward and backward run on a bf16 working
         copy of them (the card's kernels take bf16), elsewhere on the
         params themselves.  Params handed in bf16 train in bf16, without a
-        copy."""
+        copy.  With ``use_mesh`` the (whole) params are built on the CPU
+        and each rank keeps its slices on ``device``."""
         self.model_cfg = model_cfg
         self.optim_cfg = optim_cfg
         self.loss_cfg = loss_cfg
@@ -126,13 +152,23 @@ class Trainer:
         self.metrics = MetricLogger(
             os.path.join(self.cfg.run_dir, "metrics.csv"),
             sinks=self.cfg.loggers)
+        self.mesh = None
+        if self.cfg.use_mesh:
+            self.mesh = mesh_lib.make_mesh(self.cfg.data_axis,
+                                           self.cfg.model_axis)
+            log.info(f"mesh: data={self.mesh.data} x model={self.mesh.model}; "
+                     "ZeRO-2 master and moment shards")
         if params is None:
             params = init_fast3r(model_cfg, trainer_cfg.seed, torch.float32,
-                                 device)
+                                 "cpu" if self.mesh else device)
+        on_card = (torch.device(device).type == "cuda" if self.mesh
+                   else next(params.parameters()).is_cuda)
         self.state = init_train_state(
             params.train(), optim_cfg, trainer_cfg.seed + 1,
-            torch.bfloat16 if next(params.parameters()).is_cuda else None)
-        # parameter accounting (reference utils/logging_utils.py:18-63)
+            torch.bfloat16 if on_card else None, mesh=self.mesh,
+            model_cfg=model_cfg, device=device)
+        # parameter accounting (reference utils/logging_utils.py:18-63), of
+        # the whole model on a mesh too
         by_top = {name: sum(p.numel() for p in mod.parameters())
                   for name, mod in params.named_children()}
         log.info("model parameters: total %.1fM (%s)",
@@ -160,25 +196,51 @@ class Trainer:
             signal.signal(sig, prev)
         self._prev_handlers = {}
 
+    @property
+    def net(self) -> Fast3RNet:
+        """The params the forward runs on (this rank's slices on a mesh)."""
+        return self.state.net
+
+    def params_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The whole master params, ``Fast3RNet``'s state dict (a
+        collective on a mesh)."""
+        return self.state.whole("master")
+
+    def set_params(self, state_dict: Dict[str, torch.Tensor]) -> None:
+        """Replace the master params (and the compute copy) by a whole
+        ``Fast3RNet`` state dict, the moments kept (pretrained weights)."""
+        self.state.load_whole(state_dict)
+
+    def _share(self, batch):
+        """The batch every model rank of a data group runs on."""
+        return batch if self.mesh is None else self.mesh.share_batch(batch)
+
     # ---- checkpointing --------------------------------------------------
     def _ckpt_path(self, name: str) -> str:
         return os.path.join(self.cfg.run_dir, "checkpoints", f"{name}.pt")
 
     def save_checkpoint(self, name: str = "last") -> str:
+        """Write {params, optimizer state, step, generator state, epoch,
+        counters}; on a mesh every rank calls it and global rank 0 writes
+        the gathered whole, the file of a one-device run."""
         s = self.state
-        blob = {"params": s.params.state_dict(),
-                "opt_state": {"count": s.opt_state.count,
-                              "mu": s.opt_state.mu, "nu": s.opt_state.nu},
-                "step": s.step, "generator": s.generator.get_state(),
-                "epoch": self.epoch, "total_samples": self.total_samples,
-                "total_images": self.total_images}
+        # gathered to global rank 0 only (None on the other ranks)
+        whole = {w: s.whole(w, to_all=False) for w in ("master", "mu", "nu")}
         path = self._ckpt_path(name)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        t = time.time()
-        torch.save(blob, path + ".tmp")
-        os.replace(path + ".tmp", path)  # a reader never sees half a file
-        log.info(f"saved checkpoint {name!r} at step {s.step} in "
-                 f"{time.time() - t:.1f}s")
+        if whole["master"] is not None:
+            blob = {"params": whole["master"],
+                    "opt_state": {"count": s.opt_state.count,
+                                  "mu": whole["mu"], "nu": whole["nu"]},
+                    "step": s.step, "generator": s.generator.get_state(),
+                    "epoch": self.epoch, "total_samples": self.total_samples,
+                    "total_images": self.total_images}
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            t = time.time()
+            torch.save(blob, path + ".tmp")
+            os.replace(path + ".tmp", path)  # a reader never sees half a file
+            log.info(f"saved checkpoint {name!r} at step {s.step} in "
+                     f"{time.time() - t:.1f}s")
+        _any(False, self.mesh)  # the file is there before any rank goes on
         return path
 
     def load_checkpoint(self, name: str = "last") -> bool:
@@ -191,17 +253,11 @@ class Trainer:
         # device and dtype), so the card never holds two copies
         blob = torch.load(path, map_location="cpu", weights_only=True,
                           mmap=True)
-        s.params.load_state_dict(blob["params"])
-        refresh_working_copy(s)
         o = blob["opt_state"]
-        with torch.no_grad():
-            for mine, saved in ((s.opt_state.mu, o["mu"]),
-                                (s.opt_state.nu, o["nu"])):
-                if mine.keys() != saved.keys():
-                    raise ValueError(f"{path}: optimizer state of other "
-                                     "parameters")
-                for k, v in saved.items():
-                    mine[k].copy_(v)
+        if not set(o["mu"]) == set(o["nu"]) == set(blob["params"]):
+            raise ValueError(f"{path}: optimizer state of other parameters")
+        # on a mesh this rank's slices of the whole, onto whatever grid runs
+        s.load_whole(blob["params"], o["mu"], o["nu"])
         s.opt_state.count = o["count"]
         s.step = blob["step"]
         s.generator.set_state(blob["generator"].cpu())
@@ -231,13 +287,14 @@ class Trainer:
                     train_loader.sampler.set_epoch(epoch)
             t_epoch = time.time()
             for i, batch in enumerate(train_loader):
+                batch = self._share(batch)
                 self.state, m = train_step(
                     self.state, batch, self.model_cfg, self.optim_cfg,
                     self.loss_cfg, remat=self.cfg.remat,
                     mixed_orientation=_mixed(batch))
                 B, V = np.shape(batch["imgs"])[:2]
-                self.total_samples += _global_count(B)
-                self.total_images += _global_count(B * V)
+                self.total_samples += _global_count(B, self.mesh)
+                self.total_images += _global_count(B * V, self.mesh)
                 if i % self.cfg.log_every_n_steps == 0:
                     self.metrics.log(
                         step=self.state.step, epoch=epoch,
@@ -247,6 +304,8 @@ class Trainer:
                            if np.ndim(v) == 0})
                 if on_step is not None:
                     on_step()
+                # every rank stops together
+                self._stop_requested = _any(self._stop_requested, self.mesh)
                 if self._stop_requested:
                     self.save_checkpoint("last")
                     log.info("stopping for requeue")
@@ -297,7 +356,7 @@ class Trainer:
 
         recon_epoch_ok = epoch == 0 or (
             (epoch + 1) % self.cfg.recon_val_every_n_epochs == 0)
-        net = self.state.compute_params
+        net = self.net
         p0 = next(net.parameters())
         results: Dict[str, float] = {}
         for name, loader in val_loaders.items():
@@ -305,12 +364,14 @@ class Trainer:
             pose_ms, recon_ms = [], []
             suite_matched = False
             for batch in loader:
+                batch = self._share(batch)
                 b = {k: torch.as_tensor(batch[k]).to(p0.device) for k in
                      ("imgs", "pts3d", "valid_mask", "camera_pose")}
                 ts = np.asarray(batch["true_shapes"])
                 preds = fast3r_forward(
                     net, self.model_cfg, b["imgs"].to(p0.dtype),
-                    torch.as_tensor(ts), mixed_orientation=_mixed(batch))
+                    torch.as_tensor(ts), mixed_orientation=_mixed(batch),
+                    mesh=self.mesh)
                 loss, _ = conf_loss_multiview_v2(b, preds, self.loss_cfg)
                 losses.append(float(loss))
                 pose_on = dispatch(eval_pose, name, batch, POSE_EVAL_DATASETS)
@@ -353,9 +414,11 @@ class Trainer:
                             np.mean([m[key] for m in ms]))
         if (torch.distributed.is_available()
                 and torch.distributed.is_initialized()):
-            # the mean over the ranks (JAX: process_allgather + nanmean)
-            gathered = [None] * torch.distributed.get_world_size()
-            torch.distributed.all_gather_object(gathered, results)
+            # the mean over the (data) ranks (JAX: process_allgather +
+            # nanmean); a data group's model ranks hold the same results
+            group = self.mesh.data_group if self.mesh is not None else None
+            gathered = [None] * torch.distributed.get_world_size(group)
+            torch.distributed.all_gather_object(gathered, results, group=group)
             results = {k: float(np.nanmean([g[k] for g in gathered]))
                        for k in sorted(results)}
         self.metrics.log(step=self.state.step, epoch=epoch, **results)

@@ -20,6 +20,11 @@ converter needs no table of names: the module path is the JAX key path.
 Leaves may be numpy arrays or anything ``numpy.asarray`` accepts.
 :func:`params_to_jax` is the inverse (for comparing gradients and updated
 params leaf by leaf with the JAX tree).
+
+On a tensor-parallel grid (``parallel.mesh``), ``shard_params`` of
+:func:`params_from_jax`'s dict gives a rank its slices of a JAX tree, and
+:func:`params_to_jax` of ``gather_params`` (the whole tensors from every
+model rank's slices) gives the JAX tree back.
 """
 
 from __future__ import annotations
