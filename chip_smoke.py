@@ -266,9 +266,10 @@ printing each one's seconds:
      path;
   27. the mesh step: the kernels at a model-2 rank's shapes (M = 6144
      rows, 8 heads: K4 / K3 / K11 at qkv N = 1536, K11 fc1 N = 2048, K5
-     proj K = 512 with and without the residual, K6 hidden 2048 with and
-     without x and b2, K2 / K10 on (3, 8, 768, 512), K1 / K9 at (1, 6144,
-     8, 64)) against their plain versions; super_long_training's model
+     proj K = 512 and K6 hidden 2048 as each rank's partial output, the
+     bias (b2) on model rank 0 and zero on rank 1, the residual added
+     after the ranks' sum, K2 / K10 on (3, 8, 768, 512), K1 / K9 at (1,
+     6144, 8, 64)) against their plain versions; super_long_training's model
      for 3 steps on the one-process Trainer road (fp32 master, bf16
      working copy) on global batches of 2 x 8 views at 512x384, then on a
      data 2 x model 2 grid of four processes sharing the card over gloo
@@ -280,7 +281,25 @@ printing each one's seconds:
      fused and plain roads (its rounding floor), each rank's launch counts
      equal to the one-process road's, its decoder block's params at the
      model-2 slice shapes; then one step of the mesh Trainer at world size
-     1 over NCCL.
+     1 over NCCL;
+  28. the variants tensor-parallel: the kernels at a model-2 rank's
+     llama_dec shapes (M = 3072 rows: K13 ``rms_qkv3`` at N 1536,
+     ``rms_matmul`` and its replay at N 1408, whose last 128 x 256 tile is
+     half full, K5's partial products on wo K 512 and w2 K 1408, K1 / K9
+     at (1, 3072, 8, 64)) and DINO's (K1 / K9 at 8 heads
+     over 257 tokens, K1 over 1037) against their plain versions; then
+     llama_dec, the DINOv2 model and the flagship with the encoder's
+     drop_path 0.1 (its blocks on the plain road) each for 2 steps of 1
+     sample of 4 views (512x384; DINO 224x224) on the one-process Trainer
+     road (fp32 master, bf16 working copy) and on a road differing in
+     rounding only (the plain block roads), then on a data 1 x model 2
+     grid of two processes sharing the card over gloo (for DINO first one
+     forward of 2 views at 392x518, 1037 tokens at 8 heads): each step's
+     loss within 1e-4 relative of the one-process road's, each group's
+     update within phase 27's rule, the DINO forward within 2% relative
+     L2, each rank's launches equal to the one-process road's, a llama
+     rank's layer at the model-2 slice shapes; each rank's step seconds,
+     seconds in collectives and peak memory printed.
 
 Any failure raises (exit code 1).  Without a CUDA device the script exits
 with code 2 before printing any result.  The last line of standard output
@@ -316,7 +335,7 @@ from fast3r_torch.kernels import build
 from fast3r_torch.models.decoder import sample_random_image_ids
 from fast3r_torch.models.dino_encoder import DinoEncoderConfig
 from fast3r_torch.models.dpt_head import dpt_head_forward, head_road
-from fast3r_torch.models.fast3r import empty_fast3r
+from fast3r_torch.models.fast3r import empty_fast3r, init_fast3r
 from fast3r_torch.models.llama_decoder import LlamaDecoderConfig
 from fast3r_torch.nn import fused_block as fb
 from fast3r_torch.ops.batched_attention import (
@@ -4386,9 +4405,10 @@ def check_tp_kernels(results: list) -> None:
     """The kernels of the mesh step at a model-2 rank's shapes against
     their plain versions, in the phase-2 manner: M = 6144 rows (8 views x
     768 tokens), 8 heads of 64, qkv N = 1536 (K4 with RoPE, K3, the K11
-    replay), proj K = 512 with the residual (model rank 0) and without
-    (rank 1: the bias epilogue on a zero bias), the whole MLP at hidden
-    2048 with x and b2 (rank 0) and without (rank 1), the fc1 replay at
+    replay), proj K = 512's partial product (the bias epilogue: the bias
+    on model rank 0, zero on rank 1; the residual is added after the
+    ranks' sum), the whole MLP at hidden 2048 without x (b2 on rank 0,
+    zero on rank 1), the fc1 replay at
     N = 2048, the encoder's packed attention (3, 8, 768, 512) forward and
     backward (K2, K10) and the decoder's (1, 6144, 8, 64) (K1, K9)."""
     g = _gen(27)
@@ -4464,33 +4484,28 @@ def check_tp_kernels(results: list) -> None:
         del got, ref
     o = (torch.randn((M, Cl), generator=g, device="cuda") * 0.5).to(bf)
     zero = torch.zeros_like(bproj)
-    for case, bias, res in (("residual", bproj, x), ("no residual", zero,
-                                                     None)):
-        args = (o, wproj, bias, res)
-        lib = ((lambda: F.linear(o, wproj, bproj) + x) if res is not None
-               else (lambda: F.linear(o, wproj)))
+    # each rank's partial products, the residual added after their sum
+    # (fb._matmul_residual): the bias (b2) on model rank 0, zero on rank 1
+    for case, bias in (("bias (rank 0)", bproj), ("zero bias (rank 1)", zero)):
+        args = (o, wproj, bias, None)
         _record(results, "matmul_residual", "fused_gemm",
-                f"{tp} proj K={Cl} {case} {M}x{Cl} -> {Cc}",
+                f"{tp} proj K={Cl} partial, {case} {M}x{Cl} -> {Cc}",
                 fb.matmul_residual(*args), fb.matmul_residual_ref(*args),
                 lambda: fb.matmul_residual(*args),
-                lambda: fb.matmul_residual_ref(*args), lib,
-                "F.linear + add" if res is not None else "F.linear",
-                2.0 * M * Cl * Cc,
-                (M * Cl + Cc * Cl + Cc + (2 if res is not None else 1) * M * Cc)
-                * it)
-    for case, first in (("x and b2", True), ("no residual", False)):
-        args = (x, gamma, beta, w1, b1, w2, b2 if first else zero, 1e-6)
-        lib = ((lambda: x + F.linear(F.gelu(ln_linear(w1, b1, 1e-6)), w2, b2))
-               if first else
-               (lambda: F.linear(F.gelu(ln_linear(w1, b1, 1e-6)), w2)))
+                lambda: fb.matmul_residual_ref(*args),
+                lambda: F.linear(o, wproj, bias), "F.linear",
+                2.0 * M * Cl * Cc, (M * Cl + Cc * Cl + Cc + M * Cc) * it)
+    for case, bb in (("b2 (rank 0)", b2), ("zero b2 (rank 1)", zero)):
+        args = (x, gamma, beta, w1, b1, w2, bb, 1e-6)
         _record(results, "ln_mlp", "ln_mlp",
-                f"{tp} hidden {HIDl} {case} {M}x{Cc}",
-                fb._ln_mlp(*args, residual=first),
-                fb.ln_mlp_ref(*args, residual=first),
-                lambda: fb._ln_mlp(*args, residual=first),
-                lambda: fb.ln_mlp_ref(*args, residual=first), lib,
-                "F.layer_norm + F.linear + F.gelu + F.linear"
-                + (" + add" if first else ""), 4.0 * M * Cc * HIDl,
+                f"{tp} hidden {HIDl} partial, {case} {M}x{Cc}",
+                fb._ln_mlp(*args, residual=False),
+                fb.ln_mlp_ref(*args, residual=False),
+                lambda: fb._ln_mlp(*args, residual=False),
+                lambda: fb.ln_mlp_ref(*args, residual=False),
+                lambda: F.linear(F.gelu(ln_linear(w1, b1, 1e-6)), w2, bb),
+                "F.layer_norm + F.linear + F.gelu + F.linear",
+                4.0 * M * Cc * HIDl,
                 (2 * M * Cc + 2 * HIDl * Cc + HIDl + 3 * Cc) * it)
     del o
     torch.cuda.empty_cache()
@@ -4709,6 +4724,435 @@ def phase_mesh(gpu: str, results: list) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the model variants tensor-parallel (data 1 x model 2 ranks on one
+# card)
+# ---------------------------------------------------------------------------
+
+# the grid and the global batch: 1 sample of 4 views at 512x384 (llama_dec,
+# the dropout step) or 224x224 (DINO), 2 steps; a llama_dec rank's products
+# have M = 4 x 768 = 3072 rows, 8 query heads over 8 kv heads (q | k | v N
+# 1536), wo K 512 and a SwiGLU hidden of 1408 (w1 / w3 N, w2 K)
+TP_MODEL, TP_VIEWS, TP_STEPS = 2, 4, 2
+TP_M = TP_VIEWS * 768
+TP_OPT = OptimConfig(lr=1e-4, warmup_steps=1, total_steps=1000)
+# DINO: 257 tokens a 224x224 view (16 x 16 patches and the cls token) in
+# the steps; a tensor-parallel forward of 2 views at 392x518 (1037 tokens)
+TP_DINO_HW, TP_DINO_BIG = (224, 224), (2, 392, 518)
+# the loss against the one-process road's within TP_LOSS_RTOL relative (a
+# rank sums each row-parallel product's two bf16 halves where the
+# one-process road rounds one product; phase 27's flagship step stays
+# within a few 1e-5); each group's update as phase 27's (MESH_UPDATE_RTOL, or
+# MESH_FLOOR_X times the one-process step's spread between two roads that
+# differ in rounding only); the DINO forward within TP_FWD_RTOL relative L2
+# of the one-process forward (both bf16), phase 16's bound
+TP_LOSS_RTOL = 1e-4
+TP_FWD_RTOL = 0.02
+TP_LLAMA_SHAPES = {"attn.wq.weight": [C // 2, C], "attn.wk.weight": [C // 2, C],
+                   "attn.wv.weight": [C // 2, C], "attn.wo.weight": [C, C // 2],
+                   "ffn.w1.weight": [L_HID // 2, C],
+                   "ffn.w2.weight": [C, L_HID // 2],
+                   "ffn.w3.weight": [L_HID // 2, C]}
+
+
+def tp_cfg(case: str) -> Fast3RConfig:
+    """The model of a phase-28 case: "llama" llama_dec (phases 7-10's),
+    "dino" the DINOv2 model (phases 22-23's), "drop" the flagship with the
+    encoder's drop_path 0.1 (its blocks on the plain road, the decoder on
+    its fused road)."""
+    if case == "llama":
+        return llama_cfg()
+    if case == "dino":
+        return dino_cfg()
+    flag = Fast3RConfig.flagship()
+    return dataclasses.replace(flag, encoder=dataclasses.replace(
+        flag.encoder, drop_path=0.1))
+
+
+def _tp_batches(case: str) -> list:
+    h, w = TP_DINO_HW if case == "dino" else (384, 512)
+    return [{k: v for k, v in make_dummy_batch(
+        1, TP_VIEWS, h, w, seed=60 + i).items() if k in BATCH_KEYS}
+        for i in range(TP_STEPS)]
+
+
+def _tp_big_imgs() -> torch.Tensor:
+    v, h, w = TP_DINO_BIG
+    g = torch.Generator().manual_seed(61)
+    return (torch.rand((1, v, h, w, 3), generator=g) * 2 - 1).to(
+        device="cuda", dtype=torch.bfloat16)
+
+
+def _tp_worker(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One rank of the data 1 x model 2 grid: for each case a mesh Trainer
+    (fp32 master shards, bf16 working copy) of ``tp_cfg(case)`` takes
+    TP_STEPS steps on the global batches over gloo; for DINO first one
+    forward of 2 views at 392x518.  Records, launch counts and (rank 0)
+    the gathered whole master land in ``out_dir``."""
+    import torch.distributed as dist
+
+    from fast3r_torch.train.trainer import Trainer, TrainerConfig
+
+    torch.cuda.set_device(0)
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    out = {}
+    for case in ("llama", "dino", "drop"):
+        cfg = tp_cfg(case)
+        t = time.perf_counter()
+        trainer = Trainer(cfg, TP_OPT, trainer_cfg=TrainerConfig(
+            run_dir=os.path.join(out_dir, f"run_{case}"), loggers=(),
+            use_mesh=True, model_axis=TP_MODEL), device="cuda")
+        rec = {"init_s": time.perf_counter() - t}
+        mesh, net = trainer.mesh, trainer.state.net
+        if case == "llama":
+            blk = dict(net.decoder.layers[0].named_parameters())
+            rec["shapes"] = {k: list(blk[k].shape) for k in TP_LLAMA_SHAPES}
+        if case == "dino":
+            _reset_counts()
+            with torch.inference_mode():
+                preds = fast3r_forward(net, cfg, _tp_big_imgs(), mesh=mesh)
+            rec["fwd_counts"] = _read_counts()
+            if rank == 0:
+                torch.save({k: v.float().cpu() for k, v in preds.items()},
+                           os.path.join(out_dir, "dino_fwd.pt"))
+            del preds
+        coll = [0.0]
+        run = mesh._run
+
+        def timed(group, size, op, *ts):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(group, size, op, *ts)
+            torch.cuda.synchronize()
+            coll[0] += time.perf_counter() - t0
+
+        mesh._run = timed
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        rec["steps"] = []
+        for i, batch in enumerate(_tp_batches(case)):
+            coll[0] = 0.0
+            t = time.perf_counter()
+            trainer.state, m = train_step(trainer.state, batch, cfg, TP_OPT,
+                                          remat=True)
+            torch.cuda.synchronize()
+            rec["steps"].append({
+                "train_step": i + 1, "step_s": time.perf_counter() - t,
+                "collective_s": coll[0], "loss": float(m["loss"]),
+                "skipped_nonfinite": int(m["skipped_nonfinite"]),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        rec["counts"] = _read_counts()
+        mesh._run = run
+        master = trainer.params_state_dict()
+        if rank == 0:
+            torch.save(master, os.path.join(out_dir, f"master_{case}.pt"))
+        out[case] = rec
+        del trainer, net, master
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def check_tp_variant_kernels(results: list) -> None:
+    """The kernels of phase 28's steps at a model-2 rank's shapes against
+    their plain versions: llama_dec's (M = 3072 rows, K = 1024, bf16 scale
+    and weights): ``rms_qkv3`` at N 1536, ``rms_matmul`` with SiLU (w1) and
+    without (w3) at N 1408 (5 x 256 + 128: the last 128 x 256 tile half
+    full), the RMS replay on the three, ``matmul_residual``'s partial
+    products on wo (K 512) and w2 (K 1408), the decoder's attention
+    forward and backward at (1, 3072, 8, 64); the
+    DINO encoder's at 8 heads of strided q, k, v over 257 tokens (4 views
+    at 224x224, forward and backward) and 1037 (2 views at 392x518)."""
+    g = _gen(28)
+    bf, it, eps = torch.bfloat16, 2, 1e-5
+    M, Cq, Hh = TP_M, C // 2, L_HID // 2
+    x = (torch.randn((M, C), generator=g, device="cuda") * 2 + 0.5).to(bf)
+    gamma = (1 + 0.1 * torch.randn((C,), generator=g, device="cuda")).to(bf)
+    wq, wk, wv = (_linear(Cq, C, g)[0] for _ in range(3))
+    w1, w3 = (_linear(Hh, C, g)[0] for _ in range(2))
+    wo, w2 = _linear(C, Cq, g)[0], _linear(C, Hh, g)[0]
+    tp = "model 2 llama rank"
+
+    def rms():
+        return F.rms_norm(x, (C,), gamma, eps)
+
+    def io_bytes(n, replay=False, z=False):
+        """x, w and gamma read, y written; the replay's u, rstd and z."""
+        return ((M * C + n * C + C + M * n) * it
+                + ((M * C * it + M * 4) if replay else 0)
+                + (M * n * it if z else 0))
+
+    args = (x, gamma, wq, wk, wv, eps)
+    wcat = torch.cat([wq, wk, wv])
+    _record(results, "rms_qkv3", "fused_gemm", f"{tp} qkv N=1536 {M}x{C}",
+            torch.cat(fb.rms_qkv3(*args), 1), torch.cat(fb.rms_qkv3_ref(*args), 1),
+            lambda: fb.rms_qkv3(*args), lambda: fb.rms_qkv3_ref(*args),
+            lambda: F.linear(rms(), wcat).split(Cq, 1), "F.rms_norm + F.linear",
+            2.0 * M * C * 3 * Cq, io_bytes(3 * Cq))
+    for case, w, act in (("w1 silu", w1, "silu"), ("w3", w3, None)):
+        args = (x, gamma, w, eps)
+        _record(results, "rms_matmul", "fused_gemm",
+                f"{tp} {case} N={Hh} {M}x{C}",
+                fb.rms_matmul(*args, act=act), fb.rms_matmul_ref(*args, act=act),
+                lambda: fb.rms_matmul(*args, act=act),
+                lambda: fb.rms_matmul_ref(*args, act=act),
+                (lambda: F.silu(F.linear(rms(), w))) if act
+                else (lambda: F.linear(rms(), w)),
+                "F.rms_norm + F.linear" + (" + F.silu" if act else ""),
+                2.0 * M * C * Hh, io_bytes(Hh))
+    for case, w, act in (("qkv", wcat, None), ("w1 silu", w1, "silu"),
+                         ("w3", w3, None)):
+        n = w.shape[0]
+        args = (x, gamma, w, eps, act)
+        got = fb.rms_matmul_replay(*args)
+        ref = fb.rms_matmul_replay_ref(*args)
+        torch.cuda.synchronize()
+        errs = [compare("fused_gemm", got[0], ref[0], bf),
+                compare("replay_u", got[1], ref[1], bf),
+                compare("replay_stats", got[2], ref[2], bf)]
+        if act:
+            errs.append(compare("fused_gemm", got[3], ref[3], bf))
+        lib = ((lambda: F.silu(F.linear(rms(), w))) if act
+               else (lambda: F.linear(rms(), w)))
+        r = dict(errs[0], kernel="rms_matmul_replay",
+                 case=f"{tp} {case} N={n} {M}x{C}", dtype="bfloat16",
+                 max_abs_err_residuals=max(e["max_abs_err"] for e in errs[1:]),
+                 ms=median_ms(lambda: fb.rms_matmul_replay(*args), 10),
+                 plain_ms=median_ms(lambda: fb.rms_matmul_replay_ref(*args), 3),
+                 library="F.rms_norm + F.linear" + (" + F.silu" if act else ""),
+                 library_ms=median_ms(lib, 10),
+                 **bound(2.0 * M * C * n, io_bytes(n, True, bool(act))))
+        results.append(r)
+        log(json.dumps(r))
+        del got, ref
+    zero = torch.zeros((C,), device="cuda", dtype=bf)
+    o = (torch.randn((M, Cq), generator=g, device="cuda") * 0.5).to(bf)
+    h = fb.rms_matmul(x, gamma, w1, eps, act="silu") * fb.rms_matmul(
+        x, gamma, w3, eps)
+    # each rank's partial product (no bias in a llama linear; the residual
+    # is added after the ranks' sum)
+    for name, a, w, k in (("wo", o, wo, Cq), ("w2", h, w2, Hh)):
+        args = (a, w, zero, None)
+        _record(results, "matmul_residual", "fused_gemm",
+                f"{tp} {name} K={k} partial {M}x{k} -> {C}",
+                fb.matmul_residual(*args), fb.matmul_residual_ref(*args),
+                lambda: fb.matmul_residual(*args),
+                lambda: fb.matmul_residual_ref(*args),
+                lambda: F.linear(a, w), "F.linear", 2.0 * M * k * C,
+                (M * k + C * k + C + M * C) * it)
+    del o, h
+    torch.cuda.empty_cache()
+
+    D = 64
+    for prefix, (B, N), bwd in ((f"{tp} decoder", (1, M), True),
+                                ("model 2 dino rank encoder", (TP_VIEWS, 257),
+                                 True),
+                                ("model 2 dino rank 392x518 encoder",
+                                 (TP_DINO_BIG[0], 1037), False)):
+        Hl = 8
+        qkv = torch.randn((B, N, 3, Hl, D), generator=g, device="cuda").to(bf)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        case = f"{prefix} {B}x{N}x{Hl}x{D}"
+        _record(results, "attention", "attention", case,
+                flash_attention(q, k, v, TRAIN_SCALE),
+                attention_ref(q, k, v, TRAIN_SCALE),
+                lambda: flash_attention(q, k, v, TRAIN_SCALE),
+                lambda: attention_ref(q, k, v, TRAIN_SCALE),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       scale=TRAIN_SCALE),
+                "F.scaled_dot_product_attention", 4.0 * B * Hl * N * N * D,
+                4 * B * N * Hl * D * it)
+        if bwd:
+            do = torch.randn((B, N, Hl, D), generator=g, device="cuda").to(bf)
+            o, lse = attention_fwd_lse(q, k, v, TRAIN_SCALE)
+            got = attention_bwd(q, k, v, o, lse, do, TRAIN_SCALE)
+            ref = attention_bwd_ref(q, k, v, o, lse, do, TRAIN_SCALE)
+            errs = [compare("attention_bwd", a, e, bf) for a, e in zip(got, ref)]
+            del ref
+            ql, kl, vl = (t.detach().transpose(1, 2).contiguous()
+                          .requires_grad_() for t in (q, k, v))
+            ol = F.scaled_dot_product_attention(ql, kl, vl, scale=TRAIN_SCALE)
+            r = dict(_merge(errs), kernel="attention_bwd", case=case,
+                     dtype="bfloat16",
+                     ms=median_ms(lambda: attention_bwd(q, k, v, o, lse, do,
+                                                        TRAIN_SCALE), 10),
+                     plain_ms=median_ms(lambda: attention_bwd_ref(
+                         q, k, v, o, lse, do, TRAIN_SCALE), 2),
+                     library="autograd of F.scaled_dot_product_attention",
+                     library_ms=_grad_ms(ol, (ql, kl, vl), do.transpose(1, 2),
+                                         10),
+                     **_attn_bwd_bound(B, N, Hl, D))
+            results.append(r)
+            log(json.dumps(r))
+            del do, o, lse, got, ql, kl, vl, ol
+        del qkv, q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+
+
+def _tp_one_process(case: str, cfg, net, gpu: str):
+    """The one-process Trainer road of a phase-28 case from the whole fp32
+    params ``net`` (CPU): (losses, launch counts, master after, the rounding
+    floor's master after: the same steps on a road that differs in rounding
+    only), and for DINO the 392x518 forward's outputs and launch counts."""
+    from fast3r_torch.train.trainer import Trainer, TrainerConfig
+
+    def trainer(c):
+        p = empty_fast3r(c, device="cuda")
+        p.load_state_dict(net.state_dict())
+        return Trainer(c, TP_OPT, trainer_cfg=TrainerConfig(
+            run_dir=tempfile.mkdtemp(), loggers=()), params=p, device="cuda")
+
+    out = {}
+    one = trainer(cfg)
+    if case == "dino":
+        _reset_counts()
+        with torch.inference_mode():
+            preds = fast3r_forward(one.state.net, cfg, _tp_big_imgs())
+        out["fwd_counts"] = _read_counts()
+        out["fwd"] = {k: v.float().cpu() for k, v in preds.items()}
+        del preds
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    losses = []
+    for i, batch in enumerate(_tp_batches(case)):
+        t = time.perf_counter()
+        one.state, m = train_step(one.state, batch, cfg, TP_OPT, remat=True)
+        torch.cuda.synchronize()
+        losses.append(float(m["loss"]))
+        log(json.dumps({"path": f"tp_{case}_ref", "train_step": i + 1,
+                        "step_s": time.perf_counter() - t,
+                        "loss": losses[-1], "peak_mem_gb":
+                        torch.cuda.max_memory_allocated() / 1e9, "gpu": gpu}))
+    out.update(losses=losses, counts=_read_counts(), after={
+        k: v.detach().cpu() for k, v in one.state.params.named_parameters()})
+    del one
+    torch.cuda.empty_cache()
+    # the rounding floor: the plain roads.  llama_dec on its plain block
+    # roads; DINO on them and its encoder's attention on the plain version
+    # (the encoder has one block road, which with_fused_blocks leaves as
+    # it is); the dropout step with its decoder on the plain road too (its
+    # encoder is there already)
+    if case == "drop":
+        floor_cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+            cfg.decoder, fused_blocks=False))
+    else:
+        floor_cfg = cfg.with_fused_blocks(False)
+    if case == "dino":
+        floor_cfg = dataclasses.replace(floor_cfg, encoder=dataclasses.replace(
+            floor_cfg.encoder, attn_impl="naive"))
+    one = trainer(floor_cfg)
+    out["floor_losses"] = []
+    for batch in _tp_batches(case):
+        one.state, m = train_step(one.state, batch, floor_cfg, TP_OPT,
+                                  remat=True)
+        out["floor_losses"].append(float(m["loss"]))
+    out["floor_after"] = {k: v.detach().cpu() for k, v in
+                          one.state.params.named_parameters()}
+    del one
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_variants(gpu: str, results: list) -> dict:
+    """Phase 28: the kernels at a model-2 rank's llama_dec and DINO shapes
+    against their plain versions; for llama_dec, the DINOv2 model and the
+    flagship with the encoder's drop_path 0.1, the one-process Trainer
+    road's TP_STEPS steps (and a road differing in rounding only) on the
+    global batches, then the same steps on a data 1 x model 2 grid of two
+    processes sharing the card over gloo, held together; for DINO also a
+    392x518 forward on both.  Returns the launch counts of each rank's
+    paths ("tp_{case}_rank{r}", "tp_dino_fwd_rank{r}") and of the
+    one-process roads."""
+    import torch.multiprocessing as mp
+
+    log(f"== phase 28: the variants tensor-parallel (llama_dec, DINOv2, "
+        f"dropout; data 1 x model {TP_MODEL} ranks on one card over gloo, "
+        f"{TP_VIEWS} views a step, fp32 master shards, bf16 working copy, "
+        f"{TP_STEPS} steps)")
+    t0 = time.perf_counter()
+    check_tp_variant_kernels(results)
+    log(f"the model-2 rank shapes' kernels checked in "
+        f"{time.perf_counter() - t0:.1f} s")
+    from fast3r_torch.train.trainer import TrainerConfig
+
+    counts, refs = {}, {}
+    for case in ("llama", "dino", "drop"):
+        t0 = time.perf_counter()
+        cfg = tp_cfg(case)
+        # the mesh Trainer's whole params: its seed's draw on the CPU
+        net = init_fast3r(cfg, seed=TrainerConfig().seed, device="cpu")
+        refs[case] = _tp_one_process(case, cfg, net, gpu)
+        refs[case]["before"] = {k: v.detach() for k, v in
+                                net.named_parameters()}
+        counts[f"tp_{case}_ref"] = refs[case]["counts"]
+        del net
+        log(f"the one-process roads of {case} in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    world = TP_MODEL
+    bad = []
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        mp.spawn(_tp_worker, args=(world, _free_port(), out), nprocs=world)
+        log(f"the {world} ranks in {time.perf_counter() - t0:.1f} s")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        for case, ref in refs.items():
+            after = torch.load(os.path.join(out, f"master_{case}.pt"),
+                               mmap=True)
+            err = _group_update_err(ref["before"], after, ref["after"])
+            floor = _group_update_err(ref["before"], ref["floor_after"],
+                                      ref["after"])
+            tol = {g: max(MESH_UPDATE_RTOL, MESH_FLOOR_X * f)
+                   for g, f in floor.items()}
+            log(json.dumps({"path": f"tp_{case}", "update_rel_l2_by_group": err,
+                            "rounding_floor_by_group": floor,
+                            "tolerance": tol, "losses_ref": ref["losses"],
+                            "losses_floor_road": ref["floor_losses"]}))
+            bad += [f"{case}: {g} update rel L2 {e:.4f} > {tol[g]:.4f}"
+                    for g, e in err.items() if not e <= tol[g]]
+            del after
+            if case == "dino":
+                got = torch.load(os.path.join(out, "dino_fwd.pt"))
+                rel = _rel_l2(got, ref["fwd"])
+                log(json.dumps({"path": "tp_dino_fwd", "views": TP_DINO_BIG,
+                                "rel_l2": rel, "tolerance": TP_FWD_RTOL}))
+                bad += [f"dino 392x518 forward {k} rel L2 {v:.4f}"
+                        for k, v in rel.items() if not v <= TP_FWD_RTOL]
+    for r, rk in enumerate(ranks):
+        for case, rec in rk.items():
+            ref = refs[case]
+            log(json.dumps({"path": f"tp_{case}", "rank": r,
+                            "init_s": rec["init_s"], "steps": rec["steps"],
+                            "gpu": gpu}))
+            counts[f"tp_{case}_rank{r}"] = rec["counts"]
+            if rec["counts"] != ref["counts"]:
+                bad.append(f"{case} rank {r} launches {rec['counts']} != the "
+                           f"one-process road's {ref['counts']}")
+            for s, want in zip(rec["steps"], ref["losses"]):
+                if (s["skipped_nonfinite"] or not math.isfinite(s["loss"])
+                        or abs(s["loss"] - want) > TP_LOSS_RTOL * abs(want)):
+                    bad.append(f"{case} rank {r} step {s['train_step']} loss "
+                               f"{s['loss']} vs {want}")
+            if case == "llama" and rec["shapes"] != TP_LLAMA_SHAPES:
+                bad.append(f"llama rank {r} layer shapes {rec['shapes']}")
+            if case == "dino":
+                counts[f"tp_dino_fwd_rank{r}"] = rec["fwd_counts"]
+                if rec["fwd_counts"] != ref["fwd_counts"]:
+                    bad.append(f"dino forward rank {r} launches "
+                               f"{rec['fwd_counts']} != {ref['fwd_counts']}")
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"phase 28: {bad}")
+    return counts
+
+
 def phase_counts(counts: dict) -> None:
     log("== phase 26: kernel launches on each path of phases 3, 5, 7, 9, 11, "
         "12, 14, 16, 18, 19, 20, 21, 22, 23 and 24")
@@ -4805,19 +5249,42 @@ def kernel_summary(results: list, counts: dict) -> dict:
                                      "two_kernel_ms") if k in r}})
     # the mesh step's kernels at a model-2 rank's shapes (phase 27), their
     # launches over the phase's steps on the rank that runs the case: model
-    # rank 1 (global rank 1) the products without the residual, model rank
+    # rank 1 (global rank 1) the partial products on a zero bias, model rank
     # 0 (global rank 0) the others
     for r in results:
         if r["dtype"] != "bfloat16" or not r["case"].startswith("model 2 rank"):
             continue
         _, route, source, replaces = KERNELS[r["kernel"]]
-        rank = 1 if "no residual" in r["case"] else 0
+        rank = 1 if "(rank 1)" in r["case"] else 0
         kernels.append({
             "name": f"{r['kernel']} [{r['case']}]", "route": route,
             "source": source, "replaces": replaces,
             "launches": counts[f"mesh_rank{rank}"][r["kernel"]],
             "launches_by_path": {p: counts[p][r["kernel"]] for p in counts
                                  if p.startswith("mesh_rank")},
+            "max_abs_err": r["max_abs_err"], "atol": r["atol"],
+            "rtol": r["rtol"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "library": r["library"],
+            "case": r["case"] + " bfloat16"})
+    # the variants' kernels at a model-2 rank's shapes (phase 28), their
+    # launches over the phase's steps (the DINO 392x518 case: its forward)
+    # on model rank 0 (rank 1 runs each as often)
+    for r in results:
+        if r["dtype"] != "bfloat16" or not r["case"].startswith(
+                ("model 2 llama rank", "model 2 dino rank")):
+            continue
+        _, route, source, replaces = KERNELS[r["kernel"]]
+        rank = 0
+        path = ("tp_llama" if "llama" in r["case"] else
+                "tp_dino_fwd" if "392x518" in r["case"] else "tp_dino")
+        kernels.append({
+            "name": f"{r['kernel']} [{r['case']}]", "route": route,
+            "source": source, "replaces": replaces,
+            "launches": counts[f"{path}_rank{rank}"][r["kernel"]],
+            "launches_by_path": {f"{path}_rank{k}":
+                                 counts[f"{path}_rank{k}"][r["kernel"]]
+                                 for k in range(TP_MODEL)},
             "max_abs_err": r["max_abs_err"], "atol": r["atol"],
             "rtol": r["rtol"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -4907,6 +5374,8 @@ def main() -> int:
     done("phase 26")
     counts.update(phase_mesh(gpu, results))
     done("phase 27")
+    counts.update(phase_tp_variants(gpu, results))
+    done("phase 28")
     log(json.dumps(kernel_summary(results, counts)))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {

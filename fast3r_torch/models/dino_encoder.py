@@ -15,6 +15,13 @@ On CUDA a block runs LayerNorm through the LayerNorm kernel
 cuBLAS matmuls (the JAX package leaves them to XLA) and attention through
 the attention kernel (``ops.attention`` "xla" -> K1, strided q, k, v, one
 (view, head) per batch-head: 1 + h w tokens, 1037 at 392x518).
+
+Tensor parallelism (a ``parallel.mesh.Mesh`` of ``model > 1``): the blocks
+run on this rank's slices (whole heads of qkv, a slice of the MLP hidden)
+through the plain road's column- and row-parallel products, the LayerScale
+gammas applied to each sublayer's summed output; the patch embedding, the
+tokens, the position embeddings, the gammas and the norms are replicated,
+as JAX's ``param_pspec`` leaves them.
 """
 
 from __future__ import annotations
@@ -85,23 +92,26 @@ def _interp_pos_embed(pos_embed: torch.Tensor, grid_hw: Tuple[int, int],
 
 def _dino_block(p, x: torch.Tensor, gamma1: torch.Tensor,
                 gamma2: torch.Tensor, num_heads: int, scale: float,
-                attn_impl: str, ln_eps: float) -> torch.Tensor:
+                attn_impl: str, ln_eps: float, mesh=None) -> torch.Tensor:
     a = attention_layer(p.attn, layernorm(p.norm1, x, ln_eps), num_heads,
-                        scale, None, attn_impl)
+                        scale, None, attn_impl, mesh=mesh)
     x = x + gamma1.to(x.dtype) * a
-    return x + gamma2.to(x.dtype) * mlp(p.mlp, layernorm(p.norm2, x, ln_eps))
+    return x + gamma2.to(x.dtype) * mlp(p.mlp, layernorm(p.norm2, x, ln_eps),
+                                        mesh=mesh)
 
 
 def dino_encoder_forward(params: DinoEncoder, cfg: DinoEncoderConfig,
                          img: torch.Tensor,
-                         true_shape: Optional[torch.Tensor] = None
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+                         true_shape: Optional[torch.Tensor] = None,
+                         mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Encode (B, H, W, 3) images (storage layout, normalised); true_shape
     (B, 2) int (height, width), the storage shape by default: a sample with
     width < height is portrait and is embedded transposed.  Returns the
     normalised patch tokens without cls (B, h w, C) and their positions
     (B, h w, 2) as (y, x), portrait ones in true-orientation values and
-    storage order.  Differentiable."""
+    storage order.  Differentiable.  With a ``parallel.mesh.Mesh`` of
+    ``model > 1`` the blocks run tensor-parallel on this rank's slices and
+    ``num_heads / model`` heads."""
     B, H, W, _ = img.shape
     ps = cfg.patch_size
     if H % ps or W % ps:
@@ -138,9 +148,12 @@ def dino_encoder_forward(params: DinoEncoder, cfg: DinoEncoderConfig,
         x = branches[0]
 
     scale = (cfg.embed_dim // cfg.num_heads) ** -0.5
+    heads = cfg.num_heads
+    if mesh is not None and mesh.model > 1:
+        heads //= mesh.model
     for i, block in enumerate(params.blocks):
-        x = _dino_block(block, x, params.ls1[i], params.ls2[i], cfg.num_heads,
-                        scale, cfg.attn_impl, cfg.ln_eps)
+        x = _dino_block(block, x, params.ls1[i], params.ls2[i], heads, scale,
+                        cfg.attn_impl, cfg.ln_eps, mesh)
     tokens = layernorm(params.norm, x, cfg.ln_eps)[:, 1:]
 
     pos_land = position_grid(h, w, img.device)

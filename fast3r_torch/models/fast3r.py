@@ -184,8 +184,10 @@ def fast3r_forward(params: Fast3RNet, cfg: Fast3RConfig, imgs: torch.Tensor,
       view_ids: (B, V) image ids for the decoder's index embedding (the
         llama decoder's rotary index); when None, drawn by
         :func:`sample_random_image_ids` from ``generator`` (training needs
-        one) or, at inference, from a generator seeded 0.  The llama
-        decoder's view-0 mask reads the views' order (arange ids).
+        one) or, at inference, from a generator seeded 0 (on a ``mesh``
+        for the global batch, of which this data rank takes its rows).
+        The llama decoder's view-0 mask reads the views' order (arange
+        ids).
       is_training: the decoder's training softmax scale (no entropy bias;
         the llama decoder has none in either case).
       remat: recompute the plain road's blocks in the backward.
@@ -193,12 +195,14 @@ def fast3r_forward(params: Fast3RNet, cfg: Fast3RConfig, imgs: torch.Tensor,
         dropout rate, two seeds are drawn from it first (one a stack, as the
         JAX package splits its rng only then) for the blocks' dropout; the
         image ids follow.
-      mesh: a ``parallel.mesh.Mesh``; with ``model > 1`` ``params`` are
-        this rank's slices (``parallel.mesh.shard_params``) and both
-        stacks run tensor-parallel, the heads replicated.  What that road
-        does not run (the llama decoder, the DINO encoder, dropout, the
-        sequence-sharded decoder, a head count ``model`` does not divide)
-        raises ``parallel.mesh.TensorParallelError``.
+      mesh: a ``parallel.mesh.Mesh``; ``imgs`` are this data rank's rows
+        of the global batch, and with ``model > 1`` ``params`` are this
+        rank's slices (``parallel.mesh.shard_params``) and both stacks run
+        tensor-parallel (any encoder and decoder, dropout on the plain
+        road), the heads replicated.  What that road does not run (the
+        sequence-sharded decoder; heads, llama kv heads or an MLP hidden
+        ``model`` does not divide) raises
+        ``parallel.mesh.TensorParallelError``.
 
     Returns pts3d_in_other_view (B, V, H, W, 3), conf (B, V, H, W)
     [, pts3d_local, conf_local].
@@ -217,7 +221,7 @@ def fast3r_forward(params: Fast3RNet, cfg: Fast3RConfig, imgs: torch.Tensor,
     if cfg.encoder_type == "dino":
         feats, _ = dino_encoder_forward(params.encoder, cfg.encoder,
                                         imgs.reshape(B * V, H, W, 3),
-                                        flat_shapes)
+                                        flat_shapes, mesh=mesh)
     else:
         feats, _ = encoder_forward(params.encoder, cfg.encoder,
                                    imgs.reshape(B * V, H, W, 3), flat_shapes,
@@ -230,7 +234,13 @@ def fast3r_forward(params: Fast3RNet, cfg: Fast3RConfig, imgs: torch.Tensor,
             if is_training and generator is None:
                 raise ValueError("a training forward needs view_ids or a "
                                  "generator to draw them")
-            view_ids = sample_random_image_ids(generator, B, V)
+            if mesh is None:
+                view_ids = sample_random_image_ids(generator, B, V)
+            else:  # the global batch's, this data rank's rows of them
+                from fast3r_torch.parallel.mesh import batch_rows
+
+                view_ids = sample_random_image_ids(generator, B * mesh.data, V)
+                view_ids = view_ids[batch_rows(mesh, B * mesh.data)]
     else:
         view_ids = torch.arange(V, dtype=torch.int32).expand(B, V)
     image_ids = view_ids.to(fused.device).repeat_interleave(P, dim=1)
@@ -238,7 +248,8 @@ def fast3r_forward(params: Fast3RNet, cfg: Fast3RConfig, imgs: torch.Tensor,
         order = torch.arange(V, device=fused.device).expand(B, V)
         dec_out = llama_decoder_forward(
             params.decoder, cfg.decoder, fused,
-            order.repeat_interleave(P, dim=1), rope_ids=image_ids, remat=remat)
+            order.repeat_interleave(P, dim=1), rope_ids=image_ids, remat=remat,
+            mesh=mesh)
     else:
         dec_out = decoder_forward(params.decoder, cfg.decoder, fused,
                                   image_ids, is_training=is_training,

@@ -23,6 +23,15 @@ With ``fused_blocks`` (the default, as in the JAX package) every block is
 the hand-written RMS -> GEMM kernels; shapes the kernels cannot take raise
 on CUDA.  The plain composition (``fused_blocks=False``) runs the products
 as cuBLAS matmuls, as the JAX package leaves them to XLA off the TPU.
+
+Tensor parallelism (``mesh`` a ``parallel.mesh.Mesh`` of ``model > 1``):
+each rank holds whole heads, its ``n_heads / model`` query heads' ``wq``
+rows and the ``kv_heads / model`` kv heads they read under the GQA repeat
+(contiguous ``wk`` / ``wv`` rows), a slice of the SwiGLU hidden (``w1``,
+``w3`` rows, ``w2`` columns) and the input columns of ``wo``; the norms,
+``decoder_embed`` and ``view0_embed`` are replicated.  ``wo`` and ``w2``
+are row-parallel products summed over the model group (no bias), on the
+fused road inside ``matmul_residual``, the residual added to the sum.
 """
 
 from __future__ import annotations
@@ -39,7 +48,7 @@ from torch import nn
 
 from fast3r_torch.models.decoder import MAX_IMAGE_IDX
 from fast3r_torch.nn.fused_block import fused_llama_block, fused_llama_supported
-from fast3r_torch.nn.layers import RMSNorm, linear
+from fast3r_torch.nn.layers import RMSNorm, linear, row_parallel
 from fast3r_torch.ops.attention import dot_product_attention
 
 
@@ -156,17 +165,23 @@ class LlamaDecoder(nn.Module):
 
 
 def llama_block(p: LlamaBlock, x: torch.Tensor, cos, sin,
-                cfg: LlamaDecoderConfig, fused: bool = False) -> torch.Tensor:
+                cfg: LlamaDecoderConfig, fused: bool = False,
+                tp=None) -> torch.Tensor:
     """One llama block on x (B, S, D): the fused block with ``fused=True``,
-    else the plain composition of the JAX package."""
+    else the plain composition of the JAX package.  ``tp``: a
+    tensor-parallel mesh (``p`` this rank's slices)."""
     if fused:
-        return fused_llama_block(p, x, cos, sin, cfg)
+        return fused_llama_block(p, x, cos, sin, cfg, tp)
     B, S, D = x.shape
     hd = cfg.head_dim
+    m = 1 if tp is None else tp.model
+    heads, kv_heads = cfg.n_heads // m, cfg.kv_heads // m
     h = rmsnorm(p.attention_norm, x, cfg.norm_eps)
-    q = linear(p.attn.wq, h).reshape(B, S, cfg.n_heads, hd)
-    k = linear(p.attn.wk, h).reshape(B, S, cfg.kv_heads, hd)
-    v = linear(p.attn.wv, h).reshape(B, S, cfg.kv_heads, hd)
+    if tp is not None:
+        h = tp.copy_to_model(h)
+    q = linear(p.attn.wq, h).reshape(B, S, heads, hd)
+    k = linear(p.attn.wk, h).reshape(B, S, kv_heads, hd)
+    v = linear(p.attn.wv, h).reshape(B, S, kv_heads, hd)
     q = apply_rotary_pairs(q, cos, sin)
     k = apply_rotary_pairs(k, cos, sin)
     n_rep = cfg.n_heads // cfg.kv_heads
@@ -174,31 +189,37 @@ def llama_block(p: LlamaBlock, x: torch.Tensor, cos, sin,
         k = k.repeat_interleave(n_rep, dim=2)
         v = v.repeat_interleave(n_rep, dim=2)
     o = dot_product_attention(q, k, v, scale=hd ** -0.5, impl=cfg.attn_impl)
-    x = x + linear(p.attn.wo, o.reshape(B, S, D))
+    x = x + row_parallel(p.attn.wo, o.reshape(B, S, heads * hd), tp)
     h = rmsnorm(p.ffn_norm, x, cfg.norm_eps)
+    if tp is not None:
+        h = tp.copy_to_model(h)
     gate = F.silu(linear(p.ffn.w1, h)) * linear(p.ffn.w3, h)
-    return x + linear(p.ffn.w2, gate)
+    return x + row_parallel(p.ffn.w2, gate, tp)
 
 
 def llama_decoder_forward(params: LlamaDecoder, cfg: LlamaDecoderConfig,
                           feats: torch.Tensor, image_ids: torch.Tensor,
                           rope_ids: Optional[torch.Tensor] = None,
-                          remat: bool = False) -> Dict[int, torch.Tensor]:
+                          remat: bool = False, mesh=None
+                          ) -> Dict[int, torch.Tensor]:
     """Run the llama fusion decoder.
 
     feats: (B, S, D_enc) fused encoder tokens; image_ids: (B, S) each
     token's view index (0..V-1), read for the view-0 mask; rope_ids: (B, S)
     the rotary index of each token (the random image ids; ``image_ids``
     when None).  ``remat`` recomputes each plain block in the backward (the
-    fused block always does).  Returns {hook: activation} for
-    ``cfg.hooks``.  On CUDA with ``fused_blocks`` a shape the kernels cannot
-    take raises.
+    fused block always does).  With a ``parallel.mesh.Mesh`` of ``model >
+    1`` the layers run tensor-parallel on this rank's slices.  Returns
+    {hook: activation} for ``cfg.hooks``.  On CUDA with ``fused_blocks`` a
+    shape the kernels cannot take (at a rank's widths) raises.
     """
+    tp = mesh if mesh is not None and mesh.model > 1 else None
+    model = 1 if tp is None else tp.model
     x = linear(params.decoder_embed, feats)
-    if cfg.fused_blocks and x.is_cuda and not fused_llama_supported(x.shape,
-                                                                     cfg):
+    if cfg.fused_blocks and x.is_cuda and not fused_llama_supported(
+            x.shape, cfg, model):
         raise ValueError(f"fused llama block: the kernels do not take x "
-                         f"{tuple(x.shape)} with {cfg}")
+                         f"{tuple(x.shape)} with {cfg} at model={model}")
     ids = (image_ids if rope_ids is None else rope_ids).to(
         device=x.device, dtype=torch.long)
     cos_t, sin_t = freqs_cos_sin_table(cfg.head_dim, cfg.max_seq_len,
@@ -212,7 +233,7 @@ def llama_decoder_forward(params: LlamaDecoder, cfg: LlamaDecoderConfig,
     checkpoint = remat and not cfg.fused_blocks and torch.is_grad_enabled()
     for i, layer in enumerate(params.layers):
         h = x + view0 * v0  # view0_embed before every layer
-        args = (layer, h, cos, sin, cfg, cfg.fused_blocks)
+        args = (layer, h, cos, sin, cfg, cfg.fused_blocks, tp)
         x = (torch.utils.checkpoint.checkpoint(llama_block, *args,
                                                use_reentrant=False)
              if checkpoint else llama_block(*args))

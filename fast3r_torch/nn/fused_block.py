@@ -34,7 +34,9 @@ plain products; ``ln_mlp``'s replays the two-kernel road.
 :func:`fused_vit_block` saves only (x, params) and recomputes in its
 backward, without rerunning the MLP's forward product.  The RMS products
 run their replay under autograd too, and their backward (:func:`_rms_backward`,
-after ``_rms_backward_xla``) is plain products and elementwise code;
+after ``_rms_backward_xla``) is plain products and elementwise code (the
+SwiGLU pair, :func:`rms_swiglu`, adds its two products' du before one RMS
+backward);
 :func:`fused_llama_block` saves (x, params) and recomputes the whole block
 in its backward (``_fused_llama_bwd``).  The backward's products are cuBLAS
 matmuls (the JAX package leaves them to XLA): in bf16 they round du and dh
@@ -456,19 +458,26 @@ def ln_qkv_rope(x, gamma, beta, w, bias, ct, st, num_heads: int, eps: float,
 
 
 def _matmul_residual(x, w, bias, residual, tp=None):
-    """The product on one rank; with a tensor-parallel mesh ``tp`` the
-    residual and the bias enter on model rank 0 only (rank 0's kernel takes
-    the residual epilogue, the others' the bias epilogue on a zero bias)
-    and the partial outputs are summed over the model group."""
-    if tp is not None and tp.model_rank != 0:
-        residual, bias = None, torch.zeros_like(bias)
+    """The product on one rank; with a tensor-parallel mesh ``tp`` every
+    rank's kernel takes the bias epilogue (the bias on model rank 0, a zero
+    bias on the others), the partial outputs are summed over the model
+    group and the residual is added to the sum (in fp32, rounded once, as
+    the one-process kernel's epilogue rounds it).  A residual inside rank
+    0's epilogue would round the residual stream twice more a sublayer: on
+    an H100 80GB HBM3 at 700 W that put a model-2 llama_dec step's loss
+    2.8e-4 from the one-process step's, against 4.8e-5 this way
+    (``scripts/tp_residual_rounding.py``)."""
+    if tp is not None:
+        if tp.model_rank != 0:
+            bias = torch.zeros_like(bias)
+        out = tp.all_reduce_model(_matmul_residual(x, w, bias, None))
+        return out if residual is None else out.add_(residual)
     if x.device.type == "cpu":
-        out = matmul_residual_ref(x, w, bias, residual)
-    else:
-        out = _gemm("matmul_residual", "bias" if residual is None
-                    else "residual", x, w, bias, residual=residual)
-        matmul_residual.launches += 1
-    return out if tp is None else tp.all_reduce_model(out)
+        return matmul_residual_ref(x, w, bias, residual)
+    out = _gemm("matmul_residual", "bias" if residual is None
+                else "residual", x, w, bias, residual=residual)
+    matmul_residual.launches += 1
+    return out
 
 
 class _MatmulResidual(torch.autograd.Function):
@@ -493,8 +502,8 @@ def matmul_residual(x, w, bias, residual, tp=None):
     """residual + x @ w^T + bias, added in fp32 and rounded once; x (M, K),
     w (N, K), residual (M, N).  The output is a new tensor.
     Differentiable.  ``tp``: a tensor-parallel mesh when w is a row slice
-    (x its input columns): the residual and bias are added once, on model
-    rank 0, and the output summed over the model group."""
+    (x its input columns): the partial products (the bias on model rank 0)
+    are summed over the model group, then the residual added."""
     if _training(x, w, bias, residual):
         return _MatmulResidual.apply(x, w, bias, residual, tp)
     return _matmul_residual(x, w, bias, residual, tp)
@@ -507,8 +516,8 @@ def _ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float, ctas=None,
     one per row band); ``prof``, a zeroed (6,) int64 CUDA tensor, receives
     the kernel's clock64 tallies (fc1 items, fc2 items, waits for a free
     slot, for the next item, for fc1 bands, statistics items).  Without
-    ``residual`` the fc2 epilogue adds no x (a tensor-parallel rank other
-    than the model group's first)."""
+    ``residual`` the fc2 epilogue adds no x (a tensor-parallel rank's
+    partial output)."""
     if x.device.type == "cpu":
         return ln_mlp_ref(x, gamma, beta, w1, b1, w2, b2, eps, residual)
     _check_device("ln_mlp", x)
@@ -574,14 +583,15 @@ def _mlp_backward(x, gamma, beta, w1, b1, w2, b2, eps: float, g, tp=None):
 
 def _ln_mlp_tp(x, gamma, beta, w1, b1, w2, b2, eps: float, tp=None):
     """The MLP on one rank; with a tensor-parallel mesh (w1 a column slice,
-    w2 a row slice) x and b2 enter on model rank 0 only and the partial
-    outputs are summed over the model group."""
+    w2 a row slice) every rank's kernel adds no x and b2 enters on model
+    rank 0 only; the partial outputs are summed over the model group and x
+    added to the sum, rounded once (see :func:`_matmul_residual`)."""
     if tp is None:
         return _ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps)
     first = tp.model_rank == 0
     out = _ln_mlp(x, gamma, beta, w1, b1, w2,
-                  b2 if first else torch.zeros_like(b2), eps, residual=first)
-    return tp.all_reduce_model(out)
+                  b2 if first else torch.zeros_like(b2), eps, residual=False)
+    return tp.all_reduce_model(out).add_(x)
 
 
 class _LnMlp(torch.autograd.Function):
@@ -636,24 +646,40 @@ def rms_matmul_replay(x, gamma, w, eps: float, act=None):
     return out, u, rstd, z
 
 
-def _rms_backward(x, gamma, w, u, rstd, z, g, act):
-    """(dx, dgamma, dw) of y = act(RMSNorm(x) w^T) from the replay's
-    residuals (``_rms_backward_xla``): the SiLU derivative and the RMS
-    backward in fp32, du and dw from plain products; dx and dw in the
-    primal dtypes, dgamma fp32."""
+def _rms_dz(g, z, act, dtype):
+    """The pre-activation's cotangent in ``dtype``: g times SiLU's
+    derivative at z in fp32 with ``act == "silu"``, else g."""
     dz = g.float()
     if act == "silu":
         zf = z.float()
         sig = torch.sigmoid(zf)
         dz = dz * sig * (1.0 + zf * (1.0 - sig))
-    dzc = dz.to(x.dtype)
-    du = (dzc @ w).float()
-    dw = dzc.t() @ u
+    return dz.to(dtype)
+
+
+def _rms_norm_backward(x, gamma, rstd, du, tp=None):
+    """(dx, dgamma) of u = RMSNorm(x) from the fp32 cotangent du of u: the
+    RMS backward in fp32, dx in x's dtype.  With a tensor-parallel mesh
+    ``tp`` (u feeds column slices) du is summed over the model group first,
+    the sublayer's one backward collective."""
+    if tp is not None:
+        tp.all_reduce_model(du)
     xhat = (x.float() * rstd[:, None]).to(x.dtype).float()
     dxhat = du * gamma.float()
     m2 = (dxhat * xhat).mean(-1, keepdim=True)
     dx = rstd[:, None] * (dxhat - xhat * m2)
-    return dx.to(x.dtype), (du * xhat).sum(0), dw.to(w.dtype)
+    return dx.to(x.dtype), (du * xhat).sum(0)
+
+
+def _rms_backward(x, gamma, w, u, rstd, z, g, act, tp=None):
+    """(dx, dgamma, dw) of y = act(RMSNorm(x) w^T) from the replay's
+    residuals (``_rms_backward_xla``): the SiLU derivative and the RMS
+    backward in fp32, du and dw from plain products; dx and dw in the
+    primal dtypes, dgamma fp32.  ``tp`` as :func:`_rms_norm_backward`'s."""
+    dzc = _rms_dz(g, z, act, x.dtype)
+    dw = dzc.t() @ u
+    dx, dgamma = _rms_norm_backward(x, gamma, rstd, (dzc @ w).float(), tp)
+    return dx, dgamma, dw.to(w.dtype)
 
 
 class _RmsProduct(torch.autograd.Function):
@@ -662,17 +688,18 @@ class _RmsProduct(torch.autograd.Function):
     rstd[, z])."""
 
     @staticmethod
-    def forward(ctx, x, gamma, w, eps, act):
+    def forward(ctx, x, gamma, w, eps, act, tp):
         y, u, rstd, z = rms_matmul_replay(x, gamma, w, eps, act)
         ctx.save_for_backward(x, gamma, w, u, rstd, z)
-        ctx.act = act
+        ctx.act, ctx.tp = act, tp
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, gamma, w, u, rstd, z = ctx.saved_tensors
-        dx, dgamma, dw = _rms_backward(x, gamma, w, u, rstd, z, g, ctx.act)
-        return dx, dgamma.to(gamma.dtype), dw, None, None
+        dx, dgamma, dw = _rms_backward(x, gamma, w, u, rstd, z, g, ctx.act,
+                                       ctx.tp)
+        return dx, dgamma.to(gamma.dtype), dw, None, None, None
 
 
 def rms_matmul(x, gamma, w, eps: float, act=None):
@@ -681,7 +708,7 @@ def rms_matmul(x, gamma, w, eps: float, act=None):
     (the replay)."""
     mode = _rms_act("rms_matmul", act)
     if _training(x, gamma, w):
-        return _RmsProduct.apply(x, gamma, w, eps, act)
+        return _RmsProduct.apply(x, gamma, w, eps, act, None)
     if x.device.type == "cpu":
         return rms_matmul_ref(x, gamma, w, eps, act)
     out = _gemm("rms_matmul", mode, x, w, None, rms=(gamma.to(x.dtype), eps))
@@ -689,17 +716,19 @@ def rms_matmul(x, gamma, w, eps: float, act=None):
     return out
 
 
-def rms_qkv3(x, gamma, wq, wk, wv, eps: float):
+def rms_qkv3(x, gamma, wq, wk, wv, eps: float, tp=None):
     """RMSNorm(x) projected through three bias-free weights (llama GQA
     attention: wk and wv may be narrower than wq): (q, k, v), column views
     of one (M, Nq + Nk + Nv) product over the concatenated weights, on
     CUDA one launch with the plain (M, N) store.  Differentiable: the
     replay over the concatenated weights, whose gradient autograd splits
-    (``_rms_qkv3_p_fwd`` / ``_bwd``)."""
+    (``_rms_qkv3_p_fwd`` / ``_bwd``).  ``tp``: a tensor-parallel mesh when
+    the weights are this rank's heads (the gradient into x and gamma
+    summed over its model group)."""
     splits = [wq.shape[0], wk.shape[0], wv.shape[0]]
     wcat = torch.cat([wq, wk, wv])
     if _training(x, gamma, wq, wk, wv):
-        y = _RmsProduct.apply(x, gamma, wcat, eps, None)
+        y = _RmsProduct.apply(x, gamma, wcat, eps, None, tp)
     elif x.device.type == "cpu":
         return rms_qkv3_ref(x, gamma, wq, wk, wv, eps)
     else:
@@ -707,6 +736,43 @@ def rms_qkv3(x, gamma, wq, wk, wv, eps: float):
                   rms=(gamma.to(x.dtype), eps))
         rms_qkv3.launches += 1
     return tuple(y.split(splits, dim=1))
+
+
+class _RmsSwiGlu(torch.autograd.Function):
+    """rms_swiglu under autograd: the two replays (SiLU over w1, plain over
+    w3; both write the same u and rstd, the first's are kept); the
+    backward adds the two products' du before one RMS backward (and, under
+    tensor parallelism, one all-reduce)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, w1, w3, eps, tp):
+        h1, u, rstd, z = rms_matmul_replay(x, gamma, w1, eps, "silu")
+        h3 = rms_matmul_replay(x, gamma, w3, eps)[0]
+        ctx.save_for_backward(x, gamma, w1, w3, u, rstd, z)
+        ctx.tp = tp
+        return h1, h3
+
+    @staticmethod
+    def backward(ctx, g1, g3):
+        x, gamma, w1, w3, u, rstd, z = ctx.saved_tensors
+        dz1 = _rms_dz(g1, z, "silu", x.dtype)
+        dz3 = _rms_dz(g3, None, None, x.dtype)
+        du = (dz1 @ w1).float() + (dz3 @ w3).float()
+        dx, dgamma = _rms_norm_backward(x, gamma, rstd, du, ctx.tp)
+        return (dx, dgamma.to(gamma.dtype), (dz1.t() @ u).to(w1.dtype),
+                (dz3.t() @ u).to(w3.dtype), None, None)
+
+
+def rms_swiglu(x, gamma, w1, w3, eps: float, tp=None):
+    """(SiLU(RMSNorm(x) @ w1^T), RMSNorm(x) @ w3^T): the SwiGLU's two RMS
+    products of one x, two launches (``rms_matmul``'s; under autograd two
+    replays).  Differentiable, with one RMS backward for both products.
+    ``tp``: a tensor-parallel mesh when w1 and w3 are this rank's hidden
+    slice (the gradient into x and gamma summed over its model group)."""
+    if _training(x, gamma, w1, w3):
+        return _RmsSwiGlu.apply(x, gamma, w1, w3, eps, tp)
+    return (rms_matmul(x, gamma, w1, eps, act="silu"),
+            rms_matmul(x, gamma, w3, eps))
 
 
 for _fn in (ln_matmul, ln_qkv, ln_qkv_rope, matmul_residual, ln_mlp,
@@ -836,11 +902,13 @@ LLAMA_PARAMS = ("attention_norm.weight", "attn.wq.weight", "attn.wk.weight",
                 "ffn.w1.weight", "ffn.w2.weight", "ffn.w3.weight")
 
 
-def _fused_llama_impl(t, x, cos, sin, cfg) -> torch.Tensor:
+def _fused_llama_impl(t, x, cos, sin, cfg, tp=None) -> torch.Tensor:
     """``_fused_llama_impl`` of the JAX package; ``t`` the block's tensors in
     LLAMA_PARAMS order.  The weights are cast to x's dtype, the RMS scales
     go to the products as they are; ``matmul_residual`` takes a zero bias
-    (the llama linears have none)."""
+    (the llama linears have none).  With a tensor-parallel mesh ``tp``,
+    ``t`` holds this rank's slices: ``n_heads / model`` query heads over
+    ``kv_heads / model`` kv heads, a slice of the hidden."""
     from fast3r_torch.models.llama_decoder import apply_rotary_pairs
 
     B, S, D = x.shape
@@ -848,23 +916,25 @@ def _fused_llama_impl(t, x, cos, sin, cfg) -> torch.Tensor:
     g1, wq, wk, wv, wo, g2, w1, w2, w3 = t
     wq, wk, wv, wo, w1, w2, w3 = (w.to(dt) for w in (wq, wk, wv, wo, w1, w2,
                                                      w3))
+    m = 1 if tp is None else tp.model
+    heads, kv_heads = cfg.n_heads // m, cfg.kv_heads // m
     x2 = x.reshape(B * S, D)
-    q, k, v = rms_qkv3(x2, g1, wq, wk, wv, cfg.norm_eps)
+    q, k, v = rms_qkv3(x2, g1, wq, wk, wv, cfg.norm_eps, tp)
     hd = cfg.head_dim
-    q = apply_rotary_pairs(q.reshape(B, S, cfg.n_heads, hd), cos, sin)
-    k = apply_rotary_pairs(k.reshape(B, S, cfg.kv_heads, hd), cos, sin)
-    v = v.reshape(B, S, cfg.kv_heads, hd)  # a strided view of the product
+    q = apply_rotary_pairs(q.reshape(B, S, heads, hd), cos, sin)
+    k = apply_rotary_pairs(k.reshape(B, S, kv_heads, hd), cos, sin)
+    v = v.reshape(B, S, kv_heads, hd)  # a strided view of the product
     n_rep = cfg.n_heads // cfg.kv_heads
     if n_rep > 1:  # GQA: repeat each kv head n_rep times in place
         k = k.repeat_interleave(n_rep, dim=2)
         v = v.repeat_interleave(n_rep, dim=2)
     o = dot_product_attention(q, k, v, scale=hd ** -0.5, impl=cfg.attn_impl)
     zero = torch.zeros((D,), device=x.device, dtype=dt)
-    x2 = matmul_residual(o.reshape(B * S, D).contiguous(), wo, zero, x2)
+    x2 = matmul_residual(o.reshape(B * S, heads * hd).contiguous(), wo, zero,
+                         x2, tp)
     # SwiGLU as two RMS products (x2 read twice, as the JAX package does)
-    h1 = rms_matmul(x2, g2, w1, cfg.norm_eps, act="silu")
-    h3 = rms_matmul(x2, g2, w3, cfg.norm_eps)
-    return matmul_residual(h1 * h3, w2, zero, x2).reshape(B, S, D)
+    h1, h3 = rms_swiglu(x2, g2, w1, w3, cfg.norm_eps, tp)
+    return matmul_residual(h1 * h3, w2, zero, x2, tp).reshape(B, S, D)
 
 
 class _FusedLlama(torch.autograd.Function):
@@ -874,10 +944,10 @@ class _FusedLlama(torch.autograd.Function):
     lse) and differentiates it with autograd."""
 
     @staticmethod
-    def forward(ctx, x, cos, sin, cfg, *params):
+    def forward(ctx, x, cos, sin, cfg, tp, *params):
         ctx.save_for_backward(x, cos, sin, *params)
-        ctx.cfg = cfg
-        return _fused_llama_impl(params, x, cos, sin, cfg)
+        ctx.cfg, ctx.tp = cfg, tp
+        return _fused_llama_impl(params, x, cos, sin, cfg, tp)
 
     @staticmethod
     def backward(ctx, g):
@@ -885,30 +955,36 @@ class _FusedLlama(torch.autograd.Function):
         need = ctx.needs_input_grad
         with torch.enable_grad():
             xs = x.detach().requires_grad_(need[0])
-            ps = [p.detach().requires_grad_(n) for p, n in zip(params, need[4:])]
-            y = _fused_llama_impl(ps, xs, cos, sin, ctx.cfg)
+            ps = [p.detach().requires_grad_(n) for p, n in zip(params, need[5:])]
+            y = _fused_llama_impl(ps, xs, cos, sin, ctx.cfg, ctx.tp)
         leaves = [u for u in (xs, *ps) if u.requires_grad]
         got = iter(torch.autograd.grad(y, leaves, g) if leaves else ())
         dx = next(got) if need[0] else None
-        return (dx, None, None, None,
-                *(next(got) if n else None for n in need[4:]))
+        return (dx, None, None, None, None,
+                *(next(got) if n else None for n in need[5:]))
 
 
-def fused_llama_supported(x_shape, cfg) -> bool:
+def fused_llama_supported(x_shape, cfg, model: int = 1) -> bool:
     """Whether the port's kernels take the fused llama block at these
-    shapes (x (B, S, D); bfloat16 is checked at launch): the RMS prologue's
-    K = D with D % 256 == 0 and D <= 1024; every product's N (q | k | v,
-    D, the FFN hidden) % 128 == 0 and w2's K = hidden % 32 == 0; head_dim
-    64 for the attention kernel."""
+    shapes on a rank of a ``model``-way tensor-parallel group (x (B, S, D);
+    bfloat16 is checked at launch): the RMS prologue's K = D with
+    D % 256 == 0 and D <= 1024; every product's N at the rank's widths
+    (q | k | v, D, the FFN hidden / model) % 128 == 0, and the row-parallel
+    products' K (wo: D / model, w2: hidden / model) % 32 == 0; head_dim 64
+    for the attention kernel."""
     d, hidden = cfg.embed_dim, cfg.ffn_hidden
-    n_qkv = d + 2 * cfg.kv_heads * cfg.head_dim
+    if (cfg.n_heads % model or cfg.kv_heads % model or hidden % model
+            or cfg.n_heads % cfg.kv_heads):
+        return False
+    n_qkv = (cfg.n_heads + 2 * cfg.kv_heads) // model * cfg.head_dim
+    h = hidden // model
     return (len(x_shape) == 3 and x_shape[-1] == d and d % 256 == 0
-            and d <= NARROW_MAX_K and n_qkv % 128 == 0 and hidden % 128 == 0
-            and cfg.head_dim == ROPE_HEAD_DIM
-            and cfg.n_heads % cfg.kv_heads == 0)
+            and d <= NARROW_MAX_K and n_qkv % 128 == 0 and h % 128 == 0
+            and (d // model) % 32 == 0 and cfg.head_dim == ROPE_HEAD_DIM)
 
 
-def fused_llama_block(p, x: torch.Tensor, cos, sin, cfg) -> torch.Tensor:
+def fused_llama_block(p, x: torch.Tensor, cos, sin, cfg,
+                      tp=None) -> torch.Tensor:
     """Llama block (``p`` a ``models.llama_decoder.LlamaBlock``) on x
     (B, S, D) with RMSNorm, SiLU and the residuals inside the products
     (``fused_llama_block`` of the JAX package): :func:`rms_qkv3`, the
@@ -917,8 +993,12 @@ def fused_llama_block(p, x: torch.Tensor, cos, sin, cfg) -> torch.Tensor:
     for w1 (SiLU) and w3, their product, and :func:`matmul_residual` for
     w2.  cos / sin (B, S, head_dim / 2) fp32.  Differentiable: saves (x,
     params) and recomputes in its backward.  A shape or dtype a kernel
-    cannot take raises on CUDA."""
+    cannot take raises on CUDA.  With a tensor-parallel mesh ``tp`` the
+    block's params are this rank's slices and each sublayer's output is
+    summed over the model group inside ``matmul_residual`` (the residual
+    added to the sum); in the backward the gradient at each
+    sublayer's input is summed once (``rms_qkv3``'s, ``rms_swiglu``'s)."""
     params = [p.get_parameter(name) for name in LLAMA_PARAMS]
     if _training(x, *params):
-        return _FusedLlama.apply(x, cos, sin, cfg, *params)
-    return _fused_llama_impl(params, x, cos, sin, cfg)
+        return _FusedLlama.apply(x, cos, sin, cfg, tp, *params)
+    return _fused_llama_impl(params, x, cos, sin, cfg, tp)

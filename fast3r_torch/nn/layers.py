@@ -39,7 +39,12 @@ output over the model group inside its products; the plain road wraps the
 column-parallel products' input in ``mesh.copy_to_model`` and the
 row-parallel products' output in ``mesh.reduce_from_model``, and adds the
 row-parallel bias after the sum, so every replicated tensor and its
-gradient are whole on every rank.
+gradient are whole on every rank.  On a grid (any ``mesh``) each dropout
+mask is drawn whole, for the global batch and every head and hidden
+column, in the one-process road's order from the block's generator (the
+same on every rank), and each rank takes its rows (data) and its heads or
+hidden columns (model): the grid's step equals the one-process step on
+the global batch with the same seed, up to summation order.
 """
 
 from __future__ import annotations
@@ -162,50 +167,83 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
+def _tp(mesh):
+    """The grid when it splits the model, else None."""
+    return mesh if mesh is not None and mesh.model > 1 else None
+
+
+def _rand_below(shape, keep: float, generator: torch.Generator, device,
+                mesh=None, model_dim: Optional[int] = None) -> torch.Tensor:
+    """uniform < keep of ``shape``, this rank's part of the whole draw: on a
+    grid ``mesh`` the draw covers the global batch (dim 0 times
+    ``mesh.data``) and, with ``model_dim``, every model rank's columns of
+    that dim; the rank keeps its rows and its columns."""
+    whole = list(shape)
+    if mesh is not None:
+        whole[0] *= mesh.data
+        if model_dim is not None:
+            whole[model_dim] *= mesh.model
+    mask = torch.rand(whole, generator=generator, device=device) < keep
+    if mesh is not None:
+        mask = mask.narrow(0, mesh.data_rank * shape[0], shape[0])
+        if model_dim is not None:
+            n = shape[model_dim]
+            mask = mask.narrow(model_dim, mesh.model_rank * n, n)
+    return mask
+
+
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator], mesh=None,
+            model_dim: Optional[int] = None) -> torch.Tensor:
     """Inverted dropout (torch ``nn.Dropout`` in train mode): each element
     kept with probability 1 - rate and scaled by 1 / (1 - rate), the mask
     drawn from ``generator`` on x's device.  The identity when rate is 0 or
-    there is no generator."""
+    there is no generator.  On a grid ``mesh`` x is this rank's part of the
+    global tensor (its data rows; with ``model_dim`` its model slice of
+    that dim) and the mask its part of the whole draw."""
     if rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = _rand_below(x.shape, keep, generator, x.device, mesh, model_dim)
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def drop_path(x: torch.Tensor, rate: float,
-              generator: Optional[torch.Generator]) -> torch.Tensor:
+              generator: Optional[torch.Generator], mesh=None) -> torch.Tensor:
     """Stochastic depth a sample: one draw per leading row, kept rows scaled
     by 1 / (1 - rate); at rate 1 the branch is zeroed unscaled (the
-    reference's ``keep_prob > 0`` guard)."""
+    reference's ``keep_prob > 0`` guard).  On a grid ``mesh`` x holds this
+    data rank's rows of the global batch."""
     if rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    mask = (torch.rand(shape, generator=generator, device=x.device)
-            < keep).to(x.dtype)
+    mask = _rand_below(shape, keep, generator, x.device, mesh).to(x.dtype)
     if keep > 0.0:
         mask = mask / keep
     return x * mask
 
 
-def _row_parallel(p: nn.Linear, x: torch.Tensor, tp) -> torch.Tensor:
+def row_parallel(p: nn.Linear, x: torch.Tensor, tp) -> torch.Tensor:
     """A row-parallel product (``p`` this rank's input columns) summed over
-    the model group, then the whole bias; ``linear`` without ``tp``."""
+    the model group, then the whole bias if it has one; ``linear`` without
+    ``tp``."""
     if tp is None:
         return linear(p, x)
     y = tp.reduce_from_model(F.linear(x, p.weight.to(x.dtype)))
-    return y + p.bias.to(x.dtype)
+    return y if p.bias is None else y + p.bias.to(x.dtype)
 
 
 def mlp(p: Mlp, x: torch.Tensor, drop: float = 0.0,
-        generator: Optional[torch.Generator] = None, tp=None) -> torch.Tensor:
+        generator: Optional[torch.Generator] = None, mesh=None
+        ) -> torch.Tensor:
+    """fc2(GELU(fc1(x))), dropout on the hidden and the output.  On a grid
+    ``mesh`` of ``model > 1``, ``p`` holds this rank's hidden slice."""
+    tp = _tp(mesh)
     if tp is not None:
         x = tp.copy_to_model(x)
-    h = dropout(gelu(linear(p.fc1, x)), drop, generator)
-    return dropout(_row_parallel(p.fc2, h, tp), drop, generator)
+    h = dropout(gelu(linear(p.fc1, x)), drop, generator, mesh, model_dim=-1)
+    return dropout(row_parallel(p.fc2, h, tp), drop, generator, mesh)
 
 
 def conv2d(p: nn.Conv2d, x: torch.Tensor, stride: int = 1, padding=0,
@@ -235,17 +273,18 @@ def attention_layer(p: Attention, x: torch.Tensor, num_heads: int,
                     attn_impl: AttnImpl, attn_drop: float = 0.0,
                     proj_drop: float = 0.0,
                     generator: Optional[torch.Generator] = None,
-                    tp=None) -> torch.Tensor:
+                    mesh=None) -> torch.Tensor:
     """Self-attention sublayer on x (B, N, C).  q, k and v stay strided views
     of the qkv projection's (B, N, 3, H, D) output; RoPE, when given,
     rotates q and k in fp32.  ``attn_impl`` is an implementation's name or
     a callable ``(q, k, v, scale) -> o`` (``ops.attention``).  With a
     generator and a non-zero ``attn_drop`` the softmax weights are
     materialised (fp32 logits, weights in x's dtype) and dropped before
-    ``@ v``; ``proj_drop`` follows the output projection.  With a
-    tensor-parallel mesh ``tp``, ``p`` holds this rank's ``num_heads``
-    heads."""
+    ``@ v``; ``proj_drop`` follows the output projection.  On a grid
+    ``mesh`` of ``model > 1``, ``p`` holds this rank's ``num_heads`` heads
+    (and the weights' mask is their part of every head's draw)."""
     B, N, _ = x.shape
+    tp = _tp(mesh)
     if tp is not None:
         x = tp.copy_to_model(x)
     qkv = linear(p.qkv, x)
@@ -258,39 +297,39 @@ def attention_layer(p: Attention, x: torch.Tensor, num_heads: int,
     if attn_drop > 0.0 and generator is not None:
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
         w = dropout(torch.softmax(logits, -1).to(q.dtype), attn_drop,
-                    generator)
+                    generator, mesh, model_dim=1)
         o = torch.einsum("bhqk,bkhd->bqhd", w, v)
     else:
         o = dot_product_attention(q, k, v, scale=scale, impl=attn_impl)
-    return dropout(_row_parallel(p.proj, o.reshape(B, N, -1), tp), proj_drop,
-                   generator)
+    return dropout(row_parallel(p.proj, o.reshape(B, N, -1), tp), proj_drop,
+                   generator, mesh)
 
 
 def vit_block(p: Block, x: torch.Tensor, num_heads: int, scale: float,
               rope_cos_sin=None, attn_impl: AttnImpl = "pallas",
               ln_eps: float = 1e-6, fused: bool = False, drop: float = 0.0,
               attn_drop: float = 0.0, drop_path_rate: float = 0.0,
-              seed: Optional[int] = None, tp=None) -> torch.Tensor:
+              seed: Optional[int] = None, mesh=None) -> torch.Tensor:
     """Pre-LN ViT block: the fused block with ``fused=True``, else the plain
     composition of the JAX package.  With a ``seed`` and a non-zero rate the
     block drops (a generator seeded ``seed`` on x's device draws the masks,
     in the order attention weights, projection, first branch, MLP hidden,
-    MLP output, second branch) and takes the plain road.  ``tp``: a
-    tensor-parallel mesh (``p`` this rank's slices, ``num_heads`` its
-    heads)."""
+    MLP output, second branch) and takes the plain road.  ``mesh``: the
+    grid of ranks, if any (x this data rank's rows; with ``model > 1``
+    ``p`` this rank's slices and ``num_heads`` its heads)."""
     gen = None
     if seed is not None and (drop > 0.0 or attn_drop > 0.0
                              or drop_path_rate > 0.0):
         gen = torch.Generator(device=x.device).manual_seed(seed)
     if fused and gen is None:
         return fused_vit_block(p, x, rope_cos_sin, num_heads, scale,
-                               attn_impl, ln_eps, tp)
+                               attn_impl, ln_eps, _tp(mesh))
     a = attention_layer(p.attn, layernorm(p.norm1, x, ln_eps), num_heads,
                         scale, rope_cos_sin, attn_impl, attn_drop, drop, gen,
-                        tp)
-    x = x + drop_path(a, drop_path_rate, gen)
-    m = mlp(p.mlp, layernorm(p.norm2, x, ln_eps), drop, gen, tp)
-    return x + drop_path(m, drop_path_rate, gen)
+                        mesh)
+    x = x + drop_path(a, drop_path_rate, gen, mesh)
+    m = mlp(p.mlp, layernorm(p.norm2, x, ln_eps), drop, gen, mesh)
+    return x + drop_path(m, drop_path_rate, gen, mesh)
 
 
 def run_vit_stack(blocks: Sequence[Block], x: torch.Tensor, num_heads: int,
@@ -317,7 +356,7 @@ def run_vit_stack(blocks: Sequence[Block], x: torch.Tensor, num_heads: int,
     drops = generator is not None and (drop > 0.0 or attn_drop > 0.0
                                        or drop_path_rate > 0.0)
     fused = fused and not drops
-    tp = mesh if mesh is not None and mesh.model > 1 else None
+    tp = _tp(mesh)
     width = x.shape[-1]
     if tp is not None:
         num_heads //= tp.model
@@ -333,7 +372,7 @@ def run_vit_stack(blocks: Sequence[Block], x: torch.Tensor, num_heads: int,
         seed = (int(torch.randint(0, 2 ** 63 - 1, (), generator=generator))
                 if drops else None)
         args = (block, x, num_heads, scale, rope_cos_sin, attn_impl, ln_eps,
-                fused, drop, attn_drop, drop_path_rate, seed, tp)
+                fused, drop, attn_drop, drop_path_rate, seed, mesh)
         x = (torch.utils.checkpoint.checkpoint(vit_block, *args,
                                                use_reentrant=False)
              if checkpoint else vit_block(*args))

@@ -13,11 +13,15 @@ collectives itself:
          moments (ZeRO stage 2, the DeepSpeed analog JAX's docstring
          names), all-gathered into the compute copy after the update.
   model  Megatron tensor parallelism over attention heads and the MLP
-         hidden: qkv and fc1 column-parallel (output rows), attn.proj and
-         fc2 row-parallel (input columns); the rest replicated, as JAX's
-         ``P()`` leaves it.  Two collectives per sublayer in the forward
+         hidden, in every stack (the CroCo and DINO encoders, the fusion
+         and llama decoders): qkv and fc1 (llama: wq, wk, wv, w1, w3)
+         column-parallel (output rows), attn.proj and fc2 (llama: wo, w2)
+         row-parallel (input columns); the rest replicated, as JAX's
+         ``P()`` leaves it.  One collective per sublayer in the forward
          (the row-parallel output's all-reduce) and one in the backward
-         (the gradient at the column-parallel input).
+         (the gradient at the column-parallel input).  Dropout draws each
+         mask whole, for the global batch, from the generator every rank
+         holds, and each rank takes its slice (``nn.layers.dropout``).
 
 The layout of a rank's qkv rows is the port's own: each rank holds whole
 heads, its q, k and v rows (JAX's spec splits the packed 3C output into
@@ -48,8 +52,7 @@ import torch.distributed as dist
 from torch import nn
 
 # Megatron's column- and row-parallel products, by module name (JAX's
-# ``param_pspec``; the llama names are kept for the rule, though the llama
-# decoder does not run tensor-parallel yet)
+# ``param_pspec``: the ViT blocks' and the llama layers')
 COLUMN = frozenset({"qkv", "fc1", "wq", "wk", "wv", "w1", "w3"})
 ROW = frozenset({"fc2", "wo", "w2"})
 
@@ -236,38 +239,40 @@ class Mesh:
     # ---- what the tensor-parallel road runs ------------------------------
     def check_model_config(self, cfg) -> None:
         """Raise :class:`TensorParallelError` for what ``model > 1`` does
-        not run: the llama decoder, the DINO encoder, a non-zero dropout
-        rate, the sequence-sharded road (a callable attention) and a head
-        count or MLP hidden that ``model`` does not divide."""
+        not run: the sequence-sharded road (a callable attention), and a
+        stack whose heads, llama kv heads or MLP hidden ``model`` does not
+        divide (a rank holds whole heads: JAX's rule would split such a
+        llama ``wk`` / ``wv`` mid-head)."""
         if self.model == 1:
             return
         m = self.model
-        if cfg.decoder_type == "llama":
-            raise TensorParallelError(
-                "the llama decoder does not run tensor-parallel yet "
-                "(model > 1)")
-        if cfg.encoder_type == "dino":
-            raise TensorParallelError(
-                "the DINO encoder does not run tensor-parallel yet "
-                "(model > 1)")
         for name, stack in (("encoder", cfg.encoder), ("decoder", cfg.decoder)):
-            if any(getattr(stack, k, 0.0) > 0.0
-                   for k in ("drop", "attn_drop", "drop_path")):
+            heads, kv_heads, hidden = tp_widths(stack)
+            if heads % m:
                 raise TensorParallelError(
-                    f"the {name}'s dropout does not run tensor-parallel yet "
-                    "(model > 1)")
-            if stack.num_heads % m:
+                    f"the {name}'s {heads} heads do not divide over model={m}")
+            if kv_heads % m:
                 raise TensorParallelError(
-                    f"the {name}'s {stack.num_heads} heads do not divide "
-                    f"over model={m}")
-            if int(stack.embed_dim * stack.mlp_ratio) % m:
+                    f"the {name}'s {kv_heads} kv heads do not divide over "
+                    f"model={m}")
+            if hidden % m:
                 raise TensorParallelError(
-                    f"the {name}'s MLP hidden does not divide over "
+                    f"the {name}'s MLP hidden {hidden} does not divide over "
                     f"model={m}")
         if callable(cfg.decoder.attn_impl):
             raise TensorParallelError(
                 "the sequence-sharded road does not run tensor-parallel "
                 "(model > 1)")
+
+
+def tp_widths(stack) -> Tuple[int, int, int]:
+    """(query heads, kv heads, MLP hidden) of a stack's configuration: a
+    ViT stack (CroCo, DINO, the fusion decoder) has as many kv heads as
+    heads, a llama decoder ``kv_heads`` and its SwiGLU ``ffn_hidden``."""
+    if hasattr(stack, "n_heads"):
+        return stack.n_heads, stack.kv_heads, stack.ffn_hidden
+    return (stack.num_heads, stack.num_heads,
+            int(stack.embed_dim * stack.mlp_ratio))
 
 
 def _numeric(v) -> bool:
@@ -323,10 +328,14 @@ def param_spec(name: str, shape: Tuple[int, ...], model: int
     """How the port's parameter ``name`` (``Fast3RNet.named_parameters``,
     torch's (out, in) layout) of ``shape`` splits over ``model`` ranks, or
     None when it is replicated: JAX's ``param_pspec`` on the port's names.
-    Weights and biases of qkv / fc1 (and the llama column names) split
-    their output rows, qkv per q | k | v block; weights of attn.proj / fc2
-    (and the llama row names) their input columns, their bias replicated;
-    a dim that ``model`` does not divide leaves the tensor replicated."""
+    Weights and biases of qkv / fc1 and of the llama ``wq``, ``wk``,
+    ``wv``, ``w1``, ``w3`` split their output rows (qkv per q | k | v block,
+    so a rank holds whole heads of each; a rank's contiguous ``wk`` / ``wv``
+    rows are the kv heads its query heads read under the GQA repeat);
+    weights of attn.proj / fc2 and of the llama ``wo``, ``w2`` their input
+    columns, their bias replicated; a dim that ``model`` does not divide
+    leaves the tensor replicated.  The DINO encoder's blocks follow the ViT
+    rule, its LayerScale gammas, tokens and embeddings stay replicated."""
     if model == 1:
         return None
     parts = name.split(".")

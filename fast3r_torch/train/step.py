@@ -32,9 +32,13 @@ is no copy and the step computes in the params' dtype.
 The mesh road (``init_train_state(..., mesh=...)``, a
 :class:`MeshTrainState` for :func:`train_step`; the JAX package's sharded
 ``make_jitted_train_step``): on a ``data x model`` grid of ranks
-(``parallel.mesh``) each data rank takes its rows of the global batch and
-the decoder's image ids are drawn for the whole global batch from the one
-generator every rank holds; both stacks run tensor-parallel over the model
+(``parallel.mesh``) each data rank takes its rows of the global batch;
+the dropout seeds and the decoder's image ids are drawn, in the
+one-process road's order, for the whole global batch from the one
+generator every rank holds (``init_train_state`` seeds it alike on every
+rank, and a checkpoint restores it), and each dropout mask is drawn whole
+and sliced, so a grid's step is the one-process step on the global batch;
+both stacks (any encoder and decoder) run tensor-parallel over the model
 group; the loss pools its masked means over the data group; the gradients
 are reduce-scattered over the data group into ZeRO-2 shards, on which the
 same fused AdamW runs against the rank's fp32 master shard, all-gathered
@@ -53,7 +57,6 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from fast3r_torch.models.decoder import sample_random_image_ids
 from fast3r_torch.models.fast3r import Fast3RConfig, Fast3RNet, fast3r_forward
 from fast3r_torch.train.losses import LossConfig, conf_loss_multiview_v2
 
@@ -302,11 +305,8 @@ def train_step(state, batch: Dict[str, torch.Tensor],
          ("imgs", "true_shapes", "pts3d", "valid_mask", "camera_pose")}
     pool = None
     if mesh is not None:
-        # the ids of the global batch, from the generator every rank holds
-        B, V = b["imgs"].shape[:2]
-        if view_ids is None and model_cfg.decoder.random_image_idx_embedding:
-            view_ids = sample_random_image_ids(state.generator, B * mesh.data,
-                                               V)
+        # given ids are the global batch's (the forward draws them so, from
+        # the generator every rank holds, after the dropout seeds)
         if view_ids is not None:
             from fast3r_torch.parallel.mesh import batch_rows
 

@@ -1,8 +1,10 @@
 """Reference-format Fast3R checkpoints -> the port's parameters.
 
-Counterpart of ``fast3r_tpu/utils/checkpoint.py`` (``llama_decoder_entries``,
-``dino_encoder_entries``, ``_variant_key_map``,
-``torch_state_dict_to_params`` / ``params_from_fast3r_checkpoint``).  The
+Counterpart of ``fast3r_tpu/utils/checkpoint.py`` (``fast3r_key_map``,
+``llama_decoder_entries``, ``dino_encoder_entries``, ``_variant_key_map``,
+``torch_state_dict_to_params`` / ``params_from_fast3r_checkpoint``, and the
+way back, ``fast3r_params_to_state_dict`` / ``params_to_torch_state_dict``,
+with ``load_dust3r_checkpoint_partial``).  The
 published weights are a torch state dict of the reference module tree
 (``encoder.* decoder.* downstream_head.* downstream_head_local.*``, keys
 optionally prefixed ``net.`` by Lightning).  Each entry of the key map names
@@ -21,9 +23,11 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List, Tuple
+import re
+from typing import Dict, List, Tuple, Union
 
 import torch
+from torch import nn
 
 Entry = Tuple[str, Tuple, str]  # (reference prefix, JAX path, kind)
 
@@ -79,6 +83,25 @@ def _encoder_entries(depth: int) -> List[Entry]:
         entries += _block_entries(f"encoder.enc_blocks.{i}.",
                                   ("encoder", "blocks", i))
     return entries
+
+
+def fast3r_key_map(enc_depth: int, dec_depth: int,
+                   with_local_head: bool) -> List[Entry]:
+    """The entries of the CroCo encoder + ViT decoder model, in the JAX
+    package's order (the stems first, then the blocks, then the heads)."""
+    entries: List[Entry] = [
+        ("encoder.patch_embed.proj", ("encoder", "patch_embed"), "conv"),
+        ("encoder.enc_norm", ("encoder", "norm"), "ln"),
+        ("decoder.decoder_embed", ("decoder", "decoder_embed"), "linear"),
+        ("decoder.dec_norm", ("decoder", "norm"), "ln"),
+    ]
+    for i in range(enc_depth):
+        entries += _block_entries(f"encoder.enc_blocks.{i}.",
+                                  ("encoder", "blocks", i))
+    for i in range(dec_depth):
+        entries += _block_entries(f"decoder.dec_blocks.{i}.",
+                                  ("decoder", "blocks", i))
+    return entries + _head_pair(with_local_head)
 
 
 def _head_pair(with_local_head: bool) -> List[Entry]:
@@ -183,6 +206,99 @@ def params_from_fast3r_checkpoint(state_dict: Dict[str, torch.Tensor], cfg,
             out[name + suffix] = torch.as_tensor(sd[key]).to(torch.float32)
     for name, rows in stacks.items():
         out[name] = torch.stack([rows[i] for i in range(len(rows))])
+    return out
+
+
+Params = Union[nn.Module, Dict[str, torch.Tensor]]
+
+
+def _named(params: Params) -> Dict[str, torch.Tensor]:
+    """name -> tensor of a ``Fast3RNet`` (its state dict) or of a dict."""
+    return dict(params.state_dict() if isinstance(params, nn.Module)
+                else params)
+
+
+def _export(params: Params, entries: List[Entry]) -> Dict[str, torch.Tensor]:
+    """The reference state dict of the port's params by ``entries``: CPU
+    copies of the tensors under the reference's keys (a LayerScale gamma,
+    a row of ``encoder.ls1`` / ``ls2``), then the DPT's ``layer_rn``
+    aliases."""
+    named = _named(params)
+    sd: Dict[str, torch.Tensor] = {}
+    for prefix, path, kind in entries:
+        if kind == "tensor" and isinstance(path[-1], int):  # LayerScale
+            sd[prefix] = named[".".join(path[:-1])][path[-1]].detach().cpu(
+                ).clone()
+            continue
+        name = ".".join(map(str, path))
+        keys = ({"": prefix} if kind == "tensor" else
+                {".weight": prefix + ".weight", ".bias": prefix + ".bias"})
+        for suffix, key in keys.items():
+            if name + suffix in named:
+                sd[key] = named[name + suffix].detach().cpu().clone()
+    # the reference DPT holds scratch.layer{i}_rn in a scratch.layer_rn
+    # ModuleList too, so its state_dict() carries both spellings of the
+    # same tensors: emit both, so that the export strict-loads there
+    for key in list(sd):
+        m = re.match(r"(.*scratch\.)layer(\d)_rn(\..*)", key)
+        if m:
+            sd[f"{m.group(1)}layer_rn.{int(m.group(2)) - 1}{m.group(3)}"] = \
+                sd[key]
+    return sd
+
+
+def fast3r_params_to_state_dict(params: Params, cfg
+                                ) -> Dict[str, torch.Tensor]:
+    """The reference state dict of any Fast3RConfig variant's params (a
+    ``Fast3RNet`` or its state dict): the inverse of
+    :func:`params_from_fast3r_checkpoint`, with the DPT ``layer_rn``
+    aliases, for export."""
+    return _export(params, _variant_key_map(cfg))
+
+
+def params_to_torch_state_dict(params: Params, enc_depth: int,
+                               dec_depth: int, with_local_head: bool
+                               ) -> Dict[str, torch.Tensor]:
+    """The reference state dict of the CroCo encoder + ViT decoder model's
+    params, keyed in :func:`fast3r_key_map`'s order, with the DPT
+    ``layer_rn`` aliases."""
+    return _export(params, fast3r_key_map(enc_depth, dec_depth,
+                                          with_local_head))
+
+
+def load_dust3r_checkpoint_partial(params: Params,
+                                   state_dict: Dict[str, torch.Tensor],
+                                   enc_depth: int, load_head: bool = True
+                                   ) -> Dict[str, torch.Tensor]:
+    """Params initialised from a pairwise DUSt3R checkpoint (the
+    reference's ``load_from_dust3r_checkpoint``): ``patch_embed.proj``,
+    ``enc_blocks.{i}`` and ``enc_norm`` go to the encoder and, with
+    ``load_head``, ``downstream_head1`` to ``head_global``; everything else
+    keeps its values.  An entry whose weight is missing, or whose tensors
+    have no parameter of their shape, is skipped (the reference's
+    ``strict=False``).  Returns a new name -> tensor dict (CPU copies,
+    loaded tensors in their parameter's dtype)."""
+    out = {k: v.detach().cpu().clone() for k, v in _named(params).items()}
+    entries: List[Entry] = [
+        ("patch_embed.proj", ("encoder", "patch_embed"), "conv"),
+        ("enc_norm", ("encoder", "norm"), "ln"),
+    ]
+    for i in range(enc_depth):
+        entries += _block_entries(f"enc_blocks.{i}.", ("encoder", "blocks", i))
+    if load_head:
+        entries += [(t.replace("downstream_head.", "downstream_head1."), p, k)
+                    for t, p, k in _head_entries("downstream_head",
+                                                 "head_global")]
+    for prefix, path, _ in entries:
+        if prefix + ".weight" not in state_dict:
+            continue
+        name = ".".join(map(str, path))
+        got = {name + suffix: torch.as_tensor(state_dict[prefix + suffix])
+               for suffix in (".weight", ".bias")
+               if prefix + suffix in state_dict}
+        if all(k in out and out[k].shape == v.shape for k, v in got.items()):
+            for k, v in got.items():
+                out[k] = v.to(out[k].dtype).clone()
     return out
 
 

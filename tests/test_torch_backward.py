@@ -35,6 +35,8 @@ from fast3r_torch.ops import rope2d as trope
 from fast3r_tpu.nn import fused_block as jfb
 from fast3r_tpu.ops import rope2d as jrope
 
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
+
 B, N, C, HEADS = 2, 128, 256, 4
 HD = C // HEADS
 M = B * N

@@ -48,6 +48,8 @@ from fast3r_torch.data.datamodule import MultiViewDataModule
 from fast3r_torch.data.dsl import build_dataset as port_build
 from fast3r_torch.data.dsl import validate_dataset_spec
 
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
+
 H, W = 96, 128          # landscape source frames
 RES = "[(64, 48), (64, 32)]"
 PTS_REL = 2e-6          # JAX's C++ back-projection (float32) vs numpy

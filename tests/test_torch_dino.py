@@ -50,6 +50,7 @@ from fast3r_tpu.train import losses as jl
 from fast3r_tpu.utils import checkpoint_utils as jcu
 
 from test_torch_model import _jax_params
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 jinf = importlib.import_module("fast3r_tpu.inference")
 

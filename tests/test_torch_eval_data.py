@@ -60,6 +60,7 @@ from test_torch_data import (  # noqa: F401 (jax_numpy_pts is a fixture)
     make_megadepth_root,
     make_scannetpp_root,
 )
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 RES = "[(64, 48)]"
 

@@ -48,6 +48,8 @@ from fast3r_tpu.models.decoder import sample_random_image_ids
 from fast3r_tpu.nn import fused_block as jfb
 from fast3r_tpu.train import step as js
 
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 B, S, D, HEADS = 2, 128, 256, 4
 M = B * S

@@ -10,11 +10,11 @@ than start processes of their own.  The workers live in this module,
 which imports JAX only inside the test functions, so a spawned worker
 imports torch and the port only.
 
-* The tensor-parallel rule: for every parameter of the tiny, flagship and
-  model_scaling configurations at model 2 and 4, ``param_spec`` splits the
-  same logical dim (output or input) of the same params as JAX's
-  ``param_pspec`` through the converter's name map, and replicates where
-  JAX does.
+* The tensor-parallel rule: for every parameter of the tiny, flagship,
+  model_scaling, llama_dec and DINO-encoder configurations at model 2 and
+  4, ``param_spec`` splits the same logical dim (output or input) of the
+  same params as JAX's ``param_pspec`` through the converter's name map,
+  and replicates where JAX does.
 * Two mesh steps on ``tiny()`` in fp32, fused and plain roads, at (data,
   model) (2, 1), (1, 2) and (2, 2), against JAX's ``make_jitted_train_step``
   on a mesh of as many virtual devices with the same global batch and
@@ -136,26 +136,41 @@ def _assert_close(got: dict, want: dict, what: str, mu=None, lr=None):
 # the tensor-parallel rule against JAX's
 # ---------------------------------------------------------------------------
 
-def _configs():
-    """(name, port config, JAX config) of tiny, flagship and the three
-    model_scaling overlays."""
+SPEC_CONFIGS = ["tiny", "flagship", "model_scaling/model_scaling_base",
+                "model_scaling/model_scaling_large",
+                "model_scaling/model_scaling_huge", "llama_dec", "dino"]
+
+
+def _config(name):
+    """(port config, JAX config) of tiny, flagship, an experiment overlay
+    (the model_scaling ones, llama_dec) or "dino" (the flagship behind the
+    DINOv2 ViT-L/14 encoder)."""
     import pathlib
 
     import fast3r_tpu
     from fast3r_torch import config as tc
+    from fast3r_torch.models.dino_encoder import DinoEncoderConfig
     from fast3r_tpu import config as jc
     from fast3r_tpu.models import fast3r as jf
+    from fast3r_tpu.models.dino_encoder import DinoEncoderConfig as JDino
 
-    out = [("tiny", Fast3RConfig.tiny(), jf.Fast3RConfig.tiny()),
-           ("flagship", Fast3RConfig.flagship(), jf.Fast3RConfig.flagship())]
+    if name == "tiny":
+        return Fast3RConfig.tiny(), jf.Fast3RConfig.tiny()
+    if name == "flagship":
+        return Fast3RConfig.flagship(), jf.Fast3RConfig.flagship()
+    if name == "dino":
+        cfg, jcfg = Fast3RConfig.flagship(), jf.Fast3RConfig.flagship()
+        return (dataclasses.replace(cfg, encoder=DinoEncoderConfig(),
+                                    head=dataclasses.replace(cfg.head,
+                                                             patch_size=14)),
+                dataclasses.replace(jcfg, encoder=JDino(),
+                                    head=dataclasses.replace(jcfg.head,
+                                                             patch_size=14)))
     jroot = pathlib.Path(fast3r_tpu.__file__).parent / "configs"
-    for size in ("base", "large", "huge"):
-        exp = f"model_scaling/model_scaling_{size}"
-        out.append((exp, tc.model_config_from_dict(tc.load_config(
-            str(pathlib.Path(tc.CONFIG_DIR) / "train.yaml"), exp)["model"]),
-            jc.model_config_from_dict(jc.load_config(
-                str(jroot / "train.yaml"), exp)["model"])))
-    return out
+    return (tc.model_config_from_dict(tc.load_config(
+        str(pathlib.Path(tc.CONFIG_DIR) / "train.yaml"), name)["model"]),
+        jc.model_config_from_dict(jc.load_config(
+            str(jroot / "train.yaml"), name)["model"]))
 
 
 def _jax_split(keys, shape, mesh):
@@ -173,7 +188,8 @@ def _jax_split(keys, shape, mesh):
     return "out" if dims[0] == last else "in"
 
 
-def test_param_spec_matches_jax():
+@pytest.mark.parametrize("name", SPEC_CONFIGS)
+def test_param_spec_matches_jax(name):
     import jax
     from fast3r_tpu.models import fast3r as jf
     from fast3r_tpu.parallel.mesh import make_mesh
@@ -181,33 +197,33 @@ def test_param_spec_matches_jax():
     from fast3r_torch.models.fast3r import Fast3RNet
     from fast3r_torch.utils.convert import _STACKED, _jax_leaf
 
-    for name, cfg, jcfg in _configs():
-        shapes = jax.eval_shape(lambda k: jf.init_fast3r(k, jcfg),
-                                jax.random.key(0))
-        jax_leaves = {
-            tuple(str(getattr(p, "key", getattr(p, "idx", p))) for p in path):
-            tuple(leaf.shape)
-            for path, leaf in jax.tree_util.tree_leaves_with_path(shapes)}
-        with torch.device("meta"):
-            net = Fast3RNet(cfg)
-        for model in (2, 4):
-            jmesh = make_mesh(devices=jax.devices()[:model], data=1,
-                              model=model)
-            want = {k: _jax_split(k, s, jmesh) for k, s in jax_leaves.items()}
-            seen = set()
-            for pname, p in net.named_parameters():
-                mod_path, _, leaf = pname.rpartition(".")
-                parts = mod_path.split(".")
-                keys = tuple(x for i, x in enumerate(parts)
-                             if not (i and parts[i - 1] in _STACKED))
-                keys += (_jax_leaf(net.get_submodule(mod_path), leaf),)
-                assert keys in want, (name, pname, keys)
-                spec = pm.param_spec(pname, tuple(p.shape), model)
-                got = None if spec is None else ("out", "in")[spec.dim]
-                assert got == want[keys], (name, model, pname, got, want[keys])
-                seen.add(keys)
-            assert seen == set(want), (name, sorted(set(want) - seen)[:4])
-            assert any(v for v in want.values()), name
+    cfg, jcfg = _config(name)
+    shapes = jax.eval_shape(lambda k: jf.init_fast3r(k, jcfg),
+                            jax.random.key(0))
+    jax_leaves = {
+        tuple(str(getattr(p, "key", getattr(p, "idx", p))) for p in path):
+        tuple(leaf.shape)
+        for path, leaf in jax.tree_util.tree_leaves_with_path(shapes)}
+    with torch.device("meta"):
+        net = Fast3RNet(cfg)
+    for model in (2, 4):
+        jmesh = make_mesh(devices=jax.devices()[:model], data=1,
+                          model=model)
+        want = {k: _jax_split(k, s, jmesh) for k, s in jax_leaves.items()}
+        seen = set()
+        for pname, p in net.named_parameters():
+            mod_path, _, leaf = pname.rpartition(".")
+            parts = mod_path.split(".")
+            keys = tuple(x for i, x in enumerate(parts)
+                         if not (i and parts[i - 1] in _STACKED))
+            keys += (_jax_leaf(net.get_submodule(mod_path), leaf),)
+            assert keys in want, (name, pname, keys)
+            spec = pm.param_spec(pname, tuple(p.shape), model)
+            got = None if spec is None else ("out", "in")[spec.dim]
+            assert got == want[keys], (name, model, pname, got, want[keys])
+            seen.add(keys)
+        assert seen == set(want), (name, sorted(set(want) - seen)[:4])
+        assert any(v for v in want.values()), name
 
 
 def test_shard_gather_round_trip():
@@ -227,25 +243,21 @@ def test_shard_gather_round_trip():
     assert pm.param_spec("head_global.proj.weight", (4, 4), 2) is None
 
 
-@pytest.mark.parametrize("what", ["heads", "llama", "dino", "dropout", "seq"])
+@pytest.mark.parametrize("what", ["heads", "gqa", "seq"])
 def test_tensor_parallel_refusals(what):
-    """What the tensor-parallel road does not run raises its named error."""
-    from fast3r_torch.models.dino_encoder import DinoEncoderConfig
+    """What the tensor-parallel road does not run raises its named error:
+    heads that do not divide, a llama decoder whose kv heads do not divide
+    (a rank holds whole kv heads), the sequence-sharded road."""
     from fast3r_torch.models.llama_decoder import LlamaDecoderConfig
 
     cfg = Fast3RConfig.tiny()
     if what == "heads":
         cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
             cfg.decoder, num_heads=1))
-    elif what == "llama":
+    elif what == "gqa":
         cfg = dataclasses.replace(cfg, decoder=LlamaDecoderConfig(
-            enc_embed_dim=64, embed_dim=64, n_layers=2, n_heads=2))
-    elif what == "dino":
-        cfg = dataclasses.replace(cfg, encoder=DinoEncoderConfig(
-            embed_dim=64, depth=2, num_heads=2))
-    elif what == "dropout":
-        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
-            cfg.encoder, drop_path=0.1))
+            enc_embed_dim=64, embed_dim=64, n_layers=2, n_heads=2,
+            n_kv_heads=1))
     else:
         from fast3r_torch.parallel.sequence import seq_sharded_config
 
@@ -310,9 +322,9 @@ def _jax_moments(opt_state):
     return found[0].mu, found[0].nu
 
 
-def _jax_grid(d, m, params, batches):
-    """JAX's two sharded steps on a (d, m) mesh of virtual devices: the
-    losses and the state after them."""
+def _jax_grid(d, m, params, batches, jcfg=None):
+    """JAX's two sharded steps of ``jcfg`` (default ``tiny()``) on a (d, m)
+    mesh of virtual devices: the losses and the state after them."""
     import jax
     import jax.numpy as jnp
 
@@ -320,7 +332,7 @@ def _jax_grid(d, m, params, batches):
     from fast3r_tpu.parallel import mesh as jm
     from fast3r_tpu.train import step as js
 
-    jcfg = jf.Fast3RConfig.tiny()
+    jcfg = jcfg or jf.Fast3RConfig.tiny()
     ocfg = js.OptimConfig(**OPT)
     tx = js.make_optimizer(ocfg)
     mesh = jm.make_mesh(devices=jax.devices()[:d * m], data=d, model=m)
@@ -569,15 +581,15 @@ def test_distributed_cli_model_ranks_share_batches(runs):
 # a mesh run's checkpoint
 # ---------------------------------------------------------------------------
 
-def _ckpt_flow(rank, run_dir, out, batches):
-    """A (2, 2) mesh Trainer (the grid of the calling ranks) takes two steps
-    on the ``batches`` file's and saves "last" after the first; rank 0
-    saves the whole params and first moments after the second to
-    ``out``."""
+def _ckpt_flow(rank, run_dir, out, batches, cfg=None):
+    """A model-2 mesh Trainer of ``cfg`` (default ``tiny()``; the grid of
+    the calling ranks) takes two steps on the ``batches`` file's and saves
+    "last" after the first; rank 0 saves the whole params and first
+    moments after the second to ``out``."""
     from fast3r_torch.train.trainer import Trainer, TrainerConfig
 
     batches = torch.load(batches, weights_only=False)
-    cfg = Fast3RConfig.tiny()
+    cfg = cfg or Fast3RConfig.tiny()
     opt = ts.OptimConfig(**OPT)
     trainer = Trainer(cfg, opt, trainer_cfg=TrainerConfig(
         run_dir=run_dir, loggers=(), use_mesh=True, model_axis=2),
@@ -594,11 +606,15 @@ def _ckpt_flow(rank, run_dir, out, batches):
 
 
 def test_mesh_checkpoint_resumes_on_one_process(runs):
+    _check_resume(*runs["ckpt"], Fast3RConfig.tiny())
+
+
+def _check_resume(run_dir, out, batches, cfg):
+    """A mesh run's checkpoint after step 1 (``_ckpt_flow``), resumed on
+    one process, gives the mesh run's step 2; ``load_model`` serves it."""
     from fast3r_torch.train.trainer import Trainer, TrainerConfig
     from fast3r_torch.utils.checkpoint_utils import load_model
 
-    run_dir, out, batches = runs["ckpt"]
-    cfg = Fast3RConfig.tiny()
     opt = ts.OptimConfig(**OPT)
     one = Trainer(cfg, opt, trainer_cfg=TrainerConfig(
         run_dir=run_dir, loggers=()), device="cpu")

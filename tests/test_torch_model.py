@@ -30,6 +30,8 @@ from fast3r_torch.utils.convert import params_from_jax
 from fast3r_tpu.models import fast3r as jf
 from fast3r_tpu.models.decoder import sample_random_image_ids
 
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
+
 RTOL = ATOL = 2e-4
 
 

@@ -52,6 +52,8 @@ from test_torch_train import (
     _assert_tree_close,
 )
 
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 B, V, H, W = 2, 3, 32, 48

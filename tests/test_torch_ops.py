@@ -24,6 +24,8 @@ from fast3r_torch.ops import (
     trunk_kernel as t_trunk,
 )
 
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
+
 DEPTH_MODE = ("exp", -float("inf"), float("inf"))
 CONF_MODE = ("exp", 1.0, float("inf"))
 

@@ -35,6 +35,7 @@ from fast3r_tpu.serve import ply as j_ply
 from fast3r_tpu.serve import visualizer as j_vis
 
 from test_pose import randomized_scene, synthetic_scene
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 
 def _jax_draws(keys, masks, iters=32, sample_size=8):

@@ -39,6 +39,7 @@ from fast3r_tpu.parallel import ring_rdma as jax_rdma
 from fast3r_tpu.parallel.sequence import make_seq_sharded_forward
 
 from test_torch_model import _jax_params, _port_cfg
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 RING_TOL = dict(rtol=2e-5, atol=2e-5)
 SEQ_TOL = dict(rtol=5e-4, atol=5e-4)

@@ -46,6 +46,7 @@ from fast3r_tpu.train import step as js
 
 from test_torch_model import _jax_params, _port_cfg
 from test_torch_train import _assert_tree_close
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 RING_TOL = dict(rtol=3e-5, atol=3e-5)
 LOSS_RTOL = 1e-5

@@ -42,6 +42,7 @@ from fast3r_tpu.utils import checkpoint_utils as j_cu
 from fast3r_tpu.utils import image as j_image
 
 from test_torch_model import _jax_params, _port_cfg
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 # the module (fast3r_tpu's package attribute of that name is the function)
 j_inf = importlib.import_module("fast3r_tpu.inference")

@@ -42,6 +42,7 @@ from fast3r_tpu.train import losses as jl
 from fast3r_tpu.train import step as js
 
 from test_torch_model import _jax_params, _port_cfg
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 B, V, H, W = 2, 3, 32, 48
 RTOL = 1e-5
