@@ -128,7 +128,11 @@ printing each one's seconds:
      its time, device time, TFLOP/s and exp floor at every n beside K1's
      device time on the gathered sequence, and at n = 4 the plain ring's,
      K1's and SDPA's times over the whole gathered sequence, and the
-     bound;
+     bound; then the same at head_dim 80, model_scaling_huge's shape (20
+     views at 224x224: 3920 tokens, 16 heads; n = 3 takes 3 x 1306) over
+     n = 1, 2, 3, 4 and 8 in bf16 and n = 4 in fp32, each line with the
+     ring's time, K1<80>'s and SDPA's on the gathered sequence and the
+     bound, at n = 4 the ring's device time and the plain ring's time;
   16. the sequence-sharded request: ``make_seq_sharded_forward`` over 4
      ranks with the ring kernel serves the flagship (random weights, seed
      0, bf16) 20 views at 384x512, once cold and twice warm, counts reset
@@ -144,7 +148,9 @@ printing each one's seconds:
      (held one head at a time), each ring's time and TFLOP/s over the
      products it runs (dq 3, dk/dv 4) and the pair's; at n = 4 the plain
      version's time, K9's and the autograd of SDPA on the gathered
-     sequence, and the bounds;
+     sequence, and the bounds; then the same at head_dim 80 (phase 15's
+     model_scaling_huge shape) at every n, each line with K9<80>'s and
+     SDPA's autograd times, at n = 4 the plain version's;
   18. the sequence-sharded training step: three
      ``make_seq_sharded_train_step`` steps of 20 views over 4 ranks (ring
      kernels, remat), counts reset just before and read just after (K14
@@ -270,7 +276,7 @@ printing each one's seconds:
      bias (b2) on model rank 0 and zero on rank 1, the residual added
      after the ranks' sum, K2 / K10 on (3, 8, 768, 512), K1 / K9 at (1,
      6144, 8, 64)) against their plain versions; super_long_training's model
-     for 3 steps on the one-process Trainer road (fp32 master, bf16
+     (its encoder and decoder cut to 8 blocks at full width) for 3 steps on the one-process Trainer road (fp32 master, bf16
      working copy) on global batches of 2 x 8 views at 512x384, then on a
      data 2 x model 2 grid of four processes sharing the card over gloo
      (ZeRO-2 master and moment shards, tensor-parallel stacks; gloo's
@@ -289,7 +295,8 @@ printing each one's seconds:
      at (1, 3072, 8, 64)) and DINO's (K1 / K9 at 8 heads
      over 257 tokens, K1 over 1037) against their plain versions; then
      llama_dec, the DINOv2 model and the flagship with the encoder's
-     drop_path 0.1 (its blocks on the plain road) each for 2 steps of 1
+     drop_path 0.1 (its blocks on the plain road), each cut to 8 blocks an
+     encoder and a decoder at full width, each for 2 steps of 1
      sample of 4 views (512x384; DINO 224x224) on the one-process Trainer
      road (fp32 master, bf16 working copy) and on a road differing in
      rounding only (the plain block roads), then on a data 1 x model 2
@@ -299,7 +306,27 @@ printing each one's seconds:
      update within phase 27's rule, the DINO forward within 2% relative
      L2, each rank's launches equal to the one-process road's, a llama
      rank's layer at the model-2 slice shapes; each rank's step seconds,
-     seconds in collectives and peak memory printed.
+     seconds in collectives and peak memory printed;
+  29. (run after phase 24, on its model) model_scaling_huge
+     sequence-sharded (1280 x 32, 16 heads of 80, the ring kernels at
+     head_dim 80; bf16): a 20-view 224x224 request over 4 ranks, once cold
+     and once warm (32 ring launches a request, no decoder K1), within 2%
+     relative L2 of the single-device forward on the same decoder road;
+     2 ``make_seq_sharded_train_step`` steps of 1 x 8 views at 224x224
+     over 4 ranks (K14 forward 64, each backward ring 32, decoder K1 / K9
+     0 a step); a 2-view 224x224 step over 2 ranks within 5% of fp32 on
+     the CPU (phase 24's reference) and of the single-device card step;
+  30. (run after phase 4, on phase 3's model) the interactive demo:
+     ``fast3r_torch.serve.demo.create_demo`` on the fake gradio and viser of
+     ``tests/torch_fake_ui.py`` (neither machine has the real ones); a
+     reconstruct click on 20 seeded 512x384 JPEGs (phase 3's fused-road
+     kernels, counted; a PLY and the speed report); the session's
+     ``run_viser_server`` in this process on the click's output (40 clouds,
+     20 frustums with finite poses, its controls driven, its GIF and PLY
+     exported); the session manager on real spawned processes of a trivial
+     target (started by the click, collected by its GC, stopped); with
+     ``ffmpeg`` on PATH the JPEGs as an mp4 through the video input,
+     without it the line ``ffmpeg absent: video input not driven``.
 
 Any failure raises (exit code 1).  Without a CUDA device the script exits
 with code 2 before printing any result.  The last line of standard output
@@ -561,8 +588,10 @@ def _kernel_label(mangled: str):
         name = label.split("<")[0]
         if f"{len(name)}{name}" in mangled and (
                 "<" not in label or "bfloat16" in mangled):
-            # K1 and K9 at head_dim 80 (the model_scaling_huge decoder)
-            return f"{label}<80>" if "ILi80E" in mangled else label
+            # K1, K9 and K14 at head_dim 80 (the model_scaling_huge decoder)
+            if "Li80E" not in mangled:
+                return label
+            return label[:-1] + ", 80>" if "<" in label else f"{label}<80>"
     return None
 
 
@@ -572,10 +601,13 @@ def _kernel_label(mangled: str):
 ATTN_KERNELS = {"attention_fwd_kernel": "fwd", "ring_attention_fwd_kernel": "ring_fwd",
                 "attention_bwd_dq_kernel": "bwd", "attention_bwd_dkv_kernel": "bwd",
                 "ring_bwd_dq_kernel<bf16>": "bwd", "ring_bwd_dkv_kernel<bf16>": "bwd"}
-# the head_dim-80 instantiations of K1's and K9's kernels
+# the head_dim-80 instantiations of K1's, K9's and K14's kernels
 ATTN_KERNELS_80 = {"attention_fwd_kernel<80>": "fwd80",
                    "attention_bwd_dq_kernel<80>": "bwd80",
-                   "attention_bwd_dkv_kernel<80>": "bwd80"}
+                   "attention_bwd_dkv_kernel<80>": "bwd80",
+                   "ring_attention_fwd_kernel<80>": "ring_fwd80",
+                   "ring_bwd_dq_kernel<bf16, 80>": "bwd80",
+                   "ring_bwd_dkv_kernel<bf16, 80>": "bwd80"}
 
 
 # K8's two launches (csrc/trunk.cu): conv1, and conv2 with the resize and
@@ -619,6 +651,7 @@ def hopper_kernel_report(blog: str, sass: str) -> dict:
     lib = build.library()
     smem = {"fwd": lib.fast3r_attention_fwd_smem_bytes(),
             "ring_fwd": lib.fast3r_ring_attention_fwd_smem_bytes(),
+            "ring_fwd80": lib.fast3r_ring_attention_fwd_smem_bytes_d80(),
             "bwd": lib.fast3r_attention_bwd_smem_bytes(),
             "fwd80": lib.fast3r_attention_fwd_smem_bytes_d80(),
             "bwd80": lib.fast3r_attention_bwd_smem_bytes_d80(),
@@ -1920,12 +1953,23 @@ for _p in ("dino", "dino_mixed", "dino_train", *sum(MS_PATHS.values(), ())):
                          "ln_qkv_rope") if _p.startswith("dino") else ())
                      + (_TRAIN_ONLY if _p in ("dino", "dino_mixed", *MS_PATHS)
                         else ()))
+# phase 29: model_scaling_huge's seq-sharded request and steps, the kernels
+# of phases 16 and 18 at head_dim 80 (the heads' kernel by head_road,
+# checked in the phase); phase 30: the demo's reconstruct click, phase 3's
+# fused road
+PATHS["ms_huge_seq"] = tuple(k for k in PATHS["seq_sharded"] if k != "trunk")
+PATHS["ms_huge_seq_train"] = tuple(k for k in PATHS["seq_train"]
+                                   if k != "trunk")
+NO_LAUNCH["ms_huge_seq_train"] = K13 + ("attention", "ln_qkv", "attention_bwd")
+NO_LAUNCH["ms_huge_seq"] = NO_LAUNCH["ms_huge_seq_train"] + RING_BWD
+PATHS["demo"] = PATHS["fused"]
+NO_LAUNCH["demo"] = NO_LAUNCH["fused"]
 # the serving paths, on which every kernel input maps in place (no layout
 # copy); the training paths' counts are reported
 SERVE_PATHS = ("fused", "plain", "two_kernel_mlp", "llama", "llama_plain",
                "square", "mixed", "images_to_poses", "seq_sharded",
                "eval_cli", "re10k", "robustmvd", "dino", "dino_mixed",
-               *MS_PATHS)
+               *MS_PATHS, "ms_huge_seq", "demo")
 OUT_KEYS = ("pts3d_in_other_view", "conf", "pts3d_local", "conf_local")
 # phase 4: |gpu bf16 - cpu fp32| / |cpu fp32| in the L2 norm, per output.
 # bf16 keeps 8 bits of mantissa; through 48 blocks and two heads the
@@ -2558,10 +2602,10 @@ SEQ_RANKS = 4
 SEQ_REL_L2 = 0.02  # seq-sharded vs single-device, both bf16 on the card
 
 
-def _ring_qkv(n: int, dtype, seed: int):
-    """Rank-stacked q, k, v (n, 1, 15360 / n, 16, 64): strided views of one
+def _ring_qkv(n: int, dtype, seed: int, tokens: int = M_TOK, D: int = 64):
+    """Rank-stacked q, k, v (n, 1, tokens // n, 16, D): strided views of one
     qkv buffer, as the decoder's projection gives them."""
-    qkv = torch.randn((n, 1, M_TOK // n, 3, 16, 64), generator=_gen(seed),
+    qkv = torch.randn((n, 1, tokens // n, 3, 16, D), generator=_gen(seed),
                       device="cuda").to(dtype)
     return qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
 
@@ -2575,17 +2619,21 @@ def _ring_plain_by_head(q, k, v, scale, epochs=None):
     return torch.cat(outs, dim=3), torch.cat(lses, dim=1)
 
 
-def _ring_bound(n: int, epochs: int, s_loc: int, dtype) -> dict:
+def _ring_bound(n: int, epochs: int, s_loc: int, dtype, D: int = 64) -> dict:
     """FLOPs of n ranks x E epochs of S_loc x S_loc attention at the bf16
-    peak (fp32: the CUDA-core peak), or the bytes: q, k, v read and o, lse
-    written once, the bootstrap copy, E - 1 hops of K and V per rank and the
-    online-softmax state (acc, m, l in fp32) stored and loaded at each of
-    the E - 1 epoch boundaries, at 3.35 TB/s."""
-    H, D, it = 16, 64, torch.tensor([], dtype=dtype).element_size()
+    peak (fp32: the CUDA-core peak), or the bytes at 3.35 TB/s: q, k, v
+    read and o, lse written once and E - 1 hops of K and V per rank, each
+    read and written.  The kernel's own traffic, not the function's, is
+    apart in ``scratch_bytes``: the fp32 bootstrap copy (the bf16 ring reads
+    epoch 0 in place) and the online-softmax state (acc, m, l in fp32)
+    stored and loaded at each of the E - 1 epoch boundaries."""
+    H, it = 16, torch.tensor([], dtype=dtype).element_size()
     tok = n * s_loc * H * D * it  # one (n, S_loc, H, D) tensor
-    nbytes = (4 * tok + n * H * s_loc * 4 + 4 * tok + 4 * (epochs - 1) * tok
-              + 2 * (epochs - 1) * n * s_loc * H * (D + 2) * 4)
-    return bound(4.0 * n * epochs * s_loc * s_loc * H * D, nbytes, dtype)
+    nbytes = 4 * tok + n * H * s_loc * 4 + 4 * (epochs - 1) * tok
+    scratch = ((4 * tok if dtype == torch.float32 else 0)
+               + 2 * (epochs - 1) * n * s_loc * H * (D + 2) * 4)
+    return dict(bound(4.0 * n * epochs * s_loc * s_loc * H * D, nbytes, dtype),
+                scratch_bytes=scratch)
 
 
 def phase_ring(results: list) -> None:
@@ -2666,6 +2714,77 @@ def phase_ring(results: list) -> None:
     log(json.dumps(r))
     del q, k, v, o, lse, ref_o, ref_lse
     torch.cuda.empty_cache()
+    phase_ring_d80(results)
+
+
+# model_scaling_huge's decoder (1280 x 32, 16 heads of 80) on 20 views at
+# 224x224: 3920 tokens; its inference scale (the attention-entropy bias) and
+# its training scale
+HUGE_VIEWS, HUGE_HW, HUGE_D = 20, (224, 224), 80
+HUGE_TOK = HUGE_VIEWS * (HUGE_HW[0] // 16) * (HUGE_HW[1] // 16)
+HUGE_DEC_SCALE = HUGE_D ** -0.5 * math.sqrt(math.log(137) / math.log(20))
+HUGE_TRAIN_SCALE = HUGE_D ** -0.5
+HUGE_STEPS = 2  # phase 29's seq-sharded steps
+
+
+def phase_ring_d80(results: list) -> None:
+    """K14's forward at head_dim 80, model_scaling_huge's shape: 20 views at
+    224x224 (3920 tokens; n = 3 takes 3 x 1306), 16 heads, over n = 1, 2,
+    3, 4, 8 ranks in bf16 and n = 4 in fp32, against the plain ring under
+    the head_dim-64 rules; each line with the ring's time, K1<80>'s and
+    SDPA's on the gathered sequence and the bound, at n = 4 also the ring's
+    device time and the plain ring's time."""
+    log("-- phase 15 at head_dim 80: model_scaling_huge's decoder, "
+        f"{HUGE_VIEWS} views at {HUGE_HW[0]}x{HUGE_HW[1]} ({HUGE_TOK} "
+        f"tokens, 16 heads of {HUGE_D})")
+    scale = HUGE_DEC_SCALE
+    gathered = {}  # tokens -> K1<80>'s and SDPA's times on them
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for n in RING_N if dtype == torch.bfloat16 else (SEQ_RANKS,):
+            q, k, v = _ring_qkv(n, dtype, 90 + n, HUGE_TOK, HUGE_D)
+            s_loc = q.shape[2]
+            tokens = n * s_loc
+            o, lse = _rdma_forward(q, k, v, scale, n)
+            ref_o, ref_lse = _ring_plain_by_head(q, k, v, scale)
+            torch.cuda.synchronize()
+            r = compare("ring", o, ref_o, dtype)
+            lse_err = compare("ring_lse", lse, ref_lse, dtype)["max_abs_err"]
+            del ref_o, ref_lse
+            ring = lambda: ring_flash_attention_rdma(q, k, v, scale, n)  # noqa: E731
+            main = n == SEQ_RANKS
+            r.update(kernel="ring_attention", dtype=name,
+                     case=f"head_dim 80 n={n} {n}x1x{s_loc}x16x80 "
+                          f"({tokens} tokens)",
+                     lse_max_abs_err=lse_err, ms=median_ms(ring, 10),
+                     plain_ms=median_ms(lambda: ring_flash_attention(
+                         q, k, v, scale), 3) if main else None,
+                     plain="ring_flash_attention (the plain ring)",
+                     library=None, library_ms=None,
+                     **_ring_bound(n, n, s_loc, dtype, HUGE_D))
+            if dtype == torch.bfloat16:
+                if main:
+                    r.update(fwd_rates(float(n * n) * s_loc * s_loc * 16,
+                                       HUGE_D, ring, "ring_attention_fwd_kernel"))
+                if tokens not in gathered:
+                    qf, kf, vf = (t.reshape(1, tokens, 16, HUGE_D)
+                                  for t in (q, k, v))
+                    qt, kt, vt = (t.transpose(1, 2).contiguous()
+                                  for t in (qf, kf, vf))
+                    gathered[tokens] = {
+                        "k1_ms": median_ms(lambda: flash_attention(
+                            qf, kf, vf, scale), 10),
+                        "library": "F.scaled_dot_product_attention (gathered)",
+                        "library_ms": median_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                qt, kt, vt, scale=scale), 10)}
+                    del qf, kf, vf, qt, kt, vt
+                r.update(gathered[tokens])
+                r["ms_over_k1"] = r["ms"] / r["k1_ms"]
+            results.append(r)
+            log(json.dumps(r))
+            del q, k, v, o, lse
+            torch.cuda.empty_cache()
 
 
 def _seq_imgs(V: int, H: int, W: int, seed: int) -> torch.Tensor:
@@ -2754,28 +2873,33 @@ def phase_seq_sharded(gpu: str) -> dict:
 # step
 # ---------------------------------------------------------------------------
 
-def _ring_bwd_bound(n: int, s_loc: int, dtype, kernel: str) -> dict:
+def _ring_bwd_bound(n: int, s_loc: int, dtype, kernel: str,
+                    D: int = 64) -> dict:
     """The least time of the dq ring, the dk/dv ring or the pair at the
     decoder's shape.  FLOPs: the five products per (query, key) pair, 10 N^2
     H D, 2.5x the forward's (K9's bound); the dq ring alone does three of
     them (6 N^2 H D: it recomputes s and dp), the dk/dv ring four (8).
-    Bytes: each ring's inputs read and outputs written once (q, k, v, do,
-    dq, lse, delta; q, k, v, do, dk, dv, the (lse, delta) pairs; the pair:
-    q, k, v, o, do, lse, dq, dk, dv), its n copies of its payloads (the
-    bootstrap and n - 1 hops, each read and written: K and V; q, do and the
-    pairs) and its fp32 accumulators stored and loaded at the n - 1 epoch
-    boundaries (dq; dk and dv), at 3.35 TB/s."""
-    H, D, it = 16, 64, torch.tensor([], dtype=dtype).element_size()
+    Bytes, at 3.35 TB/s: each ring's inputs read and outputs written once
+    (q, k, v, do, dq, lse, delta; q, k, v, do, dk, dv, the (lse, delta)
+    pairs; the pair: q, k, v, o, do, lse, dq, dk, dv) and its n - 1 hops of
+    its payloads, each read and written (K and V; q, do and the pairs).  The
+    kernels' own traffic is apart in ``scratch_bytes``: the bootstrap copy
+    of the payloads and the fp32 accumulators (dq; dk and dv) stored and
+    loaded at the n - 1 epoch boundaries."""
+    H, it = 16, torch.tensor([], dtype=dtype).element_size()
     tok = n * s_loc * H * D * it  # one (n, S_loc, H, D) tensor
     rows = n * s_loc * H
     acc = n * H * -(-s_loc // 64) * 64 * D * 4  # one fp32 accumulator per item
-    hops_dq = 2 * n * 2 * tok + 2 * (n - 1) * acc
-    hops_dkv = 2 * n * (2 * tok + rows * 8) + 2 * (n - 1) * 2 * acc
+    pay_dq, pay_dkv = 2 * tok, 2 * tok + rows * 8  # one copy of the payloads
+    hops_dq, hops_dkv = 2 * (n - 1) * pay_dq, 2 * (n - 1) * pay_dkv
     nbytes = {"dq": 5 * tok + 2 * rows * 4 + hops_dq,
               "dkv": 6 * tok + rows * 8 + hops_dkv,
               "pair": 8 * tok + rows * 4 + hops_dq + hops_dkv}[kernel]
+    scratch = {"dq": 2 * pay_dq + 2 * (n - 1) * acc,
+               "dkv": 2 * pay_dkv + 2 * (n - 1) * 2 * acc}
+    scratch["pair"] = scratch["dq"] + scratch["dkv"]
     flops = {"dq": 6, "dkv": 8, "pair": 10}[kernel] * float(n * s_loc) ** 2 * H * D
-    return bound(flops, nbytes, dtype)
+    return dict(bound(flops, nbytes, dtype), scratch_bytes=scratch[kernel])
 
 
 def _ring_bwd_plain_by_head(q, k, v, o, lse, do, scale):
@@ -2857,6 +2981,84 @@ def phase_ring_bwd(results: list) -> None:
                 log(json.dumps(r))
             del q, k, v, do, o, lse, delta, meta
             torch.cuda.empty_cache()
+    phase_ring_bwd_d80(results)
+
+
+def phase_ring_bwd_d80(results: list) -> None:
+    """K14's backward rings at head_dim 80, model_scaling_huge's shape
+    (phase_ring_d80's), over n = 1, 2, 3, 4, 8 in bf16 and n = 4 in fp32,
+    against ring_attention_bwd_ref under the head_dim-64 rules; each line
+    with the ring's time, the pair's, K9<80>'s and SDPA's autograd's on the
+    gathered sequence and the bounds, at n = 4 the plain version's time."""
+    log("-- phase 17 at head_dim 80: model_scaling_huge's decoder, "
+        f"{HUGE_TOK} tokens, 16 heads of {HUGE_D}")
+    scale = HUGE_TRAIN_SCALE
+    gathered = {}  # tokens -> K9<80>'s and SDPA's autograd times on them
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for n in RING_N if dtype == torch.bfloat16 else (SEQ_RANKS,):
+            q, k, v = _ring_qkv(n, dtype, 95 + n, HUGE_TOK, HUGE_D)
+            do = torch.randn(q.shape, generator=_gen(85 + n),
+                             device="cuda").to(dtype)
+            s_loc = q.shape[2]
+            tokens = n * s_loc
+            o, lse = _rdma_forward(q, k, v, scale, n)
+            got = _ring_backward(q, k, v, o, lse, do, scale, n)
+            ref = _ring_bwd_plain_by_head(q, k, v, o, lse, do, scale)
+            torch.cuda.synchronize()
+            kind = "attention_bwd" if dtype == torch.bfloat16 else "ring_bwd"
+            errs = [compare(kind, a, b, dtype) for a, b in zip(got, ref)]
+            del got, ref
+            delta, meta = _bwd_rows(o, do, lse)
+            main = n == SEQ_RANKS
+            extra = {
+                "pair_ms": median_ms(lambda: _ring_backward(
+                    q, k, v, o, lse, do, scale, n), 10),
+                "pair_bound_ms": _ring_bwd_bound(n, s_loc, dtype, "pair",
+                                                 HUGE_D)["bound_ms"],
+                "plain_ms": median_ms(lambda: _ring_bwd_plain_by_head(
+                    q, k, v, o, lse, do, scale), 1) if main else None,
+                "plain": "ring_attention_bwd_ref, one head at a time (both "
+                         "rings)",
+                "library": None, "library_ms": None}
+            if dtype == torch.bfloat16:
+                if tokens not in gathered:
+                    qf, kf, vf, dof = (t.reshape(1, tokens, 16, HUGE_D)
+                                       for t in (q, k, v, do))
+                    of, lsef = attention_fwd_lse(qf, kf, vf, scale)
+                    ql, kl, vl = (t.detach().transpose(1, 2).contiguous()
+                                  .requires_grad_() for t in (qf, kf, vf))
+                    ol = F.scaled_dot_product_attention(ql, kl, vl,
+                                                        scale=scale)
+                    gathered[tokens] = {
+                        "k9_ms": median_ms(lambda: attention_bwd(
+                            qf, kf, vf, of, lsef, dof, scale), 10),
+                        "library": "autograd of "
+                                   "F.scaled_dot_product_attention (gathered)",
+                        "library_ms": _grad_ms(ol, (ql, kl, vl),
+                                               dof.transpose(1, 2), 10)}
+                    del qf, kf, vf, dof, of, lsef, ql, kl, vl, ol
+                extra.update(gathered[tokens])
+            times = {
+                "ring_attention_bwd_dq": median_ms(lambda: ring_attention_bwd_dq(
+                    q, k, v, do, lse, delta, scale, n), 10),
+                "ring_attention_bwd_dkv": median_ms(
+                    lambda: ring_attention_bwd_dkv(q, k, v, do, meta, scale, n),
+                    10)}
+            flops = {"dq": 6.0, "dkv": 8.0}  # the products each ring runs
+            for kname, e, which in (("ring_attention_bwd_dq", errs[:1], "dq"),
+                                    ("ring_attention_bwd_dkv", errs[1:], "dkv")):
+                r = dict(_merge(e), kernel=kname, dtype=name,
+                         case=f"head_dim 80 n={n} {n}x1x{s_loc}x16x80 "
+                              f"({tokens} tokens)",
+                         ms=times[kname],
+                         tflops=flops[which] * float(tokens) ** 2 * 16 * HUGE_D
+                         / (times[kname] * 1e-3) / 1e12, **extra,
+                         **_ring_bwd_bound(n, s_loc, dtype, which, HUGE_D))
+                results.append(r)
+                log(json.dumps(r))
+            del q, k, v, do, o, lse, delta, meta
+            torch.cuda.empty_cache()
 
 
 def phase_seq_train(gpu: str, cpu_model, cpu_ref: tuple) -> dict:
@@ -2886,11 +3088,17 @@ def phase_seq_train(gpu: str, cpu_model, cpu_ref: tuple) -> dict:
             attention=0, attention_bwd=0)
     del net, batch
     torch.cuda.empty_cache()
+    _seq_step_end_to_end(cpu_model, cpu_ref, "seq_train")
+    return {"seq_train": counts}
 
-    # end to end: one 2-view 224x224 step over 2 ranks, bf16 on the card,
-    # against fp32 on the CPU (phase 6's step: the same weights, batch and
-    # image ids on one device) and the single-device card step on the same
-    # decoder road (plain blocks, K1 / K9)
+
+def _seq_step_end_to_end(cpu_model, cpu_ref: tuple, what: str) -> None:
+    """One 2-view 224x224 step over 2 ranks, bf16 on the card, against fp32
+    on the CPU (``cpu_ref``: phase 6's step, the same weights, batch and
+    image ids on one device) and the single-device card step on the same
+    decoder road (plain blocks, K1 / K9): the loss and each group's
+    gradient within E2E_TRAIN_REL."""
+    cfg = cpu_model.cfg
     batch = {k: torch.as_tensor(v) for k, v in
              make_dummy_batch(1, 2, 224, 224, seed=1).items()
              if k in BATCH_KEYS}
@@ -2903,23 +3111,22 @@ def phase_seq_train(gpu: str, cpu_model, cpu_ref: tuple) -> dict:
         cfg.decoder, fused_blocks=False))
     one_loss, one = _loss_and_grads(gpu_model.params, plain_dec, batch, ids)
     errs, bad = {}, {}
-    for what, (l_ref, g_ref) in (("vs_cpu_fp32", (ref_loss, ref)),
-                                 ("vs_single_device_card", (one_loss, one))):
-        errs[what] = {"loss": abs(loss - l_ref) / abs(l_ref),
-                      **{f"grad/{k}": ((grads[k] - g_ref[k]).norm()
-                                       / g_ref[k].norm()).item()
-                         for k in g_ref}}
-        bad.update({f"{what} {k}": e for k, e in errs[what].items()
+    for which, (l_ref, g_ref) in (("vs_cpu_fp32", (ref_loss, ref)),
+                                  ("vs_single_device_card", (one_loss, one))):
+        errs[which] = {"loss": abs(loss - l_ref) / abs(l_ref),
+                       **{f"grad/{k}": ((grads[k] - g_ref[k]).norm()
+                                        / g_ref[k].norm()).item()
+                          for k in g_ref}}
+        bad.update({f"{which} {k}": e for k, e in errs[which].items()
                     if not e <= E2E_TRAIN_REL})
-    log(json.dumps({"seq_train_2x224_rel_err": errs,
+    log(json.dumps({"path": what, "seq_train_2x224_rel_err": errs,
                     "tolerance": E2E_TRAIN_REL, "loss_cpu_fp32": ref_loss,
                     "loss_card_seq": loss, "loss_card_single": one_loss}))
     del gpu_model
     torch.cuda.empty_cache()
     if bad:
-        raise AssertionError(f"seq-sharded training error above "
+        raise AssertionError(f"{what}: seq-sharded training error above "
                              f"{E2E_TRAIN_REL}: {bad}")
-    return {"seq_train": counts}
 
 
 # phase 19: the training CLI on a CO3D-format root written here with PIL
@@ -4121,7 +4328,9 @@ def ms_cfg(name: str) -> Fast3RConfig:
         os.path.join(CONFIG_DIR, "train.yaml"), f"model_scaling/{name}")["model"])
 
 
-def phase_model_scaling(gpu: str) -> dict:
+def phase_model_scaling(gpu: str) -> tuple:
+    """The launch counts of the overlays' paths, and model_scaling_huge's
+    fp32 CPU model and its 2-view step's reference (phase 29's)."""
     log("== phase 24: the model_scaling overlays (base 768 x 12, large 1024 x "
         "24, huge 1280 x 32 at head_dim 80), each at full width: one 8-view "
         "224x224 request (bf16), three train_steps of batch 8 x 8 views on "
@@ -4158,12 +4367,91 @@ def phase_model_scaling(gpu: str) -> dict:
                      "phase 24")
         del net
         torch.cuda.empty_cache()
-        phase_train_end_to_end(cpu_model, cfg.with_fused_blocks(False),
-                               f"phase 24 ({short})")
+        ref = phase_train_end_to_end(cpu_model, cfg.with_fused_blocks(False),
+                                     f"phase 24 ({short})")
+        if short == "ms_huge":
+            huge = (cpu_model, ref)
         del cpu_model
     del batch
     torch.cuda.empty_cache()
     counts.update(phase_cli_model_scaling(gpu))
+    return counts, huge
+
+
+def phase_huge_seq(gpu: str, cpu_model, cpu_ref: tuple) -> dict:
+    """``cpu_model``: phase 24's model_scaling_huge (fp32, CPU);
+    ``cpu_ref``: its 2-view 224x224 step's fp32 loss and gradients."""
+    cfg = cpu_model.cfg
+    d = cfg.decoder
+    log(f"== phase 29: model_scaling_huge sequence-sharded ({d.embed_dim} x "
+        f"{d.depth}, {d.num_heads} heads of {d.head_dim}: the ring kernels at "
+        f"head_dim 80; random weights seed 0, bfloat16): a {HUGE_VIEWS}-view "
+        f"{HUGE_HW[0]}x{HUGE_HW[1]} request over {SEQ_RANKS} ranks against "
+        f"the one-rank forward, {HUGE_STEPS} steps of 1 x 8 views over "
+        f"{SEQ_RANKS} ranks, a 2-view step over 2 ranks against fp32 on the "
+        "CPU")
+    if d.head_dim != HUGE_D:
+        raise AssertionError(f"phase 29: head_dim {d.head_dim}")
+    roads = list(view_roads(cfg, [HUGE_HW]).values())
+    model = cpu_model.to(device="cuda", dtype=torch.bfloat16)
+    fwd = make_seq_sharded_forward(cfg, SEQ_RANKS, HUGE_VIEWS, HUGE_HW,
+                                   ring_impl="rdma")
+    imgs = _seq_imgs(HUGE_VIEWS, *HUGE_HW, 29)
+    ids = sample_random_image_ids(None, 1, HUGE_VIEWS)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    for serve in (1, 2):  # one cold request, one warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fwd(model.params, imgs, ids[0])
+        out = {k: v.float().cpu() for k, v in out.items()}
+        dt = time.perf_counter() - t
+        log(json.dumps({"path": "ms_huge_seq", "ranks": SEQ_RANKS,
+                        "request_views": HUGE_VIEWS,
+                        "image_hw": list(HUGE_HW), "serve": serve,
+                        "latency_s": dt, "images_per_s": HUGE_VIEWS / dt,
+                        "gpu": gpu,
+                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    counts = {"ms_huge_seq": _read_counts()}
+    _expect("ms_huge_seq", counts["ms_huge_seq"],
+            ring_attention=2 * d.depth, attention=0)
+    _check_roads("ms_huge_seq", roads, counts["ms_huge_seq"], "phase 29")
+    check_preds([{k: v[:, i] for k, v in out.items()}
+                 for i in range(HUGE_VIEWS)], [HUGE_HW] * HUGE_VIEWS)
+    plain_dec = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        d, fused_blocks=False))
+    with torch.inference_mode():
+        ref = fast3r_forward(model.params, plain_dec,
+                             imgs.cuda().bfloat16(), view_ids=ids)
+        ref = {k: v.float().cpu() for k, v in ref.items()}
+    errs = _rel_l2(out, ref)
+    log(json.dumps({"path": "ms_huge_seq", "seq_vs_single_device_rel_l2": errs,
+                    "tolerance": SEQ_REL_L2}))
+    bad = {k: e for k, e in errs.items() if not e <= SEQ_REL_L2}
+    if bad:
+        raise AssertionError(f"phase 29: seq-sharded outputs off: {bad}")
+    del model, out, ref
+    torch.cuda.empty_cache()
+
+    net = cpu_model.to(device="cuda", dtype=torch.bfloat16).params
+    batch = {k: torch.as_tensor(v).cuda() for k, v in
+             make_dummy_batch(1, 8, *HUGE_HW, seed=29).items()
+             if k in BATCH_KEYS}
+    c = train_road("ms_huge_seq_train", net, cfg, batch, HUGE_STEPS, gpu,
+                   step=make_seq_sharded_train_step(cfg, TRAIN_OPT, SEQ_RANKS))
+    counts["ms_huge_seq_train"] = c
+    log(json.dumps({"path": "ms_huge_seq_train", "ranks": SEQ_RANKS,
+                    "steps": HUGE_STEPS,
+                    "launches_per_step": {k: v / HUGE_STEPS
+                                          for k, v in c.items()}}))
+    _expect("ms_huge_seq_train", c, ring_attention=HUGE_STEPS * 2 * d.depth,
+            ring_attention_bwd_dq=HUGE_STEPS * d.depth,
+            ring_attention_bwd_dkv=HUGE_STEPS * d.depth, attention=0,
+            attention_bwd=0)
+    _check_roads("ms_huge_seq_train", roads, c, "phase 29")
+    del net, batch
+    torch.cuda.empty_cache()
+    _seq_step_end_to_end(cpu_model, cpu_ref, "ms_huge_seq_train")
     return counts
 
 
@@ -4275,6 +4563,11 @@ def _check_roads(path: str, roads: list, counts: dict,
 # a rank's products have M = 8 x 768 = 6144 rows and, at model 2, 8 heads,
 # qkv N = 1536, proj K = 512 and an MLP hidden of 2048
 MESH_DATA, MESH_MODEL, MESH_VIEWS, MESH_STEPS = 2, 2, 8, 3
+# the grids' models (here and phase 28's) cut to MESH_DEPTH of their 24
+# blocks an encoder and a decoder, widths and heads as published: a
+# rank's time goes to building the params and to gloo's sums over them,
+# both linear in the depth, and every sharded layer kind is in each block
+MESH_DEPTH = 8
 MESH_M = MESH_VIEWS * 768
 MESH_OPT = OptimConfig(lr=1e-4, warmup_steps=1, total_steps=1000)
 # the mesh step against the one-process Trainer road on the same global
@@ -4298,12 +4591,15 @@ MESH_FLOOR_X = 2.0
 
 def mesh_cfg() -> Fast3RConfig:
     """super_long_training's model through the training CLI's loader: the
-    CroCo encoder 1024 x 24 and the fusion decoder 1024 x 24, both heads,
-    the fused road."""
+    CroCo encoder 1024 wide and the fusion decoder 1024 wide, both cut to
+    MESH_DEPTH blocks, both heads, the fused road."""
     from fast3r_torch.config import CONFIG_DIR, load_config, model_config_from_dict
 
-    return model_config_from_dict(load_config(
+    cfg = model_config_from_dict(load_config(
         os.path.join(CONFIG_DIR, "train.yaml"), "super_long_training")["model"])
+    return dataclasses.replace(
+        cfg, encoder=dataclasses.replace(cfg.encoder, depth=MESH_DEPTH),
+        decoder=dataclasses.replace(cfg.decoder, depth=MESH_DEPTH))
 
 
 def _mesh_batches() -> list:
@@ -4604,6 +4900,7 @@ def phase_mesh(gpu: str, results: list) -> dict:
     from fast3r_torch.train.trainer import Trainer, TrainerConfig
 
     log(f"== phase 27: the mesh step (super_long_training's model, "
+        f"{MESH_DEPTH} blocks a stack, "
         f"data {MESH_DATA} x model {MESH_MODEL} ranks on one card over gloo, "
         f"{MESH_VIEWS} views at 512x384 a data rank, fp32 master shards, bf16 "
         f"working copy, ZeRO-2, {MESH_STEPS} steps)")
@@ -4756,17 +5053,23 @@ TP_LLAMA_SHAPES = {"attn.wq.weight": [C // 2, C], "attn.wk.weight": [C // 2, C],
 
 
 def tp_cfg(case: str) -> Fast3RConfig:
-    """The model of a phase-28 case: "llama" llama_dec (phases 7-10's),
-    "dino" the DINOv2 model (phases 22-23's), "drop" the flagship with the
-    encoder's drop_path 0.1 (its blocks on the plain road, the decoder on
-    its fused road)."""
+    """The model of a phase-28 case at MESH_DEPTH blocks a stack: "llama"
+    llama_dec (phases 7-10's), "dino" the DINOv2 model (phases 22-23's),
+    "drop" the flagship with the encoder's drop_path 0.1 (its blocks on the
+    plain road, the decoder on its fused road)."""
     if case == "llama":
-        return llama_cfg()
-    if case == "dino":
-        return dino_cfg()
-    flag = Fast3RConfig.flagship()
-    return dataclasses.replace(flag, encoder=dataclasses.replace(
-        flag.encoder, drop_path=0.1))
+        cfg = llama_cfg()
+        dec = dataclasses.replace(cfg.decoder, n_layers=MESH_DEPTH)
+    else:
+        if case == "dino":
+            cfg = dino_cfg()
+        else:
+            flag = Fast3RConfig.flagship()
+            cfg = dataclasses.replace(flag, encoder=dataclasses.replace(
+                flag.encoder, drop_path=0.1))
+        dec = dataclasses.replace(cfg.decoder, depth=MESH_DEPTH)
+    return dataclasses.replace(cfg, decoder=dec, encoder=dataclasses.replace(
+        cfg.encoder, depth=MESH_DEPTH))
 
 
 def _tp_batches(case: str) -> list:
@@ -5070,7 +5373,8 @@ def phase_tp_variants(gpu: str, results: list) -> dict:
     import torch.multiprocessing as mp
 
     log(f"== phase 28: the variants tensor-parallel (llama_dec, DINOv2, "
-        f"dropout; data 1 x model {TP_MODEL} ranks on one card over gloo, "
+        f"dropout, {MESH_DEPTH} blocks a stack; data 1 x model {TP_MODEL} "
+        f"ranks on one card over gloo, "
         f"{TP_VIEWS} views a step, fp32 master shards, bf16 working copy, "
         f"{TP_STEPS} steps)")
     t0 = time.perf_counter()
@@ -5153,9 +5457,206 @@ def phase_tp_variants(gpu: str, results: list) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 30: the interactive demo
+# ---------------------------------------------------------------------------
+
+DEMO_VIEWS = 20
+
+
+def _fake_ui():
+    """tests/torch_fake_ui.py: the fake gradio and viser modules (neither
+    machine has the real ones) and a trivial server process target."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "tests"))  # the caller restores sys.path
+    import torch_fake_ui
+
+    return torch_fake_ui
+
+
+def _drive_viser(server, n: int) -> dict:
+    """The Viser server's control panel, as a browser drives it: the
+    timestep, next / previous, head and camera toggles, the percentile
+    slider, the colour modes and sizes, and the GIF and PLY exports (of the
+    first two frames); returns what each step showed."""
+    gui, fd = server.gui, server._fast3r["frame_data"]
+
+    def shown(head):
+        return sum(f[f"point_node_{head}"].visible for f in fd)
+
+    seen = {"start_local": shown("local")}
+    gui.slider("Timestep").set(0)
+    seen["timestep_0_local"] = shown("local")
+    gui.button("Next Frame").click()
+    seen["next_local"] = shown("local")
+    gui.button("Prev Frame").click()
+    gui.slider("Timestep").set(n - 1)
+    gui.checkbox("Global").set(True)
+    gui.checkbox("Local").set(False)
+    seen["heads_global"] = shown("global")
+    gui.checkbox("Show Cameras").set(False)
+    seen["cameras"] = sum(f["frustum_node"].visible for f in fd)
+    gui.checkbox("Show Cameras").set(True)
+    points = sum(len(h.points) for h in server.scene.point_clouds)
+    gui.slider("Per-View Conf Percentile").set(80.0)
+    seen["points_at_10_80"] = [
+        points, sum(len(h.points) for h in server.scene.point_clouds)]
+    gui.checkbox("Color by View").set(True)
+    gui.checkbox("Color by View").set(False)
+    gui.checkbox("Show Confidence").set(True)
+    gui.slider("Point Size").set(0.001)
+    gui.slider("Camera Size (%)").set(5.0)
+    gui.slider("Timestep").set(1)  # the exports of the first two frames
+    t = time.perf_counter()
+    gif = gui.button("Render a GIF").click()
+    seen["gif_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ply = gui.button("Download PLY").click()
+    seen["ply_s"] = time.perf_counter() - t
+    seen["gif_bytes"] = os.path.getsize(gif)
+    seen["ply_points"] = int(_read_ply_header(ply)[0][2].split()[-1])
+    want = {"start_local": n, "timestep_0_local": 1, "next_local": 2,
+            "heads_global": n, "cameras": 0}
+    bad = {k: (seen[k], v) for k, v in want.items() if seen[k] != v}
+    if bad or not seen["points_at_10_80"][1] < seen["points_at_10_80"][0] \
+            or seen["gif_bytes"] <= 0 or seen["ply_points"] <= 0:
+        raise AssertionError(f"phase 30, the Viser server's controls: {seen}")
+    return seen
+
+
+def phase_demo(gpu: str, model) -> dict:
+    """``model``: phase 3's flagship in bf16 on the card."""
+    import shutil
+
+    from fast3r_torch.serve import demo as demo_mod
+    from fast3r_torch.serve.viser_server import run_viser_server
+
+    log(f"== phase 30: the interactive demo (fast3r_torch.serve.demo and "
+        f"viser_server on the fake gradio and viser of tests/torch_fake_ui.py; "
+        f"phase 3's flagship, bfloat16): a reconstruct click on "
+        f"{DEMO_VIEWS} seeded 512x384 JPEGs, the Viser server in this "
+        f"process on its output, the session manager on real spawned "
+        f"processes, video input through ffmpeg")
+    sys_path = list(sys.path)
+    ui = _fake_ui()
+    saved = {k: sys.modules.get(k) for k in ui.fake_modules()}
+    saved["__main__"] = sys.modules["__main__"]
+    sys.modules.update(ui.fake_modules())
+    # the sessions' spawned processes import the main module: the fake UI's,
+    # not this script (and all it imports)
+    sys.modules["__main__"] = ui
+    tmp = tempfile.mkdtemp(prefix="fast3r_demo_")
+    demo = None
+    try:
+        paths = []
+        for i in range(DEMO_VIEWS):
+            paths.append(os.path.join(tmp, f"frame_{i:02d}.jpg"))
+            PIL.Image.fromarray(_photo(384, 512, 300 + i)).save(paths[-1],
+                                                                quality=95)
+        demo = demo_mod.create_demo(model)
+        manager = demo._fast3r["manager"]
+        manager._target = ui.sleepy_server  # each session's server process
+        started = []
+        start = manager.start_server
+
+        def start_server(session, *args, **kw):
+            started.append((session, args, kw))
+            return start(session, *args, **kw)
+
+        manager.start_server = start_server
+        process, up, down, send, end = (c[0] for c in demo.clicks)
+        files = [type("Upload", (), {"name": p})() for p in paths]
+        if demo.changes[0][0](files) != paths:
+            raise AssertionError("phase 30: the gallery preview")
+        _reset_counts()
+        t = time.perf_counter()
+        ply, status = process(files, None, 10.0, resolution="512")
+        click_s = time.perf_counter() - t
+        counts = {"demo": _read_counts()}
+        header = _read_ply_header(ply)[0]
+        n_points = int(header[2].split()[-1])
+        rec = {"path": "demo", "click_s": click_s, "views": DEMO_VIEWS,
+               "ply_points": n_points, "status": status.splitlines(),
+               "gpu": gpu}
+        log(json.dumps(rec))
+        stages = ("encode_images", "decoder", "head_forward")
+        if (f"{DEMO_VIEWS} views" not in status or "512px" not in status
+                or not all(f"  {s}: " in status for s in stages)
+                or "viser on port" not in status or n_points <= 0
+                or len(started) != 1 or started[0][2] != {"device": "cuda"}):
+            raise AssertionError(f"phase 30, the reconstruct click: {rec}")
+
+        # the session's Viser server, in this process on the click's output
+        output = started[0][1][0]
+        t = time.perf_counter()
+        server = run_viser_server(output, port=8042, blocking=False,
+                                  device="cuda")
+        server_s = time.perf_counter() - t
+        clouds, frustums = server.scene.point_clouds, server.scene.frustums
+        if (len(clouds) != 2 * DEMO_VIEWS or len(frustums) != DEMO_VIEWS
+                or not all(np.isfinite(f.wxyz).all()
+                           and np.isfinite(f.position).all()
+                           for f in frustums)):
+            raise AssertionError(f"phase 30: {len(clouds)} clouds, "
+                                 f"{len(frustums)} frustums")
+        seen = _drive_viser(server, DEMO_VIEWS)
+        server._fast3r["stop"].set()
+        log(json.dumps({"path": "demo_viser", "server_s": server_s,
+                        "clouds": len(clouds), "frustums": len(frustums),
+                        **seen}))
+
+        # the session manager: the click's process, one more collected by
+        # the GC, the feedback and the session's end
+        proc = manager._sessions["default"]["proc"]
+        alive = proc.is_alive()
+        manager.start_server("second")
+        collected = manager.gc(max_age_s=0.0)
+        fb_msgs = [send("smoke"), up(), down()]
+        released = end()
+        rec = {"path": "demo_manager", "click_process_alive": alive,
+               "collected": collected, "sessions_left": len(manager),
+               "click_process_alive_after": proc.is_alive(),
+               "feedback": fb_msgs, "end_session": released}
+        log(json.dumps(rec))
+        if (not alive or collected != 2 or len(manager) != 0
+                or proc.is_alive() or not all("saved" in m for m in fb_msgs)):
+            raise AssertionError(f"phase 30, the session manager: {rec}")
+
+        # video input: the frames as an mp4 through ffmpeg, then a click
+        if shutil.which("ffmpeg") is None:
+            log("ffmpeg absent: video input not driven")
+        else:
+            video = os.path.join(tmp, "clip.mp4")
+            subprocess.run(["ffmpeg", "-y", "-loglevel", "error", "-framerate",
+                            "2", "-i", os.path.join(tmp, "frame_%02d.jpg"),
+                            "-c:v", "mpeg4", "-q:v", "2", video], check=True)
+            t = time.perf_counter()
+            _, vstatus = process(None, video, 10.0, resolution="512")
+            rec = {"path": "demo_video", "click_s": time.perf_counter() - t,
+                   "status": vstatus.splitlines()}
+            log(json.dumps(rec))
+            if " views in " not in vstatus or "viser on port" not in vstatus:
+                raise AssertionError(f"phase 30, video input: {rec}")
+        manager.shutdown()
+        return counts
+    finally:
+        if demo is not None:
+            demo._fast3r["gc_timer"].cancel()
+            if demo._fast3r["manager"] is not None:
+                demo._fast3r["manager"].shutdown()
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+        sys.path[:] = sys_path
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def phase_counts(counts: dict) -> None:
     log("== phase 26: kernel launches on each path of phases 3, 5, 7, 9, 11, "
-        "12, 14, 16, 18, 19, 20, 21, 22, 23 and 24")
+        "12, 14, 16, 18, 19, 20, 21, 22, 23, 24, 29 and 30")
     log(json.dumps(counts))
     missing = [f"{path}: {k}" for path, names in PATHS.items()
                for k in names if counts[path][k] <= 0]
@@ -5196,6 +5697,11 @@ WIDE_CASES = (
         ("ln_qkv", "K=1280"), ("ln_matmul", "K=1280"),
         ("ln_matmul_replay", "K=1280"), ("matmul_residual", "K=1280"),
         ("matmul_residual", "K=5120"), ("ln_mlp", "C=1280"))),
+    # K14 at head_dim 80 (phases 15 and 17), launched by phase 29
+    ("ring_attention", "head_dim 80 n=4 ",
+     ("ms_huge_seq", "ms_huge_seq_train")),
+    ("ring_attention_bwd_dq", "head_dim 80 n=4 ", ("ms_huge_seq_train",)),
+    ("ring_attention_bwd_dkv", "head_dim 80 n=4 ", ("ms_huge_seq_train",)),
 )
 
 
@@ -5246,7 +5752,9 @@ def kernel_summary(results: list, counts: dict) -> dict:
                 "library_ms": r["library_ms"], "library": r["library"],
                 "case": r["case"] + " bfloat16",
                 **{k: r[k] for k in ("device_ms", "tflops", "dq_ms", "dkv_ms",
-                                     "two_kernel_ms") if k in r}})
+                                     "two_kernel_ms", "k1_ms", "k9_ms",
+                                     "k1_device_ms", "device_over_k1",
+                                     "pair_ms", "pair_bound_ms") if k in r}})
     # the mesh step's kernels at a model-2 rank's shapes (phase 27), their
     # launches over the phase's steps on the rank that runs the case: model
     # rank 1 (global rank 1) the partial products on a zero bias, model rank
@@ -5309,9 +5817,11 @@ def main() -> int:
     cpu_model, model, plain, counts = phase_requests(gpu)
     done("phase 3")
     phase_end_to_end(cpu_model, model, plain)
+    done("phase 4")
+    counts.update(phase_demo(gpu, model))
     del model, plain
     torch.cuda.empty_cache()
-    done("phase 4")
+    done("phase 30")
     counts.update(phase_training(gpu, cpu_model))
     done("phase 5")
     flagship_cpu = cpu_model
@@ -5366,8 +5876,13 @@ def main() -> int:
     counts.update(phase_dino_training(gpu, dino_cpu))
     del dino_cpu
     done("phase 23")
-    counts.update(phase_model_scaling(gpu))
+    ms_counts, (huge_cpu, huge_ref) = phase_model_scaling(gpu)
+    counts.update(ms_counts)
     done("phase 24")
+    counts.update(phase_huge_seq(gpu, huge_cpu, huge_ref))
+    del huge_cpu, huge_ref
+    torch.cuda.empty_cache()
+    done("phase 29")
     check_widths(results)
     done("phase 25")
     phase_counts(counts)

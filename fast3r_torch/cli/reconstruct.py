@@ -1,4 +1,5 @@
-"""Headless reconstruction CLI: images -> pointmaps, poses and a PLY.
+"""Headless reconstruction CLI: images or a video -> pointmaps, poses and
+a PLY.
 
 Counterpart of ``fast3r_tpu/cli/reconstruct.py``, the serving path of the
 reference demo without its UI: load the images, run the model, align the
@@ -7,15 +8,18 @@ local head onto the global one, recover the cameras, write the cloud.
     python -m fast3r_torch.cli.reconstruct IMAGE_DIR --out OUT_DIR \
         [--checkpoint DIR] [--size 512] [--device cuda|cpu]
 
-A folder whose frames share one raw shape goes through
-``inference_from_raw`` (resize and crop on the device); mixed raw shapes,
-or ``--host-preprocess``, through ``load_images`` and ``inference``.
+IMAGE_DIR may be a video (.mp4, .mov, .avi, .webm): its frames, two a
+second, are extracted into OUT_DIR/frames by ``ffmpeg``
+(``serve/video.py``; without ``ffmpeg`` on PATH it raises).  A folder
+whose frames share one raw shape goes through ``inference_from_raw``
+(resize and crop on the device); mixed raw shapes, or
+``--host-preprocess``, through ``load_images`` and ``inference``.
 Without ``--checkpoint`` the weights are random (seed 0): the flagship's on
 the card, whose kernels take the flagship's widths only, and the tiny
 configuration's on the CPU.  Writes scene.ply (the merged coloured cloud),
 poses.json (per-view c2w and focals), with ``--gif`` orbit.gif (an orbit
 of the cloud, rendered on the host) and, with ``--save-npz``, one .npz of
-pointmaps per view.  ``--backend cv2`` and video input are not ported.
+pointmaps per view.  ``--backend cv2`` is not ported.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import time
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description="Fast3R reconstruction")
-    ap.add_argument("images", help="image folder")
+    ap.add_argument("images", help="image folder or video file")
     ap.add_argument("--out", default="recon_out")
     ap.add_argument("--checkpoint", default=None,
                     help="HF-format checkpoint dir or a fast3r_torch run "
@@ -54,8 +58,6 @@ def main(argv=None) -> dict:
                     help="resize / crop / normalise on the host with PIL "
                          "instead of on the device")
     args = ap.parse_args(argv)
-    if args.images.lower().endswith((".mp4", ".mov", ".avi", ".webm")):
-        ap.error("video input is not ported; pass a folder of images")
 
     import numpy as np
     import torch
@@ -74,6 +76,11 @@ def main(argv=None) -> dict:
 
     dev = torch.device(args.device)
     times = {}
+    src = args.images
+    if src.lower().endswith((".mp4", ".mov", ".avi", ".webm")):
+        from fast3r_torch.serve.video import extract_frames_from_video
+
+        src = extract_frames_from_video(src, os.path.join(args.out, "frames"))
 
     def mark(stage: str, t0: float) -> float:
         if dev.type == "cuda":
@@ -99,13 +106,13 @@ def main(argv=None) -> dict:
     t = time.perf_counter()
     raw = None
     if not args.host_preprocess:
-        frames = load_images_raw(args.images, verbose=True)
+        frames = load_images_raw(src, verbose=True)
         if len({f.shape for f in frames}) == 1:
             raw = frames
         else:
             print(" (mixed raw shapes -> host preprocessing)")
     if raw is None:
-        views = load_images(args.images, size=args.size)
+        views = load_images(src, size=args.size)
     t = mark("load_s", t)
     if raw is not None:
         result = inference_from_raw(raw, model, size=args.size)

@@ -1,7 +1,7 @@
 // The two backward passes of attention on wgmma, for head_dim 64 (and 80:
 // the tail below) and bf16 (csrc/attention_bwd.cu: K9, and K10 through
 // strides; csrc/ring_attention_bwd.cu: the bf16 dq and dk/dv rings of K14's
-// backward, head_dim 64 only):
+// backward, at either head_dim):
 // the shared-memory plan, the producer's loads and the consumers' per-tile
 // bodies, over tiles in the 128-byte-swizzled, K-major layout TMA writes
 // (hopper.cuh's descriptors).
@@ -414,14 +414,6 @@ __device__ __forceinline__ void dq_item(float (&dq)[32], float (&dqt)[8], Smem& 
     ring.advance();
   }
 }
-// head_dim 64 (K9 and the dq ring)
-__device__ __forceinline__ void dq_item(float (&dq)[32], Smem& s, OwnRing& own,
-                                        StageRing& ring, const Consumer& t, int n,
-                                        int Nk, float scale_log2, const float (&l)[2],
-                                        const float (&dl)[2]) {
-  float dqt[8];
-  dq_item<64>(dq, dqt, s, own, ring, t, n, Nk, scale_log2, l, dl);
-}
 
 // dk/dv pass: p^T = exp2(s^T c - lse log2 e) in place, queries q0 + col
 // (lse per column, from L) at or past Nq masked
@@ -515,14 +507,6 @@ __device__ __forceinline__ void dkv_item(float (&dk)[32], float (&dv)[32], float
     ring.advance();
   }
   release(&s.own_empty[os]);
-}
-// head_dim 64 (K9 and the dk/dv ring)
-__device__ __forceinline__ void dkv_item(float (&dk)[32], float (&dv)[32], Smem& s,
-                                         OwnRing& own, StageRing& ring,
-                                         const Consumer& t, int n, int Nq,
-                                         float scale_log2) {
-  float dkt[8], dvt[8];
-  dkv_item<64>(dk, dv, dkt, dvt, s, own, ring, t, n, Nq, scale_log2);
 }
 
 // the thread's rows r0 and r0 + 8 of its accumulator, times mul, rounded to

@@ -1,7 +1,7 @@
 // The attention forward on wgmma, for head_dim 64 (and 80: the tail below)
 // and bf16 (csrc/attention_fwd.cu: K1, and K2 and the batched encoder
 // attention through strides; csrc/ring_attention.cu: the bf16 ring, K14's
-// forward, head_dim 64 only): the
+// forward, at either head_dim): the
 // shared-memory plan, the producer's loads, the consumers' per-item body
 // and the epilogue, over tiles in the 128-byte-swizzled, K-major layout TMA
 // writes (hopper.cuh's descriptors).  The consumer machinery (the thread's
@@ -367,12 +367,6 @@ __device__ __forceinline__ void fwd_item(State& x, float (&ot)[8], Smem& s, OwnR
   fence_regs(x.o);
   if constexpr (D > 64) fence_regs(ot);
   ab::release(&s.empty[st]);
-}
-// head_dim 64 (K1 and the ring)
-__device__ __forceinline__ void fwd_item(State& x, Smem& s, OwnRing& own, StageRing& ring,
-                                         const Consumer& t, int n, int Nk, float scale_log2) {
-  float ot[8];
-  fwd_item<64>(x, ot, s, own, ring, t, n, Nk, scale_log2);
 }
 
 // the end of an item: o = O / l rounded to bf16 through the warpgroup's

@@ -8,7 +8,7 @@
 // R ranks' buffers live on one card and run in one launch; the hop protocol
 // is the TPU kernel's and is what carries over to NVLink.  It lives in
 // ring_protocol.cuh, shared with the backward rings (ring_attention_bwd.cu):
-// each rank owns two K and two V slots (2, B*H, S_loc, 64), so the comm
+// each rank owns two K and two V slots (2, B*H, S_loc, D), so the comm
 // memory is O(S_loc) whatever R is; a bootstrap copy into slot 0 (fp32;
 // bf16 reads epoch 0 in place); hop j from my slot (j-1)%2 into the right
 // neighbour's slot j%2 while epoch j-1 computes; capacity tokens before a
@@ -16,9 +16,9 @@
 // G persistent CTAs launched cooperatively; a wait that outlasts
 // timeout_ns traps instead of hanging.
 //
-// What bounds it on an H100: the attention itself, 4 * S^2 * H * 64 FLOPs
+// What bounds it on an H100: the attention itself, 4 * S^2 * H * D FLOPs
 // and S^2 * H exponentials over the whole sequence, as in attention_fwd.cu.
-// The protocol adds R * 2 * B*H*S_loc*64 elements copied per hop (R - 1
+// The protocol adds R * 2 * B*H*S_loc*D elements copied per hop (R - 1
 // hops, and in fp32 the bootstrap), and the
 // online-softmax state (O, m, l in fp32, 36 KB an item) of every (head,
 // q-block) item goes through fp32 scratch between epochs, as the TPU
@@ -52,6 +52,16 @@
 // API sizes G.
 // The fp32 variant (for tight checks) is a scalar version of a 64-query
 // tiling run by every thread through run_ring.
+// Head_dim D is 64 or 80 (the model_scaling_huge decoder, 1280 / 16), a
+// template argument of both variants.  At D = 80 the bf16 ring takes K1's
+// tail tiles (attention_fwd_tile.cuh's note: each row of q, k, v and of the
+// slots also read as a 16-column, 32-byte-swizzled box, 8 accumulator
+// registers more, o's tail stored from registers), the slots, hops and
+// tensor maps are sized by D, and the state grows by O's tail (44 words a
+// thread).  The tail tiles leave no room for the state copy (217 KB of the
+// 227), so at D = 80 the merge reads the earlier epochs' state from the
+// scratch directly, after the item's tiles.  The fp32 variant's lanes each
+// hold D / 2 columns.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -69,31 +79,32 @@ namespace af = fast3r_attn_fwd;
 namespace ab = fast3r_attn_bwd;
 using namespace fast3r_ring;
 using fast3r_tiles::load_rows_f32;
+using fast3r_tiles::tile_ld;
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 64;        // head dim
 constexpr int kBQ = 64;       // fp32: query rows per item, 16 per warp
 constexpr int kBK = 64;       // fp32: keys per tile
 constexpr int kThreads = 128; // fp32
-constexpr int kLdF = kD + 4;  // fp32 smem row stride
-static_assert(kLdF == fast3r_tiles::kTileLdF, "attention_tiles.cuh's fp32 row stride");
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kStateF32 = 34;  // per-thread fp32 state words of an fp32 item: acc 32, m, l
+// per-thread fp32 state words of an fp32 item: acc D / 2, m, l
+template <int D>
+__host__ __device__ constexpr int state_f32() { return D / 2 + 2; }
 
 // bf16: the consumers, the load warp and the three hop warps
 constexpr int kRingThreads = af::kThreads;
 constexpr int kHopBar = 12;  // named barrier of the hop warps (8-11: the tile's)
 
 struct RingParams {
-  CUtensorMap mq, mk0, mv0;  // bf16: own q, k, v rows, (64, S, H, R * B), 128-row boxes
-  CUtensorMap mk, mv;        // bf16: every rank's K / V slots, (64, S, B * H, 2 R)
-  CUtensorMap mo;          // bf16: o as (64, S, H, R * B), 64-row boxes
-  Ring ring;               // payloads: K and V slots (2, B * H, S, 64)
+  CUtensorMap mq, mk0, mv0;  // bf16: own q, k, v rows, (D, S, H, R * B), 128-row boxes
+  CUtensorMap mk, mv;        // bf16: every rank's K / V slots, (D, S, B * H, 2 R)
+  CUtensorMap mo;            // bf16: o as (D, S, H, R * B), 64-row boxes
+  CUtensorMap mqt, mk0t, mv0t, mkt, mvt;  // D = 80: the tail boxes of the five input maps
+  Ring ring;               // payloads: K and V slots (2, B * H, S, D)
   const void* q;
   const void* k;
   const void* v;
   long long qs[4], ks[4], vs[4];  // rank, batch, token, head strides (elements)
-  void* o;                        // (R, B, S, H, 64) contiguous
+  void* o;                        // (R, B, S, H, D) contiguous
   float* lse;                     // (R, B * H, S) fp32, natural log
   float* state;                   // (R, items, words, threads) fp32; null when E == 1
   int B, H, S;                    // batch, heads, S_loc
@@ -104,9 +115,15 @@ struct RingParams {
 // bf16: attention_fwd_tile.cuh's items in a warp-specialised CTA
 // ---------------------------------------------------------------------------
 
-// shared memory past the tile's: each consumer thread's copy of the state
-// words of its item (the same layout as the scratch's)
-constexpr int kSmemBytes = af::kSmemBytes + af::kStateWords * af::kConsumers * 4;
+// state words of a consumer thread: af::State's 36, and at D = 80 O's tail
+template <int D>
+__host__ __device__ constexpr int state_words() { return af::kStateWords + (D > 64 ? 8 : 0); }
+// shared memory: the tile's and, at D = 64, a copy of each consumer
+// thread's state words of its item (the same layout as the scratch's)
+template <int D>
+constexpr int ring_smem() {
+  return D == 64 ? af::kSmemBytes + af::kStateWords * af::kConsumers * 4 : af::smem_bytes<D>();
+}
 __device__ __forceinline__ float* state_copy(af::Smem& sm) {
   return reinterpret_cast<float*>(reinterpret_cast<char*>(&sm) + sizeof(af::Smem));
 }
@@ -126,10 +143,28 @@ __device__ __forceinline__ void fetch_state(float* held, const float* st) {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
+// D = 80: O's tail ot merged with an earlier partial's, kept at words 36 ..
+// 43 of st; call before x.merge(st) (which moves x.m to the larger max)
+__device__ __forceinline__ void merge_tail(const af::State& x, float (&ot)[8], const float* st,
+                                           float scale_log2) {
+  float a[2], b[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float mo = st[(32 + h) * af::kConsumers + threadIdx.x];
+    const float mx = fmaxf(mo, x.m[h]);
+    a[h] = ab::ex2((mo - mx) * scale_log2);
+    b[h] = ab::ex2((x.m[h] - mx) * scale_log2);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    ot[i] = st[(af::kStateWords + i) * af::kConsumers + threadIdx.x] * a[(i >> 1) & 1] +
+            ot[i] * b[(i >> 1) & 1];
+}
 
 // grid: R x G CTAs, rank r = blockIdx.x % R, its c-th CTA c = blockIdx.x / R;
 // CTA c owns items c, c + G, ... of its rank (batch * head, 128-query
 // block) in every epoch
+template <int D>
 __global__ void __launch_bounds__(kRingThreads, 1)
     ring_attention_fwd_kernel(const __grid_constant__ RingParams p) {
   af::Smem& sm = af::smem();
@@ -148,12 +183,12 @@ __global__ void __launch_bounds__(kRingThreads, 1)
       run_hops(
           g, r, c, tid - 32, 96, kHopBar,
           [&](int right, int i, int nth) {  // hop 1: my own K and V
-            copy_rows64_share<bf16>(slot_ptr<bf16>(g, 0, right, 1),
-                                    static_cast<const bf16*>(p.k), p.ks, r, p.B, p.H, p.S,
-                                    g.G, c, i, nth);
-            copy_rows64_share<bf16>(slot_ptr<bf16>(g, 1, right, 1),
-                                    static_cast<const bf16*>(p.v), p.vs, r, p.B, p.H, p.S,
-                                    g.G, c, i, nth);
+            copy_rows_share<bf16, D>(slot_ptr<bf16>(g, 0, right, 1),
+                                     static_cast<const bf16*>(p.k), p.ks, r, p.B, p.H, p.S,
+                                     g.G, c, i, nth);
+            copy_rows_share<bf16, D>(slot_ptr<bf16>(g, 1, right, 1),
+                                     static_cast<const bf16*>(p.v), p.vs, r, p.B, p.H, p.S,
+                                     g.G, c, i, nth);
           },
           [&](int s) { fast3r_hopper::mbar_wait(&sm.done[s & 1], (unsigned)(s - 1) >> 1 & 1u); });
     } else if (tid == 0) {  // warp 8, lane 0: the loads
@@ -165,11 +200,11 @@ __global__ void __launch_bounds__(kRingThreads, 1)
         for (int it = c; it < items; it += g.G) {
           const int bh = it / nblk, b = bh / p.H, h = bh % p.H, q0 = (it % nblk) * af::kRows;
           if (s == 0)  // my own K and V, where they lie
-            af::load_item(sm, own, ring, &p.mq, q0, h, r * p.B + b, &p.mk0, &p.mv0, h,
-                          r * p.B + b, n);
+            af::load_item<D>(sm, own, ring, &p.mq, q0, h, r * p.B + b, &p.mk0, &p.mv0, h,
+                             r * p.B + b, n, af::TailMaps{&p.mqt, &p.mk0t, &p.mv0t});
           else
-            af::load_item(sm, own, ring, &p.mq, q0, h, r * p.B + b, &p.mk, &p.mv, bh,
-                          2 * r + (s & 1), n);
+            af::load_item<D>(sm, own, ring, &p.mq, q0, h, r * p.B + b, &p.mk, &p.mv, bh,
+                             2 * r + (s & 1), n, af::TailMaps{&p.mqt, &p.mkt, &p.mvt});
         }
       }
     }
@@ -184,20 +219,35 @@ __global__ void __launch_bounds__(kRingThreads, 1)
       const int bh = it / nblk, b = bh / p.H, h = bh % p.H;
       float* st = p.state == nullptr
                       ? nullptr
-                      : p.state + ((long long)r * items + it) * af::kStateWords * af::kConsumers;
-      if (s > 0) fetch_state(held, st);  // lands while the item's tiles run
+                      : p.state + ((long long)r * items + it) * state_words<D>() * af::kConsumers;
+      if (D == 64 && s > 0) fetch_state(held, st);  // lands while the item's tiles run
       af::State x;
       x.zero();
-      af::fwd_item(x, sm, own, ring, t, n, p.S, p.scale_log2);
+      float ot[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      af::fwd_item<D>(x, ot, sm, own, ring, t, n, p.S, p.scale_log2);
       if (s > 0) {
-        cp_async_wait_all();
-        x.merge(held, p.scale_log2);
+        if constexpr (D == 64) {
+          cp_async_wait_all();
+          x.merge(held, p.scale_log2);
+        } else {
+          merge_tail(x, ot, st, p.scale_log2);
+          x.merge(st, p.scale_log2);
+        }
       }
-      if (s == g.E - 1)
-        af::store_item(x, sm, t, &p.mo, (it % nblk) * af::kRows, h, r * p.B + b,
-                       p.lse + ((long long)r * p.B * p.H + bh) * p.S, p.S, p.scale_log2);
-      else
+      if (s == g.E - 1) {
+        bf16* o = static_cast<bf16*>(p.o);
+        af::store_item<D>(x, sm, t, &p.mo, (it % nblk) * af::kRows, h, r * p.B + b,
+                          p.lse + ((long long)r * p.B * p.H + bh) * p.S, p.S, p.scale_log2, ot,
+                          o + (((long long)r * p.B + b) * p.S * p.H + h) * D + 64,
+                          (long long)p.H * D);
+      } else {
         x.save(st);
+        if constexpr (D > 64) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            st[(af::kStateWords + i) * af::kConsumers + threadIdx.x] = ot[i];
+        }
+      }
     }
     if (s >= 1 && s + 2 < g.E) {  // every tile of slot s % 2 waited for: its next hop may come
       __syncwarp();
@@ -210,14 +260,17 @@ __global__ void __launch_bounds__(kRingThreads, 1)
 
 // ---------------------------------------------------------------------------
 // fp32: one item, 64 queries of (batch, head) bh of rank r against the
-// slot's K/V (kb, vb: that head's (S, 64) rows), the online-softmax state
+// slot's K/V (kb, vb: that head's (S, D) rows), the online-softmax state
 // carried in st
 // ---------------------------------------------------------------------------
 
-// scalar FMAs, two lanes per query row (attention_fwd.cu's fp32 tiling)
+// scalar FMAs, two lanes per query row (attention_fwd.cu's fp32 tiling):
+// each lane takes half of the tile's keys and half of D
+template <int D>
 __device__ void ring_item_f32(const RingParams& p, unsigned char* smem, int r, int bh,
-                          int qi, const float* kb, const float* vb, float* st,
-                          bool first, bool last) {
+                              int qi, const float* kb, const float* vb, float* st,
+                              bool first, bool last) {
+  constexpr int kLdF = tile_ld<D>(), kHalfD = D / 2, kW = state_f32<D>();
   float* Qs = reinterpret_cast<float*>(smem);
   float* Ks = Qs + kBQ * kLdF;
   float* Vs = Ks + kBK * kLdF;
@@ -225,33 +278,34 @@ __device__ void ring_item_f32(const RingParams& p, unsigned char* smem, int r, i
   const int S = p.S, b = bh / p.H, h = bh % p.H, q0 = qi * kBQ;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int row = warp * 16 + lane / 2;  // this lane's query row in the item
-  const int c0 = (lane & 1) * 32;        // its half of the keys, and of D
+  const int c0 = (lane & 1) * 32;        // its half of the keys
+  const int d0 = (lane & 1) * kHalfD;    // and of D
   const float* qb = static_cast<const float*>(p.q) + r * p.qs[0] + b * p.qs[1] + h * p.qs[3];
 
-  load_rows_f32(Qs, qb, p.qs[2], q0, S);
+  load_rows_f32<D>(Qs, qb, p.qs[2], q0, S);
   __syncthreads();
-  float qreg[kD];
+  float qreg[D];
 #pragma unroll
-  for (int d = 0; d < kD; ++d) qreg[d] = Qs[row * kLdF + d];
+  for (int d = 0; d < D; ++d) qreg[d] = Qs[row * kLdF + d];
 
-  float acc[32];
+  float acc[kHalfD];
   float m, l;
   if (first) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    for (int i = 0; i < kHalfD; ++i) acc[i] = 0.f;
     m = -CUDART_INF_F;
     l = 0.f;
   } else {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = st[i * kThreads + tid];
-    m = st[32 * kThreads + tid];
-    l = st[33 * kThreads + tid];
+    for (int i = 0; i < kHalfD; ++i) acc[i] = st[i * kThreads + tid];
+    m = st[(kW - 2) * kThreads + tid];
+    l = st[(kW - 1) * kThreads + tid];
   }
 
   for (int k0 = 0; k0 < S; k0 += kBK) {
     __syncthreads();
-    load_rows_f32(Ks, kb, kD, k0, S);
-    load_rows_f32(Vs, vb, kD, k0, S);
+    load_rows_f32<D>(Ks, kb, D, k0, S);
+    load_rows_f32<D>(Vs, vb, D, k0, S);
     __syncthreads();
 
     float s[32];
@@ -260,7 +314,7 @@ __device__ void ring_item_f32(const RingParams& p, unsigned char* smem, int r, i
       const float* krow = Ks + (c0 + i) * kLdF;
       float x = 0.f;
 #pragma unroll
-      for (int d = 0; d < kD; ++d) x = fmaf(qreg[d], krow[d], x);
+      for (int d = 0; d < D; ++d) x = fmaf(qreg[d], krow[d], x);
       s[i] = (k0 + c0 + i < S) ? x * p.scale_log2 : -CUDART_INF_F;
       tmax = fmaxf(tmax, s[i]);
     }
@@ -278,13 +332,13 @@ __device__ void ring_item_f32(const RingParams& p, unsigned char* smem, int r, i
     l = l * alpha + psum;
     m = m_new;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] *= alpha;
+    for (int i = 0; i < kHalfD; ++i) acc[i] *= alpha;
     __syncwarp();
     for (int j = 0; j < kBK; ++j) {
       const float pr = Ps[row * kLdF + j];
-      const float* vrow = Vs + j * kLdF + c0;
+      const float* vrow = Vs + j * kLdF + d0;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] = fmaf(pr, vrow[i], acc[i]);
+      for (int i = 0; i < kHalfD; ++i) acc[i] = fmaf(pr, vrow[i], acc[i]);
     }
     __syncwarp();
   }
@@ -292,33 +346,34 @@ __device__ void ring_item_f32(const RingParams& p, unsigned char* smem, int r, i
   const int n = q0 + row;
   if (!last) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) st[i * kThreads + tid] = acc[i];
-    st[32 * kThreads + tid] = m;
-    st[33 * kThreads + tid] = l;
+    for (int i = 0; i < kHalfD; ++i) st[i * kThreads + tid] = acc[i];
+    st[(kW - 2) * kThreads + tid] = m;
+    st[(kW - 1) * kThreads + tid] = l;
   } else if (n < S) {
-    if (c0 == 0) p.lse[((long long)r * p.B * p.H + bh) * S + n] = (m + log2f(l)) * kLn2;
+    if (d0 == 0) p.lse[((long long)r * p.B * p.H + bh) * S + n] = (m + log2f(l)) * kLn2;
     const float inv = 1.f / l;
-    float* dst = static_cast<float*>(p.o) + (((long long)r * p.B + b) * S + n) * p.H * kD +
-                 h * kD + c0;
+    float* dst = static_cast<float*>(p.o) + (((long long)r * p.B + b) * S + n) * p.H * D +
+                 h * D + d0;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dst[i] = acc[i] * inv;
+    for (int i = 0; i < kHalfD; ++i) dst[i] = acc[i] * inv;
   }
   __syncthreads();  // Qs / Ks / Vs / Ps free for the next item
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads) ring_attention_fwd_f32_kernel(const RingParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Ring& g = p.ring;
   const int r = blockIdx.x % g.R, c = blockIdx.x / g.R;
   const int nq = (p.S + kBQ - 1) / kBQ, items = p.B * p.H * nq;
-  const long long head = (long long)p.S * kD;
+  const long long head = (long long)p.S * D;
   run_ring(
       g, r, c,
       [&] {
-        copy_rows64_share<float>(slot_ptr<float>(g, 0, r, 0), static_cast<const float*>(p.k),
-                                 p.ks, r, p.B, p.H, p.S, g.G, c, threadIdx.x, blockDim.x);
-        copy_rows64_share<float>(slot_ptr<float>(g, 1, r, 0), static_cast<const float*>(p.v),
-                                 p.vs, r, p.B, p.H, p.S, g.G, c, threadIdx.x, blockDim.x);
+        copy_rows_share<float, D>(slot_ptr<float>(g, 0, r, 0), static_cast<const float*>(p.k),
+                                  p.ks, r, p.B, p.H, p.S, g.G, c, threadIdx.x, blockDim.x);
+        copy_rows_share<float, D>(slot_ptr<float>(g, 1, r, 0), static_cast<const float*>(p.v),
+                                  p.vs, r, p.B, p.H, p.S, g.G, c, threadIdx.x, blockDim.x);
       },
       [&](int s, int t) {
         const float* ks = slot_ptr<float>(g, 0, r, t);
@@ -327,44 +382,94 @@ __global__ void __launch_bounds__(kThreads) ring_attention_fwd_f32_kernel(const 
           const int bh = it / nq;
           float* st = p.state == nullptr
                           ? nullptr
-                          : p.state + ((long long)r * items + it) * kStateF32 * kThreads;
-          ring_item_f32(p, smem, r, bh, it % nq, ks + bh * head, vs + bh * head, st, s == 0,
-                        s == g.E - 1);
+                          : p.state + ((long long)r * items + it) * state_f32<D>() * kThreads;
+          ring_item_f32<D>(p, smem, r, bh, it % nq, ks + bh * head, vs + bh * head, st, s == 0,
+                           s == g.E - 1);
         }
       });
 }
 
-constexpr int kSmemF32 = 4 * 64 * kLdF * 4;
+template <int D>
+constexpr int smem_f32() { return 4 * 64 * tile_ld<D>() * 4; }
+
+template <int D>
+int plan(int dtype, int R, int* ctas, int* state_words_out, int* item_rows) {
+  *state_words_out = dtype == 1 ? state_words<D>() * af::kConsumers : state_f32<D>() * kThreads;
+  *item_rows = dtype == 1 ? af::kRows : kBQ;
+  return dtype == 1 ? plan_ctas(ring_attention_fwd_kernel<D>, kRingThreads, ring_smem<D>(), R,
+                                ctas)
+                    : plan_ctas(ring_attention_fwd_f32_kernel<D>, kThreads, smem_f32<D>(), R,
+                                ctas);
+}
+
+// the tensor maps of a bf16 launch at head_dim D (at 80 with the tails)
+template <int D>
+int make_maps(RingParams& p, const void* q, const void* k, const void* v, void* o,
+              const void* slot_k, const void* slot_v, int R, int B, int H, int S) {
+  const long long os[4] = {(long long)B * S * H * D, (long long)S * H * D, (long long)H * D, D};
+  int err;
+  if ((err = own_map(&p.mq, q, p.qs, R, B, S, H, af::kRows, D)) != cudaSuccess ||
+      (err = own_map(&p.mk0, k, p.ks, R, B, S, H, af::kKeys, D)) != cudaSuccess ||
+      (err = own_map(&p.mv0, v, p.vs, R, B, S, H, af::kKeys, D)) != cudaSuccess ||
+      (err = slot_map(&p.mk, slot_k, R, B * H, S, af::kKeys, D)) != cudaSuccess ||
+      (err = slot_map(&p.mv, slot_v, R, B * H, S, af::kKeys, D)) != cudaSuccess ||
+      (err = own_map(&p.mo, o, os, R, B, S, H, 64, D)) != cudaSuccess)
+    return err;
+  if (D == 64) {
+    p.mqt = p.mk0t = p.mv0t = p.mkt = p.mvt = p.mq;  // unused
+    return cudaSuccess;
+  }
+  if ((err = own_map(&p.mqt, q, p.qs, R, B, S, H, af::kRows, D, true)) != cudaSuccess ||
+      (err = own_map(&p.mk0t, k, p.ks, R, B, S, H, af::kKeys, D, true)) != cudaSuccess ||
+      (err = own_map(&p.mv0t, v, p.vs, R, B, S, H, af::kKeys, D, true)) != cudaSuccess ||
+      (err = slot_map(&p.mkt, slot_k, R, B * H, S, af::kKeys, D, true)) != cudaSuccess ||
+      (err = slot_map(&p.mvt, slot_v, R, B * H, S, af::kKeys, D, true)) != cudaSuccess)
+    return err;
+  return cudaSuccess;
+}
+
+template <int D>
+int launch(RingParams& p, int dtype, const void* q, const void* k, const void* v, void* o,
+           const void* slot_k, const void* slot_v, int R, int B, int H, int S, void* stream) {
+  if (dtype == 1) {
+    const int err = make_maps<D>(p, q, k, v, o, slot_k, slot_v, R, B, H, S);
+    if (err != cudaSuccess) return err;
+    return launch_ring(ring_attention_fwd_kernel<D>, kRingThreads, ring_smem<D>(), p, p.ring,
+                       stream);
+  }
+  return launch_ring(ring_attention_fwd_f32_kernel<D>, kThreads, smem_f32<D>(), p, p.ring,
+                     stream);
+}
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of the bf16 ring: the tile's and the state copy.
-int fast3r_ring_attention_fwd_smem_bytes() { return kSmemBytes; }
+// Dynamic shared memory of the bf16 ring at head_dim 64 (the tile's and the
+// state copy) and 80 (the tile's with its tails).
+int fast3r_ring_attention_fwd_smem_bytes() { return ring_smem<64>(); }
+int fast3r_ring_attention_fwd_smem_bytes_d80() { return ring_smem<80>(); }
 
-// dtype: 0 = float32, 1 = bfloat16.  *ctas: how many CTAs per rank can be
-// resident together with every other rank's (0: R ranks cannot be);
-// *state_words: fp32 scratch words per item; *item_rows: the queries of an
-// item (bf16 128, fp32 64).
-int fast3r_ring_attention_plan(int dtype, int R, int* ctas, int* state_words_out,
+// dtype: 0 = float32, 1 = bfloat16; D: the head_dim, 64 or 80.  *ctas: how
+// many CTAs per rank can be resident together with every other rank's (0:
+// R ranks cannot be); *state_words: fp32 scratch words per item;
+// *item_rows: the queries of an item (bf16 128, fp32 64).
+int fast3r_ring_attention_plan(int dtype, int D, int R, int* ctas, int* state_words_out,
                                int* item_rows) {
-  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
-  *state_words_out = dtype == 1 ? af::kStateWords * af::kConsumers : kStateF32 * kThreads;
-  *item_rows = dtype == 1 ? af::kRows : kBQ;
-  return dtype == 1 ? plan_ctas(ring_attention_fwd_kernel, kRingThreads, kSmemBytes, R, ctas)
-                    : plan_ctas(ring_attention_fwd_f32_kernel, kThreads, kSmemF32, R, ctas);
+  if ((dtype != 0 && dtype != 1) || (D != 64 && D != 80)) return cudaErrorInvalidValue;
+  return D == 64 ? plan<64>(dtype, R, ctas, state_words_out, item_rows)
+                 : plan<80>(dtype, R, ctas, state_words_out, item_rows);
 }
 
-// q, k, v: (R, B, S, H, 64) read through their strides (elements; 16-byte
+// q, k, v: (R, B, S, H, D) read through their strides (elements; 16-byte
 // rows, and for bf16 q's rank and batch strides merging, which the wrapper
-// checks); o (R, B, S, H, 64) contiguous; lse (R, B * H, S) fp32; state: R *
+// checks); o (R, B, S, H, D) contiguous; lse (R, B * H, S) fp32; state: R *
 // items * state_words fp32 (null when E == 1); slot_k / slot_v / flags: host
-// arrays of R device pointers, each rank's (2, B * H, S, 64) slots (bf16:
+// arrays of R device pointers, each rank's (2, B * H, S, D) slots (bf16:
 // one allocation, rank r's 2 r slots in) and its 96 zeroed counter words.
 // G CTAs per rank.  Returns cudaGetLastError() after the launch (or the
 // launch's own error).
-int fast3r_ring_attention_fwd(int dtype, const void* q, const void* k, const void* v,
+int fast3r_ring_attention_fwd(int dtype, int D, const void* q, const void* k, const void* v,
                               long long qs0, long long qs1, long long qs2, long long qs3,
                               long long ks0, long long ks1, long long ks2, long long ks3,
                               long long vs0, long long vs1, long long vs2, long long vs3,
@@ -372,10 +477,11 @@ int fast3r_ring_attention_fwd(int dtype, const void* q, const void* k, const voi
                               const void* slot_v, const void* flags, int R, int E, int B,
                               int H, int S, int G, float scale, long long timeout_ns,
                               void* stream) {
-  if (B < 1 || H < 1 || S < 1 || (E > 1 && state == nullptr) || (dtype != 0 && dtype != 1))
+  if (B < 1 || H < 1 || S < 1 || (E > 1 && state == nullptr) || (dtype != 0 && dtype != 1) ||
+      (D != 64 && D != 80))
     return cudaErrorInvalidValue;
   RingParams p{};
-  const long long slot = (long long)B * H * S * kD * (dtype == 1 ? 2 : 4);
+  const long long slot = (long long)B * H * S * D * (dtype == 1 ? 2 : 4);
   const long long bytes[2] = {slot, slot};
   const void* const* tables[2] = {static_cast<const void* const*>(slot_k),
                                   static_cast<const void* const*>(slot_v)};
@@ -398,19 +504,8 @@ int fast3r_ring_attention_fwd(int dtype, const void* q, const void* k, const voi
   p.H = H;
   p.S = S;
   p.scale_log2 = scale * 1.4426950408889634f;
-  if (dtype == 1) {
-    const long long os[4] = {(long long)B * S * H * kD, (long long)S * H * kD, (long long)H * kD,
-                             kD};
-    if ((err = own_map(&p.mq, q, p.qs, R, B, S, H, af::kRows)) != cudaSuccess ||
-        (err = own_map(&p.mk0, k, p.ks, R, B, S, H, af::kKeys)) != cudaSuccess ||
-        (err = own_map(&p.mv0, v, p.vs, R, B, S, H, af::kKeys)) != cudaSuccess ||
-        (err = slot_map(&p.mk, slot_k, R, B * H, S, af::kKeys)) != cudaSuccess ||
-        (err = slot_map(&p.mv, slot_v, R, B * H, S, af::kKeys)) != cudaSuccess ||
-        (err = own_map(&p.mo, o, os, R, B, S, H, 64)) != cudaSuccess)
-      return err;
-    return launch_ring(ring_attention_fwd_kernel, kRingThreads, kSmemBytes, p, p.ring, stream);
-  }
-  return launch_ring(ring_attention_fwd_f32_kernel, kThreads, kSmemF32, p, p.ring, stream);
+  return D == 64 ? launch<64>(p, dtype, q, k, v, o, slot_k, slot_v, R, B, H, S, stream)
+                 : launch<80>(p, dtype, q, k, v, o, slot_k, slot_v, R, B, H, S, stream);
 }
 
 }  // extern "C"

@@ -119,14 +119,15 @@ static __device__ __forceinline__ void share(long long n, int G, int c, long lon
   hi = lo + per < n ? lo + per : n;
 }
 
-// bootstrap share of a rows-of-64 payload: rank r's (B, S, H, 64) tensor,
+// bootstrap share of a rows-of-D payload: rank r's (B, S, H, D) tensor,
 // read through its (rank, batch, token, head) strides st (elements, 16-byte
-// rows), into dst laid out (B * H, S, 64), by threads tid = 0 .. nth - 1
-template <typename T>
-__device__ void copy_rows64_share(T* dst, const T* src, const long long (&st)[4], int r,
-                                  int B, int H, int S, int G, int c, int tid, int nth) {
+// rows), into dst laid out (B * H, S, D), by threads tid = 0 .. nth - 1
+template <typename T, int D = 64>
+__device__ void copy_rows_share(T* dst, const T* src, const long long (&st)[4], int r, int B,
+                                int H, int S, int G, int c, int tid, int nth) {
   constexpr int kVec = 16 / (int)sizeof(T);  // elements per 16 bytes
-  constexpr int kChunks = 64 / kVec;         // 16-byte chunks per row
+  constexpr int kChunks = D / kVec;          // 16-byte chunks per row
+  static_assert(D % kVec == 0, "16-byte rows");
   long long lo, hi;
   share((long long)B * H * S * kChunks, G, c, lo, hi);
   for (long long i = lo + tid; i < hi; i += nth) {
@@ -136,7 +137,7 @@ __device__ void copy_rows64_share(T* dst, const T* src, const long long (&st)[4]
     const int bh = (int)(row / S);
     const int b = bh / H, h = bh % H;
     const long long so = r * st[0] + b * st[1] + tok * st[2] + h * st[3] + off;
-    __stcg(reinterpret_cast<int4*>(dst + row * 64 + off),
+    __stcg(reinterpret_cast<int4*>(dst + row * D + off),
            *reinterpret_cast<const int4*>(src + so));
   }
 }
@@ -284,16 +285,24 @@ static inline int make_ring(Ring& g, int npay, const void* const* tables[],
   return cudaSuccess;
 }
 
-// The bf16 rings read through rank-4 TMA maps (head dim 64), in boxes of
-// `rows` rows:
-//   * own_map: rank-stacked rows (R, B, S, H, 64) through their (rank,
-//     batch, token, head) strides st, as (64, S, H, R * B), rank and batch
+// The bf16 rings read through rank-4 TMA maps (head dim D, 64 or 80), in
+// boxes of `rows` rows of columns 0 .. 63 (128-byte swizzled), and at D =
+// 80 a second map of each tensor in boxes of its columns 64 .. 79 (`tail`:
+// 16 columns, 32-byte swizzled; attention_fwd_tile.cuh's note):
+//   * own_map: rank-stacked rows (R, B, S, H, D) through their (rank,
+//     batch, token, head) strides st, as (D, S, H, R * B), rank and batch
 //     merged (R == 1, B == 1, or st[0] == B st[1]; anything else is
 //     refused, and the wrapper copies such a tensor first);
 //   * slot_map: a payload's slots, one allocation of R x 2 slots (B * H, S,
-//     64), which the pointer table must describe, as (64, S, B * H, 2 R).
+//     D), which the pointer table must describe, as (D, S, B * H, 2 R).
+static inline cudaError_t tmap4(CUtensorMap* m, const void* base, const long long (&dims)[4],
+                                const long long (&strides)[3], int rows, bool tail) {
+  return tail ? fast3r_hopper::make_tmap_sw32(m, base, 4, dims, strides, rows)
+              : fast3r_hopper::make_tmap(m, base, 4, dims, strides, rows);
+}
 static inline cudaError_t own_map(CUtensorMap* m, const void* base, const long long (&st)[4],
-                                  int R, int B, int S, int H, int rows) {
+                                  int R, int B, int S, int H, int rows, int D = 64,
+                                  bool tail = false) {
   long long sb;
   if (R == 1 || st[0] == (long long)B * st[1])
     sb = st[1];
@@ -301,19 +310,19 @@ static inline cudaError_t own_map(CUtensorMap* m, const void* base, const long l
     sb = st[0];
   else
     return cudaErrorInvalidValue;
-  const long long dims[4] = {64, S, H, (long long)R * B};
+  const long long dims[4] = {D, S, H, (long long)R * B};
   const long long strides[3] = {st[2], st[3], sb};
-  return fast3r_hopper::make_tmap(m, base, 4, dims, strides, rows);
+  return tmap4(m, base, dims, strides, rows, tail);
 }
 static inline cudaError_t slot_map(CUtensorMap* m, const void* table, int R, int BH, int S,
-                                   int rows) {
+                                   int rows, int D = 64, bool tail = false) {
   const char* const* t = static_cast<const char* const*>(table);
-  const long long slot = (long long)BH * S * 64;  // elements
+  const long long slot = (long long)BH * S * D;  // elements
   for (int i = 1; i < R; ++i)
     if (t[i] != t[0] + i * 2 * slot * 2) return cudaErrorInvalidValue;
-  const long long dims[4] = {64, S, BH, 2LL * R};
-  const long long strides[3] = {64, (long long)S * 64, slot};
-  return fast3r_hopper::make_tmap(m, t[0], 4, dims, strides, rows);
+  const long long dims[4] = {D, S, BH, 2LL * R};
+  const long long strides[3] = {D, (long long)S * D, slot};
+  return tmap4(m, t[0], dims, strides, rows, tail);
 }
 
 // how many CTAs of `kernel` (threads, dynamic smem bytes) each SM holds, and

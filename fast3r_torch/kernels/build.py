@@ -52,17 +52,18 @@ SIGNATURES = {
     "fast3r_attention_fwd_smem_bytes": [],
     "fast3r_attention_fwd_smem_bytes_d80": [],
     "fast3r_ring_attention_fwd_smem_bytes": [],
+    "fast3r_ring_attention_fwd_smem_bytes_d80": [],
     "fast3r_resize_bilinear": [_P] * 8 + [_I] * 12 + [_P],
     "fast3r_resize_smem_bytes": [_I] * 5,
     "fast3r_layernorm_fwd": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
     "fast3r_layernorm_bwd": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
-    "fast3r_ring_attention_plan": [_I, _I, _P, _P, _P],
-    "fast3r_ring_attention_fwd": [_I, _P, _P, _P] + [_L] * 12 + [_P] * 6
+    "fast3r_ring_attention_plan": [_I, _I, _I, _P, _P, _P],
+    "fast3r_ring_attention_fwd": [_I, _I, _P, _P, _P] + [_L] * 12 + [_P] * 6
                                  + [_I] * 6 + [_F, _L, _P],
-    "fast3r_ring_attention_bwd_plan": [_I, _I, _I, _P, _P, _P],
-    "fast3r_ring_attention_bwd_dq": [_I] + [_P] * 4 + [_L] * 16 + [_P] * 7
+    "fast3r_ring_attention_bwd_plan": [_I, _I, _I, _I, _P, _P, _P],
+    "fast3r_ring_attention_bwd_dq": [_I, _I] + [_P] * 4 + [_L] * 16 + [_P] * 7
                                     + [_I] * 5 + [_F, _L, _P],
-    "fast3r_ring_attention_bwd_dkv": [_I] + [_P] * 4 + [_L] * 16 + [_P, _L]
+    "fast3r_ring_attention_bwd_dkv": [_I, _I] + [_P] * 4 + [_L] * 16 + [_P, _L]
                                      + [_P] * 7 + [_I] * 5 + [_F, _L, _P],
 }
 

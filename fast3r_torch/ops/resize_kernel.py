@@ -33,15 +33,23 @@ MIN_ELEMENTS = 192 * 256 * 128
 
 def resize_kernel_supported(shape, out_h: int, out_w: int, dtype) -> bool:
     """(B, C, h, w) -> (B, C, out_h, out_w) on the kernel's road: the JAX
-    road's conditions (bf16, h, w, out_h, out_w >= 2, C % 128 == 0, and
-    h * w * C at trunk scale).  Its lane caps and row-plan checks are TPU
-    VMEM limits, which refuse no head shape of ``make_plan`` at size 512
-    or 224, and stay out."""
+    road's conditions (bf16, h, w, out_h, out_w >= 2, C % 128 == 0, h * w *
+    C at trunk scale, and a plan that fits: here :func:`band_plan`'s on
+    the bulk road, the larger of its two).  JAX's lane caps are TPU VMEM
+    limits, which refuse no head shape of ``make_plan`` at size 512 or 224,
+    and stay out.  A shape no band fits takes ``resize_matmul``, as JAX's
+    takes its XLA form."""
     if len(shape) != 4 or dtype != torch.bfloat16:
         return False
     _, c, h, w = shape
-    return (c % LANE == 0 and min(h, w, out_h, out_w) >= 2
-            and h * w * c >= MIN_ELEMENTS)
+    if not (c % LANE == 0 and min(h, w, out_h, out_w) >= 2
+            and h * w * c >= MIN_ELEMENTS):
+        return False
+    try:
+        band_plan(h, w, out_h, out_w)
+    except ValueError:
+        return False
+    return True
 
 
 # shared memory a CTA may ask for on the H100 (227 KB), and the plan's

@@ -7,8 +7,10 @@ Counterpart of ``fast3r_tpu/parallel/ring_rdma.py`` (``ring_flash_attention_rdma
 The JAX kernels run one ``pallas_call`` per device of a ``shard_map`` ring
 and move their payloads between chips with remote copies; here the ranks
 are stacked on a leading axis, q, k and v ``(n, B, S_loc, H, D)`` on one
-device, and one launch runs all n ranks, each with its own two slots of
-each payload, arrival counters and capacity counters.  The source notes give the
+device (D 64 or 80, :data:`HEAD_DIMS`: every head_dim of the repo's
+configurations; each is an instantiation of the kernels), and one launch
+runs all n ranks, each with its own two slots of each payload, arrival
+counters and capacity counters.  The source notes give the
 protocol (a bootstrap copy, which the bf16 forward skips by reading epoch
 0 in place; hop j from my slot (j-1)%2 into the right neighbour's slot j%2
 while epoch j-1 computes; capacity tokens before a slot is reused;
@@ -39,7 +41,7 @@ import torch
 from fast3r_torch.kernels import build
 from fast3r_torch.ops.flash_attention import tma_view
 
-HEAD_DIM = 64
+HEAD_DIMS = (64, 80)  # the kernels' instantiations
 NSLOTS = 2
 MAX_RANKS = 16     # the kernel's pointer tables
 FLAG_WORDS = 96    # counter words per rank (csrc/ring_protocol.cuh)
@@ -63,17 +65,18 @@ def _check_input(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
 
 
 def _check_kernel_input(q: torch.Tensor, n: int) -> None:
-    """What every ring kernel takes: rank-stacked CUDA (n, B, S_loc, H, 64)
-    q in float32 or bfloat16, 1 <= n <= MAX_RANKS, S_loc > 0."""
+    """What every ring kernel takes: rank-stacked CUDA (n, B, S_loc, H, D)
+    q in float32 or bfloat16, D in HEAD_DIMS, 1 <= n <= MAX_RANKS,
+    S_loc > 0."""
     if q.device.type != "cuda":
         raise ValueError(
             f"ring attention: no kernel for device {q.device} (the plain ring "
             "is fast3r_torch.parallel.sequence.ring_flash_attention)")
     if q.dtype not in _DTYPES:
         raise ValueError(f"ring attention: dtype {q.dtype} not supported")
-    if q.dim() != 5 or q.shape[4] != HEAD_DIM:
-        raise ValueError(f"ring attention: q must be (n, B, S_loc, H, "
-                         f"{HEAD_DIM}), got {tuple(q.shape)}")
+    if q.dim() != 5 or q.shape[4] not in HEAD_DIMS:
+        raise ValueError(f"ring attention: q must be (n, B, S_loc, H, D) with "
+                         f"D in {HEAD_DIMS}, got {tuple(q.shape)}")
     if q.shape[0] != n:
         raise ValueError(f"ring attention: q stacks {q.shape[0]} ranks, n={n}")
     if not 1 <= n <= MAX_RANKS:
@@ -98,14 +101,15 @@ def _pointer_table(t: torch.Tensor) -> ctypes.Array:
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(dtype: torch.dtype, n: int, device: int = 0) -> Tuple[int, int, int]:
+def _plan(dtype: torch.dtype, D: int, n: int, device: int = 0
+          ) -> Tuple[int, int, int]:
     """(how many CTAs per rank the card can hold resident together with
     every other rank's, 0 when n ranks cannot all be; fp32 state words per
-    item; the queries of an item: 128 in bf16, 64 in fp32), asked of the
-    current card once per (dtype, n, device)."""
+    item; the queries of an item: 128 in bf16, 64 in fp32) of the head_dim-D
+    kernel, asked of the current card once per (dtype, D, n, device)."""
     ctas, words, rows = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     build.check(build.library().fast3r_ring_attention_plan(
-        _DTYPES[dtype], n, ctypes.addressof(ctas), ctypes.addressof(words),
+        _DTYPES[dtype], D, n, ctypes.addressof(ctas), ctypes.addressof(words),
         ctypes.addressof(rows)), "fast3r_ring_attention_plan")
     return ctas.value, words.value, rows.value
 
@@ -115,9 +119,9 @@ def _rdma_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   ctas_per_rank: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the ring kernel on rank-stacked CUDA q, k, v (n, B, S_loc, H,
-    64), read through their strides (bf16: through tensor maps as well,
+    D), read through their strides (bf16: through tensor maps as well,
     each copied first where its rank and batch strides do not merge,
-    :func:`tma_view`).  Returns o (n, B, S_loc, H, 64) in q's dtype and
+    :func:`tma_view`).  Returns o (n, B, S_loc, H, D) in q's dtype and
     lse (n, B * H, S_loc), fp32, natural log (what a backward reads).
     ``ctas_per_rank`` overrides the resident count the card allows (a count
     that cannot be resident raises).  Counts one launch."""
@@ -133,15 +137,14 @@ def _rdma_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_input(name, t, q)
     if q.dtype == torch.bfloat16:
         q, k, v = (tma_view(t) for t in (q, k, v))
-    _, B, S, H, _ = q.shape
-    resident, words, rows = _plan(q.dtype, n, q.device.index)
+    _, B, S, H, D = q.shape
+    resident, words, rows = _plan(q.dtype, D, n, q.device.index)
     items = B * H * -(-S // rows)
     G = _ctas(resident, items, ctas_per_rank, n)
     dev = q.device
-    o = torch.empty((n, B, S, H, HEAD_DIM), device=dev, dtype=q.dtype)
+    o = torch.empty((n, B, S, H, D), device=dev, dtype=q.dtype)
     lse = torch.empty((n, B * H, S), device=dev, dtype=torch.float32)
-    slots_k = torch.empty((n, NSLOTS, B * H, S, HEAD_DIM), device=dev,
-                          dtype=q.dtype)
+    slots_k = torch.empty((n, NSLOTS, B * H, S, D), device=dev, dtype=q.dtype)
     slots_v = torch.empty_like(slots_k)
     flags = torch.zeros((n, FLAG_WORDS), device=dev, dtype=torch.int32)
     state = (torch.empty((n * items * words,), device=dev,
@@ -149,7 +152,7 @@ def _rdma_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # per-rank pointer tables (one card today; peer pointers across cards)
     tk, tv, tf = (_pointer_table(t) for t in (slots_k, slots_v, flags))
     err = build.library().fast3r_ring_attention_fwd(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *q.stride()[:4], *k.stride()[:4], *v.stride()[:4],
         o.data_ptr(), lse.data_ptr(), 0 if state is None else state.data_ptr(),
         ctypes.addressof(tk), ctypes.addressof(tv), ctypes.addressof(tf),
@@ -165,10 +168,10 @@ def ring_flash_attention_rdma(q: torch.Tensor, k: torch.Tensor,
                               self_ring_epochs: Optional[int] = None
                               ) -> torch.Tensor:
     """softmax(scale * q_r k_all^T) v_all for each of n rank-stacked shards:
-    q, k, v (n, B, S_loc, H, 64) CUDA tensors in float32 or bfloat16 ->
-    o (n, B, S_loc, H, 64).  ``self_ring_epochs`` (n = 1 only) runs that
-    many epochs over the rank's own slots.  Anything the kernel cannot take
-    raises; there is no fallback to the plain ring."""
+    q, k, v (n, B, S_loc, H, D) CUDA tensors in float32 or bfloat16, D in
+    :data:`HEAD_DIMS` -> o (n, B, S_loc, H, D).  ``self_ring_epochs`` (n = 1
+    only) runs that many epochs over the rank's own slots.  Anything the
+    kernel cannot take raises; there is no fallback to the plain ring."""
     o, _ = _rdma_forward(q, k, v, scale, n, self_ring_epochs)
     return o
 
@@ -180,12 +183,13 @@ ring_flash_attention_rdma.launches = 0
 # the backward: the dq ring and the dk/dv ring (csrc/ring_attention_bwd.cu)
 # ---------------------------------------------------------------------------
 
-def _plan_bwd(which: int, dtype: torch.dtype, n: int) -> Tuple[int, int, int]:
+def _plan_bwd(which: int, dtype: torch.dtype, D: int, n: int
+              ) -> Tuple[int, int, int]:
     """:func:`_plan` of the dq ring (``which`` 0) or the dk/dv ring (1),
     and the rows of one of its items (128 in bf16, 64 in fp32)."""
     ctas, words, rows = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     build.check(build.library().fast3r_ring_attention_bwd_plan(
-        which, _DTYPES[dtype], n, ctypes.addressof(ctas),
+        which, _DTYPES[dtype], D, n, ctypes.addressof(ctas),
         ctypes.addressof(words), ctypes.addressof(rows)),
         "fast3r_ring_attention_bwd_plan")
     return ctas.value, words.value, rows.value
@@ -218,26 +222,25 @@ def _check_rows(name: str, t: torch.Tensor, shape, q: torch.Tensor) -> None:
 def ring_attention_bwd_dq(q, k, v, do, lse, delta, scale: float, n: int,
                           ctas_per_rank: Optional[int] = None) -> torch.Tensor:
     """Launch the dq ring: K/V rotate, q, do, lse and delta (n, B * H,
-    S_loc) fp32 stay local.  Returns dq (n, B, S_loc, H, 64) in q's dtype.
+    S_loc) fp32 stay local.  Returns dq (n, B, S_loc, H, D) in q's dtype.
     Anything the kernel cannot take raises.  Counts one launch."""
     q, k, v, do = _check_bwd_inputs(q, k, v, do, n)
-    _, B, S, H, _ = q.shape
+    _, B, S, H, D = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
         _check_rows(name, t, (n, B * H, S), q)
-    resident, words, rows = _plan_bwd(0, q.dtype, n)
+    resident, words, rows = _plan_bwd(0, q.dtype, D, n)
     items = B * H * -(-S // rows)
     G = _ctas(resident, items, ctas_per_rank, n)
     dev = q.device
-    dq = torch.empty((n, B, S, H, HEAD_DIM), device=dev, dtype=q.dtype)
-    slots_k = torch.empty((n, NSLOTS, B * H, S, HEAD_DIM), device=dev,
-                          dtype=q.dtype)
+    dq = torch.empty((n, B, S, H, D), device=dev, dtype=q.dtype)
+    slots_k = torch.empty((n, NSLOTS, B * H, S, D), device=dev, dtype=q.dtype)
     slots_v = torch.empty_like(slots_k)
     flags = torch.zeros((n, FLAG_WORDS), device=dev, dtype=torch.int32)
     state = (torch.empty((n * items * words,), device=dev,
                          dtype=torch.float32) if n > 1 else None)
     tk, tv, tf = (_pointer_table(t) for t in (slots_k, slots_v, flags))
     err = build.library().fast3r_ring_attention_bwd_dq(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), *_strides(q, k, v, do), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(),
         0 if state is None else state.data_ptr(), ctypes.addressof(tk),
@@ -257,19 +260,18 @@ def ring_attention_bwd_dkv(q, k, v, do, meta, scale: float, n: int,
     """Launch the dk/dv ring: q, do and ``meta`` (n, M) fp32, the rows' lse
     then their delta, each (B * H, S_pad) with S_pad = S_loc rounded up to a
     multiple of 64 (:func:`_bwd_rows`), rotate; K/V stay at their owner.
-    Returns dk, dv (n, B, S_loc, H, 64) in q's dtype.  Anything the kernel
+    Returns dk, dv (n, B, S_loc, H, D) in q's dtype.  Anything the kernel
     cannot take raises.  Counts one launch."""
     q, k, v, do = _check_bwd_inputs(q, k, v, do, n)
-    _, B, S, H, _ = q.shape
+    _, B, S, H, D = q.shape
     _check_rows("meta", meta, (n, 2 * B * H * -(-S // 64) * 64), q)
-    resident, words, rows = _plan_bwd(1, q.dtype, n)
+    resident, words, rows = _plan_bwd(1, q.dtype, D, n)
     items = B * H * -(-S // rows)
     G = _ctas(resident, items, ctas_per_rank, n)
     dev = q.device
-    dk = torch.empty((n, B, S, H, HEAD_DIM), device=dev, dtype=q.dtype)
+    dk = torch.empty((n, B, S, H, D), device=dev, dtype=q.dtype)
     dv = torch.empty_like(dk)
-    slots_q = torch.empty((n, NSLOTS, B * H, S, HEAD_DIM), device=dev,
-                          dtype=q.dtype)
+    slots_q = torch.empty((n, NSLOTS, B * H, S, D), device=dev, dtype=q.dtype)
     slots_do = torch.empty_like(slots_q)
     slots_meta = torch.empty((n, NSLOTS, meta.shape[1]), device=dev,
                              dtype=torch.float32)
@@ -279,7 +281,7 @@ def ring_attention_bwd_dkv(q, k, v, do, meta, scale: float, n: int,
     tq, to, tm, tf = (_pointer_table(t)
                       for t in (slots_q, slots_do, slots_meta, flags))
     err = build.library().fast3r_ring_attention_bwd_dkv(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), *_strides(q, k, v, do), meta.data_ptr(), meta.shape[1],
         dk.data_ptr(), dv.data_ptr(),
         0 if state is None else state.data_ptr(), ctypes.addressof(tq),
@@ -317,7 +319,7 @@ def _ring_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                    scale: float, n: int, ctas_per_rank: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of the ring over rank-stacked CUDA (n, B, S_loc, H, 64)
+    """(dq, dk, dv) of the ring over rank-stacked CUDA (n, B, S_loc, H, D)
     q, k, v from the forward's o and lse (n, B * H, S_loc) and the output
     gradient do: the rows' delta and (lse, delta) rows (:func:`_bwd_rows`),
     then the dq ring and the dk/dv ring, each launch with its own zeroed
@@ -358,7 +360,8 @@ def ring_flash_attention_rdma_diff(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor, scale: float, n: int
                                    ) -> torch.Tensor:
     """Differentiable ring attention over n rank-stacked shards: q, k, v
-    (n, B, S_loc, H, 64) CUDA tensors -> o (n, B, S_loc, H, 64); the
+    (n, B, S_loc, H, D) CUDA tensors, D in :data:`HEAD_DIMS` -> o (n, B,
+    S_loc, H, D); the
     forward is the ring kernel, the backward the dq and dk/dv ring kernels.
     The training path of ``make_seq_sharded_train_step(ring_impl="rdma")``.
     Anything the kernels cannot take raises; there is no fallback to the

@@ -38,7 +38,7 @@ from fast3r_torch.models.dpt_head import dpt_head_forward
 from fast3r_torch.models.encoder import encoder_forward
 from fast3r_torch.models.fast3r import Fast3RConfig, Fast3RNet, _chunk_views
 from fast3r_torch.ops.flash_attention import attention_lse_ref
-from fast3r_torch.parallel.ring_rdma import HEAD_DIM as RING_HEAD_DIM
+from fast3r_torch.parallel.ring_rdma import HEAD_DIMS as RING_HEAD_DIMS
 from fast3r_torch.parallel.ring_rdma import ring_flash_attention_rdma_diff
 from fast3r_torch.train.losses import LossConfig, conf_loss_multiview_v2
 from fast3r_torch.train.step import OptimConfig, TrainState, train_step
@@ -166,13 +166,15 @@ def seq_sharded_config(cfg: Fast3RConfig, n: int, ring_impl: str = "rdma"
 
 def _check_ring_head_dim(cfg: Fast3RConfig, ring_impl: str, device) -> None:
     """The ring kernels (K14, csrc/ring_attention.cu and
-    ring_attention_bwd.cu) take head_dim 64: on CUDA a decoder of another
-    head_dim (model_scaling_huge's 80) raises before the path runs."""
+    ring_attention_bwd.cu) take the head_dims of ``RING_HEAD_DIMS``, every
+    head_dim of the repo's configurations: on CUDA a decoder of another
+    head_dim raises before the path runs."""
     if (ring_impl == "rdma" and torch.device(device).type == "cuda"
-            and cfg.decoder.head_dim != RING_HEAD_DIM):
+            and cfg.decoder.head_dim not in RING_HEAD_DIMS):
+        dims = " or ".join(map(str, RING_HEAD_DIMS))
         raise ValueError(
-            f"the ring kernels take head_dim {RING_HEAD_DIM}; this decoder's "
-            f"is {cfg.decoder.head_dim} (ring_impl='plain' runs any head_dim)")
+            f"the ring kernels take head_dim {dims}; this decoder's is "
+            f"{cfg.decoder.head_dim} (ring_impl='plain' runs any head_dim)")
 
 
 def _run_heads(params: Fast3RNet, cfg: Fast3RConfig, tokens: list,

@@ -1113,10 +1113,10 @@ def test_pose_card_matches_cpu_on_a_seeded_scene(dev):
     assert np.abs(np.stack(on_gpu[0]) - gt).max() < 1e-2
 
 
-def _ring_inputs(n, B, S_loc, H, dtype, seed):
-    """Rank-stacked q, k, v (n, B, S_loc, H, 64): strided views of one
-    (n, B, S_loc, 3, H, 64) buffer, as the decoder's qkv projection gives."""
-    qkv = torch.randn((n, B, S_loc, 3, H, 64), generator=_gen(seed),
+def _ring_inputs(n, B, S_loc, H, dtype, seed, D=64):
+    """Rank-stacked q, k, v (n, B, S_loc, H, D): strided views of one
+    (n, B, S_loc, 3, H, D) buffer, as the decoder's qkv projection gives."""
+    qkv = torch.randn((n, B, S_loc, 3, H, D), generator=_gen(seed),
                       device="cuda").to(dtype)
     return qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
 
@@ -1224,7 +1224,7 @@ def test_ring_kernel_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="self-ring"):
         t_ring.ring_flash_attention_rdma(q, k, v, 0.125, 2,
                                          self_ring_epochs=3)
-    resident = t_ring._plan(torch.bfloat16, 2)[0]
+    resident = t_ring._plan(torch.bfloat16, 64, 2)[0]
     assert resident >= 1
     with pytest.raises(RuntimeError, match="CUDA error"):
         t_ring._rdma_forward(q, k, v, 0.125, 2, ctas_per_rank=resident + 1)
@@ -1322,7 +1322,7 @@ def test_ring_bwd_kernels_reject_too_many_ctas(dev):
     o, lse = t_ring._rdma_forward(q, k, v, 0.125, 2)
     delta, meta = t_ring._bwd_rows(o, do, lse)
     for which in (0, 1):
-        resident = t_ring._plan_bwd(which, torch.bfloat16, 2)[0]
+        resident = t_ring._plan_bwd(which, torch.bfloat16, 64, 2)[0]
         assert resident >= 1
         with pytest.raises(RuntimeError, match="CUDA error"):
             if which == 0:
@@ -1334,6 +1334,62 @@ def test_ring_bwd_kernels_reject_too_many_ctas(dev):
     torch.cuda.synchronize()
     got = t_ring._ring_backward(q, k, v, o, lse, do, 0.125, 2)
     assert all(torch.isfinite(g.float()).all() for g in got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,B,S_loc,H,ctas", [(1, 1, 200, 2, None),
+                                              (3, 1, 129, 3, None),
+                                              (8, 1, 72, 2, None),
+                                              (3, 2, 100, 2, None),
+                                              # one CTA a rank: every
+                                              # item's state through the
+                                              # scratch between epochs
+                                              (3, 2, 300, 3, 1)])
+def test_ring_kernels_head_dim_80_match_plain(dev, dtype, n, B, S_loc, H,
+                                              ctas):
+    """K14 at head_dim 80 (model_scaling_huge's decoder): the forward ring
+    and both backward rings over n ranks (ragged S_loc, B = 2, strided
+    inputs) against the plain ring and ring_attention_bwd_ref, under the
+    head_dim-64 tests' tolerances; one launch each."""
+    from fast3r_torch.parallel import ring_rdma as t_ring
+    from fast3r_torch.parallel.sequence import (ring_attention_bwd_ref,
+                                                ring_flash_attention)
+
+    scale = 80 ** -0.5
+    q, k, v = _ring_inputs(n, B, S_loc, H, dtype, 70 + n, D=80)
+    do = torch.randn((n, B, S_loc, H, 80), generator=_gen(80 + n),
+                     device=dev).to(dtype)
+    fns = (t_ring.ring_flash_attention_rdma, t_ring.ring_attention_bwd_dq,
+           t_ring.ring_attention_bwd_dkv)
+    before = [f.launches for f in fns]
+    o, lse = t_ring._rdma_forward(q, k, v, scale, n, ctas_per_rank=ctas)
+    got = t_ring._ring_backward(q, k, v, o, lse, do, scale, n,
+                                ctas_per_rank=ctas)
+    ref_o, ref_lse = ring_flash_attention(q, k, v, scale)
+    ref = ring_attention_bwd_ref(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 1]
+    o_tol, lse_tol = RING_CUDA_TOL[dtype]
+    assert o.shape == (n, B, S_loc, H, 80) and o.dtype == dtype
+    assert (o.float() - ref_o.float()).abs().max().item() < o_tol
+    assert (lse - ref_lse).abs().max().item() < lse_tol
+    for name, a, b in zip("qkv", got, ref):
+        assert a.shape == (n, B, S_loc, H, 80) and a.dtype == dtype
+        assert _rel_max(a, b) < RING_BWD_TOL[dtype], name
+
+
+def test_ring_kernels_reject_other_head_dims(dev):
+    """A head_dim the kernels have no instantiation for raises on CUDA
+    (the seq-sharded paths' own check: tests/test_torch_sequence_d80.py)."""
+    from fast3r_torch.parallel import ring_rdma as t_ring
+
+    q, k, v = _ring_inputs(2, 1, 64, 2, torch.bfloat16, 90, D=96)
+    with pytest.raises(ValueError, match="96"):
+        t_ring.ring_flash_attention_rdma(q, k, v, 0.125, 2)
+    do = torch.zeros_like(q)
+    lse = torch.zeros((2, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="96"):
+        t_ring._ring_backward(q, k, v, q, lse, do, 0.125, 2)
 
 
 def test_ring_attention_autograd_matches_plain_ring(dev):

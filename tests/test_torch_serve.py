@@ -98,6 +98,26 @@ def test_head_road_matches_jax(kind):
         assert roads[512, 384] == "trunk"
 
 
+def test_resize_gate_asks_for_a_band_plan():
+    """K12's gate refuses a shape no band of the kernel fits (a 2 x 10^6
+    source to 2 x 2: one output row spans the whole source row), so it
+    takes resize_matmul instead of raising at launch; at every head shape
+    of make_plan (23 landscape, 23 portrait at 512, the 224 square) the
+    gate still equals JAX's."""
+    assert not t_rk.resize_kernel_supported((1, 128, 2, 1_000_000), 2, 2,
+                                            torch.bfloat16)
+    with pytest.raises(ValueError, match="no band"):
+        t_rk.band_plan(2, 1_000_000, 2, 2)
+    shapes = [hw for kind in ("landscape", "portrait", "square224")
+              for hw in _head_shapes(kind)]
+    assert len(shapes) == 47
+    for H, W in shapes:
+        assert t_rk.resize_kernel_supported(
+            (1, 128, H // 2, W // 2), H, W, torch.bfloat16) == \
+            resize_kernel_supported((1, H // 2, W // 2, 128), H, W,
+                                    jnp.bfloat16), (H, W)
+
+
 # ---------------------------------------------------------------------------
 # the resize (K12's plain version)
 # ---------------------------------------------------------------------------
