@@ -326,7 +326,24 @@ printing each one's seconds:
      exported); the session manager on real spawned processes of a trivial
      target (started by the click, collected by its GC, stopped); with
      ``ffmpeg`` on PATH the JPEGs as an mp4 through the video input,
-     without it the line ``ffmpeg absent: video input not driven``.
+     without it the line ``ffmpeg absent: video input not driven``;
+  31. (run after phase 30, on phase 3's model) 1000 views in one forward:
+     ``fast3r_forward`` at 1000 x 256x192 (S = 192,000 decoder tokens)
+     with the heads in chunks of 25 views, the counts set to 0 just
+     before and read just after (K1 24, K2 24, K7 2 launches), every output
+     finite, of its shape, conf >= 1, its wall and peak memory printed;
+     the same views sequence-sharded over 4 ranks on the ring kernels
+     within 2% relative L2 of it per output; then K3 / K4, K3 (q | k | v,
+     fc1 GELU), K5 (proj, fc2), K6 and K7 at 512x384's M = 768,000 rows and
+     K2 on (3, 1000, 768, 1024), each whole launch against its plain
+     version on the rows where a 32-bit element offset would wrap (the
+     first and last 1024 of each output and packed plane and 2048 seeded
+     rows between; ``fast3r_torch/kernels/rows.py``), and K1 at S =
+     768,000 and K14's forward over 4 ranks at S_loc = 192,000 on the same
+     q, k, v, each on 256 query rows a head against the plain attention of
+     those rows over all keys (o and lse), and K8 on one 25-view head chunk
+     of 512x384 against its plain version, each with its time, bound and
+     library call's time; the kernel summary lists each as an entry.
 
 Any failure raises (exit code 1).  Without a CUDA device the script exits
 with code 2 before printing any result.  The last line of standard output
@@ -359,6 +376,7 @@ from fast3r_torch.eval.pose import estimate_camera_poses, individual_focals
 from fast3r_torch.eval.recon import align_local_pts3d_to_global
 from fast3r_torch.inference import inference_from_raw
 from fast3r_torch.kernels import build
+from fast3r_torch.kernels.rows import MANY_VIEW_TOKENS, check_rows, query_rows
 from fast3r_torch.models.decoder import sample_random_image_ids
 from fast3r_torch.models.dino_encoder import DinoEncoderConfig
 from fast3r_torch.models.dpt_head import dpt_head_forward, head_road
@@ -374,6 +392,7 @@ from fast3r_torch.ops.flash_attention import (
     attention_bwd_ref,
     attention_fwd_lse,
     attention_ref,
+    attention_rows_lse_ref,
     flash_attention,
     launch_attention,
     tma_view,
@@ -962,6 +981,24 @@ def _trunk_inputs(n, hh, wc, cin, dtype):
                uni((4, c1, 1, 1), c1), uni((4,), c1))
 
 
+TRUNK_LIBRARY = ("F.conv2d + F.interpolate(bilinear, align_corners) + "
+                 "F.conv2d + F.relu + F.conv2d")
+
+
+def _trunk_library(xc, w1, b1, w2, b2, w3, b3, H, W):
+    """The trunk's function in library calls on NCHW ``xc`` (n, 4, H W)."""
+    y = F.conv2d(xc, w1, b1, padding=1)
+    y = F.interpolate(y, size=(H, W), mode="bilinear", align_corners=True)
+    y = F.relu(F.conv2d(y, w2, b2, padding=1))
+    return F.conv2d(y, w3, b3).reshape(xc.shape[0], 4, H * W)
+
+
+def _trunk_flops(n, hh, wc, cin, H, W, c1=128) -> float:
+    """conv1 at the input's size, conv2 and conv3 at the output's."""
+    return 2.0 * (n * hh * wc * c1 * cin * 9
+                  + n * H * W * (c1 * c1 * 9 + c1 * 4))
+
+
 def check_trunk(results: list) -> None:
     """K8 (csrc/trunk.cu) against its plain version: fp32 and bf16 at n = 4,
     and in bf16 at the request's shapes, with device, single-launch and host
@@ -981,11 +1018,7 @@ def check_trunk(results: list) -> None:
             return _plain_head(xc, *args).reshape(n, 4, H * W)
 
         def library():
-            y = F.conv2d(xc, w1, b1, padding=1)
-            y = F.interpolate(y, size=(H, W), mode="bilinear",
-                              align_corners=True)
-            y = F.relu(F.conv2d(y, w2, b2, padding=1))
-            return F.conv2d(y, w3, b3).reshape(n, 4, H * W)
+            return _trunk_library(xc, *args)
 
         out = fused_regression_head_t(x, *args)
         again = fused_regression_head_t(x, *args)
@@ -995,15 +1028,12 @@ def check_trunk(results: list) -> None:
         if not torch.equal(out, again):
             raise AssertionError("trunk: two runs gave different bits")
         del ref, again
-        flops = 2.0 * (n * hh * wc * c1 * cin * 9
-                       + n * H * W * (c1 * c1 * 9 + c1 * 4))
+        flops = _trunk_flops(n, hh, wc, cin, H, W, c1)
         r.update(kernel="trunk", case=f"{n}x{hh}x{wc}x{cin} -> {H}x{W}",
                  dtype=str(dtype).split(".")[-1],
                  ms=median_ms(lambda: fused_regression_head_t(x, *args), 5),
                  plain_ms=median_ms(plain, 3),
-                 library="F.conv2d + F.interpolate(bilinear, align_corners) + "
-                         "F.conv2d + F.relu + F.conv2d",
-                 library_ms=median_ms(library, 5),
+                 library=TRUNK_LIBRARY, library_ms=median_ms(library, 5),
                  **bound(flops, (x.numel() + n * 4 * H * W) * x.element_size(),
                          dtype))
         if dtype == torch.bfloat16:
@@ -1964,12 +1994,19 @@ NO_LAUNCH["ms_huge_seq_train"] = K13 + ("attention", "ln_qkv", "attention_bwd")
 NO_LAUNCH["ms_huge_seq"] = NO_LAUNCH["ms_huge_seq_train"] + RING_BWD
 PATHS["demo"] = PATHS["fused"]
 NO_LAUNCH["demo"] = NO_LAUNCH["fused"]
+# phase 31: the 1000-view forward on phase 3's fused road (the heads on K8
+# at 256x192), and sequence-sharded on phase 16's road
+PATHS["many_view"] = PATHS["fused"]
+NO_LAUNCH["many_view"] = NO_LAUNCH["fused"]
+PATHS["many_view_seq"] = PATHS["seq_sharded"]
+NO_LAUNCH["many_view_seq"] = NO_LAUNCH["seq_sharded"]
 # the serving paths, on which every kernel input maps in place (no layout
 # copy); the training paths' counts are reported
 SERVE_PATHS = ("fused", "plain", "two_kernel_mlp", "llama", "llama_plain",
                "square", "mixed", "images_to_poses", "seq_sharded",
                "eval_cli", "re10k", "robustmvd", "dino", "dino_mixed",
-               *MS_PATHS, "ms_huge_seq", "demo")
+               *MS_PATHS, "ms_huge_seq", "demo", "many_view",
+               "many_view_seq")
 OUT_KEYS = ("pts3d_in_other_view", "conf", "pts3d_local", "conf_local")
 # phase 4: |gpu bf16 - cpu fp32| / |cpu fp32| in the L2 norm, per output.
 # bf16 keeps 8 bits of mantissa; through 48 blocks and two heads the
@@ -5654,9 +5691,283 @@ def phase_demo(gpu: str, model) -> dict:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 31: 1000 views in one forward
+# ---------------------------------------------------------------------------
+
+MANY_VIEWS = 1000
+MANY_HW = (192, 256)    # scripts/bench_1000view.py's default: S = 192,000
+MANY_CHUNK = 25         # head_chunk_views (the reference's heads a chunk)
+MANY_CASE = f"1000 views M={MANY_VIEW_TOKENS}"
+
+
+def _many_view_forward(fn, path: str, gpu: str) -> tuple:
+    """One 1000-view forward ``fn()`` with the launch counts set to 0 just
+    before and read just after: (outputs on the card, counts)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = _read_counts()
+    V, (H, W) = MANY_VIEWS, MANY_HW
+    for k, v in out.items():
+        want = (1, V, H, W, 3) if k.startswith("pts3d") else (1, V, H, W)
+        if tuple(v.shape) != want:
+            raise AssertionError(f"{path} {k}: shape {tuple(v.shape)}")
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"{path} {k}: not finite")
+    for k in ("conf", "conf_local"):
+        if not (out[k] >= 1).all():
+            raise AssertionError(f"{path} {k}: below 1")
+    log(json.dumps({"path": path, "views": V, "image_hw": [H, W],
+                    "tokens": V * (H // 16) * (W // 16),
+                    "head_chunk_views": MANY_CHUNK, "wall_s": wall,
+                    "images_per_s": V / wall, "gpu": gpu,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "launches": {k: c for k, c in counts.items() if c}}))
+    return out, counts
+
+
+def check_many_view_kernels(results: list) -> None:
+    """K3 / K4, K3 (q | k | v, fc1 GELU), K5 (proj, fc2), K6 and K7 at M =
+    768,000 rows (1000 views of 512x384), C = 1024, hidden 4096, and K2 on
+    the encoder's (3, 1000, 768, 1024) buffer, each whole launch against its
+    plain version on the rows of ``kernels.rows.check_rows`` (the first and
+    last 1024 of each output and packed plane, past 2^31 elements in the
+    packed qkv and fc1's output, and 2048 seeded rows between; K2: 16
+    views), the plain version timed on those rows; K8 on one head chunk of
+    25 views of 512x384 (the trunk's (25, 192, 256, 256) input) whole; K1
+    at S = 768,000 (16 heads of 64) and K14's forward on the same q, k, v
+    over 4 ranks (S_loc = 192,000) on 256 query rows a head against the
+    plain attention of those rows over all keys, o and lse, one launch of
+    each timed."""
+    g = _gen(31)
+    bf, it = torch.bfloat16, 2
+    M = MANY_VIEW_TOKENS
+    rows = check_rows(M, seed=31, device="cuda")
+    on_rows = dict(reps=3, plain_on="the check rows")
+
+    def big(shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=g, device="cuda",
+                           dtype=bf).mul_(scale).add_(shift)
+
+    x = big((M, C), 2.0, 0.5)
+    gamma = (1 + 0.1 * torch.randn((C,), generator=g, device="cuda")).to(bf)
+    beta = (0.1 * torch.randn((C,), generator=g, device="cuda")).to(bf)
+    xr = x[rows]
+
+    def ln_linear(w, b, eps):
+        return F.linear(F.layer_norm(x, (C,), gamma, beta, eps), w, b)
+
+    wqkv, bqkv = _linear(3 * C, C, g)
+    yy, xx = torch.meshgrid(torch.arange(24), torch.arange(32), indexing="ij")
+    pos = torch.stack([yy, xx], -1).reshape(1, -1, 2).repeat(
+        MANY_VIEWS, 1, 1).cuda()
+    ct, st = expand_rope_tables(*rope2d_cos_sin(pos, 64), C, bf)
+    qkv_flops = 2.0 * M * C * 3 * C
+    qkv_w_bytes = (3 * C * C + 3 * C + 2 * C) * it
+    args = (x, gamma, beta, wqkv, bqkv, ct, st, 16, 1e-6)
+    rargs = (xr, gamma, beta, wqkv, bqkv, ct[rows], st[rows], 16, 1e-6)
+    _record(results, "ln_qkv_rope", "fused_gemm", f"{MANY_CASE} x{C} -> 3x{C}",
+            fb.ln_qkv_rope(*args)[:, rows], fb.ln_qkv_rope_ref(*rargs),
+            lambda: fb.ln_qkv_rope(*args), lambda: fb.ln_qkv_rope_ref(*rargs),
+            lambda: ln_linear(wqkv, bqkv, 1e-6),
+            "F.layer_norm + F.linear (without the RoPE)", qkv_flops,
+            qkv_w_bytes + (M * C * 3 + 3 * M * C) * it, **on_rows)
+    del args, ct, st, pos
+    args, rargs = (x, gamma, beta, wqkv, bqkv, 1e-5), (xr, gamma, beta, wqkv,
+                                                      bqkv, 1e-5)
+    _record(results, "ln_qkv", "fused_gemm", f"{MANY_CASE} x{C} -> 3x{C}",
+            torch.stack(fb.ln_qkv(*args))[:, rows],
+            torch.stack(fb.ln_qkv_ref(*rargs)), lambda: fb.ln_qkv(*args),
+            lambda: fb.ln_qkv_ref(*rargs),
+            lambda: ln_linear(wqkv, bqkv, 1e-5), "F.layer_norm + F.linear",
+            qkv_flops, qkv_w_bytes + (M * C + 3 * M * C) * it, **on_rows)
+    w1, b1 = _linear(HID, C, g)
+    args, rargs = (x, gamma, beta, w1, b1, 1e-6), (xr, gamma, beta, w1, b1,
+                                                  1e-6)
+    _record(results, "ln_matmul", "fused_gemm",
+            f"{MANY_CASE} x{C} -> {HID} gelu",
+            fb.ln_matmul(*args, act="gelu")[rows],
+            fb.ln_matmul_ref(*rargs, act="gelu"),
+            lambda: fb.ln_matmul(*args, act="gelu"),
+            lambda: fb.ln_matmul_ref(*rargs, act="gelu"),
+            lambda: F.gelu(ln_linear(w1, b1, 1e-6)),
+            "F.layer_norm + F.linear + F.gelu", 2.0 * M * C * HID,
+            (M * C + HID * C + HID + 2 * C + M * HID) * it, **on_rows)
+    w2, b2 = _linear(C, HID, g)
+    for name, k_in in (("proj", C), ("fc2", HID)):
+        w, b = (w2, b2) if name == "fc2" else _linear(C, C, g)
+        h = big((M, k_in), 0.5)
+        hr = h[rows]
+        _record(results, "matmul_residual", "fused_gemm",
+                f"{MANY_CASE} {name} x{k_in} -> {C}",
+                fb.matmul_residual(h, w, b, x)[rows],
+                fb.matmul_residual_ref(hr, w, b, xr),
+                lambda: fb.matmul_residual(h, w, b, x),
+                lambda: fb.matmul_residual_ref(hr, w, b, xr),
+                lambda: F.linear(h, w, b) + x, "F.linear + add",
+                2.0 * M * k_in * C, (M * k_in + 2 * M * C + k_in * C + C) * it,
+                **on_rows)
+        del h
+    args = (x, gamma, beta, w1, b1, w2, b2, 1e-6)
+    _record(results, "ln_mlp", "ln_mlp", f"{MANY_CASE} x{C}, hidden {HID}",
+            fb.ln_mlp(*args)[rows], fb.ln_mlp_ref(xr, *args[1:]),
+            lambda: fb.ln_mlp(*args), lambda: fb.ln_mlp_ref(xr, *args[1:]),
+            lambda: x + F.linear(F.gelu(ln_linear(w1, b1, 1e-6)), w2, b2),
+            "F.layer_norm + F.linear + F.gelu + F.linear + add",
+            4.0 * M * C * HID, (2 * M * C + 2 * HID * C + HID + 3 * C) * it,
+            **on_rows)
+    _record(results, "layernorm", "layernorm", f"{MANY_CASE} x{C} eps=1e-05",
+            fused_layernorm(x, gamma, beta, 1e-5)[rows],
+            layernorm_ref(xr, gamma, beta, 1e-5),
+            lambda: fused_layernorm(x, gamma, beta, 1e-5),
+            lambda: layernorm_ref(xr, gamma, beta, 1e-5),
+            lambda: F.layer_norm(x, (C,), gamma, beta, 1e-5), "F.layer_norm",
+            8.0 * M * C, (2 * M * C + 2 * C) * it, **on_rows)
+    del args, x, xr
+    torch.cuda.empty_cache()
+
+    # K2: the encoder's attention on the packed buffer of 1000 views
+    B, N, H, D = MANY_VIEWS, 768, 16, 64
+    qkv3 = big((3, B, N, C))
+    qkv3[0].mul_(2.0)  # scores of std 2: each row rests on tens of keys
+    views = check_rows(B, seed=31, edge=4, between=8, device="cuda")
+    q, k, v = (qkv3[i][views].view(-1, N, H, D) for i in range(3))
+    qt, kt, vt = (t.view(B, N, H, D).transpose(1, 2) for t in qkv3)
+    _record(results, "packed_qkv_attention", "attention",
+            f"{MANY_CASE} (3, {B}, {N}, {C}), {H} heads",
+            packed_qkv_attention(qkv3, H, 0.125)[views],
+            attention_ref(q, k, v, 0.125).reshape(-1, N, C),
+            lambda: packed_qkv_attention(qkv3, H, 0.125),
+            lambda: attention_ref(q, k, v, 0.125),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=0.125),
+            "F.scaled_dot_product_attention", 4.0 * B * H * N * N * D,
+            4 * B * N * C * it, reps=3, plain_on="16 views")
+    del qkv3, q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    # K8: the heads' trunk on one 25-view chunk of 512x384
+    n, hh, wc, cin, Ht, Wt = MANY_CHUNK, 192, 256, 256, 384, 512
+    xt, wts = _trunk_inputs(n, hh, wc, cin, bf)
+    targs = (*wts, Ht, Wt)
+    xc = xt.permute(0, 3, 1, 2)
+    _record(results, "trunk", "trunk",
+            f"{MANY_CASE} head chunk {n}x{hh}x{wc}x{cin} -> {Ht}x{Wt}",
+            fused_regression_head_t(xt, *targs),
+            _plain_head(xc, *targs).reshape(n, 4, Ht * Wt),
+            lambda: fused_regression_head_t(xt, *targs),
+            lambda: _plain_head(xc, *targs), lambda: _trunk_library(xc, *targs),
+            TRUNK_LIBRARY, _trunk_flops(n, hh, wc, cin, Ht, Wt),
+            (xt.numel() + n * 4 * Ht * Wt) * it, reps=5,
+            plain_on="the whole chunk")
+    del xt, xc
+    torch.cuda.empty_cache()
+
+    # K1: the decoder's attention over all 768,000 tokens, and K14's forward
+    # on the same q, k, v over 4 ranks; one launch of each
+    S = MANY_VIEW_TOKENS
+    q = big((1, S, H, D), 3.0 / (D ** 0.5 * DEC_SCALE))  # scores of std 3
+    k, v = big((1, S, H, D)), big((1, S, H, D))
+    qrows = query_rows(S, H, seed=31, device="cuda")
+    heads = torch.arange(H, device="cuda")[:, None]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def once(fn) -> tuple:
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    t0 = time.perf_counter()
+    ref_o, ref_lse = attention_rows_lse_ref(q, k, v, DEC_SCALE, qrows)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library_ms = once(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, scale=DEC_SCALE))[1]
+    del qt, kt, vt
+    flops = 4.0 * H * S * S * D
+    n = SEQ_RANKS
+    for kernel, kind, fn, case, extra in (
+            ("attention", "attention",
+             lambda: attention_fwd_lse(q, k, v, DEC_SCALE),
+             f"decoder (1, {S}, {H}, {D})",
+             bound(flops, 4 * S * H * D * it + H * S * 4)),
+            ("ring_attention", "ring",
+             lambda: _rdma_forward(*(t.view(n, 1, S // n, H, D)
+                                     for t in (q, k, v)), DEC_SCALE, n),
+             f"n={n} {n}x1x{S // n}x{H}x{D}",
+             _ring_bound(n, n, S // n, bf))):
+        (o, lse), ms = once(fn)
+        # o (1, S, H, D) or (n, 1, S_loc, H, D); lse (1, H, S) or
+        # (n, H, S_loc): each the gathered sequence's
+        o = o.reshape(S, H, D)
+        lse = lse.reshape(-1, H, lse.shape[-1]).permute(1, 0, 2).reshape(H, S)
+        lse_err = compare("ring_lse", lse[heads, qrows], ref_lse[0], bf)
+        r = compare(kind, o[qrows, heads], ref_o[0], bf)
+        del o, lse
+        r.update(kernel=kernel, case=f"{MANY_CASE} {case}", dtype="bfloat16",
+                 ms=ms, plain_ms=plain_ms,
+                 plain_on=f"{qrows.shape[1]} query rows a head",
+                 library="F.scaled_dot_product_attention",
+                 library_ms=library_ms,
+                 lse_max_abs_err=lse_err["max_abs_err"],
+                 lse_atol=lse_err["atol"], tflops=flops / ms / 1e9, **extra)
+        results.append(r)
+        log(json.dumps(r))
+        torch.cuda.empty_cache()
+    del q, k, v, ref_o, ref_lse
+    torch.cuda.empty_cache()
+
+
+def phase_many_view(gpu: str, model, results: list) -> dict:
+    """The flagship at 1000 views of 256x192 in one forward, on the main
+    road and sequence-sharded over 4 ranks; then the kernels at the
+    512x384 shapes."""
+    log(f"== phase 31: {MANY_VIEWS} views of {MANY_HW[1]}x{MANY_HW[0]} in "
+        f"one forward (flagship, random weights seed 0, bfloat16, heads in "
+        f"chunks of {MANY_CHUNK}; then the kernels at 512x384's M = "
+        f"{MANY_VIEW_TOKENS})")
+    cfg = model.cfg
+    V, (H, W) = MANY_VIEWS, MANY_HW
+    imgs = _seq_imgs(V, H, W, 31).to(device="cuda", dtype=torch.bfloat16)
+    ids = sample_random_image_ids(None, 1, V)
+    with torch.inference_mode():
+        main, counts = _many_view_forward(lambda: fast3r_forward(
+            model.params, cfg, imgs, head_chunk_views=MANY_CHUNK,
+            view_ids=ids), "many_view", gpu)
+    _expect("many_view", counts, attention=cfg.decoder.depth,
+            packed_qkv_attention=cfg.encoder.depth, layernorm=2)
+    main = {k: v.float().cpu() for k, v in main.items()}
+    fwd = make_seq_sharded_forward(cfg, SEQ_RANKS, V, (H, W),
+                                   head_chunk_views=MANY_CHUNK)
+    seq, seq_counts = _many_view_forward(
+        lambda: fwd(model.params, imgs, ids[0]), "many_view_seq", gpu)
+    _expect("many_view_seq", seq_counts, ring_attention=cfg.decoder.depth,
+            attention=0)
+    errs = _rel_l2(seq, main)
+    del seq, main
+    log(json.dumps({"many_view_seq_vs_main_rel_l2": errs,
+                    "tolerance": SEQ_REL_L2}))
+    bad = {k: e for k, e in errs.items() if not e <= SEQ_REL_L2}
+    if bad:
+        raise AssertionError(f"1000-view sequence-sharded outputs off the "
+                             f"main road's: {bad}")
+    del imgs
+    check_many_view_kernels(results)
+    return {"many_view": counts, "many_view_seq": seq_counts}
+
+
 def phase_counts(counts: dict) -> None:
     log("== phase 26: kernel launches on each path of phases 3, 5, 7, 9, 11, "
-        "12, 14, 16, 18, 19, 20, 21, 22, 23, 24, 29 and 30")
+        "12, 14, 16, 18, 19, 20, 21, 22, 23, 24, 29, 30 and 31")
     log(json.dumps(counts))
     missing = [f"{path}: {k}" for path, names in PATHS.items()
                for k in names if counts[path][k] <= 0]
@@ -5755,6 +6066,26 @@ def kernel_summary(results: list, counts: dict) -> dict:
                                      "two_kernel_ms", "k1_ms", "k9_ms",
                                      "k1_device_ms", "device_over_k1",
                                      "pair_ms", "pair_bound_ms") if k in r}})
+    # the kernels at the 1000-view shapes (phase 31), their launches on the
+    # 1000-view forward that runs them (at 256x192: M and S 192,000; the
+    # ring's on the sequence-sharded one)
+    for r in results:
+        if r["dtype"] != "bfloat16" or not r["case"].startswith(MANY_CASE):
+            continue
+        _, route, source, replaces = KERNELS[r["kernel"]]
+        path = ("many_view_seq" if r["kernel"] == "ring_attention"
+                else "many_view")
+        kernels.append({
+            "name": f"{r['kernel']} [{r['case']}]", "route": route,
+            "source": source, "replaces": replaces,
+            "launches": counts[path][r["kernel"]],
+            "launches_by_path": {p: counts[p][r["kernel"]]
+                                 for p in ("many_view", "many_view_seq")},
+            **{k: r[k] for k in ("max_abs_err", "atol", "rtol", "ms",
+                                 "plain_ms", "plain_on", "bound_ms",
+                                 "bound_by", "library_ms", "library")},
+            "case": r["case"] + " bfloat16",
+            **{k: r[k] for k in ("tflops", "lse_max_abs_err") if k in r}})
     # the mesh step's kernels at a model-2 rank's shapes (phase 27), their
     # launches over the phase's steps on the rank that runs the case: model
     # rank 1 (global rank 1) the partial products on a zero bias, model rank
@@ -5819,9 +6150,11 @@ def main() -> int:
     phase_end_to_end(cpu_model, model, plain)
     done("phase 4")
     counts.update(phase_demo(gpu, model))
+    done("phase 30")
+    counts.update(phase_many_view(gpu, model, results))
     del model, plain
     torch.cuda.empty_cache()
-    done("phase 30")
+    done("phase 31")
     counts.update(phase_training(gpu, cpu_model))
     done("phase 5")
     flagship_cpu = cpu_model

@@ -27,6 +27,7 @@ from fast3r_torch.nn.layers import (
     linear,
     make_vit_stack,
     run_vit_stack,
+    stack_grids,
 )
 from fast3r_torch.ops.attention import AttnImpl
 from fast3r_torch.ops.sincos import sincos_1d_table_np
@@ -97,13 +98,20 @@ class Decoder(nn.Module):
 def sample_random_image_ids(generator: Optional[torch.Generator],
                             batch_size: int, num_views: int) -> torch.Tensor:
     """Random per-sample image ids, (B, V) int32: view 0 is id 0, views
-    1..V-1 get distinct random ids in [1, 999].
+    1..V-1 get distinct random ids in [1, 999].  Past ``MAX_IMAGE_IDX``
+    views the ids run out and it raises (the JAX package's draw comes up
+    short there, and its decoder's add of the table rows raises).
 
     The ids come from ``generator`` (a CPU ``torch.Generator``; seeded 0 when
     None).  They are NOT the ids the JAX package draws from
     ``jax.random.key(0)`` (threefry cannot be reproduced in torch): to compare
     the two packages, pass the JAX ids into the port's forward.
     """
+    if num_views > MAX_IMAGE_IDX:
+        raise ValueError(
+            f"{num_views} views: the image-index table has {MAX_IMAGE_IDX} "
+            f"rows, id 0 for view 0 and {MAX_IMAGE_IDX - 1} distinct random "
+            f"ids for the others, so at most {MAX_IMAGE_IDX} views")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     rows = []
@@ -126,8 +134,9 @@ def decoder_forward(params: Decoder, cfg: DecoderConfig, feats: torch.Tensor,
     recomputes the blocks in the backward and ``generator`` seeds the
     blocks' dropout (a training forward's only); with a
     ``parallel.mesh.Mesh`` of ``model > 1`` the blocks run tensor-parallel
-    on this rank's slices and heads (``decoder_embed``, the image-index
-    table and the final norm replicated).  Returns {hook: activation} for
+    on this rank's slices and heads (a sublayer whose heads or hidden
+    ``model`` does not divide, ``decoder_embed``, the image-index table and
+    the final norm replicated).  Returns {hook: activation} for
     ``cfg.hooks``.
     """
     outputs: Dict[int, torch.Tensor] = {0: feats}
@@ -145,7 +154,7 @@ def decoder_forward(params: Decoder, cfg: DecoderConfig, feats: torch.Tensor,
                               drop=cfg.drop, attn_drop=cfg.attn_drop,
                               drop_path_rate=cfg.drop_path,
                               generator=generator if is_training else None,
-                              mesh=mesh)
+                              mesh=mesh, tps=stack_grids(mesh, cfg))
     outputs.update(hooked)
     outputs[cfg.depth] = layernorm(params.norm, x, cfg.final_ln_eps)
     return outputs

@@ -40,6 +40,7 @@ from fast3r_torch.nn.layers import (
     layernorm,
     make_vit_stack,
     mlp,
+    stack_grids,
 )
 from fast3r_torch.ops.resize import resize_bicubic_torch
 
@@ -92,12 +93,13 @@ def _interp_pos_embed(pos_embed: torch.Tensor, grid_hw: Tuple[int, int],
 
 def _dino_block(p, x: torch.Tensor, gamma1: torch.Tensor,
                 gamma2: torch.Tensor, num_heads: int, scale: float,
-                attn_impl: str, ln_eps: float, mesh=None) -> torch.Tensor:
+                attn_impl: str, ln_eps: float, mesh=None,
+                tps=(None, None)) -> torch.Tensor:
     a = attention_layer(p.attn, layernorm(p.norm1, x, ln_eps), num_heads,
-                        scale, None, attn_impl, mesh=mesh)
+                        scale, None, attn_impl, mesh=mesh, tp=tps[0])
     x = x + gamma1.to(x.dtype) * a
     return x + gamma2.to(x.dtype) * mlp(p.mlp, layernorm(p.norm2, x, ln_eps),
-                                        mesh=mesh)
+                                        mesh=mesh, tp=tps[1])
 
 
 def dino_encoder_forward(params: DinoEncoder, cfg: DinoEncoderConfig,
@@ -111,7 +113,8 @@ def dino_encoder_forward(params: DinoEncoder, cfg: DinoEncoderConfig,
     (B, h w, 2) as (y, x), portrait ones in true-orientation values and
     storage order.  Differentiable.  With a ``parallel.mesh.Mesh`` of
     ``model > 1`` the blocks run tensor-parallel on this rank's slices and
-    ``num_heads / model`` heads."""
+    ``num_heads / model`` heads (a sublayer whose heads or hidden ``model``
+    does not divide, whole on every rank)."""
     B, H, W, _ = img.shape
     ps = cfg.patch_size
     if H % ps or W % ps:
@@ -148,12 +151,11 @@ def dino_encoder_forward(params: DinoEncoder, cfg: DinoEncoderConfig,
         x = branches[0]
 
     scale = (cfg.embed_dim // cfg.num_heads) ** -0.5
-    heads = cfg.num_heads
-    if mesh is not None and mesh.model > 1:
-        heads //= mesh.model
+    tps = stack_grids(mesh, cfg)
+    heads = cfg.num_heads // (1 if tps[0] is None else tps[0].model)
     for i, block in enumerate(params.blocks):
         x = _dino_block(block, x, params.ls1[i], params.ls2[i], heads, scale,
-                        cfg.attn_impl, cfg.ln_eps, mesh)
+                        cfg.attn_impl, cfg.ln_eps, mesh, tps)
     tokens = layernorm(params.norm, x, cfg.ln_eps)[:, 1:]
 
     pos_land = position_grid(h, w, img.device)

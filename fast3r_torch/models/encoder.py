@@ -24,6 +24,7 @@ from fast3r_torch.nn.layers import (
     layernorm,
     make_vit_stack,
     run_vit_stack,
+    stack_grids,
 )
 from fast3r_torch.ops.rope2d import rope2d_cos_sin
 
@@ -67,9 +68,10 @@ def encoder_forward(params: Encoder, cfg: EncoderConfig, img: torch.Tensor,
     shape.  ``remat`` recomputes the blocks in the backward; ``generator``
     (a training forward's) seeds the blocks' dropout.  With a
     ``parallel.mesh.Mesh`` of ``model > 1`` the blocks run tensor-parallel
-    on this rank's slices and heads; the patch embedding and the final
-    norm are replicated.  Returns feats (B, P, embed_dim) and positions
-    (B, P, 2)."""
+    on this rank's slices and heads (a sublayer whose heads or hidden
+    ``model`` does not divide, whole on every rank); the patch embedding
+    and the final norm are replicated.  Returns feats (B, P, embed_dim)
+    and positions (B, P, 2)."""
     B, H, W, _ = img.shape
     if true_shape is None:
         true_shape = torch.tensor([H, W], dtype=torch.int32).expand(B, 2)
@@ -86,5 +88,5 @@ def encoder_forward(params: Encoder, cfg: EncoderConfig, img: torch.Tensor,
                          ln_eps=cfg.ln_eps, fused=cfg.fused_blocks,
                          remat=remat, drop=cfg.drop, attn_drop=cfg.attn_drop,
                          drop_path_rate=cfg.drop_path, generator=generator,
-                         mesh=mesh)
+                         mesh=mesh, tps=stack_grids(mesh, cfg))
     return layernorm(params.norm, x, cfg.ln_eps), pos

@@ -18,10 +18,11 @@ differentiable (the training step's forward); ``inference`` runs it under
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Dict, Iterable, Optional, Union
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from fast3r_torch.models.decoder import (
     Decoder,
@@ -42,6 +43,9 @@ from fast3r_torch.models.llama_decoder import (
     llama_decoder_forward,
 )
 from fast3r_torch.nn.layers import has_dropout, init_params_
+
+# the forward's record_function ranges (a profile's per-stage device time)
+STAGES = ("fast3r.encoder", "fast3r.decoder", "fast3r.heads")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,6 +156,25 @@ def _chunk_views(head_chunk_views: Optional[int], V: int) -> Optional[int]:
     return None if cv == V else cv
 
 
+def _concat_chunks(chunks: Iterable[Dict[str, torch.Tensor]], dim: int,
+                   total: int) -> Dict[str, torch.Tensor]:
+    """Each output's chunks concatenated along ``dim`` (``total`` long),
+    each chunk copied into the output as it comes: the chunks' results are
+    never all held beside the output (at 1000 views of 512x384 the four
+    outputs are 6.3 GB in fp32).  Differentiable (a copy into a slice)."""
+    out: Dict[str, torch.Tensor] = {}
+    off = 0
+    for res in chunks:
+        for k, v in res.items():
+            if k not in out:
+                shape = list(v.shape)
+                shape[dim] = total
+                out[k] = v.new_empty(shape)
+            out[k].narrow(dim, off, v.shape[dim]).copy_(v)
+        off += v.shape[dim]
+    return out
+
+
 def freeze_mask(params: Fast3RNet, cfg: Fast3RConfig,
                 freeze: str) -> Dict[str, bool]:
     """Trainability of every parameter, by name (True = trainable): the
@@ -182,10 +205,11 @@ def fast3r_forward(params: Fast3RNet, cfg: Fast3RConfig, imgs: torch.Tensor,
       head_chunk_views: run the heads over groups of this many views (rounded
         down to a divisor of V) to bound memory.
       view_ids: (B, V) image ids for the decoder's index embedding (the
-        llama decoder's rotary index); when None, drawn by
-        :func:`sample_random_image_ids` from ``generator`` (training needs
-        one) or, at inference, from a generator seeded 0 (on a ``mesh``
-        for the global batch, of which this data rank takes its rows).
+        llama decoder's rotary index); when None, drawn before the encoder
+        runs by :func:`sample_random_image_ids` from ``generator``
+        (training needs one) or, at inference, from a generator seeded 0
+        (on a ``mesh`` for the global batch, of which this data rank takes
+        its rows); past ``MAX_IMAGE_IDX`` views the draw raises.
         The llama decoder's view-0 mask reads the views' order (arange
         ids).
       is_training: the decoder's training softmax scale (no entropy bias;
@@ -199,13 +223,14 @@ def fast3r_forward(params: Fast3RNet, cfg: Fast3RConfig, imgs: torch.Tensor,
         of the global batch, and with ``model > 1`` ``params`` are this
         rank's slices (``parallel.mesh.shard_params``) and both stacks run
         tensor-parallel (any encoder and decoder, dropout on the plain
-        road), the heads replicated.  What that road does not run (the
-        sequence-sharded decoder; heads, llama kv heads or an MLP hidden
-        ``model`` does not divide) raises
+        road), the heads replicated, and so is a block sublayer whose
+        heads, llama kv heads or MLP hidden ``model`` does not divide.
+        What that road does not run (the sequence-sharded decoder) raises
         ``parallel.mesh.TensorParallelError``.
 
     Returns pts3d_in_other_view (B, V, H, W, 3), conf (B, V, H, W)
-    [, pts3d_local, conf_local].
+    [, pts3d_local, conf_local].  The encoder, decoder and heads run under
+    ``torch.profiler.record_function`` ranges named ``STAGES``.
     """
     B, V, H, W, _ = imgs.shape
     if mesh is not None:
@@ -218,42 +243,32 @@ def fast3r_forward(params: Fast3RNet, cfg: Fast3RConfig, imgs: torch.Tensor,
             has_dropout(cfg.encoder) or has_dropout(cfg.decoder)):
         enc_gen, dec_gen = (torch.Generator().manual_seed(int(torch.randint(
             0, 2 ** 63 - 1, (), generator=generator))) for _ in range(2))
-    if cfg.encoder_type == "dino":
-        feats, _ = dino_encoder_forward(params.encoder, cfg.encoder,
-                                        imgs.reshape(B * V, H, W, 3),
-                                        flat_shapes, mesh=mesh)
-    else:
-        feats, _ = encoder_forward(params.encoder, cfg.encoder,
-                                   imgs.reshape(B * V, H, W, 3), flat_shapes,
-                                   remat=remat, generator=enc_gen, mesh=mesh)
+    view_ids = _view_ids(cfg, B, V, view_ids, is_training, generator, mesh)
+    with record_function(STAGES[0]):
+        if cfg.encoder_type == "dino":
+            feats, _ = dino_encoder_forward(params.encoder, cfg.encoder,
+                                            imgs.reshape(B * V, H, W, 3),
+                                            flat_shapes, mesh=mesh)
+        else:
+            feats, _ = encoder_forward(params.encoder, cfg.encoder,
+                                       imgs.reshape(B * V, H, W, 3),
+                                       flat_shapes, remat=remat,
+                                       generator=enc_gen, mesh=mesh)
     P = feats.shape[1]
     fused = feats.reshape(B, V * P, -1)
-
-    if cfg.decoder.random_image_idx_embedding:
-        if view_ids is None:
-            if is_training and generator is None:
-                raise ValueError("a training forward needs view_ids or a "
-                                 "generator to draw them")
-            if mesh is None:
-                view_ids = sample_random_image_ids(generator, B, V)
-            else:  # the global batch's, this data rank's rows of them
-                from fast3r_torch.parallel.mesh import batch_rows
-
-                view_ids = sample_random_image_ids(generator, B * mesh.data, V)
-                view_ids = view_ids[batch_rows(mesh, B * mesh.data)]
-    else:
-        view_ids = torch.arange(V, dtype=torch.int32).expand(B, V)
     image_ids = view_ids.to(fused.device).repeat_interleave(P, dim=1)
-    if cfg.decoder_type == "llama":
-        order = torch.arange(V, device=fused.device).expand(B, V)
-        dec_out = llama_decoder_forward(
-            params.decoder, cfg.decoder, fused,
-            order.repeat_interleave(P, dim=1), rope_ids=image_ids, remat=remat,
-            mesh=mesh)
-    else:
-        dec_out = decoder_forward(params.decoder, cfg.decoder, fused,
-                                  image_ids, is_training=is_training,
-                                  remat=remat, generator=dec_gen, mesh=mesh)
+    with record_function(STAGES[1]):
+        if cfg.decoder_type == "llama":
+            order = torch.arange(V, device=fused.device).expand(B, V)
+            dec_out = llama_decoder_forward(
+                params.decoder, cfg.decoder, fused,
+                order.repeat_interleave(P, dim=1), rope_ids=image_ids,
+                remat=remat, mesh=mesh)
+        else:
+            dec_out = decoder_forward(params.decoder, cfg.decoder, fused,
+                                      image_ids, is_training=is_training,
+                                      remat=remat, generator=dec_gen,
+                                      mesh=mesh)
     hook_seq = [dec_out[h] for h in cfg.decoder.hooks]  # each (B, V*P, C)
     is_portrait = ((flat_shapes[:, 1] < flat_shapes[:, 0]).to(imgs.device)
                    if mixed_orientation else None)
@@ -274,18 +289,40 @@ def fast3r_forward(params: Fast3RNet, cfg: Fast3RConfig, imgs: torch.Tensor,
         return res
 
     cv = _chunk_views(head_chunk_views, V)
-    if cv is None:
-        tokens = [t.reshape(B * V, P, -1) for t in hook_seq]
-        res = run_heads(tokens, is_portrait)
-        return {k: v.reshape((B, V) + v.shape[1:]) for k, v in res.items()}
+    with record_function(STAGES[2]):
+        if cv is None:
+            tokens = [t.reshape(B * V, P, -1) for t in hook_seq]
+            res = run_heads(tokens, is_portrait)
+            return {k: v.reshape((B, V) + v.shape[1:])
+                    for k, v in res.items()}
 
-    chunks = []
-    for c in range(V // cv):
-        toks = [t.reshape(B, V, P, -1)[:, c * cv:(c + 1) * cv]
-                 .reshape(B * cv, P, -1) for t in hook_seq]
-        pmask = (is_portrait.reshape(B, V)[:, c * cv:(c + 1) * cv].reshape(-1)
-                 if is_portrait is not None else None)
-        chunks.append(run_heads(toks, pmask))
-    return {k: torch.cat([r[k].reshape((B, cv) + r[k].shape[1:])
-                          for r in chunks], dim=1)
-            for k in chunks[0]}
+        def chunk(c):
+            toks = [t.reshape(B, V, P, -1)[:, c * cv:(c + 1) * cv]
+                     .reshape(B * cv, P, -1) for t in hook_seq]
+            pmask = (is_portrait.reshape(B, V)[:, c * cv:(c + 1) * cv]
+                     .reshape(-1) if is_portrait is not None else None)
+            return {k: v.reshape((B, cv) + v.shape[1:])
+                    for k, v in run_heads(toks, pmask).items()}
+
+        return _concat_chunks((chunk(c) for c in range(V // cv)), 1, V)
+
+
+def _view_ids(cfg: Fast3RConfig, B: int, V: int,
+              view_ids: Optional[torch.Tensor], is_training: bool,
+              generator: Optional[torch.Generator], mesh) -> torch.Tensor:
+    """fast3r_forward's (B, V) decoder image ids: with random ids
+    ``view_ids``, else drawn; without, arange."""
+    if not cfg.decoder.random_image_idx_embedding:
+        return torch.arange(V, dtype=torch.int32).expand(B, V)
+    if view_ids is None:
+        if is_training and generator is None:
+            raise ValueError("a training forward needs view_ids or a "
+                             "generator to draw them")
+        if mesh is None:
+            return sample_random_image_ids(generator, B, V)
+        # the global batch's, this data rank's rows of them
+        from fast3r_torch.parallel.mesh import batch_rows
+
+        ids = sample_random_image_ids(generator, B * mesh.data, V)
+        return ids[batch_rows(mesh, B * mesh.data)]
+    return view_ids

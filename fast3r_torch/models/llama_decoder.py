@@ -48,7 +48,7 @@ from torch import nn
 
 from fast3r_torch.models.decoder import MAX_IMAGE_IDX
 from fast3r_torch.nn.fused_block import fused_llama_block, fused_llama_supported
-from fast3r_torch.nn.layers import RMSNorm, linear, row_parallel
+from fast3r_torch.nn.layers import RMSNorm, linear, row_parallel, stack_grids
 from fast3r_torch.ops.attention import dot_product_attention
 
 
@@ -166,14 +166,16 @@ class LlamaDecoder(nn.Module):
 
 def llama_block(p: LlamaBlock, x: torch.Tensor, cos, sin,
                 cfg: LlamaDecoderConfig, fused: bool = False,
-                tp=None) -> torch.Tensor:
+                tps=(None, None)) -> torch.Tensor:
     """One llama block on x (B, S, D): the fused block with ``fused=True``,
-    else the plain composition of the JAX package.  ``tp``: a
-    tensor-parallel mesh (``p`` this rank's slices)."""
+    else the plain composition of the JAX package.  ``tps``: the
+    (attention's, FFN's) tensor-parallel grids (``stack_grids``; ``p``
+    this rank's slices of a split sublayer)."""
     if fused:
-        return fused_llama_block(p, x, cos, sin, cfg, tp)
+        return fused_llama_block(p, x, cos, sin, cfg, tps)
     B, S, D = x.shape
     hd = cfg.head_dim
+    tp, tp_ffn = tps
     m = 1 if tp is None else tp.model
     heads, kv_heads = cfg.n_heads // m, cfg.kv_heads // m
     h = rmsnorm(p.attention_norm, x, cfg.norm_eps)
@@ -191,10 +193,10 @@ def llama_block(p: LlamaBlock, x: torch.Tensor, cos, sin,
     o = dot_product_attention(q, k, v, scale=hd ** -0.5, impl=cfg.attn_impl)
     x = x + row_parallel(p.attn.wo, o.reshape(B, S, heads * hd), tp)
     h = rmsnorm(p.ffn_norm, x, cfg.norm_eps)
-    if tp is not None:
-        h = tp.copy_to_model(h)
+    if tp_ffn is not None:
+        h = tp_ffn.copy_to_model(h)
     gate = F.silu(linear(p.ffn.w1, h)) * linear(p.ffn.w3, h)
-    return x + row_parallel(p.ffn.w2, gate, tp)
+    return x + row_parallel(p.ffn.w2, gate, tp_ffn)
 
 
 def llama_decoder_forward(params: LlamaDecoder, cfg: LlamaDecoderConfig,
@@ -209,12 +211,14 @@ def llama_decoder_forward(params: LlamaDecoder, cfg: LlamaDecoderConfig,
     the rotary index of each token (the random image ids; ``image_ids``
     when None).  ``remat`` recomputes each plain block in the backward (the
     fused block always does).  With a ``parallel.mesh.Mesh`` of ``model >
-    1`` the layers run tensor-parallel on this rank's slices.  Returns
+    1`` the layers run tensor-parallel on this rank's slices (the attention
+    whole on every rank where ``model`` does not divide its heads and kv
+    heads, the FFN where it does not divide the hidden).  Returns
     {hook: activation} for ``cfg.hooks``.  On CUDA with ``fused_blocks`` a
     shape the kernels cannot take (at a rank's widths) raises.
     """
-    tp = mesh if mesh is not None and mesh.model > 1 else None
-    model = 1 if tp is None else tp.model
+    tps = stack_grids(mesh, cfg)
+    model = 1 if mesh is None else mesh.model
     x = linear(params.decoder_embed, feats)
     if cfg.fused_blocks and x.is_cuda and not fused_llama_supported(
             x.shape, cfg, model):
@@ -233,7 +237,7 @@ def llama_decoder_forward(params: LlamaDecoder, cfg: LlamaDecoderConfig,
     checkpoint = remat and not cfg.fused_blocks and torch.is_grad_enabled()
     for i, layer in enumerate(params.layers):
         h = x + view0 * v0  # view0_embed before every layer
-        args = (layer, h, cos, sin, cfg, cfg.fused_blocks, tp)
+        args = (layer, h, cos, sin, cfg, cfg.fused_blocks, tps)
         x = (torch.utils.checkpoint.checkpoint(llama_block, *args,
                                                use_reentrant=False)
              if checkpoint else llama_block(*args))

@@ -818,17 +818,19 @@ def _attention_sublayer(t, x2, shape, rope_cos_sin, num_heads: int,
 
 
 def _fused_block_impl(t, x, rope_cos_sin, num_heads: int, scale: float,
-                      attn_impl: str, ln_eps: float, tp=None) -> torch.Tensor:
+                      attn_impl: str, ln_eps: float, tps=(None, None)
+                      ) -> torch.Tensor:
     B, N, C = x.shape
     t = [p.to(x.dtype) for p in t]
+    tp_attn, tp_mlp = tps
     x2 = _attention_sublayer(t, x.reshape(B * N, C).contiguous(), x.shape,
                              rope_cos_sin, num_heads, scale, attn_impl, ln_eps,
-                             tp)
+                             tp_attn)
     if PREFER_FUSED_MLP:
-        x2 = ln_mlp(x2, *t[6:], ln_eps, tp)
+        x2 = ln_mlp(x2, *t[6:], ln_eps, tp_mlp)
     else:
-        h = ln_matmul(x2, *t[6:10], ln_eps, act="gelu", tp=tp)
-        x2 = matmul_residual(h, t[10], t[11], x2, tp)
+        h = ln_matmul(x2, *t[6:10], ln_eps, act="gelu", tp=tp_mlp)
+        x2 = matmul_residual(h, t[10], t[11], x2, tp_mlp)
     return x2.reshape(B, N, C)
 
 
@@ -848,7 +850,7 @@ class _FusedBlock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, *params = ctx.saved_tensors
-        num_heads, scale, attn_impl, ln_eps, tp = ctx.cfg
+        num_heads, scale, attn_impl, ln_eps, (tp_attn, tp_mlp) = ctx.cfg
         need = ctx.needs_input_grad
         B, N, C = x.shape
         with torch.enable_grad():
@@ -857,9 +859,9 @@ class _FusedBlock(torch.autograd.Function):
             t = [p.to(x.dtype) for p in ps]
             x2 = _attention_sublayer(t, xs.reshape(B * N, C), x.shape,
                                      ctx.rope_cos_sin, num_heads, scale,
-                                     attn_impl, ln_eps, tp)
+                                     attn_impl, ln_eps, tp_attn)
         dx2, *dmlp = _mlp_backward(x2.detach(), *(p.detach() for p in t[6:]),
-                                   ln_eps, g.reshape(B * N, C), tp)
+                                   ln_eps, g.reshape(B * N, C), tp_mlp)
         leaves = [u for u in (xs, *ps[:6]) if u.requires_grad]
         got = iter(torch.autograd.grad(x2, leaves, dx2) if leaves else ())
         dx = next(got).reshape(B, N, C) if need[0] else None
@@ -871,7 +873,7 @@ class _FusedBlock(torch.autograd.Function):
 
 def fused_vit_block(p, x: torch.Tensor, rope_cos_sin, num_heads: int,
                     scale: float, attn_impl: str, ln_eps: float,
-                    tp=None) -> torch.Tensor:
+                    tps=(None, None)) -> torch.Tensor:
     """Pre-LN ViT block (``p`` a ``nn.layers.Block``) on x (B, N, C) with the
     elementwise work inside the products (``_fused_block_impl`` of the JAX
     package).  With ``attn_impl == "batched"`` and a 4-tuple
@@ -881,13 +883,14 @@ def fused_vit_block(p, x: torch.Tensor, rope_cos_sin, num_heads: int,
     :func:`dot_product_attention`.  Differentiable: under autograd the block
     saves (x, params) and recomputes in its backward (``fused_vit_block``'s
     custom VJP).  A shape or dtype a kernel cannot take raises on CUDA.
-    With a tensor-parallel mesh ``tp`` the block's params are this rank's
-    slices (``parallel.mesh.shard_params``), ``num_heads`` its heads, and
-    each sublayer's output is summed over the model group: two collectives
-    in the forward, and in the backward the recomputed forward's and one
-    on the gradient at each sublayer's input."""
+    ``tps``: the (attention's, MLP's) tensor-parallel grids
+    (``parallel.mesh.Mesh.sublayer_grids``).  A sublayer with one has this
+    rank's slices of its params (``parallel.mesh.shard_params``; attention:
+    ``num_heads`` its heads) and its output summed over the model group: a
+    collective in the forward, and in the backward the recomputed forward's
+    and one on the gradient at the sublayer's input."""
     params = [p.get_parameter(name) for name in BLOCK_PARAMS]
-    cfg = (num_heads, scale, attn_impl, ln_eps, tp)
+    cfg = (num_heads, scale, attn_impl, ln_eps, tuple(tps))
     if _training(x, *params):
         return _FusedBlock.apply(x, rope_cos_sin, cfg, *params)
     return _fused_block_impl(params, x, rope_cos_sin, *cfg)
@@ -902,13 +905,14 @@ LLAMA_PARAMS = ("attention_norm.weight", "attn.wq.weight", "attn.wk.weight",
                 "ffn.w1.weight", "ffn.w2.weight", "ffn.w3.weight")
 
 
-def _fused_llama_impl(t, x, cos, sin, cfg, tp=None) -> torch.Tensor:
+def _fused_llama_impl(t, x, cos, sin, cfg, tps=(None, None)) -> torch.Tensor:
     """``_fused_llama_impl`` of the JAX package; ``t`` the block's tensors in
     LLAMA_PARAMS order.  The weights are cast to x's dtype, the RMS scales
     go to the products as they are; ``matmul_residual`` takes a zero bias
-    (the llama linears have none).  With a tensor-parallel mesh ``tp``,
-    ``t`` holds this rank's slices: ``n_heads / model`` query heads over
-    ``kv_heads / model`` kv heads, a slice of the hidden."""
+    (the llama linears have none).  ``tps``: the (attention's, FFN's)
+    tensor-parallel grids; with the attention's, ``t`` holds this rank's
+    ``n_heads / model`` query heads over ``kv_heads / model`` kv heads,
+    with the FFN's a slice of the hidden."""
     from fast3r_torch.models.llama_decoder import apply_rotary_pairs
 
     B, S, D = x.shape
@@ -916,10 +920,11 @@ def _fused_llama_impl(t, x, cos, sin, cfg, tp=None) -> torch.Tensor:
     g1, wq, wk, wv, wo, g2, w1, w2, w3 = t
     wq, wk, wv, wo, w1, w2, w3 = (w.to(dt) for w in (wq, wk, wv, wo, w1, w2,
                                                      w3))
-    m = 1 if tp is None else tp.model
+    tp_attn, tp_ffn = tps
+    m = 1 if tp_attn is None else tp_attn.model
     heads, kv_heads = cfg.n_heads // m, cfg.kv_heads // m
     x2 = x.reshape(B * S, D)
-    q, k, v = rms_qkv3(x2, g1, wq, wk, wv, cfg.norm_eps, tp)
+    q, k, v = rms_qkv3(x2, g1, wq, wk, wv, cfg.norm_eps, tp_attn)
     hd = cfg.head_dim
     q = apply_rotary_pairs(q.reshape(B, S, heads, hd), cos, sin)
     k = apply_rotary_pairs(k.reshape(B, S, kv_heads, hd), cos, sin)
@@ -931,10 +936,10 @@ def _fused_llama_impl(t, x, cos, sin, cfg, tp=None) -> torch.Tensor:
     o = dot_product_attention(q, k, v, scale=hd ** -0.5, impl=cfg.attn_impl)
     zero = torch.zeros((D,), device=x.device, dtype=dt)
     x2 = matmul_residual(o.reshape(B * S, heads * hd).contiguous(), wo, zero,
-                         x2, tp)
+                         x2, tp_attn)
     # SwiGLU as two RMS products (x2 read twice, as the JAX package does)
-    h1, h3 = rms_swiglu(x2, g2, w1, w3, cfg.norm_eps, tp)
-    return matmul_residual(h1 * h3, w2, zero, x2, tp).reshape(B, S, D)
+    h1, h3 = rms_swiglu(x2, g2, w1, w3, cfg.norm_eps, tp_ffn)
+    return matmul_residual(h1 * h3, w2, zero, x2, tp_ffn).reshape(B, S, D)
 
 
 class _FusedLlama(torch.autograd.Function):
@@ -944,10 +949,10 @@ class _FusedLlama(torch.autograd.Function):
     lse) and differentiates it with autograd."""
 
     @staticmethod
-    def forward(ctx, x, cos, sin, cfg, tp, *params):
+    def forward(ctx, x, cos, sin, cfg, tps, *params):
         ctx.save_for_backward(x, cos, sin, *params)
-        ctx.cfg, ctx.tp = cfg, tp
-        return _fused_llama_impl(params, x, cos, sin, cfg, tp)
+        ctx.cfg, ctx.tps = cfg, tps
+        return _fused_llama_impl(params, x, cos, sin, cfg, tps)
 
     @staticmethod
     def backward(ctx, g):
@@ -956,7 +961,7 @@ class _FusedLlama(torch.autograd.Function):
         with torch.enable_grad():
             xs = x.detach().requires_grad_(need[0])
             ps = [p.detach().requires_grad_(n) for p, n in zip(params, need[5:])]
-            y = _fused_llama_impl(ps, xs, cos, sin, ctx.cfg, ctx.tp)
+            y = _fused_llama_impl(ps, xs, cos, sin, ctx.cfg, ctx.tps)
         leaves = [u for u in (xs, *ps) if u.requires_grad]
         got = iter(torch.autograd.grad(y, leaves, g) if leaves else ())
         dx = next(got) if need[0] else None
@@ -969,22 +974,25 @@ def fused_llama_supported(x_shape, cfg, model: int = 1) -> bool:
     shapes on a rank of a ``model``-way tensor-parallel group (x (B, S, D);
     bfloat16 is checked at launch): the RMS prologue's K = D with
     D % 256 == 0 and D <= 1024; every product's N at the rank's widths
-    (q | k | v, D, the FFN hidden / model) % 128 == 0, and the row-parallel
-    products' K (wo: D / model, w2: hidden / model) % 32 == 0; head_dim 64
-    for the attention kernel."""
+    (q | k | v, D, the FFN hidden, each over ``model`` where the group
+    splits its sublayer: ``parallel.mesh.sublayer_splits``) % 128 == 0,
+    and the row-parallel products' K (wo: D, w2: the hidden, split alike)
+    % 32 == 0; head_dim 64 for the attention kernel."""
+    from fast3r_torch.parallel.mesh import sublayer_splits
+
     d, hidden = cfg.embed_dim, cfg.ffn_hidden
-    if (cfg.n_heads % model or cfg.kv_heads % model or hidden % model
-            or cfg.n_heads % cfg.kv_heads):
+    if cfg.n_heads % cfg.kv_heads:
         return False
-    n_qkv = (cfg.n_heads + 2 * cfg.kv_heads) // model * cfg.head_dim
-    h = hidden // model
+    m_attn, m_ffn = (model if s else 1 for s in sublayer_splits(cfg, model))
+    n_qkv = (cfg.n_heads + 2 * cfg.kv_heads) // m_attn * cfg.head_dim
+    h = hidden // m_ffn
     return (len(x_shape) == 3 and x_shape[-1] == d and d % 256 == 0
             and d <= NARROW_MAX_K and n_qkv % 128 == 0 and h % 128 == 0
-            and (d // model) % 32 == 0 and cfg.head_dim == ROPE_HEAD_DIM)
+            and (d // m_attn) % 32 == 0 and cfg.head_dim == ROPE_HEAD_DIM)
 
 
 def fused_llama_block(p, x: torch.Tensor, cos, sin, cfg,
-                      tp=None) -> torch.Tensor:
+                      tps=(None, None)) -> torch.Tensor:
     """Llama block (``p`` a ``models.llama_decoder.LlamaBlock``) on x
     (B, S, D) with RMSNorm, SiLU and the residuals inside the products
     (``fused_llama_block`` of the JAX package): :func:`rms_qkv3`, the
@@ -993,12 +1001,14 @@ def fused_llama_block(p, x: torch.Tensor, cos, sin, cfg,
     for w1 (SiLU) and w3, their product, and :func:`matmul_residual` for
     w2.  cos / sin (B, S, head_dim / 2) fp32.  Differentiable: saves (x,
     params) and recomputes in its backward.  A shape or dtype a kernel
-    cannot take raises on CUDA.  With a tensor-parallel mesh ``tp`` the
-    block's params are this rank's slices and each sublayer's output is
+    cannot take raises on CUDA.  ``tps``: the (attention's, FFN's)
+    tensor-parallel grids (``parallel.mesh.Mesh.sublayer_grids``); a
+    sublayer with one has this rank's slices of its params and its output
     summed over the model group inside ``matmul_residual`` (the residual
-    added to the sum); in the backward the gradient at each
-    sublayer's input is summed once (``rms_qkv3``'s, ``rms_swiglu``'s)."""
+    added to the sum), and in the backward the gradient at its input is
+    summed once (``rms_qkv3``'s, ``rms_swiglu``'s)."""
     params = [p.get_parameter(name) for name in LLAMA_PARAMS]
+    tps = tuple(tps)
     if _training(x, *params):
-        return _FusedLlama.apply(x, cos, sin, cfg, tp, *params)
-    return _fused_llama_impl(params, x, cos, sin, cfg, tp)
+        return _FusedLlama.apply(x, cos, sin, cfg, tps, *params)
+    return _fused_llama_impl(params, x, cos, sin, cfg, tps)

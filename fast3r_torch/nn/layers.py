@@ -31,20 +31,25 @@ on the activations' device, seeded from the stack's generator before the
 block runs, so a recomputed block draws the same masks.
 
 Tensor parallelism: given a ``parallel.mesh.Mesh`` with ``model > 1``, a
-stack runs on this rank's slices of the blocks' params
-(``parallel.mesh.shard_params``: whole heads of qkv, a slice of the MLP
-hidden) and ``num_heads / model`` heads.  The fused block sums each
-sublayer's partial
-output over the model group inside its products; the plain road wraps the
-column-parallel products' input in ``mesh.copy_to_model`` and the
-row-parallel products' output in ``mesh.reduce_from_model``, and adds the
-row-parallel bias after the sum, so every replicated tensor and its
-gradient are whole on every rank.  On a grid (any ``mesh``) each dropout
-mask is drawn whole, for the global batch and every head and hidden
-column, in the one-process road's order from the block's generator (the
-same on every rank), and each rank takes its rows (data) and its heads or
-hidden columns (model): the grid's step equals the one-process step on
-the global batch with the same seed, up to summation order.
+stack's attention runs on this rank's slices of its params
+(``parallel.mesh.shard_params``: whole heads of qkv) and ``num_heads /
+model`` heads where ``model`` divides the heads, and its MLP on a slice of
+the hidden where ``model`` divides the hidden; a sublayer it does not
+divide keeps its params whole and runs replicated on every model rank
+(``parallel.mesh.Mesh.sublayer_grids``, which a stack's forward passes
+its blocks).  The fused block sums a split
+sublayer's partial output over the model group inside its products; the
+plain road wraps the column-parallel products' input in
+``mesh.copy_to_model`` and the row-parallel products' output in
+``mesh.reduce_from_model``, and adds the row-parallel bias after the sum,
+so every replicated tensor and its gradient are whole on every rank.  On a
+grid (any ``mesh``) each dropout mask is drawn whole, for the global batch
+and every head and hidden column, in the one-process road's order from the
+block's generator (the same on every rank), and each rank takes its rows
+(data) and, in a split sublayer, its heads or hidden columns (model; a
+replicated sublayer's ranks draw the same mask): the grid's step equals
+the one-process step on the global batch with the same seed, up to
+summation order.
 """
 
 from __future__ import annotations
@@ -167,9 +172,11 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
-def _tp(mesh):
-    """The grid when it splits the model, else None."""
-    return mesh if mesh is not None and mesh.model > 1 else None
+def stack_grids(mesh, stack) -> Tuple:
+    """The (attention's, MLP's) tensor-parallel grids of the blocks of a
+    stack configured by ``stack`` on the grid ``mesh`` (None: one process):
+    ``mesh.sublayer_grids(stack)``, each None where nothing is split."""
+    return (None, None) if mesh is None else mesh.sublayer_grids(stack)
 
 
 def _rand_below(shape, keep: float, generator: torch.Generator, device,
@@ -235,14 +242,16 @@ def row_parallel(p: nn.Linear, x: torch.Tensor, tp) -> torch.Tensor:
 
 
 def mlp(p: Mlp, x: torch.Tensor, drop: float = 0.0,
-        generator: Optional[torch.Generator] = None, mesh=None
+        generator: Optional[torch.Generator] = None, mesh=None, tp=None
         ) -> torch.Tensor:
-    """fc2(GELU(fc1(x))), dropout on the hidden and the output.  On a grid
-    ``mesh`` of ``model > 1``, ``p`` holds this rank's hidden slice."""
-    tp = _tp(mesh)
+    """fc2(GELU(fc1(x))), dropout on the hidden and the output.  ``mesh``:
+    the grid, if any; ``tp``: its grid where it splits this MLP
+    (``Mesh.sublayer_grids``), and then ``p`` holds this rank's hidden
+    slice."""
     if tp is not None:
         x = tp.copy_to_model(x)
-    h = dropout(gelu(linear(p.fc1, x)), drop, generator, mesh, model_dim=-1)
+    h = dropout(gelu(linear(p.fc1, x)), drop, generator, mesh,
+                model_dim=-1 if tp is not None else None)
     return dropout(row_parallel(p.fc2, h, tp), drop, generator, mesh)
 
 
@@ -273,18 +282,18 @@ def attention_layer(p: Attention, x: torch.Tensor, num_heads: int,
                     attn_impl: AttnImpl, attn_drop: float = 0.0,
                     proj_drop: float = 0.0,
                     generator: Optional[torch.Generator] = None,
-                    mesh=None) -> torch.Tensor:
+                    mesh=None, tp=None) -> torch.Tensor:
     """Self-attention sublayer on x (B, N, C).  q, k and v stay strided views
     of the qkv projection's (B, N, 3, H, D) output; RoPE, when given,
     rotates q and k in fp32.  ``attn_impl`` is an implementation's name or
     a callable ``(q, k, v, scale) -> o`` (``ops.attention``).  With a
     generator and a non-zero ``attn_drop`` the softmax weights are
     materialised (fp32 logits, weights in x's dtype) and dropped before
-    ``@ v``; ``proj_drop`` follows the output projection.  On a grid
-    ``mesh`` of ``model > 1``, ``p`` holds this rank's ``num_heads`` heads
+    ``@ v``; ``proj_drop`` follows the output projection.  ``mesh``: the
+    grid, if any; ``tp``: its grid where it splits this attention
+    (``Mesh.sublayer_grids``), and then ``p`` holds this rank's ``num_heads`` heads
     (and the weights' mask is their part of every head's draw)."""
     B, N, _ = x.shape
-    tp = _tp(mesh)
     if tp is not None:
         x = tp.copy_to_model(x)
     qkv = linear(p.qkv, x)
@@ -297,7 +306,7 @@ def attention_layer(p: Attention, x: torch.Tensor, num_heads: int,
     if attn_drop > 0.0 and generator is not None:
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
         w = dropout(torch.softmax(logits, -1).to(q.dtype), attn_drop,
-                    generator, mesh, model_dim=1)
+                    generator, mesh, model_dim=1 if tp is not None else None)
         o = torch.einsum("bhqk,bkhd->bqhd", w, v)
     else:
         o = dot_product_attention(q, k, v, scale=scale, impl=attn_impl)
@@ -309,26 +318,28 @@ def vit_block(p: Block, x: torch.Tensor, num_heads: int, scale: float,
               rope_cos_sin=None, attn_impl: AttnImpl = "pallas",
               ln_eps: float = 1e-6, fused: bool = False, drop: float = 0.0,
               attn_drop: float = 0.0, drop_path_rate: float = 0.0,
-              seed: Optional[int] = None, mesh=None) -> torch.Tensor:
+              seed: Optional[int] = None, mesh=None,
+              tps=(None, None)) -> torch.Tensor:
     """Pre-LN ViT block: the fused block with ``fused=True``, else the plain
     composition of the JAX package.  With a ``seed`` and a non-zero rate the
     block drops (a generator seeded ``seed`` on x's device draws the masks,
     in the order attention weights, projection, first branch, MLP hidden,
     MLP output, second branch) and takes the plain road.  ``mesh``: the
-    grid of ranks, if any (x this data rank's rows; with ``model > 1``
-    ``p`` this rank's slices and ``num_heads`` its heads)."""
+    grid of ranks, if any (x this data rank's rows); ``tps``: its
+    (attention's, MLP's) grids where it splits them (``p`` this rank's
+    slices of a split sublayer, ``num_heads`` its heads)."""
     gen = None
     if seed is not None and (drop > 0.0 or attn_drop > 0.0
                              or drop_path_rate > 0.0):
         gen = torch.Generator(device=x.device).manual_seed(seed)
     if fused and gen is None:
         return fused_vit_block(p, x, rope_cos_sin, num_heads, scale,
-                               attn_impl, ln_eps, _tp(mesh))
+                               attn_impl, ln_eps, tps)
     a = attention_layer(p.attn, layernorm(p.norm1, x, ln_eps), num_heads,
                         scale, rope_cos_sin, attn_impl, attn_drop, drop, gen,
-                        mesh)
+                        mesh, tps[0])
     x = x + drop_path(a, drop_path_rate, gen, mesh)
-    m = mlp(p.mlp, layernorm(p.norm2, x, ln_eps), drop, gen, mesh)
+    m = mlp(p.mlp, layernorm(p.norm2, x, ln_eps), drop, gen, mesh, tps[1])
     return x + drop_path(m, drop_path_rate, gen, mesh)
 
 
@@ -339,7 +350,8 @@ def run_vit_stack(blocks: Sequence[Block], x: torch.Tensor, num_heads: int,
                   fused: bool = False, remat: bool = False,
                   drop: float = 0.0, attn_drop: float = 0.0,
                   drop_path_rate: float = 0.0,
-                  generator: Optional[torch.Generator] = None, mesh=None
+                  generator: Optional[torch.Generator] = None, mesh=None,
+                  tps=(None, None)
                   ) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
     """Run the blocks; return (output, {hook: activation}) with hook i the
     output after block i (1-based).  On the fused road with "batched"
@@ -349,18 +361,19 @@ def run_vit_stack(blocks: Sequence[Block], x: torch.Tensor, num_heads: int,
     attention.  ``remat`` recomputes each plain block in the backward (the
     fused block always does).  With a ``generator`` (a training forward's)
     and a non-zero dropout rate, each block drops with a seed drawn from it
-    and runs on the plain road; the generator is not read otherwise.  With
-    a ``mesh`` of ``model > 1`` the blocks are this rank's slices and run
-    ``num_heads / model`` heads (tensor parallelism); x and the output stay
-    whole on every rank."""
+    and runs on the plain road; the generator is not read otherwise.
+    ``mesh``: the grid of ranks, if any; ``tps``: the blocks' (attention's,
+    MLP's) tensor-parallel grids (``mesh.sublayer_grids`` of the stack's
+    configuration): a sublayer with one runs on this rank's slices (the
+    attention on ``num_heads / model`` heads), one without runs whole on
+    every rank; x and the output stay whole on every rank."""
     drops = generator is not None and (drop > 0.0 or attn_drop > 0.0
                                        or drop_path_rate > 0.0)
     fused = fused and not drops
-    tp = _tp(mesh)
     width = x.shape[-1]
-    if tp is not None:
-        num_heads //= tp.model
-        width //= tp.model
+    if tps[0] is not None:
+        num_heads //= tps[0].model
+        width //= tps[0].model
     if (fused and attn_impl == "batched" and rope_cos_sin is not None
             and len(rope_cos_sin) == 2):
         ct, st = expand_rope_tables(rope_cos_sin[0], rope_cos_sin[1],
@@ -372,7 +385,7 @@ def run_vit_stack(blocks: Sequence[Block], x: torch.Tensor, num_heads: int,
         seed = (int(torch.randint(0, 2 ** 63 - 1, (), generator=generator))
                 if drops else None)
         args = (block, x, num_heads, scale, rope_cos_sin, attn_impl, ln_eps,
-                fused, drop, attn_drop, drop_path_rate, seed, mesh)
+                fused, drop, attn_drop, drop_path_rate, seed, mesh, tps)
         x = (torch.utils.checkpoint.checkpoint(vit_block, *args,
                                                use_reentrant=False)
              if checkpoint else vit_block(*args))

@@ -53,6 +53,19 @@ def attention_lse_ref(q, k, v, scale: float):
             torch.logsumexp(logits, dim=-1))
 
 
+def attention_rows_lse_ref(q, k, v, scale: float, rows: torch.Tensor):
+    """:func:`attention_lse_ref` at some query rows of each head, one head
+    at a time (their scores over all keys, never S x S): ``rows`` (H, n)
+    indices into q's tokens; returns o (B, H, n, D) and lse (B, H, n)."""
+    outs, lses = [], []
+    for h in range(q.shape[2]):
+        o, lse = attention_lse_ref(q[:, rows[h], h:h + 1], k[:, :, h:h + 1],
+                                   v[:, :, h:h + 1], scale)
+        outs.append(o[:, :, 0])
+        lses.append(lse[:, 0])
+    return torch.stack(outs, 1), torch.stack(lses, 1)
+
+
 def attention_bwd_ref(q, k, v, o, lse, do, scale: float):
     """Plain backward: (dq, dk, dv) in q's dtype from the forward's output o
     and lse (B, H, Nq).  p = exp(scale q k^T - lse) and ds = p (do v^T -

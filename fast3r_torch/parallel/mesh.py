@@ -17,16 +17,25 @@ collectives itself:
          and llama decoders): qkv and fc1 (llama: wq, wk, wv, w1, w3)
          column-parallel (output rows), attn.proj and fc2 (llama: wo, w2)
          row-parallel (input columns); the rest replicated, as JAX's
-         ``P()`` leaves it.  One collective per sublayer in the forward
-         (the row-parallel output's all-reduce) and one in the backward
-         (the gradient at the column-parallel input).  Dropout draws each
-         mask whole, for the global batch, from the generator every rank
-         holds, and each rank takes its slice (``nn.layers.dropout``).
+         ``P()`` leaves it.  One collective per split sublayer in the
+         forward (the row-parallel output's all-reduce) and one in the
+         backward (the gradient at the column-parallel input).  A sublayer
+         whose heads (and llama kv heads) or hidden ``model`` does not
+         divide keeps its params whole and runs replicated on every model
+         rank, with no collective (:func:`sublayer_splits`); its
+         gradients are the same on every model rank (``share_batch`` gives
+         them one batch) and take the data group's road, as the replicated
+         params' do.  Dropout draws each mask whole, for the global batch,
+         from the generator every rank holds, and each rank takes its slice
+         (``nn.layers.dropout``; a replicated sublayer's ranks the same
+         mask).
 
 The layout of a rank's qkv rows is the port's own: each rank holds whole
 heads, its q, k and v rows (JAX's spec splits the packed 3C output into
 contiguous blocks, which GSPMD can afford and a per-rank attention cannot).
-Only the gathered params equal JAX's.
+Where whole heads do not divide over ``model``, JAX splits mid-head (or
+replicates) and the port replicates the sublayer; both compute the same
+function.  Only the gathered params equal JAX's.
 
 JAX's ``param_shardings``, ``replicated`` and ``train_state_shardings``
 give ``jit`` its in and out specs; eager PyTorch has no counterpart.
@@ -239,30 +248,23 @@ class Mesh:
     # ---- what the tensor-parallel road runs ------------------------------
     def check_model_config(self, cfg) -> None:
         """Raise :class:`TensorParallelError` for what ``model > 1`` does
-        not run: the sequence-sharded road (a callable attention), and a
-        stack whose heads, llama kv heads or MLP hidden ``model`` does not
-        divide (a rank holds whole heads: JAX's rule would split such a
-        llama ``wk`` / ``wv`` mid-head)."""
-        if self.model == 1:
-            return
-        m = self.model
-        for name, stack in (("encoder", cfg.encoder), ("decoder", cfg.decoder)):
-            heads, kv_heads, hidden = tp_widths(stack)
-            if heads % m:
-                raise TensorParallelError(
-                    f"the {name}'s {heads} heads do not divide over model={m}")
-            if kv_heads % m:
-                raise TensorParallelError(
-                    f"the {name}'s {kv_heads} kv heads do not divide over "
-                    f"model={m}")
-            if hidden % m:
-                raise TensorParallelError(
-                    f"the {name}'s MLP hidden {hidden} does not divide over "
-                    f"model={m}")
-        if callable(cfg.decoder.attn_impl):
+        not run: the sequence-sharded road (a callable attention; JAX has
+        no such path either).  Heads, kv heads or an MLP hidden that
+        ``model`` does not divide run replicated (:func:`sublayer_splits`)."""
+        if self.model > 1 and callable(cfg.decoder.attn_impl):
             raise TensorParallelError(
                 "the sequence-sharded road does not run tensor-parallel "
                 "(model > 1)")
+
+    def sublayer_grids(self, stack) -> Tuple[Optional["Mesh"],
+                                             Optional["Mesh"]]:
+        """The (attention's, MLP's) tensor-parallel grid of the blocks of a
+        stack configured by ``stack``: this grid where its model group
+        splits the sublayer (:func:`sublayer_splits`), else None (the
+        sublayer's params whole and the sublayer run replicated, with no
+        collective).  What a stack's forward passes its blocks."""
+        return tuple(self if s else None
+                     for s in sublayer_splits(stack, self.model))
 
 
 def tp_widths(stack) -> Tuple[int, int, int]:
@@ -273,6 +275,20 @@ def tp_widths(stack) -> Tuple[int, int, int]:
         return stack.n_heads, stack.kv_heads, stack.ffn_hidden
     return (stack.num_heads, stack.num_heads,
             int(stack.embed_dim * stack.mlp_ratio))
+
+
+def sublayer_splits(stack, model: int) -> Tuple[bool, bool]:
+    """Whether a ``model``-way group splits the (attention, MLP) of the
+    blocks of a stack configured by ``stack``: the attention where
+    ``model`` > 1 divides its heads and kv heads (a rank holds whole
+    heads), the MLP / FFN where it divides the hidden.  The one rule both
+    the params' layout (:func:`param_spec`) and the forward
+    (:meth:`Mesh.sublayer_grids`) follow.  JAX's ``param_pspec`` splits a
+    width that whole heads do not divide mid-head where its shape divides,
+    or replicates it; GSPMD computes the same function either way."""
+    heads, kv_heads, hidden = tp_widths(stack)
+    return (model > 1 and heads % model == 0 and kv_heads % model == 0,
+            model > 1 and hidden % model == 0)
 
 
 def _numeric(v) -> bool:
@@ -323,11 +339,30 @@ def make_mesh(data: Optional[int] = None, model: int = 1) -> Mesh:
 # the tensor-parallel rule
 # ---------------------------------------------------------------------------
 
-def param_spec(name: str, shape: Tuple[int, ...], model: int
+def _sublayer_splits(name: str, cfg, model: int) -> bool:
+    """Whether ``model`` ranks split the block sublayer that parameter
+    ``name`` belongs to (True outside the stacks' sublayers)."""
+    parts = name.split(".")
+    stack = {"encoder": cfg.encoder, "decoder": cfg.decoder}.get(parts[0])
+    if stack is None:
+        return True
+    attn, mlp = sublayer_splits(stack, model)
+    if "attn" in parts:
+        return attn
+    if "mlp" in parts or "ffn" in parts:
+        return mlp
+    return True
+
+
+def param_spec(name: str, shape: Tuple[int, ...], model: int, cfg
                ) -> Optional[ParamSpec]:
     """How the port's parameter ``name`` (``Fast3RNet.named_parameters``,
-    torch's (out, in) layout) of ``shape`` splits over ``model`` ranks, or
-    None when it is replicated: JAX's ``param_pspec`` on the port's names.
+    torch's (out, in) layout) of ``shape`` splits over ``model`` ranks in
+    the model ``cfg``, or None when it is replicated: JAX's ``param_pspec``
+    on the port's names, except that the params of a sublayer ``model``
+    does not split (:func:`sublayer_splits`) are replicated, where JAX's
+    shape rule may split them mid-head; the port's forward runs such a
+    sublayer whole on every model rank.
     Weights and biases of qkv / fc1 and of the llama ``wq``, ``wk``,
     ``wv``, ``w1``, ``w3`` split their output rows (qkv per q | k | v block,
     so a rank holds whole heads of each; a rank's contiguous ``wk`` / ``wv``
@@ -336,7 +371,7 @@ def param_spec(name: str, shape: Tuple[int, ...], model: int
     columns, their bias replicated; a dim that ``model`` does not divide
     leaves the tensor replicated.  The DINO encoder's blocks follow the ViT
     rule, its LayerScale gammas, tokens and embeddings stay replicated."""
-    if model == 1:
+    if model == 1 or not _sublayer_splits(name, cfg, model):
         return None
     parts = name.split(".")
     names, leaf = set(parts[:-1]), parts[-1]
@@ -390,18 +425,19 @@ def full_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
 Params = Union[nn.Module, Dict[str, torch.Tensor]]
 
 
-def shard_params(params: Params, mesh: Mesh) -> Params:
-    """This rank's slice of whole params: of a ``Fast3RNet`` a module of the
-    same structure whose parameters are the local slices (for the
-    tensor-parallel forward), of a name -> tensor dict (``params_from_jax``'s,
-    a checkpoint's) the dict of slices."""
+def shard_params(params: Params, mesh: Mesh, cfg) -> Params:
+    """This rank's slice of whole params of the model ``cfg``: of a
+    ``Fast3RNet`` a module of the same structure whose parameters are the
+    local slices (for the tensor-parallel forward), of a name -> tensor dict
+    (``params_from_jax``'s, a checkpoint's) the dict of slices."""
     if isinstance(params, nn.Module):
         named = dict(params.named_parameters())
-        local = shard_params({k: p.detach() for k, p in named.items()}, mesh)
+        local = shard_params({k: p.detach() for k, p in named.items()}, mesh,
+                             cfg)
         memo = {id(p): nn.Parameter(local[k], requires_grad=p.requires_grad)
                 for k, p in named.items()}
         return copy.deepcopy(params, memo)
-    return {k: shard_tensor(t, param_spec(k, tuple(t.shape), mesh.model),
+    return {k: shard_tensor(t, param_spec(k, tuple(t.shape), mesh.model, cfg),
                             mesh.model, mesh.model_rank)
             for k, t in params.items()}
 
@@ -418,7 +454,7 @@ def gather_params(params: Params, mesh: Mesh, cfg, to_all: bool = True
     shapes = full_shapes(cfg)
     out = {}
     for k, t in params.items():
-        spec = param_spec(k, shapes[k], mesh.model)
+        spec = param_spec(k, shapes[k], mesh.model, cfg)
         if spec is None:
             parts = [t]
         else:
@@ -476,7 +512,7 @@ def _buckets(net: nn.Module, cfg, mesh: Mesh) -> List[Bucket]:
     shapes = full_shapes(cfg)
     groups: Dict[str, Bucket] = {}
     for name, p in net.named_parameters():
-        sharded = param_spec(name, shapes[name], mesh.model) is not None
+        sharded = param_spec(name, shapes[name], mesh.model, cfg) is not None
         key = (f"{name.split('.', 1)[0]}.{'model' if sharded else 'whole'}"
                f"{'' if p.requires_grad else '.frozen'}")
         b = groups.setdefault(key, Bucket(key, [], [], sharded,

@@ -36,7 +36,12 @@ import torch
 from fast3r_torch.models.decoder import decoder_forward, sample_random_image_ids
 from fast3r_torch.models.dpt_head import dpt_head_forward
 from fast3r_torch.models.encoder import encoder_forward
-from fast3r_torch.models.fast3r import Fast3RConfig, Fast3RNet, _chunk_views
+from fast3r_torch.models.fast3r import (
+    Fast3RConfig,
+    Fast3RNet,
+    _chunk_views,
+    _concat_chunks,
+)
 from fast3r_torch.ops.flash_attention import attention_lse_ref
 from fast3r_torch.parallel.ring_rdma import HEAD_DIMS as RING_HEAD_DIMS
 from fast3r_torch.parallel.ring_rdma import ring_flash_attention_rdma_diff
@@ -235,16 +240,15 @@ def make_seq_sharded_forward(cfg: Fast3RConfig, n: int, num_views: int,
                              f"inference), got a batch of {imgs.shape[0]}")
         if tuple(imgs.shape[1:]) != (V, H, W, 3):
             raise ValueError(f"imgs {tuple(imgs.shape)} != (1, {V}, {H}, {W}, 3)")
+        if view_ids is None:
+            view_ids = (sample_random_image_ids(None, 1, V)[0]
+                        if dcfg.random_image_idx_embedding
+                        else torch.arange(V, dtype=torch.int32))
         imgs = imgs.to(device=p0.device, dtype=p0.dtype)
         feats, _ = encoder_forward(params.encoder, cfg.encoder,
                                    imgs.reshape(V, H, W, 3))
         P = feats.shape[1]
         fused = feats.reshape(1, V * P, -1)
-
-        if view_ids is None:
-            view_ids = (sample_random_image_ids(None, 1, V)[0]
-                        if dcfg.random_image_idx_embedding
-                        else torch.arange(V, dtype=torch.int32))
         ids = torch.as_tensor(view_ids).reshape(V).to(device=fused.device,
                                                       dtype=torch.long)
         out = decoder_forward(params.decoder, dcfg, fused,
@@ -252,9 +256,11 @@ def make_seq_sharded_forward(cfg: Fast3RConfig, n: int, num_views: int,
                               is_training=False)
         tokens = [out[h].reshape(V, P, -1) for h in dcfg.hooks]
         cv = _chunk_views(head_chunk_views, V // n) or V
-        chunks = [_run_heads(params, cfg, [t[c:c + cv] for t in tokens],
-                             (H, W)) for c in range(0, V, cv)]
-        return {k: torch.cat([r[k] for r in chunks])[None] for k in chunks[0]}
+        out = _concat_chunks((_run_heads(params, cfg, [t[c:c + cv]
+                                                       for t in tokens],
+                                         (H, W)) for c in range(0, V, cv)),
+                             0, V)
+        return {k: v[None] for k, v in out.items()}
 
     return fwd
 

@@ -3,7 +3,7 @@ on one GPU.
 
     python -m fast3r_torch.profile_request [--views 20] [--train] \
         [--model flagship|llama] [--roads fused,plain,two_kernel_mlp] \
-        [--seq-ranks N] [--hw 384 512] [--out runs/profile]
+        [--seq-ranks N] [--hw 384 512] [--head-chunk N] [--out runs/profile]
 
 For each road it builds the model (``--model``: the flagship, or
 ``llama``, the flagship with the llama_dec decoder of
@@ -19,6 +19,13 @@ and CUDA activities).  With ``--train`` it instead takes one ``train_step``
   * plain: both stacks with ``fused_blocks=False``;
   * two_kernel_mlp: fused blocks with ``PREFER_FUSED_MLP = False``.
 
+With ``--head-chunk N`` the request is one ``fast3r_forward`` call of the
+model's configuration over the views with the DPT heads run over chunks of
+N views (``head_chunk_views``: the many-view call of
+``scripts/bench_1000view.py``; ``--views 1000 --hw 384 512 --head-chunk
+25`` is 1000 views of 512x384, S = 768,000 tokens), its outputs left on
+the card.
+
 With ``--seq-ranks N`` it profiles the flagship's sequence-sharded request
 instead (``fast3r_torch.parallel.make_seq_sharded_forward`` over N ranks
 with the ring kernel; the encoder on its fused road, the decoder on the
@@ -28,11 +35,13 @@ N`` the sequence-sharded training step
 kernels forward and backward, the same roads and batch as ``--train``).
 
 It prints one JSON line per road: the request's or step's wall time (host
-clock, profiler on, ending in a synchronise), the sum of kernel time, the
-device's
-busy share (kernel time over wall), kernel time by category and the
-heaviest kernels by name; and writes a Chrome trace per road under
-``--out``.  It needs a CUDA device and raises without one.
+clock, profiler on, ending in a synchronise), its peak device memory
+(``torch.cuda.max_memory_allocated``), the sum of kernel time, the
+device's busy share (kernel time over wall), kernel time by category, the
+span on the device of each stage range of ``fast3r_forward`` (encoder,
+decoder, heads; ``models.fast3r.STAGES``) and the heaviest kernels by
+name; and writes a Chrome trace per road under ``--out``.  It needs a CUDA
+device and raises without one.
 """
 
 from __future__ import annotations
@@ -49,7 +58,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from fast3r_torch.data.dummy import make_dummy_batch
 from fast3r_torch.inference import Fast3R, inference
-from fast3r_torch.models.fast3r import Fast3RConfig
+from fast3r_torch.models.decoder import sample_random_image_ids
+from fast3r_torch.models.fast3r import STAGES, Fast3RConfig, fast3r_forward
 from fast3r_torch.models.llama_decoder import LlamaDecoderConfig
 from fast3r_torch.nn import fused_block
 from fast3r_torch.parallel.sequence import (
@@ -103,6 +113,20 @@ def _request(model: Fast3R, views: list):
     return lambda: inference(views, model, verbose=False)
 
 
+def _chunked_request(model: Fast3R, views: list, head_chunk: int):
+    """One ``fast3r_forward`` over the views with the heads chunked (the
+    work to profile); the images are on the card in the model's dtype."""
+    imgs = torch.cat([v["img"] for v in views])[None].to(
+        device=model.device, dtype=model.dtype)
+    ids = sample_random_image_ids(None, 1, len(views))
+
+    @torch.inference_mode()
+    def run():
+        return fast3r_forward(model.params, model.cfg, imgs,
+                              head_chunk_views=head_chunk, view_ids=ids)
+    return run
+
+
 def _train_step(model: Fast3R, views: int, hw, seq_ranks: int = 0):
     """One training step from a fixed state and batch of ``views`` views of
     ``hw`` (the work to profile); sequence-sharded over ``seq_ranks`` ranks
@@ -128,7 +152,8 @@ def _seq_request(model: Fast3R, views: list, ranks: int):
 
 
 def profile_road(model: Fast3R, road: str, views: list, out_dir: Path,
-                 train: bool = False, seq_ranks: int = 0) -> dict:
+                 train: bool = False, seq_ranks: int = 0,
+                 head_chunk: int = 0) -> dict:
     m = Fast3R(model.cfg.with_fused_blocks(road != "plain"), model.params)
     hw = tuple(views[0]["img"].shape[1:3])
     fused_block.PREFER_FUSED_MLP = road != "two_kernel_mlp"
@@ -137,10 +162,13 @@ def profile_road(model: Fast3R, road: str, views: list, out_dir: Path,
             work = _train_step(m, len(views), hw, seq_ranks)
         elif seq_ranks:
             work = _seq_request(model, views, seq_ranks)
+        elif head_chunk:
+            work = _chunked_request(m, views, head_chunk)
         else:
             work = _request(m, views)
         work()  # warm-up of the same size
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
@@ -149,9 +177,17 @@ def profile_road(model: Fast3R, road: str, views: list, out_dir: Path,
             wall = time.perf_counter() - t
     finally:
         fused_block.PREFER_FUSED_MLP = True
-    by_cat, by_name, total = {}, {}, 0.0
+    peak = torch.cuda.max_memory_allocated()
+    by_cat, by_name, stages, total = {}, {}, {}, 0.0
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        cuda = evt.device_type == torch.autograd.DeviceType.CUDA
+        if evt.key in STAGES:  # a range (its span on the device), no kernel
+            if cuda:
+                us = getattr(evt, "device_time_total", None)
+                stages[evt.key] = (evt.cuda_time_total if us is None
+                                   else us) / 1e3
+            continue
+        if not cuda:
             continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
@@ -171,8 +207,10 @@ def profile_road(model: Fast3R, road: str, views: list, out_dir: Path,
         out_dir / f"trace_{what}_{road}_{len(views)}_{hw[0]}x{hw[1]}.json"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     return {"road": road, "work": what, "views": len(views),
-            "wall_ms": wall * 1e3,
+            "head_chunk": head_chunk or None, "wall_ms": wall * 1e3,
+            "peak_mem_gb": peak / 1e9,
             "kernel_ms": total, "busy_share": total / (wall * 1e3),
+            "stage_device_ms": stages,
             "by_category_ms": dict(sorted(by_cat.items(),
                                           key=lambda kv: -kv[1])),
             "top_kernels": [{"name": k, "calls": n, "ms": t}
@@ -193,6 +231,9 @@ def main() -> None:
                          "instead")
     ap.add_argument("--hw", type=int, nargs=2, default=(384, 512),
                     metavar=("H", "W"), help="the views' height and width")
+    ap.add_argument("--head-chunk", type=int, default=0, metavar="N",
+                    help="one fast3r_forward call with the heads over "
+                         "chunks of N views instead of inference()")
     ap.add_argument("--out", default="runs/profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -212,7 +253,7 @@ def main() -> None:
     roads = ["seq_sharded"] if args.seq_ranks else args.roads.split(",")
     for road in roads:
         res = profile_road(model, road, views, Path(args.out), args.train,
-                           args.seq_ranks)
+                           args.seq_ranks, args.head_chunk)
         res["gpu"], res["model"], res["hw"] = gpu, args.model, [H, W]
         print(json.dumps(res), flush=True)
 

@@ -194,7 +194,7 @@ def init_train_state(params: Fast3RNet, optim_cfg: OptimConfig,
         mesh.check_model_config(model_cfg)
         device = device if device is not None else next(
             params.parameters()).device
-        local = mesh_lib.shard_params(params, mesh)
+        local = mesh_lib.shard_params(params, mesh, model_cfg)
         zero = mesh_lib.zero_init(local, model_cfg, mesh, device)
         return MeshTrainState(
             net=local.to(device=device, dtype=compute_dtype), opt_state=zero,
@@ -411,7 +411,8 @@ class MeshTrainState:
         master, the moments given), and the compute copy, in place."""
         from fast3r_torch.parallel import mesh as mesh_lib
 
-        local = [None if d is None else mesh_lib.shard_params(d, self.mesh)
+        local = [None if d is None
+                 else mesh_lib.shard_params(d, self.mesh, self.cfg)
                  for d in (params, mu, nu)]
         mesh_lib.zero_load(self.opt_state, *local)
         mesh_lib.zero_publish(self.opt_state, self.net, self.mesh)

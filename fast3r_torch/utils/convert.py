@@ -22,7 +22,8 @@ Leaves may be numpy arrays or anything ``numpy.asarray`` accepts.
 params leaf by leaf with the JAX tree).
 
 On a tensor-parallel grid (``parallel.mesh``), ``shard_params`` of
-:func:`params_from_jax`'s dict gives a rank its slices of a JAX tree, and
+:func:`params_from_jax`'s dict (and the model's config) gives a rank its
+slices of a JAX tree, and
 :func:`params_to_jax` of ``gather_params`` (the whole tensors from every
 model rank's slices) gives the JAX tree back.
 """

@@ -270,6 +270,7 @@ def test_trunk_kernel_matches_plain(dev, dtype, hh, wc, H, W, n, cin):
 
 @pytest.mark.parametrize("n,hh,wc,H,W", [
     (20, 192, 256, 384, 512),   # the 20-view request's chunk
+    (25, 192, 256, 384, 512),   # a 1000 x 512x384 forward's head chunk
     (6, 256, 192, 512, 384)])   # the mixed request's portrait group
 def test_trunk_kernel_at_the_request_shapes(dev, n, hh, wc, H, W):
     """bf16 at Cin 256: 3e-2 of max |plain|; two runs give the same bits."""
@@ -1465,3 +1466,152 @@ def test_seq_sharded_train_step_on_cuda_matches_single_device(dev):
     for k in ref:
         if k.startswith("watch/grad_norm/"):
             assert abs(m[k].item() - ref[k].item()) < 3e-2 * ref[k].item(), k
+
+
+# ---------------------------------------------------------------------------
+# the 1000-view shapes: 1000 views of 512x384 are M = S = 768,000 tokens;
+# the packed (3, M, 1024) qkv (2.36G elements) and fc1's (M, 4096) output
+# (3.15G) pass 2^31 elements.  Each kernel runs whole; its plain version on
+# the rows of kernels.rows (the first and last 1024 of each output and
+# packed plane, 2048 seeded rows between; K1 and the ring on query rows a
+# head), at the flagship-shape cases' tolerances.
+# ---------------------------------------------------------------------------
+
+def _bf_big(shape, g, scale=1.0, shift=0.0):
+    """A bf16 normal tensor drawn in bf16 (no fp32 copy of a 6 GB one)."""
+    return torch.randn(shape, generator=g, device="cuda",
+                       dtype=torch.bfloat16).mul_(scale).add_(shift)
+
+
+@pytest.mark.parametrize("kind", ["ln_qkv_rope", "ln_qkv", "fc1_gelu", "proj",
+                                  "fc2", "ln_mlp", "layernorm"])
+def test_block_kernels_at_the_1000_view_shape(dev, kind):
+    """K3 / K4 (the encoder's LN -> qkv -> RoPE into the packed buffer), K3
+    (the decoder's q | k | v split, fc1 with GELU on the two-kernel road),
+    K5 (proj at K = 1024, fc2 at K = 4096), K6 and K7 at M = 768,000, C =
+    1024, hidden 4096: one bf16 step + 2e-2 (K7: 6e-2 on its values up
+    to ~8, as test_layernorm_kernel_matches_plain)."""
+    from fast3r_torch.kernels.rows import MANY_VIEW_TOKENS, check_rows
+    from fast3r_torch.nn import fused_block as t_fb
+    from fast3r_torch.ops.rope2d import expand_rope_tables, rope2d_cos_sin
+
+    g = _gen(31)
+    M, C, hidden = MANY_VIEW_TOKENS, 1024, 4096
+    rows = check_rows(M, seed=31, device=dev)
+    x = _bf_big((M, C), g, 2.0, 0.5)
+    gamma, beta = _bf((C,), g, 0.1, 1.0), _bf((C,), g, 0.1)
+    xr = x[rows]
+    atol = 2e-2
+    if kind in ("ln_qkv_rope", "ln_qkv"):
+        w, b = _linear(3 * C, C, g)
+        if kind == "ln_qkv":
+            out = torch.stack(t_fb.ln_qkv(x, gamma, beta, w, b, 1e-5))
+            ref = torch.stack(t_fb.ln_qkv_ref(xr, gamma, beta, w, b, 1e-5))
+        else:
+            yy, xx = torch.meshgrid(torch.arange(24), torch.arange(32),
+                                    indexing="ij")
+            pos = torch.stack([yy, xx], -1).reshape(1, -1, 2).repeat(
+                M // 768, 1, 1).cuda()
+            ct, st = expand_rope_tables(*rope2d_cos_sin(pos, 64), C,
+                                        torch.bfloat16)
+            out = t_fb.ln_qkv_rope(x, gamma, beta, w, b, ct, st, 16, 1e-6)
+            ref = t_fb.ln_qkv_rope_ref(xr, gamma, beta, w, b, ct[rows],
+                                       st[rows], 16, 1e-6)
+        out = out[:, rows]
+    elif kind == "fc1_gelu":
+        w, b = _linear(hidden, C, g)
+        out = t_fb.ln_matmul(x, gamma, beta, w, b, 1e-6, act="gelu")[rows]
+        ref = t_fb.ln_matmul_ref(xr, gamma, beta, w, b, 1e-6, act="gelu")
+    elif kind in ("proj", "fc2"):
+        k_in = C if kind == "proj" else hidden
+        w, b = _linear(C, k_in, g)
+        h = _bf_big((M, k_in), g, 0.5)
+        out = t_fb.matmul_residual(h, w, b, x)[rows]
+        ref = t_fb.matmul_residual_ref(h[rows], w, b, xr)
+    elif kind == "ln_mlp":
+        w1, b1 = _linear(hidden, C, g)
+        w2, b2 = _linear(C, hidden, g)
+        out = t_fb.ln_mlp(x, gamma, beta, w1, b1, w2, b2, 1e-6)[rows]
+        ref = t_fb.ln_mlp_ref(xr, gamma, beta, w1, b1, w2, b2, 1e-6)
+    else:
+        x.mul_(1.5)  # values to ~8, as the LayerNorm case
+        out = t_ln.fused_layernorm(x, gamma, beta, 1e-5)[rows]
+        ref = t_ln.layernorm_ref(x[rows], gamma, beta, 1e-5)
+        atol = 6e-2
+    torch.cuda.synchronize()
+    _assert_bf16_close(out, ref, atol=atol)
+
+
+def test_attention_kernel_at_the_1000_view_shape(dev):
+    """K1 at S = 768,000 (the decoder's 16 heads of 64, bf16, its inference
+    scale) on 256 query rows a head (the last 128 and 128 seeded) against
+    the plain attention of those rows over all keys: o one bf16 step +
+    FWD_BF16_TOL's, lse at FWD_BF16_TOL's.  q is scaled so that the scores
+    spread (std ~3) and each row's output rests on a few hundred keys (|o|
+    ~0.1): a key or value read from the wrong place moves it."""
+    from fast3r_torch.kernels.rows import MANY_VIEW_TOKENS, query_rows
+
+    g = _gen(32)
+    S, H, D = MANY_VIEW_TOKENS, 16, 64
+    scale = 0.125 * math.sqrt(math.log(137) / math.log(20))
+    q = _bf_big((1, S, H, D), g, 3.0 / (D ** 0.5 * scale))
+    k, v = _bf_big((1, S, H, D), g), _bf_big((1, S, H, D), g)
+    rows = query_rows(S, H, seed=32, device=dev)
+    o, lse = t_flash.attention_fwd_lse(q, k, v, scale)
+    ref_o, ref_lse = t_flash.attention_rows_lse_ref(q, k, v, scale, rows)
+    torch.cuda.synchronize()
+    heads = torch.arange(H, device=dev)[:, None]
+    got_o = o[0, rows, heads]          # (H, n, D)
+    got_lse = lse[0, heads, rows]      # (H, n)
+    _assert_bf16_close(got_o, ref_o[0], FWD_BF16_TOL[0])
+    assert (got_lse - ref_lse[0]).abs().max().item() < FWD_BF16_TOL[1]
+    assert ref_o[0].float().abs().amax(-1).mean().item() > 0.05
+
+
+def test_ring_kernel_at_the_1000_view_shape(dev):
+    """K14's forward over 4 ranks at S_loc = 192,000 (the 1000-view
+    512x384 sequence of S = 768,000 tokens sharded, 16 heads of 64, bf16;
+    the slots (2, 16, 192,000, 64) a rank) on 256 query rows a head of the
+    gathered sequence against the plain attention of those rows over all
+    keys: o one bf16 step + RING_CUDA_TOL's, lse at RING_CUDA_TOL's; scores
+    spread as in the K1 case."""
+    from fast3r_torch.kernels.rows import MANY_VIEW_TOKENS, query_rows
+    from fast3r_torch.parallel import ring_rdma as t_ring
+
+    g = _gen(34)
+    n, S, H, D = 4, MANY_VIEW_TOKENS, 16, 64
+    scale = 0.125 * math.sqrt(math.log(137) / math.log(20))
+    q = _bf_big((1, S, H, D), g, 3.0 / (D ** 0.5 * scale))
+    k, v = _bf_big((1, S, H, D), g), _bf_big((1, S, H, D), g)
+    rows = query_rows(S, H, seed=34, device=dev)
+    o, lse = t_ring._rdma_forward(
+        *(t.view(n, 1, S // n, H, D) for t in (q, k, v)), scale, n)
+    ref_o, ref_lse = t_flash.attention_rows_lse_ref(q, k, v, scale, rows)
+    torch.cuda.synchronize()
+    heads = torch.arange(H, device=dev)[:, None]
+    got_o = o.view(1, S, H, D)[0, rows, heads]                  # (H, n, D)
+    got_lse = lse.permute(1, 0, 2).reshape(H, S)[heads, rows]   # (H, n)
+    o_tol, lse_tol = RING_CUDA_TOL[torch.bfloat16]
+    _assert_bf16_close(got_o, ref_o[0], o_tol)
+    assert (got_lse - ref_lse[0]).abs().max().item() < lse_tol
+    assert ref_o[0].float().abs().amax(-1).mean().item() > 0.05
+
+
+def test_packed_qkv_attention_kernel_at_the_1000_view_shape(dev):
+    """K2 on the encoder's packed (3, 1000, 768, 1024) buffer (16,000
+    (view, head) items; k and v start 0.79G and 1.57G elements in) on 16
+    views (the first 4, the last 4, 8 seeded) against the plain attention,
+    bf16 at 1e-2; scores spread as in the K1 case."""
+    from fast3r_torch.kernels.rows import check_rows
+    from fast3r_torch.ops import batched_attention as t_ba
+
+    g = _gen(33)
+    B, N, C, H = 1000, 768, 1024, 16
+    qkv3 = _bf_big((3, B, N, C), g)
+    qkv3[0].mul_(2.0)
+    out = t_ba.packed_qkv_attention(qkv3, H, 0.125)
+    views = check_rows(B, seed=33, edge=4, between=8, device=dev)
+    q, k, v = (qkv3[i][views].view(-1, N, H, 64) for i in range(3))
+    ref = t_flash.attention_ref(q, k, v, 0.125).reshape(-1, N, C)
+    torch.cuda.synchronize()
+    _assert_bf16_close(out[views], ref, 1e-2)

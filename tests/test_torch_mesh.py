@@ -14,13 +14,20 @@ imports torch and the port only.
   model_scaling, llama_dec and DINO-encoder configurations at model 2 and
   4, ``param_spec`` splits the same logical dim (output or input) of the
   same params as JAX's ``param_pspec`` through the converter's name map,
-  and replicates where JAX does.
+  and replicates where JAX does and where whole heads or the hidden do
+  not divide over ``model`` (tiny's two heads at model 4).
 * Two mesh steps on ``tiny()`` in fp32, fused and plain roads, at (data,
   model) (2, 1), (1, 2) and (2, 2), against JAX's ``make_jitted_train_step``
   on a mesh of as many virtual devices with the same global batch and
   image ids: the loss within 1e-5 relative, the gathered params and AdamW
   moments within 1e-5 of each tensor's largest value; each rank's moment
   bytes at most 0.6 of the whole's at data 2.
+* The same at (1, 2) on 2-sample batches for decoders whose widths model 2
+  does not divide, which the port runs replicated where JAX splits them
+  mid-head or replicates them: one head of 64, a llama decoder of 2 heads
+  over 1 kv head, an MLP hidden of 257; and two steps of the one-head,
+  257-hidden decoder with dropout in both stacks equal the one-process
+  steps from the same seed.  The sequence-sharded road stays refused.
 * ``python -m fast3r_torch.cli.train --distributed --device cpu`` as 2 gloo
   ranks for 2 steps of debug_smoke: both ranks hold the same params
   (bitwise), and they equal a one-process run on the same global batches
@@ -64,6 +71,7 @@ from fast3r_torch.parallel import mesh as pm
 from fast3r_torch.train import step as ts
 
 BATCH_KEYS = ("imgs", "true_shapes", "pts3d", "valid_mask", "camera_pose")
+DROP = dict(drop=0.1, attn_drop=0.1, drop_path=0.1)
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=100, eta_min=1e-5)
 V, H, W = 3, 32, 48
 RTOL = 1e-5       # of each tensor's largest value (params, moments); loss
@@ -188,6 +196,22 @@ def _jax_split(keys, shape, mesh):
     return "out" if dims[0] == last else "in"
 
 
+def _runs_whole(pname, cfg, model) -> bool:
+    """Whether the port keeps ``pname``'s block sublayer whole at ``model``
+    ranks: an attention whose heads or kv heads, or an MLP / FFN whose
+    hidden, ``model`` does not divide (JAX splits such a width mid-head
+    where its shape divides)."""
+    parts = pname.split(".")
+    if parts[0] not in ("encoder", "decoder"):
+        return False
+    heads, kv_heads, hidden = pm.tp_widths(getattr(cfg, parts[0]))
+    if "attn" in parts:
+        return bool(heads % model or kv_heads % model)
+    if "mlp" in parts or "ffn" in parts:
+        return bool(hidden % model)
+    return False
+
+
 @pytest.mark.parametrize("name", SPEC_CONFIGS)
 def test_param_spec_matches_jax(name):
     import jax
@@ -218,9 +242,10 @@ def test_param_spec_matches_jax(name):
                          if not (i and parts[i - 1] in _STACKED))
             keys += (_jax_leaf(net.get_submodule(mod_path), leaf),)
             assert keys in want, (name, pname, keys)
-            spec = pm.param_spec(pname, tuple(p.shape), model)
+            spec = pm.param_spec(pname, tuple(p.shape), model, cfg)
             got = None if spec is None else ("out", "in")[spec.dim]
-            assert got == want[keys], (name, model, pname, got, want[keys])
+            expect = None if _runs_whole(pname, cfg, model) else want[keys]
+            assert got == expect, (name, model, pname, got, want[keys])
             seen.add(keys)
         assert seen == set(want), (name, sorted(set(want) - seen)[:4])
         assert any(v for v in want.values()), name
@@ -229,48 +254,178 @@ def test_param_spec_matches_jax(name):
 def test_shard_gather_round_trip():
     """shard_tensor / unshard_tensor invert each other; qkv's slices hold
     whole heads of q, k and v."""
+    cfg = Fast3RConfig.tiny()  # 2 heads, hidden 256: model 2 and 4 split
     t = torch.arange(12 * 5, dtype=torch.float32).reshape(12, 5)
-    spec = pm.param_spec("decoder.blocks.0.attn.qkv.weight", (12, 5), 2)
+    spec = pm.param_spec("decoder.blocks.0.attn.qkv.weight", (12, 5), 2, cfg)
     assert spec == pm.ParamSpec(0, packed=True)
     parts = [pm.shard_tensor(t, spec, 2, r) for r in range(2)]
     assert torch.equal(parts[0], torch.cat([t[0:2], t[4:6], t[8:10]]))
     assert torch.equal(pm.unshard_tensor(parts, spec), t)
-    spec = pm.param_spec("encoder.blocks.1.mlp.fc2.weight", (5, 12), 4)
+    spec = pm.param_spec("encoder.blocks.1.mlp.fc2.weight", (5, 12), 4, cfg)
     parts = [pm.shard_tensor(t.t(), spec, 4, r) for r in range(4)]
     assert parts[1].shape == (5, 3)
     assert torch.equal(pm.unshard_tensor(parts, spec), t.t())
-    assert pm.param_spec("encoder.blocks.1.attn.proj.bias", (5,), 2) is None
-    assert pm.param_spec("head_global.proj.weight", (4, 4), 2) is None
+    assert pm.param_spec("encoder.blocks.1.attn.proj.bias", (5,), 2,
+                         cfg) is None
+    assert pm.param_spec("head_global.proj.weight", (4, 4), 2, cfg) is None
 
 
-@pytest.mark.parametrize("what", ["heads", "gqa", "seq"])
-def test_tensor_parallel_refusals(what):
-    """What the tensor-parallel road does not run raises its named error:
-    heads that do not divide, a llama decoder whose kv heads do not divide
-    (a rank holds whole kv heads), the sequence-sharded road."""
+# ---------------------------------------------------------------------------
+# widths that model does not divide, and the refused sequence-sharded road
+# ---------------------------------------------------------------------------
+
+UNEVEN = ["heads", "gqa", "hidden"]
+UNEVEN_ROWS = 2  # the global batch of their steps
+
+
+def uneven_cfg(what: str) -> Fast3RConfig:
+    """``tiny()`` with a decoder whose sublayer model 2 cannot split into
+    whole heads or columns: "heads" one head of 64; "gqa" a llama decoder of
+    2 heads over 1 kv head; "hidden" an MLP hidden of 257; "drop" one head
+    and a hidden of 257 with every dropout rate of both stacks non-zero."""
     from fast3r_torch.models.llama_decoder import LlamaDecoderConfig
 
     cfg = Fast3RConfig.tiny()
-    if what == "heads":
-        cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
-            cfg.decoder, num_heads=1))
-    elif what == "gqa":
-        cfg = dataclasses.replace(cfg, decoder=LlamaDecoderConfig(
+    if what == "gqa":
+        return dataclasses.replace(cfg, decoder=LlamaDecoderConfig(
             enc_embed_dim=64, embed_dim=64, n_layers=2, n_heads=2,
             n_kv_heads=1))
-    else:
-        from fast3r_torch.parallel.sequence import seq_sharded_config
+    dec = {"heads": dict(num_heads=1), "hidden": dict(mlp_ratio=257 / 64),
+           "drop": dict(num_heads=1, mlp_ratio=257 / 64, **DROP)}[what]
+    enc = DROP if what == "drop" else {}
+    return dataclasses.replace(
+        cfg, encoder=dataclasses.replace(cfg.encoder, **enc),
+        decoder=dataclasses.replace(cfg.decoder, **dec))
 
-        cfg = seq_sharded_config(cfg, 2, ring_impl="plain")
+
+def uneven_jax_cfg(what: str):
+    """JAX's configuration of the same decoder (not "drop")."""
+    from fast3r_tpu.models import fast3r as jf
+    from fast3r_tpu.models.llama_decoder import LlamaDecoderConfig as JLlama
+
+    cfg = jf.Fast3RConfig.tiny()
+    if what == "gqa":
+        return dataclasses.replace(cfg, decoder=JLlama(
+            enc_embed_dim=64, embed_dim=64, n_layers=2, n_heads=2,
+            n_kv_heads=1))
+    dec = {"heads": dict(num_heads=1), "hidden": dict(mlp_ratio=257 / 64)}
+    return dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, **dec[what]))
+
+
+def _uneven_batches(seeds) -> list:
+    return [{k: v for k, v in make_dummy_batch(UNEVEN_ROWS, V, H, W,
+                                               seed=s).items()
+             if k in BATCH_KEYS} for s in seeds]
+
+
+def _uneven_worker(rank, world, port, tmp):
+    """At (1, 2): each UNEVEN decoder's two steps on both block roads from
+    its inputs file, then the "drop" configuration's two steps from
+    ``init_fast3r(seed=5)`` with the image ids drawn from the state's
+    generator; rank 0 saves each's results."""
+    from fast3r_torch.models.fast3r import init_fast3r
+
+    _join(rank, world, port)
+    mesh = pm.make_mesh(1, 2)
+    for what in UNEVEN:
+        inputs = torch.load(f"{tmp}/uneven_in_{what}.pt", weights_only=False)
+        res = {fused: _two_steps(uneven_cfg(what).with_fused_blocks(fused),
+                                 inputs, mesh) for fused in (True, False)}
+        if rank == 0:
+            torch.save(res, f"{tmp}/uneven_{what}.pt")
+    cfg, opt = uneven_cfg("drop"), ts.OptimConfig(**OPT)
+    state = ts.init_train_state(init_fast3r(cfg, seed=5, device="cpu").train(),
+                                opt, seed=1, mesh=mesh, model_cfg=cfg)
+    losses = []
+    for batch in _uneven_batches((30, 31)):
+        state, met = ts.train_step(state, _rows(batch, mesh), cfg, opt)
+        losses.append(float(met["loss"]))
+    whole = {w: state.whole(w) for w in ("master", "mu", "nu")}
+    if rank == 0:
+        torch.save(dict(losses=losses, **whole), f"{tmp}/uneven_drop.pt")
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("what", ["heads", "gqa", "hidden", "seq"])
+def test_tensor_parallel_refusals(runs, what):
+    """What model 2 cannot split into whole heads or columns runs
+    replicated, and matches JAX's sharded step (which splits such widths
+    mid-head or replicates them) as the grids above do, on both block
+    roads: a decoder of one head, a llama decoder of 2 heads over 1 kv head,
+    an MLP hidden of 257.  The sequence-sharded road stays refused, with its
+    named error."""
     mesh = pm.Mesh.__new__(pm.Mesh)
     mesh.data, mesh.model = 1, 2
-    with pytest.raises(pm.TensorParallelError):
-        mesh.check_model_config(cfg)
+    if what == "seq":
+        from fast3r_torch.parallel.sequence import seq_sharded_config
+
+        with pytest.raises(pm.TensorParallelError):
+            mesh.check_model_config(seq_sharded_config(
+                Fast3RConfig.tiny(), 2, ring_impl="plain"))
+        return
+    cfg = uneven_cfg(what)
+    mesh.check_model_config(cfg)
+    shapes = pm.full_shapes(cfg)
+    sub = ".mlp." if what == "hidden" else ".attn."
+    whole = [k for k in shapes if k.startswith("decoder.") and sub in k]
+    assert whole and all(pm.param_spec(k, shapes[k], 2, cfg) is None
+                         for k in whole)
+    losses, want, res = runs["uneven"][what]
+    for fused in (True, False):
+        got = res[fused]
+        np.testing.assert_allclose(got["losses"], losses, rtol=RTOL)
+        _assert_close(got["master"], want["master"], "params", want["mu"],
+                      OPT["lr"])
+        _assert_close(got["mu"], want["mu"], "mu")
+        _assert_close(got["nu"], want["nu"], "nu")
+
+
+def test_uneven_dropout_mesh_step_matches_one_process(runs):
+    """Dropout in a sublayer that runs replicated draws the same mask on
+    both model ranks: two steps at (1, 2) of the one-head, 257-hidden
+    decoder with dropout in both stacks equal the one-process steps from
+    the same seed."""
+    from fast3r_torch.models.fast3r import init_fast3r
+
+    got = torch.load(runs["tmp"] / "uneven_drop.pt")
+    cfg, opt = uneven_cfg("drop"), ts.OptimConfig(**OPT)
+    state = ts.init_train_state(init_fast3r(cfg, seed=5, device="cpu").train(),
+                                opt, seed=1)
+    losses = []
+    for batch in _uneven_batches((30, 31)):
+        state, met = ts.train_step(state, batch, cfg, opt)
+        losses.append(float(met["loss"]))
+    np.testing.assert_allclose(got["losses"], losses, rtol=RTOL)
+    mu = state.opt_state.mu
+    _assert_close(got["master"], state.params.state_dict(), "params", mu,
+                  OPT["lr"])
+    _assert_close(got["mu"], mu, "mu")
+    _assert_close(got["nu"], state.opt_state.nu, "nu")
 
 
 # ---------------------------------------------------------------------------
 # two mesh steps against JAX's sharded step
 # ---------------------------------------------------------------------------
+
+def _two_steps(cfg, inputs: dict, mesh) -> dict:
+    """Two mesh steps of ``cfg`` from ``inputs`` (params ``sd``,
+    ``batches``, image ``ids``): the losses, the whole master and moments
+    (every rank calls it) and this rank's moment bytes."""
+    opt = ts.OptimConfig(**OPT)
+    net = empty_fast3r(cfg, device="cpu")
+    net.load_state_dict(inputs["sd"])
+    state = ts.init_train_state(net.train(), opt, seed=1, mesh=mesh,
+                                model_cfg=cfg)
+    losses = []
+    for batch, vid in zip(inputs["batches"], inputs["ids"]):
+        state, met = ts.train_step(state, _rows(batch, mesh), cfg, opt,
+                                   remat=True, view_ids=vid)
+        losses.append(float(met["loss"]))
+    whole = {w: state.whole(w) for w in ("master", "mu", "nu")}
+    return dict(losses=losses,
+                own_moment_bytes=pm.moment_bytes(state.opt_state), **whole)
+
 
 def _step_worker(rank, world, port, d, m, inputs, out, ckpt, cli):
     """Both roads' two mesh steps on a (d, m) grid from the file
@@ -283,25 +438,14 @@ def _step_worker(rank, world, port, d, m, inputs, out, ckpt, cli):
     which would start the ranks one after another."""
     _join(rank, world, port)
     inputs = torch.load(inputs, weights_only=False)  # numpy batches
-    sd, batches, ids = inputs["sd"], inputs["batches"], inputs["ids"]
     mesh = pm.make_mesh(d, m)
-    opt = ts.OptimConfig(**OPT)
     res = {}
     for fused in (True, False):
         cfg = Fast3RConfig.tiny().with_fused_blocks(fused)
-        net = empty_fast3r(cfg, device="cpu")
-        net.load_state_dict(sd)
-        state = ts.init_train_state(net.train(), opt, seed=1, mesh=mesh,
-                                    model_cfg=cfg)
-        losses = []
-        for batch, vid in zip(batches, ids):
-            state, met = ts.train_step(state, _rows(batch, mesh), cfg, opt,
-                                       remat=True, view_ids=vid)
-            losses.append(float(met["loss"]))
-        whole = {w: state.whole(w) for w in ("master", "mu", "nu")}
+        res[fused] = _two_steps(cfg, inputs, mesh)
         nbytes = [None] * world
-        dist.all_gather_object(nbytes, pm.moment_bytes(state.opt_state))
-        res[fused] = dict(losses=losses, moment_bytes=nbytes, **whole)
+        dist.all_gather_object(nbytes, res[fused].pop("own_moment_bytes"))
+        res[fused]["moment_bytes"] = nbytes
     if rank == 0:
         torch.save(res, out)
     if ckpt is not None:
@@ -378,11 +522,12 @@ def runs(tmp_path_factory):
     """Every multi-process run of this module, started together: the three
     grids' ranks (the (2, 1) ranks then run the CLI on debug_smoke, the
     (2, 2) ranks the checkpoint flow and the CLI at model 2 on unseeded
-    data) in the background while JAX compiles its three sharded steps in
-    threads.  {"grids": {(data, model): (JAX's losses; its params, mu and
-    nu as port dicts; the port's results by road)}, "cli": the CLI run's
+    data) and the UNEVEN decoders' two ranks in the background while JAX
+    compiles its six sharded steps in threads.  {"grids": {(data, model):
+    (JAX's losses; its params, mu and nu as port dicts; the port's results
+    by road)}, "uneven": the same by UNEVEN name, "cli": the CLI run's
     directory, "cli_tp": the model-2 CLI run's, "ckpt": (run_dir, results
-    file, batches)}."""
+    file, batches), "tmp": the runs' directory}."""
     from concurrent.futures import ThreadPoolExecutor
 
     import jax
@@ -415,20 +560,43 @@ def runs(tmp_path_factory):
                 d * m, _free_port(), d, m, inputs, out,
                 (*ckpt[:2], str(tmp / "ckpt_batches.pt"))
                 if (d, m) == (2, 2) else None, cli.get((d, m)))))
-    with ThreadPoolExecutor(len(GRIDS)) as pool:
+    uneven_params = {}
+    for what in UNEVEN:
+        uneven_params[what] = jax.tree.map(np.asarray, _jax_params(
+            uneven_jax_cfg(what), seed=3))
+        torch.save({"sd": params_from_jax(uneven_params[what],
+                                          uneven_cfg(what)),
+                    "batches": _uneven_batches((10, 11)),
+                    "ids": _jax_ids(UNEVEN_ROWS)},
+                   tmp / f"uneven_in_{what}.pt")
+    uneven = mp.spawn(_uneven_worker, nprocs=2, join=False,
+                      args=(2, _free_port(), str(tmp)))
+    with ThreadPoolExecutor(len(GRIDS) + len(UNEVEN)) as pool:
         futures = {g: pool.submit(_jax_grid, *g, params, batches[g[0]])
                    for g in GRIDS}
+        futures.update({w: pool.submit(_jax_grid, 1, 2, uneven_params[w],
+                                       _uneven_batches((10, 11)),
+                                       uneven_jax_cfg(w)) for w in UNEVEN})
         jax_res = {g: f.result(timeout=300) for g, f in futures.items()}
+
+    def expected(key, port_cfg):
+        losses, state = jax_res[key]
+        mu, nu = _jax_moments(state.opt_state)
+        return losses, {k: params_from_jax(jax.tree.map(np.asarray, t),
+                                           port_cfg)
+                        for k, t in (("master", state.params), ("mu", mu),
+                                     ("nu", nu))}
+
     grids = {}
     for g, (out, ctx) in procs.items():
         _wait(ctx)
-        losses, state = jax_res[g]
-        mu, nu = _jax_moments(state.opt_state)
-        want = {k: params_from_jax(jax.tree.map(np.asarray, t), cfg)
-                for k, t in (("master", state.params), ("mu", mu), ("nu", nu))}
-        grids[g] = (losses, want, torch.load(out))
+        grids[g] = (*expected(g, cfg), torch.load(out))
+    _wait(uneven)
     return {"grids": grids, "cli": tmp / "cli", "cli_tp": tmp / "cli_tp",
-            "ckpt": ckpt}
+            "ckpt": ckpt, "tmp": tmp,
+            "uneven": {w: (*expected(w, uneven_cfg(w)),
+                           torch.load(tmp / f"uneven_{w}.pt"))
+                       for w in UNEVEN}}
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "plain"])
@@ -489,7 +657,8 @@ def _cli_run(rank, world, port, run_dir, overrides):
     shapes = pm.full_shapes(trainer.model_cfg)
     replicated = {k: p.detach().clone()
                   for k, p in trainer.net.named_parameters()
-                  if pm.param_spec(k, shapes[k], trainer.mesh.model) is None}
+                  if pm.param_spec(k, shapes[k], trainer.mesh.model,
+                                   trainer.model_cfg) is None}
     torch.save({"whole": trainer.params_state_dict(), "seen": seen,
                 "replicated": replicated},
                os.path.join(run_dir, f"rank{rank}.pt"))
